@@ -1,6 +1,6 @@
 """Build, load and call the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports a plain C function and is compiled at first
+Each ``csrc/<name>.cu`` exports plain C functions and is compiled at first
 use by nvcc (``-gencode arch=compute_90a,code=sm_90a``) into
 ``build/kernels/lib<name>-<hash>.so`` under the repository root, then
 loaded with ctypes. The hash covers the sources, so an edited kernel is
@@ -26,12 +26,23 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: C entry point of each kernel source, all with one signature:
-#: (q, k, v, kmask, o, lse, bh, h, t, d, causal, dtype, scale, stream)
-ENTRY = {"shortseq_attention": "shortseq_attention_fwd",
-         "flash_forward": "flash_attention_fwd"}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+#: forward entries: (q, k, v, kmask, o, lse, bh, h, t, d, causal, dtype,
+#: scale, stream)
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_void_p]
+#: backward entries: (q, k, v, kmask, do, lse, delta, dq, dk, dv, bh, h, t,
+#: d, causal, dtype, scale, stream); an output an entry does not write may
+#: be null
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
+    [ctypes.c_float, ctypes.c_void_p]
+#: each kernel library's C entry points and their argtypes
+ENTRIES = {
+    "shortseq_attention": {"shortseq_attention_fwd": _FWD_ARGTYPES},
+    "flash_forward": {"flash_attention_fwd": _FWD_ARGTYPES},
+    "shortseq_attention_bwd": {"shortseq_attention_bwd": _BWD_ARGTYPES},
+    "flash_backward": {"flash_attention_bwd_dq": _BWD_ARGTYPES,
+                       "flash_attention_bwd_dkv": _BWD_ARGTYPES},
+}
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LOCK = threading.Lock()
@@ -99,16 +110,17 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name`` (built first if needed), with its entry
-    point's argtypes and restype declared."""
+    points' argtypes and restype declared."""
     _require_cuda()
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, ENTRY[name])
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
+            for entry, argtypes in ENTRIES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib
 
@@ -152,6 +164,27 @@ def check_attention_args(q3, k3, v3, key_mask, h: int, max_t=None) -> None:
                              f"[{bh // h}, {t}] tensor on {q3.device}")
 
 
+def check_attention_bwd_args(q3, k3, v3, key_mask, h: int, do, lse, delta,
+                             max_t=None) -> None:
+    """:func:`check_attention_args`, and dO like q; lse and δ contiguous
+    f32 [BH, T] on q's device."""
+    check_attention_args(q3, k3, v3, key_mask, h, max_t)
+    if do.shape != q3.shape or do.dtype != q3.dtype or \
+            do.device != q3.device or not do.is_contiguous() or \
+            do.data_ptr() % 16:
+        raise ValueError("dO must be a contiguous, 16-byte aligned tensor "
+                         "of q's shape, dtype and device")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or tuple(x.shape) != q3.shape[:2] or \
+                x.device != q3.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{list(q3.shape[:2])} tensor on {q3.device}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def launch_attention(name: str, q3, k3, v3, key_mask, h: int,
                      causal: bool):
     """Allocate (o, lse) and launch kernel ``name`` on the current stream
@@ -160,12 +193,34 @@ def launch_attention(name: str, q3, k3, v3, key_mask, h: int,
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
-        fn = getattr(load(name), ENTRY[name])
-        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                None if key_mask is None else key_mask.data_ptr(),
+        (entry,) = ENTRIES[name]
+        fn = getattr(load(name), entry)
+        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _ptr(key_mask),
                 o.data_ptr(), lse.data_ptr(), bh, h, t, d, int(causal),
                 _DTYPE_CODE[q3.dtype], float(d) ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return o, lse
+
+
+def launch_attention_bwd(name: str, entry: str, q3, k3, v3, key_mask,
+                         h: int, causal: bool, do, lse, delta,
+                         outputs=("dq", "dk", "dv")):
+    """Allocate the gradients named in ``outputs`` (each like q) and launch
+    backward entry ``entry`` of library ``name`` on the current stream (no
+    synchronisation); raises if the launch is refused. Returns the
+    allocated gradients in (dq, dk, dv) order."""
+    bh, t, d = q3.shape
+    grads = {g: torch.empty_like(q3) for g in outputs}
+    with torch.cuda.device(q3.device):
+        fn = getattr(load(name), entry)
+        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _ptr(key_mask),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                _ptr(grads.get("dq")), _ptr(grads.get("dk")),
+                _ptr(grads.get("dv")), bh, h, t, d, int(causal),
+                _DTYPE_CODE[q3.dtype], float(d) ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return tuple(grads[g] for g in ("dq", "dk", "dv") if g in grads)

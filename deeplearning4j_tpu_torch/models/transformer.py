@@ -67,6 +67,15 @@ def transformer_lm_conf(vocab_size: int, d_model: int = 128,
     return g.build()
 
 
+def lm_batch_sparse(tokens: np.ndarray):
+    """(features, integer labels) for next-token training from token ids
+    [N, T+1]: inputs tokens[:, :-1], labels tokens[:, 1:], both [N, T]
+    int32 — the fused sparse cross-entropy path (4 bytes a token instead
+    of a [N, T, V] one-hot)."""
+    return (np.asarray(tokens[:, :-1], np.int32),
+            np.asarray(tokens[:, 1:], np.int32))
+
+
 def generate(net: ComputationGraph, prompt_ids, length: int,
              temperature: float = 1.0,
              rng: Optional[np.random.Generator] = None,

@@ -1,12 +1,12 @@
 """Layer configurations on the transformer-LM path."""
 
 from .base import LayerConf, FeedForwardLayerConf
-from .feedforward import RnnOutputLayer
+from .feedforward import OutputLayer, RnnOutputLayer
 from .attention import (SelfAttentionLayer, LayerNormalization,
                         TransformerFeedForward, TokenAndPositionEmbedding)
 
 __all__ = [
-    "LayerConf", "FeedForwardLayerConf", "RnnOutputLayer",
+    "LayerConf", "FeedForwardLayerConf", "OutputLayer", "RnnOutputLayer",
     "SelfAttentionLayer", "LayerNormalization", "TransformerFeedForward",
     "TokenAndPositionEmbedding",
 ]

@@ -7,10 +7,14 @@ Activations are [N, T, C]; the decode cache is {"k", "v"} each
 a new cache, the port writes the cache IN PLACE (no copy of the dominant
 serving allocation per step) and returns the same dict.
 
-Forward attention goes through the ``attention`` helper seam: on a CUDA
-tensor that is a hand-written kernel (``kernels/flash_forward.py`` routes
-by T), and it launches or raises. The materialized softmax below runs
-only for CPU tensors."""
+Attention goes through the ``attention`` helper seam: on a CUDA tensor
+that is a hand-written kernel pair, forward and backward
+(``kernels/flash_forward.py`` routes by T), and it launches or raises. The
+materialized softmax below runs only for CPU tensors.
+
+``forward(..., train=True, gen=g)`` applies dropout where the JAX layers
+do: on the attention input, on the FFN hidden activation and on the
+embedding output, each drawn from the explicit generator ``g``."""
 
 from __future__ import annotations
 
@@ -55,6 +59,9 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             p["bo"] = torch.zeros(self.n_out, device=gen.device, dtype=dtype)
         return p
 
+    def regularizable(self):
+        return ("Wq", "Wk", "Wv", "Wo")
+
     def _project_qkv(self, params, x):
         """x [N, T, n_in] → (q, k, v) each [N, T, H, Dh]."""
         n, t, _ = x.shape
@@ -91,7 +98,9 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             out = out @ params["Wo"] + params["bo"]
         return self.activation_fn()(out)
 
-    def forward(self, params, state, x, mask=None):
+    def forward(self, params, state, x, mask=None, *, train=False,
+                gen=None):
+        x = self.maybe_dropout(x, train=train, gen=gen)
         q, k, v = self._project_qkv(params, x)
         return self._project_out(params, self._attend(q, k, v, mask)), state
 
@@ -167,7 +176,8 @@ class LayerNormalization(FeedForwardLayerConf):
         return {"gamma": torch.ones(d, device=gen.device, dtype=dtype),
                 "beta": torch.zeros(d, device=gen.device, dtype=dtype)}
 
-    def forward(self, params, state, x, mask=None):
+    def forward(self, params, state, x, mask=None, *, train=False,
+                gen=None):
         return layernorm(x, params["gamma"], params["beta"],
                          float(self.eps)), state
 
@@ -186,8 +196,13 @@ class TransformerFeedForward(FeedForwardLayerConf):
                 "b2": torch.zeros(self.n_out, device=gen.device,
                                   dtype=dtype)}
 
-    def forward(self, params, state, x, mask=None):
+    def regularizable(self):
+        return ("W1", "W2")
+
+    def forward(self, params, state, x, mask=None, *, train=False,
+                gen=None):
         h = gelu(x @ params["W1"] + params["b1"])
+        h = self.maybe_dropout(h, train=train, gen=gen)
         return h @ params["W2"] + params["b2"], state
 
 
@@ -203,12 +218,14 @@ class TokenAndPositionEmbedding(FeedForwardLayerConf):
         return {"W": torch.randn(self.n_in, self.n_out, **kw) * 0.02,
                 "P": torch.randn(self.max_length, self.n_out, **kw) * 0.02}
 
-    def forward(self, params, state, x, mask=None):
+    def forward(self, params, state, x, mask=None, *, train=False,
+                gen=None):
         t = x.shape[1]
         if t > self.max_length:
             raise ValueError(f"sequence length {t} > max_length "
                              f"{self.max_length}")
-        return params["W"][x] + params["P"][None, :t], state
+        out = params["W"][x] + params["P"][None, :t]
+        return self.maybe_dropout(out, train=train, gen=gen), state
 
     def embed_at(self, params, ids, positions):
         """Single-position decode embedding: ids [B] + per-row positions

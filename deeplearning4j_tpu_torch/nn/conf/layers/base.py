@@ -8,12 +8,15 @@ tensors:
 
     init_params(gen, dtype) -> params dict    seeded init on gen's device
     init_state() -> state dict
-    forward(params, state, x, mask) -> (y, new_state)
+    forward(params, state, x, mask, train=, gen=) -> (y, new_state)
 
 Parameters keep the JAX layout (``x @ W``, W of shape [n_in, n_out]), so
-weights map across 1:1 without transposes. Inference only: the training
-fields (updater, dropout, regularization, ...) are carried for the JSON
-but not applied."""
+weights map across 1:1 without transposes. The training fields are
+applied by ``ComputationGraph.fit_batch``: the updater and its
+hyperparameters, the learning rate (with the configuration's lr policy),
+the l1/l2 penalty on :meth:`LayerConf.regularizable` parameters, dropout
+(:meth:`LayerConf.maybe_dropout`, from an explicit generator) and the
+gradient normalization."""
 
 from __future__ import annotations
 
@@ -50,6 +53,9 @@ class LayerConf:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: Optional[float] = None
 
+    def input_kind(self) -> str:
+        return "ff"
+
     def init_params(self, gen: torch.Generator,
                     dtype=torch.float32) -> Dict[str, torch.Tensor]:
         return {}
@@ -57,11 +63,48 @@ class LayerConf:
     def init_state(self) -> Dict:
         return {}
 
-    def forward(self, params, state, x, mask=None):
+    def regularizable(self):
+        """Param names the l1/l2 penalty applies to (weights, not
+        biases)."""
+        return ("W", "R")
+
+    def reg_penalty(self, params: Dict):
+        """l1·Σ|w| + ½·l2·Σw² over :meth:`regularizable` params (0.0 when
+        both are off)."""
+        l1, l2 = self.l1 or 0.0, self.l2 or 0.0
+        pen = 0.0
+        if l1 == 0.0 and l2 == 0.0:
+            return pen
+        for name in self.regularizable():
+            if name in params:
+                w = params[name]
+                if l1:
+                    pen = pen + l1 * w.abs().sum()
+                if l2:
+                    pen = pen + 0.5 * l2 * (w * w).sum()
+        return pen
+
+    def forward(self, params, state, x, mask=None, *, train=False,
+                gen=None):
         raise NotImplementedError
 
     def activation_fn(self):
         return get_activation(self.activation or "identity")
+
+    def uses_dropout(self) -> bool:
+        """Whether :meth:`maybe_dropout` draws anything when training."""
+        p = self.drop_out
+        return p is not None and 0.0 < p < 1.0
+
+    def maybe_dropout(self, x, *, train: bool, gen):
+        """Inverted dropout: ``drop_out`` is the retention probability p;
+        kept elements are scaled by 1/p. Draws from ``gen`` (on x's
+        device); identity when not training or without a generator."""
+        if not train or gen is None or not self.uses_dropout():
+            return x
+        p = self.drop_out
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < p
+        return torch.where(keep, x / p, torch.zeros_like(x))
 
     def _winit(self, gen, shape, fan_in, fan_out, dtype):
         return init_weights(gen, shape, fan_in, fan_out,

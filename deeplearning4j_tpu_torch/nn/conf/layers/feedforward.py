@@ -1,6 +1,12 @@
-"""The vocabulary head (the JAX package's ``nn/conf/layers/feedforward.py``
-``RnnOutputLayer``): a per-timestep dense projection plus activation.
-Losses are training-side and not ported."""
+"""Output heads (the JAX package's ``nn/conf/layers/feedforward.py``):
+``OutputLayer``, a dense projection plus activation whose loss the graph
+computes from the pre-activation, and ``RnnOutputLayer``, the same applied
+per timestep to [N, T, F] input.
+
+Only the loss the transformer LM trains with is ported: integer class ids
+on a terminal softmax + mcxent head, which ``ComputationGraph`` computes as
+one fused sparse cross-entropy (``kernels/fused_ce.py``). The materialized
+one-hot ``compute_loss`` is not ported."""
 
 from __future__ import annotations
 
@@ -15,9 +21,8 @@ from .base import FeedForwardLayerConf
 
 @register_config
 @dataclasses.dataclass
-class RnnOutputLayer(FeedForwardLayerConf):
-    """Output layer applied per timestep to [N, T, F] input:
-    activation(x·W + b)."""
+class OutputLayer(FeedForwardLayerConf):
+    """Dense + loss head: activation(x·W + b)."""
     loss: str = "mcxent"
 
     def init_params(self, gen, dtype=torch.float32) -> Dict:
@@ -29,5 +34,16 @@ class RnnOutputLayer(FeedForwardLayerConf):
     def preoutput(self, params, x):
         return x @ params["W"] + params["b"]
 
-    def forward(self, params, state, x, mask=None):
+    def forward(self, params, state, x, mask=None, *, train=False,
+                gen=None):
+        x = self.maybe_dropout(x, train=train, gen=gen)
         return self.activation_fn()(self.preoutput(params, x)), state
+
+
+@register_config
+@dataclasses.dataclass
+class RnnOutputLayer(OutputLayer):
+    """Output layer applied per timestep to [N, T, F] input."""
+
+    def input_kind(self) -> str:
+        return "rnn"

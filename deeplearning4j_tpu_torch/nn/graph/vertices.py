@@ -22,7 +22,8 @@ class GraphVertexConf:
     def init_state(self) -> Dict:
         return {}
 
-    def forward(self, params, state, inputs: List):
+    def forward(self, params, state, inputs: List, *, train=False, gen=None,
+                masks=None):
         raise NotImplementedError
 
 
@@ -40,10 +41,16 @@ class LayerVertex(GraphVertexConf):
     def init_state(self):
         return self.layer.init_state()
 
-    def forward(self, params, state, inputs):
+    def forward(self, params, state, inputs, *, train=False, gen=None,
+                masks=None):
+        """The layer on ``inputs[0]``, with ``masks[0]`` (the input's
+        [N, T] mask) as its mask: a features mask reaches attention as the
+        key mask."""
         if self.preprocessor is not None:
             raise NotImplementedError("input preprocessors are not ported")
-        return self.layer.forward(params, state, inputs[0])
+        mask = masks[0] if masks else None
+        return self.layer.forward(params, state, inputs[0], mask,
+                                  train=train, gen=gen)
 
 
 @register_config
@@ -52,7 +59,8 @@ class ElementWiseVertex(GraphVertexConf):
     """Pointwise combination of its inputs; the port implements ``add``."""
     op: str = "add"
 
-    def forward(self, params, state, inputs):
+    def forward(self, params, state, inputs, *, train=False, gen=None,
+                masks=None):
         if self.op.lower() != "add":
             raise NotImplementedError(f"ElementWiseVertex op '{self.op}' is "
                                       "not ported (only 'add')")

@@ -29,12 +29,23 @@ def fold_in(seed: int, data: int) -> int:
 
 
 def for_purpose(seed: int, purpose: str) -> int:
-    """Child seed for a named purpose ("init", ...), via a stable FNV-1a
+    """Child seed for a named purpose ("init", "dropout"), via a stable FNV-1a
     string hash (Python's ``hash`` is salted per process)."""
     h = 2166136261
     for ch in purpose.encode():
         h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
     return fold_in(seed, h)
+
+
+def for_layer(seed: int, layer_index: int) -> int:
+    """Child seed of the vertex at ``layer_index`` (topological order)."""
+    return fold_in(seed, layer_index)
+
+
+def for_iteration(seed: int, iteration: int) -> int:
+    """Child seed of a training iteration: a step's dropout streams are
+    ``for_layer(for_iteration(for_purpose(seed, "dropout"), it), idx)``."""
+    return fold_in(seed, iteration)
 
 
 def generator(seed: int, device) -> torch.Generator:

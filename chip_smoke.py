@@ -38,7 +38,25 @@ Phases, each an uncaught exception on failure:
 7. long-context training: the same width at 2 layers, T 2048, B 4, 3
    steps; the flash forward, dq and dkv kernels must launch 2 times a step
    and the loss must fall.
-8. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+8. char-RNN training: ``bench.py``'s char-RNN configuration (GravesLSTM
+   2 x 512, vocab 80, B 64, T 128, bf16, rmsprop, l2 1e-3; lr 0.002, see
+   CHARRNN_LR) through ``MultiLayerNetwork._fit_batch`` on seeded one-hot
+   sequences: the first-step loss and four gradients against the same
+   weights in f32 on the CPU (2 rows), then 2 warm and 8 timed steps; the
+   LSTM kernel must launch 2 times a step and the loss must fall.
+9. truncated BPTT: ``fit`` with the example's 50-step window over the same
+   T 128 batch (3 windows): 2 launches per window, the (h, c) carry handed
+   from each window to the next.
+10. sampling: ``CharacterIterator.sample`` of 100 characters through
+   ``rnn_time_step`` on the trained net: 2 launches and one readback per
+   character; the card's next-character probabilities match the CPU f32
+   twin's.
+11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+
+The LSTM kernel (B6) is checked in phase 3 against its plain version at
+the char-RNN's shape (T 128, N 64, H 512) in f32 and bf16, with and
+without peepholes and masked, and timed beside the cuDNN LSTM layer
+(``torch.nn.LSTM``, the same weights) as the yardstick.
 """
 
 import json
@@ -55,21 +73,28 @@ from deeplearning4j_tpu_torch.kernels.flash_backward import (
     flash_backward_dkv, flash_backward_dq)
 from deeplearning4j_tpu_torch.kernels.flash_forward import (
     flash_forward, flash_forward_plain)
+from deeplearning4j_tpu_torch.kernels import lstm as lk
 from deeplearning4j_tpu_torch.kernels.shortseq_attention import (
     attention_bwd_plain, attention_fwd_plain, row_delta, short_attention_bwd,
     short_attention_fwd)
-from deeplearning4j_tpu_torch.models import (SlotGenerationEngine,
+from deeplearning4j_tpu_torch.models import (CharacterIterator,
+                                             SlotGenerationEngine,
                                              TransformerDecoder,
-                                             lm_batch_sparse,
+                                             char_rnn_conf, lm_batch_sparse,
                                              transformer_lm_conf)
+from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTM
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.ops.dataset import DataSet
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts
-from deeplearning4j_tpu_torch.utils import graph_from_numpy
+from deeplearning4j_tpu_torch.utils import (graph_from_numpy,
+                                            network_from_numpy)
 
 #: H100 SXM data-sheet peaks (not measured): HBM bytes/s, dense bf16 FLOP/s
+#: on the tensor cores, f32 FLOP/s on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 O_TOL, LSE_TOL = 5e-2, 1e-2
 #: relative L2 of a bf16 backward kernel's dq / dk / dv against the plain
 #: f32 backward: p and ds round to bf16 (~0.4%) before their products
@@ -82,6 +107,23 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-2, 5e-2
 #: every layer; 5e-2 bounds that drift with margin and still catches a
 #: wrong attention (which moves the logits by O(1))
 LOGIT_REL_TOL = 5e-2
+#: max-abs of the LSTM kernel's y, hT and cT against the plain version: in
+#: f32 the two sum a gate's H products in other orders (~1e-6 per step,
+#: carried through 128 dependent steps); in bf16 both round h and c to
+#: bf16 every step, so an order difference can flip a rounding (4e-3 at
+#: |h| ~ 1), and the flip carries forward
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: max-abs of the cuDNN LSTM layer against the port's in f32 (TF32 off):
+#: a semantics check of the yardstick (gate order, weights), not a bound
+CUDNN_AGREE_TOL = 1e-3
+#: the char-RNN phases' learning rate. bench.py keeps char_rnn_conf's 0.1:
+#: there rmsprop's first step moves every weight by ~0.45 and inflates the
+#: l2 term, so the loss cannot be seen to fall in 10 steps; the step's
+#: cost does not depend on it
+CHARRNN_LR = 0.002
+#: next-character probabilities of the card (kernel path, f32) against the
+#: CPU f32 twin: summation order only
+SAMPLE_PROB_TOL = 1e-4
 
 #: every kernel of the port: its library (csrc/<lib>.cu), the TPU kernel
 #: it replaces, its wrapper (which counts launches) and its plain version
@@ -106,6 +148,10 @@ KERNELS = {
         "lib": "flash_backward",
         "replaces": "deeplearning4j_tpu/kernels/pallas_attention.py:153",
         "wrapper": flash_backward_dkv, "grads": (1, 2)},
+    "lstm_recurrence": {
+        "lib": "lstm",
+        "replaces": "deeplearning4j_tpu/kernels/lstm.py:42",
+        "wrapper": lk.lstm_recurrence_fwd, "plain": lk.lstm_recurrence_plain},
 }
 
 
@@ -315,6 +361,122 @@ def check_bwd_kernel(name, b, h, t, d, lengths, seed, masked):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _lstm_inputs(t, n, h, dtype, peephole, masked, seed):
+    """B6's inputs on the card: xw_t [T, N, 4H], R [H, 4H] (scaled so the
+    gates stay in range), h0 / c0, peepholes and a [T, N] mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    xw, r = rnd(t, n, 4 * h), rnd(h, 4 * h) / h ** 0.5
+    h0, c0 = rnd(n, h) * 0.5, rnd(n, h) * 0.5
+    peep = tuple(rnd(h) * 0.1 for _ in range(3)) if peephole else None
+    mask = (torch.rand(t, n, generator=g, device="cuda") > 0.2).float() \
+        if masked else None
+    return (xw.to(dtype), r.to(dtype), h0.to(dtype), c0.to(dtype),
+            None if peep is None else tuple(p.to(dtype) for p in peep), mask)
+
+
+def _lstm_bound(t, n, h, dtype, peephole, masked):
+    """(bound_ms, bound_by): xw in, y out, R, h0 / c0 / hT / cT and the
+    peepholes (and the f32 mask) moved once, against 2·T·N·H·4H FLOP of
+    recurrent products at the dtype's peak (bf16 tensor cores, f32 CUDA
+    cores); the gate math is not counted."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = es * (t * n * 4 * h + t * n * h + h * 4 * h + 4 * n * h +
+                   3 * h * peephole) + 4 * t * n * masked
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_ops = 2 * t * n * h * 4 * h / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _cudnn_twin(params, n_in, h, dtype):
+    """torch.nn.LSTM (cuDNN; no peepholes, gate order [i, f, g, o] as the
+    port's) loaded with an LSTM layer's W, R and b."""
+    ref = torch.nn.LSTM(n_in, h, batch_first=True).cuda()
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(params["W"].T)
+        ref.weight_hh_l0.copy_(params["R"].T)
+        ref.bias_ih_l0.copy_(params["b"])
+        ref.bias_hh_l0.zero_()
+    ref = ref.to(dtype)
+    ref.flatten_parameters()      # one weight buffer, as cuDNN wants it
+    return ref
+
+
+def check_lstm_kernel(t=128, n=64, h=512):
+    """B6 against its plain version at the char-RNN's shape (f32 and bf16,
+    peepholes off and on, one masked case), then its time, the plain
+    version's and the layer-level comparison with cuDNN."""
+    errs = {}
+    for dtype, peep, masked in ((torch.float32, False, False),
+                                (torch.float32, True, False),
+                                (torch.bfloat16, False, False),
+                                (torch.bfloat16, True, False),
+                                (torch.bfloat16, True, True)):
+        args = _lstm_inputs(t, n, h, dtype, peep, masked, 31)
+        got = lk.lstm_recurrence_fwd(*args)
+        want = lk.lstm_recurrence_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError("lstm_recurrence: non-finite output")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        errs[(dtype, peep, masked)] = err
+        log(f"lstm_recurrence T={t} N={n} H={h} {str(dtype)[6:]} "
+            f"peepholes {peep} masked {masked}: y/hT/cT max-abs {err:.3e} "
+            f"(tol {LSTM_TOL[dtype]})")
+        if not err <= LSTM_TOL[dtype]:
+            raise AssertionError("lstm_recurrence: disagrees with its plain "
+                                 "version")
+    log(f"  launch plan {lk.lstm_plan(n, h, torch.bfloat16)} (bf16), "
+        f"{lk.lstm_plan(1, h, torch.float32)} (f32, N=1)")
+    # the main path's case: the char-RNN's GravesLSTM, bf16, unmasked
+    args = _lstm_inputs(t, n, h, torch.bfloat16, True, False, 32)
+    ms = time_ms(lambda: lk.lstm_recurrence_fwd(*args))
+    plain_ms = time_ms(lambda: lk.lstm_recurrence_plain(*args), warmup=1,
+                       reps=5, batch=2)
+    f32_args = _lstm_inputs(t, n, h, torch.float32, True, False, 33)
+    f32_ms = time_ms(lambda: lk.lstm_recurrence_fwd(*f32_args))
+    bound_ms, bound_by = _lstm_bound(t, n, h, torch.bfloat16, True, False)
+    f32_bound, _ = _lstm_bound(t, n, h, torch.float32, True, False)
+    # layer level: the port's LSTM layer (input projection + B6) against
+    # cuDNN's with the same weights; agreement checked in f32
+    layer = GravesLSTM(n_in=h, n_out=h, activation="tanh", peephole=False)
+    params = layer.init_params(torch.Generator(device="cuda").manual_seed(34))
+    x = torch.randn(n, t, h, generator=torch.Generator(device="cuda")
+                    .manual_seed(35), device="cuda")
+    with torch.no_grad():
+        ref32 = _cudnn_twin(params, h, h, torch.float32)
+        agree = (ref32(x)[0] - layer.forward(params, {}, x)[0]).abs().max() \
+            .item()
+        library_f32_ms = time_ms(lambda: ref32(x))
+        layer_f32_ms = time_ms(lambda: layer.forward(params, {}, x))
+        ref = _cudnn_twin(params, h, h, torch.bfloat16)
+        p16 = {k: v.bfloat16() for k, v in params.items()}
+        x16 = x.bfloat16()
+        library_ms = time_ms(lambda: ref(x16))
+        layer_ms = time_ms(lambda: layer.forward(p16, {}, x16))
+        peep_layer = GravesLSTM(n_in=h, n_out=h, activation="tanh")
+        pp16 = dict(p16, **{k: torch.zeros(h, device="cuda",
+                                           dtype=torch.bfloat16)
+                            for k in ("pi", "pf", "po")})
+        peep_layer_ms = time_ms(lambda: peep_layer.forward(pp16, {}, x16))
+    log(f"  cuDNN LSTM layer vs the port's LSTM layer, f32: max-abs "
+        f"{agree:.3e} (tol {CUDNN_AGREE_TOL})")
+    if not agree <= CUDNN_AGREE_TOL:
+        raise AssertionError("the cuDNN yardstick computes another function")
+    log(f"  kernel_ms {ms:.4f} (f32 {f32_ms:.4f}) plain_ms {plain_ms:.4f} "
+        f"bound_us {bound_ms * 1e3:.1f} ({bound_by}; f32 {f32_bound * 1e3:.1f}"
+        f") | layer (projection + recurrence, nIn {h}, bf16): cuDNN "
+        f"{library_ms:.4f} ms, port {layer_ms:.4f} ms (peepholes "
+        f"{peep_layer_ms:.4f} ms); f32: cuDNN {library_f32_ms:.4f} ms, port "
+        f"{layer_f32_ms:.4f} ms")
+    return {"max_abs_err": errs[(torch.bfloat16, True, False)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def phase_kernel_checks():
     rng = np.random.default_rng(0)
     # B1 at the flagship prefill: one length-1 row, one fully masked row
@@ -337,6 +499,7 @@ def phase_kernel_checks():
         measured[name] = check_bwd_kernel(name, 4, 12, 2048, 64,
                                           [2048] * 4, 6, False)
         check_bwd_kernel(name, 4, 12, 577, 64, [577, 300, 1, 0], 7, True)
+    measured["lstm_recurrence"] = check_lstm_kernel()
     return measured
 
 
@@ -485,15 +648,17 @@ def check_train_twin(net, ds):
                              "reference")
 
 
-def train_steps(net, ds, steps):
-    """``steps`` fit_batch calls with the launch counts zeroed just before;
-    returns (losses as floats, wall seconds, launches)."""
+def train_steps(net, ds, steps, step=None):
+    """``steps`` train steps (``fit_batch``, or ``step``) with the launch
+    counts zeroed just before; returns (losses as floats, wall seconds,
+    launches)."""
+    step = step or net.fit_batch
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     losses = []
     for _ in range(steps):
-        net.fit_batch(ds)
+        step(ds)
         losses.append(net.score_value)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -545,7 +710,7 @@ def phase_train_flagship(card):
         f"{step_ms:.2f} ms per step (B {b}, T {t}), data-sheet floor "
         f"{floor_ms:.2f} ms ({flops:.3e} FLOP) = {floor_ms / step_ms:.3f} "
         f"of the step; peak memory {peak_gb:.2f} GB")
-    profile_step(net, ds)
+    profile_step(lambda: net.fit_batch(ds))
     return launches
 
 
@@ -561,15 +726,15 @@ def _kernel_us(event) -> float:
     return 0.0
 
 
-def profile_step(net, ds):
-    """One more step under torch.profiler: device time by kernel name and
-    the device's busy share of the step's wall time."""
+def profile_step(step):
+    """One more ``step()`` under torch.profiler: device time by kernel name
+    and the device's busy share of the step's wall time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        net.fit_batch(ds)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()]
@@ -609,6 +774,149 @@ def phase_train_long(card):
     return launches
 
 
+# ----------------------------------------------------------- phases 8-10
+def _motif_batch(b, t, vocab, seed):
+    """One-hot (chars, next chars) [B, T, vocab] of seeded rows that each
+    repeat a random motif of 5-16 characters: text a char-RNN can learn."""
+    rng = np.random.default_rng(seed)
+    toks = np.stack([np.resize(rng.integers(0, vocab, rng.integers(5, 17)),
+                               t + 1) for _ in range(b)])
+    eye = np.eye(vocab, dtype=np.float32)
+    return eye[toks[:, :-1]], eye[toks[:, 1:]]
+
+
+def _cpu_twin_mln(net):
+    """The same configuration and weights on the CPU in f32 (plain path)."""
+    return network_from_numpy(net.conf, [{k: a.cpu().numpy()
+                                          for k, a in p.items()}
+                                         for p in net.params], device="cpu")
+
+
+def check_charrnn_twin(net, ds):
+    """First-step loss and gradients of the card's bf16 kernel path against
+    the same weights in f32 on the CPU (plain path)."""
+    got_g, got_l = net.compute_gradient_and_score(ds)
+    want_g, want_l = _cpu_twin_mln(net).compute_gradient_and_score(ds)
+    rel_l = abs(got_l - want_l) / abs(want_l)
+    errs = {f"{i}.{k}": _rel_l2(got_g[i][k].cpu(), want_g[i][k])
+            for i, k in ((0, "W"), (0, "R"), (1, "R"), (2, "W"))}
+    log(f"char-RNN train: first-step loss card bf16 {got_l:.6f} vs CPU f32 "
+        f"{want_l:.6f} (rel {rel_l:.3e}, tol {TRAIN_LOSS_TOL}); gradient "
+        f"rel-L2 {', '.join(f'{k} {e:.3e}' for k, e in errs.items())} "
+        f"(tol {TRAIN_GRAD_TOL})")
+    if not (rel_l <= TRAIN_LOSS_TOL and
+            all(e <= TRAIN_GRAD_TOL for e in errs.values())):
+        raise AssertionError("card char-RNN training disagrees with the CPU "
+                             "f32 reference")
+
+
+def _charrnn_conf(tbptt_length):
+    return char_rnn_conf(vocab_size=80, hidden=512, layers=2,
+                         learning_rate=CHARRNN_LR, tbptt_length=tbptt_length)
+
+
+def phase_charrnn_train(card):
+    """bench.py's char-RNN (2 x 512 GravesLSTM, vocab 80, B 64, T 128,
+    bf16, rmsprop, l2 1e-3) through MultiLayerNetwork._fit_batch."""
+    b, t, layers = 64, 128, 2
+    net = MultiLayerNetwork(_charrnn_conf(0),
+                            compute_dtype=torch.bfloat16).init()
+    x, y = _motif_batch(b, t, 80, 19)
+    check_charrnn_twin(net, DataSet(x[:2], y[:2]))
+    ds = DataSet(torch.from_numpy(x).cuda().bfloat16(),
+                 torch.from_numpy(y).cuda().bfloat16())
+    torch.cuda.reset_peak_memory_stats()
+    warm, _, _ = train_steps(net, ds, 2, net._fit_batch)
+    losses, wall, launches = train_steps(net, ds, 8, net._fit_batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"char-RNN train: losses {[round(v, 4) for v in warm + losses]}; "
+        f"kernel launches in 8 steps {launches}")
+    if launches["lstm_recurrence"] != layers * 8:
+        raise AssertionError(f"lstm_recurrence launched "
+                             f"{launches['lstm_recurrence']} times in 8 "
+                             f"steps, expected {layers * 8}")
+    if not (np.isfinite(warm + losses).all() and losses[-1] < warm[0]):
+        raise AssertionError("char-RNN training loss is not finite and "
+                             "falling")
+    step_ms = wall / 8 * 1e3
+    log(f"char-RNN train [{card}]: {8 * b * t / wall:.1f} train chars/s, "
+        f"{step_ms:.2f} ms per step (B {b}, T {t}, 2 x 512, bf16); peak "
+        f"memory {peak_gb:.2f} GB")
+    profile_step(lambda: net._fit_batch(ds))
+    return net, ds, launches
+
+
+def phase_charrnn_tbptt(card, ds):
+    """fit() with the example's 50-step window over the T 128 batch: three
+    windows, one update each, the (h, c) carry handed across."""
+    layers, windows = 2, 3
+    net = MultiLayerNetwork(_charrnn_conf(50),
+                            compute_dtype=torch.bfloat16).init()
+    carries = []
+    step = net._train_step
+
+    def recording_step(*args):
+        carries.append(args[4])
+        return step(*args)
+    net._train_step = recording_step
+    losses, wall, launches = train_steps(net, ds, 1, net.fit)
+    del net._train_step
+    log(f"char-RNN TBPTT: {net.iteration} updates from one batch (window "
+        f"50 over T 128), score {losses[0]:.4f}; kernel launches "
+        f"{launches}")
+    if net.iteration != windows or \
+            launches["lstm_recurrence"] != layers * windows:
+        raise AssertionError("TBPTT did not run 3 windows of 2 launches")
+    handed = [sorted(k for c in carry for k in c) for carry in carries]
+    if handed[0] or any(h != ["c", "c", "h", "h"] for h in handed[1:]) or \
+            any(c[i]["h"].shape != (64, 512) for c in carries[1:]
+                for i in range(layers)):
+        raise AssertionError(f"the (h, c) carry did not cross windows: "
+                             f"{handed}")
+    log(f"char-RNN TBPTT [{card}]: {wall / windows * 1e3:.2f} ms per window "
+        f"(B 64, T 50 / 50 / 28), carry handed to windows 2 and 3")
+    return launches
+
+
+def phase_charrnn_sample(card, net):
+    """CharacterIterator.sample of 100 characters through rnn_time_step:
+    2 launches and one readback per character, probabilities as on the
+    CPU twin."""
+    chars = "".join(chr(32 + i) for i in range(80))
+    it = CharacterIterator(chars * 2, seq_length=16, batch_size=1)
+    twin = _cpu_twin_mln(net)
+    net.rnn_clear_previous_state()
+    err = 0.0
+    for c in chars[:10]:
+        x = np.zeros((1, 80), np.float32)
+        x[0, it.char_to_idx[c]] = 1.0
+        err = max(err, float(np.abs(net.rnn_time_step(x) -
+                                    twin.rnn_time_step(x)).max()))
+    log(f"sampling: next-char probabilities card vs CPU f32 over 10 steps "
+        f"max-abs {err:.3e} (tol {SAMPLE_PROB_TOL})")
+    if not err <= SAMPLE_PROB_TOL:
+        raise AssertionError("card sampling probabilities disagree with the "
+                             "CPU reference")
+    torch.cuda.synchronize()
+    reset_launches()
+    fetched0 = fetch_counts("rnn_time_step")["rnn_time_step"]
+    t0 = time.perf_counter()
+    text = it.sample(net, chars[33], 100, rng_seed=3)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    fetched = fetch_counts("rnn_time_step")["rnn_time_step"] - fetched0
+    log(f"sampling: {text!r}; kernel launches {launches}, readbacks "
+        f"{fetched}")
+    if len(text) != 101 or set(text) - set(chars):
+        raise AssertionError("sample returned a malformed string")
+    if launches["lstm_recurrence"] != 2 * 100 or fetched != 100:
+        raise AssertionError("sampling did not launch the LSTM kernel twice "
+                             "and read back once per character")
+    log(f"sampling [{card}]: {wall / 100 * 1e3:.3f} ms per character "
+        f"(rnn_time_step, N 1, f32 masters)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -620,6 +928,10 @@ def main():
                 "flash_forward": phase_long_prompt()}
     train = phase_train_flagship(card)
     long = phase_train_long(card)
+    charrnn, charrnn_ds, lstm_train = phase_charrnn_train(card)
+    phase_charrnn_tbptt(card, charrnn_ds)
+    phase_charrnn_sample(card, charrnn)
+    launches["lstm_recurrence"] = lstm_train["lstm_recurrence"]
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"]
     for name in ("flash_backward_dq", "flash_backward_dkv"):
         launches[name] = long[name]

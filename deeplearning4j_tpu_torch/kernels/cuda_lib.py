@@ -42,6 +42,13 @@ ENTRIES = {
     "shortseq_attention_bwd": {"shortseq_attention_bwd": _BWD_ARGTYPES},
     "flash_backward": {"flash_attention_bwd_dq": _BWD_ARGTYPES,
                        "flash_attention_bwd_dkv": _BWD_ARGTYPES},
+    # (xw, r, h0, c0, pi, pf, po, mask, y, hT, cT, xw_st, xw_sn, y_st,
+    # y_sn, t, n, h, dtype, stream) and (n, h, dtype, out[5])
+    "lstm": {"lstm_recurrence_fwd": [ctypes.c_void_p] * 11 +
+             [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 +
+             [ctypes.c_void_p],
+             "lstm_plan": [ctypes.c_int] * 3 +
+             [ctypes.POINTER(ctypes.c_longlong)]},
 }
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 

@@ -126,6 +126,26 @@ def sparse_shaped(layer, y) -> bool:
                                    y.shape[-1] == 1)
 
 
+def sparse_labels_eligible(layer, y, layer_params=None) -> bool:
+    """Whether a sequential net's head takes the fused path: a softmax +
+    mcxent projection (W and b present, not a center-loss head) whose
+    labels are integer class ids of the head's rank. Integer one-hot
+    labels keep the materialized ``compute_score``."""
+    if hasattr(layer, "center_loss_and_update"):
+        return False
+    if str(getattr(layer, "loss", "")).lower() not in _MCXENT_LOSSES:
+        return False
+    if str(getattr(layer, "activation", "")).lower() != "softmax":
+        return False
+    if not hasattr(layer, "preoutput"):
+        return False
+    if layer_params is not None and not (
+            isinstance(layer_params, dict) and "W" in layer_params and
+            "b" in layer_params):
+        return False
+    return sparse_shaped(layer, y)
+
+
 def fused_sparse_ce_score(layer_params, x, ids,
                           mask: Optional[torch.Tensor],
                           average: bool = True):

@@ -1,2 +1,6 @@
-"""Network core: configuration, layers, vertices, ComputationGraph and the
-helper registry."""
+"""Network core: configuration, layers, vertices, MultiLayerNetwork,
+ComputationGraph and the helper registry."""
+
+from .multilayer import MultiLayerNetwork
+
+__all__ = ["MultiLayerNetwork"]

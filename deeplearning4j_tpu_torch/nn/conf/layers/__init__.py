@@ -1,12 +1,16 @@
-"""Layer configurations on the transformer-LM path."""
+"""Layer configurations: dense and output heads, the transformer LM's
+layers and the recurrent family."""
 
-from .base import LayerConf, FeedForwardLayerConf
-from .feedforward import OutputLayer, RnnOutputLayer
+from .base import LayerConf, FeedForwardLayerConf, BaseRecurrentLayerConf
+from .feedforward import DenseLayer, OutputLayer, RnnOutputLayer
 from .attention import (SelfAttentionLayer, LayerNormalization,
                         TransformerFeedForward, TokenAndPositionEmbedding)
+from .recurrent import GravesLSTM, LSTM, GravesBidirectionalLSTM
 
 __all__ = [
-    "LayerConf", "FeedForwardLayerConf", "OutputLayer", "RnnOutputLayer",
+    "LayerConf", "FeedForwardLayerConf", "BaseRecurrentLayerConf",
+    "DenseLayer", "OutputLayer", "RnnOutputLayer",
     "SelfAttentionLayer", "LayerNormalization", "TransformerFeedForward",
-    "TokenAndPositionEmbedding",
+    "TokenAndPositionEmbedding", "GravesLSTM", "LSTM",
+    "GravesBidirectionalLSTM",
 ]

@@ -6,13 +6,16 @@ identical to the JAX package's (same names, same order) so the two read
 and write the same configuration, and its methods are plain functions on
 tensors:
 
+    set_n_in(input_type)                      nIn inference
+    get_output_type(input_type) -> InputType  shape inference
     init_params(gen, dtype) -> params dict    seeded init on gen's device
     init_state() -> state dict
     forward(params, state, x, mask, train=, gen=) -> (y, new_state)
 
 Parameters keep the JAX layout (``x @ W``, W of shape [n_in, n_out]), so
 weights map across 1:1 without transposes. The training fields are
-applied by ``ComputationGraph.fit_batch``: the updater and its
+applied by ``ComputationGraph.fit_batch`` and ``MultiLayerNetwork``'s
+train step: the updater and its
 hyperparameters, the learning rate (with the configuration's lr policy),
 the l1/l2 penalty on :meth:`LayerConf.regularizable` parameters, dropout
 (:meth:`LayerConf.maybe_dropout`, from an explicit generator) and the
@@ -27,6 +30,7 @@ import torch
 
 from ....ops.activations import get_activation
 from ....ops.weight_init import init_weights
+from ..input_type import InputType
 
 
 @dataclasses.dataclass
@@ -55,6 +59,12 @@ class LayerConf:
 
     def input_kind(self) -> str:
         return "ff"
+
+    def set_n_in(self, it: InputType) -> None:
+        pass
+
+    def get_output_type(self, it: InputType) -> InputType:
+        return it
 
     def init_params(self, gen: torch.Generator,
                     dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -110,9 +120,36 @@ class LayerConf:
         return init_weights(gen, shape, fan_in, fan_out,
                             self.weight_init or "xavier", dtype)
 
+    def _binit(self, gen, shape, dtype):
+        return torch.full(shape, float(self.bias_init or 0.0),
+                          device=gen.device, dtype=dtype)
+
 
 @dataclasses.dataclass
 class FeedForwardLayerConf(LayerConf):
     """Layers with a dense [nIn → nOut] core."""
     n_in: int = 0
     n_out: int = 0
+
+    def set_n_in(self, it: InputType) -> None:
+        if not self.n_in:
+            self.n_in = it.flat_size()
+
+    def get_output_type(self, it: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+
+@dataclasses.dataclass
+class BaseRecurrentLayerConf(FeedForwardLayerConf):
+    """Recurrent layers: [N, T, nIn] → [N, T, nOut], with an (h, c) carry
+    in their state."""
+
+    def input_kind(self) -> str:
+        return "rnn"
+
+    def set_n_in(self, it: InputType) -> None:
+        if not self.n_in:
+            self.n_in = it.size
+
+    def get_output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, it.timesteps)

@@ -9,7 +9,8 @@ none — tests and CPU references pass ``device="cpu"``.
 
 A train step (:meth:`fit_batch`) is: the loss of the batch (dropout drawn
 from generators seeded per iteration and vertex, integer labels on a
-terminal softmax head through the fused sparse cross-entropy),
+terminal softmax head through the fused sparse cross-entropy, other
+labels through the head's ``compute_score``),
 ``torch.autograd.grad`` over the masters, then per vertex the gradient
 normalization, the scheduled learning rate and the JAX package's update
 rule, applied to the masters in place. Nothing in the step reads a value
@@ -101,17 +102,18 @@ class ComputationGraph:
                  input_masks: Optional[Dict] = None,
                  output_preout: bool = False, skip_preoutput=()):
         """Walk the topological order. Returns (activations, new_state,
-        reg, masks, last_inputs). ``rng`` is the step's dropout seed: a
-        vertex that draws dropout gets a generator seeded with
+        reg, masks, last_inputs, preouts). ``rng`` is the step's dropout
+        seed: a vertex that draws dropout gets a generator seeded with
         ``for_layer(rng, index)``. Each vertex's mask is its first input's.
         With ``output_preout``, output vertices record their input
-        (``last_inputs``); those in ``skip_preoutput`` are projected inside
-        the loss (fused CE), so their [.., n_out] pre-activation is never
-        built."""
+        (``last_inputs``) and pre-activation (``preouts``, which their loss
+        scores); those in ``skip_preoutput`` are projected inside the loss
+        (fused CE), so their [.., n_out] pre-activation is never built."""
         acts: Dict[str, torch.Tensor] = dict(inputs)
         masks: Dict[str, Optional[torch.Tensor]] = dict(input_masks or {})
         new_state: Dict[str, Dict] = {}
         last_inputs: Dict[str, torch.Tensor] = {}
+        preouts: Dict[str, torch.Tensor] = {}
         reg = 0.0
         out_set = set(self.conf.network_outputs) if output_preout else set()
         for idx, name in enumerate(self.conf.topological_order):
@@ -138,14 +140,14 @@ class ComputationGraph:
                 new_state[name] = state[name]
                 if name in skip_preoutput:
                     continue            # projection fused into the loss
-                acts[name] = layer.activation_fn()(
-                    layer.preoutput(params[name], x))
+                preouts[name] = layer.preoutput(params[name], x)
+                acts[name] = layer.activation_fn()(preouts[name])
             else:
                 acts[name], new_state[name] = v.forward(
                     params[name], state[name], xs, train=train, gen=gen,
                     masks=ms)
                 masks[name] = ms[0] if ms else None
-        return acts, new_state, reg, masks, last_inputs
+        return acts, new_state, reg, masks, last_inputs, preouts
 
     def _to_device_dtype(self, a) -> torch.Tensor:
         """compute_dtype for floats; integer inputs (token ids, class ids)
@@ -235,7 +237,7 @@ class ComputationGraph:
         penalty, on the compute-dtype cast of ``params``."""
         params = self._cast_params(params)
         fused_outs = self._fused_ce_outputs(labels)
-        _, new_state, reg, masks, last_in = self._forward(
+        _, new_state, reg, masks, last_in, preouts = self._forward(
             params, state, inputs, train=True, rng=rng,
             input_masks=input_masks, output_preout=True,
             skip_preoutput=fused_outs)
@@ -243,7 +245,7 @@ class ComputationGraph:
         for out_name in self.conf.network_outputs:
             v = self.conf.vertices[out_name]
             if not isinstance(v, LayerVertex) or \
-                    not hasattr(v.layer, "loss"):
+                    not hasattr(v.layer, "compute_score"):
                 continue
             y = labels[out_name]
             lmask = (label_masks or {}).get(out_name)
@@ -264,10 +266,11 @@ class ComputationGraph:
                     "activation no other vertex consumes). Pass one-hot "
                     "labels here, or restructure the graph so the softmax "
                     "head is terminal.")
-            raise NotImplementedError(
-                f"output '{out_name}': only integer class-id labels on a "
-                "fused softmax + mcxent head are ported; the materialized "
-                "compute_loss (one-hot labels, other losses) is not")
+            pre = preouts[out_name]
+            if lmask is None and pre.dim() == 3:
+                lmask = masks.get(out_name)
+            score = score + v.layer.compute_score(params[out_name], y, pre,
+                                                  lmask)
         return score, new_state
 
     def _masks_of(self, ds):

@@ -15,12 +15,16 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_forward import cuda_attention
+from ..kernels.lstm import cuda_lstm
 
 #: (kind, device type, capability) → implementation
 _HELPERS: Dict[Tuple[str, str, Tuple[int, int]], Callable] = {
     # every forward attention on Hopper: T <= 512 → the short-sequence
     # kernel, longer → the flash forward kernel (kernels/flash_forward.py)
     ("attention", "cuda", (9, 0)): cuda_attention,
+    # every sigmoid-gate / tanh-cell LSTM recurrence on Hopper, f32 and
+    # bf16, masked or not: kernel B6 (kernels/lstm.py)
+    ("lstm", "cuda", (9, 0)): cuda_lstm,
 }
 
 

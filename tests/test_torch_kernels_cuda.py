@@ -2,7 +2,9 @@
 and backward, against its plain PyTorch version at small shapes (every
 supported dtype, head dims 8-128, ragged and length-1 T, a fully masked
 row), the shapes the wrappers refuse, and gradients through an attention
-layer on the card. Every test here needs a CUDA card and skips without
+layer on the card; the LSTM recurrence kernel (B6) against its plain
+version (f32 / bf16, peepholes, masks, T 1-128, N 1 / 64, H 16 / 512), its
+refusals and its gradients. Every test here needs a CUDA card and skips without
 one. The module imports no JAX, so it runs where JAX is not installed:
 ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest``.
 
@@ -15,6 +17,7 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import flash_backward as fb
 from deeplearning4j_tpu_torch.kernels import flash_forward as ff
+from deeplearning4j_tpu_torch.kernels import lstm as lk
 from deeplearning4j_tpu_torch.kernels import shortseq_attention as ss
 from deeplearning4j_tpu_torch.nn.conf.layers import SelfAttentionLayer
 
@@ -168,6 +171,131 @@ def test_attention_layer_gradients_flow_through_kernels(cuda_device, t):
     torch.cuda.synchronize()
     launched = [c.launches - n for c, n in zip(counters, before)]
     assert launched == ([1, 0, 0] if t <= ss.MAX_T else [0, 1, 1])
+    for got, want in zip(card, grads("cpu")):
+        assert got.norm() > 0
+        assert _rel_l2(got.cpu(), want) <= 1e-4
+
+
+# ------------------------------------------------------------ LSTM (B6)
+def _lstm_case(t, n, h, dtype, peephole, masked, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn(t, n, 4 * h, generator=g)
+    r = torch.randn(h, 4 * h, generator=g) / h ** 0.5
+    h0 = torch.randn(n, h, generator=g) * 0.5
+    c0 = torch.randn(n, h, generator=g) * 0.5
+    peep = tuple(torch.randn(h, generator=g) * 0.1 for _ in range(3)) \
+        if peephole else None
+    mask = (torch.rand(t, n, generator=g) > 0.3).float() if masked else None
+    cast = lambda x: x.to(device, dtype)
+    return (cast(xw), cast(r), cast(h0), cast(c0),
+            None if peep is None else tuple(cast(p) for p in peep),
+            None if mask is None else mask.to(device))
+
+
+#: max-abs of y, hT and cT against the plain version: in f32 the two sum
+#: the H products of a gate in other orders (~1e-6 per step, carried over
+#: up to 128 dependent steps); in bf16 both round h and c to bf16 each
+#: step, so an order difference can flip a rounding (4e-3 at |h| ~ 1) and
+#: the flip carries forward
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("peephole", [False, True], ids=["plain", "peep"])
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("t", [1, 7, 128])
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("h", [16, 512])
+def test_lstm_kernel_matches_plain_on_card(cuda_device, t, n, h, masked,
+                                           peephole, dtype):
+    args = _lstm_case(t, n, h, dtype, peephole, masked, cuda_device,
+                      seed=t * n + h)
+    before = lk.lstm_recurrence_fwd.launches
+    got = lk.lstm_recurrence_fwd(*args)
+    want = lk.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.launches == before + 1
+    assert got[0].shape == (t, n, h) and got[0].dtype == dtype
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= LSTM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [18, 100, 1024])
+def test_lstm_kernel_widths_and_staging_paths(cuda_device, h, dtype):
+    """Widths whose rows do not split into 16-byte loads (18; 100 in bf16)
+    take the kernel's element-wise staging, the others its vector loads;
+    H 1024 needs 8 units per CTA. Masked, with peepholes, N 5."""
+    args = _lstm_case(7, 5, h, dtype, True, True, cuda_device, seed=h)
+    got = lk.lstm_recurrence_fwd(*args)
+    want = lk.lstm_recurrence_plain(*args)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= LSTM_TOL[dtype]
+
+
+def test_lstm_kernel_reads_strided_xw(cuda_device):
+    """xw_t may be the [T, N, 4H] view of an [N, T, 4H] projection (the
+    layer's layout): the kernel takes its strides."""
+    xw, r, h0, c0, _, _ = _lstm_case(9, 5, 32, torch.float32, False, False,
+                                     cuda_device)
+    strided = xw.transpose(0, 1).contiguous().transpose(0, 1)
+    got = lk.lstm_recurrence_fwd(strided, r, h0, c0)
+    want = lk.lstm_recurrence_plain(xw, r, h0, c0)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_lstm_kernel_rejects_unsupported_inputs(cuda_device):
+    xw, r, h0, c0, _, _ = _lstm_case(3, 2, 16, torch.float32, False, False,
+                                     cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        lk.lstm_recurrence_fwd(xw.half(), r.half(), h0.half(), c0.half())
+    with pytest.raises(ValueError, match="R must be"):
+        lk.lstm_recurrence_fwd(xw, r[:, :32].contiguous(), h0, c0)
+    with pytest.raises(ValueError, match="h0 must be"):
+        lk.lstm_recurrence_fwd(xw, r, h0.bfloat16(), c0)
+    with pytest.raises(ValueError, match="unit stride"):
+        strided = torch.zeros(3 * 2 * 128, device=cuda_device).as_strided(
+            (3, 2, 64), (256, 128, 2))
+        lk.lstm_recurrence_fwd(strided, r, h0, c0)
+    # a hidden width whose f32 R slices fit no co-resident grid: at most
+    # ~227 KB of shared memory per SM holds H * 4H / 132 f32 weights
+    big = 2048
+    with pytest.raises(ValueError, match="no co-resident"):
+        lk.lstm_recurrence_fwd(
+            torch.zeros(1, 1, 4 * big, device=cuda_device),
+            torch.zeros(big, 4 * big, device=cuda_device),
+            torch.zeros(1, big, device=cuda_device),
+            torch.zeros(1, big, device=cuda_device))
+
+
+@pytest.mark.parametrize("peephole,masked", [(False, False), (True, True)])
+def test_lstm_gradients_on_card_match_cpu(cuda_device, peephole, masked):
+    """LSTMRecurrence on the card (kernel forward, plain recompute backward)
+    against autograd of the plain version on the CPU, f32."""
+    cpu = _lstm_case(12, 6, 32, torch.float32, peephole, masked, "cpu")
+    g = torch.Generator().manual_seed(5)
+    dy = torch.randn(12, 6, 32, generator=g)
+
+    def grads(device):
+        xw, r, h0, c0, peep, mask = (
+            None if a is None else
+            tuple(p.to(device) for p in a) if isinstance(a, tuple) else
+            a.to(device) for a in cpu)
+        leaves = [xw, r, h0, c0] + list(peep or ())
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        peep = tuple(leaves[4:]) if peephole else None
+        y, ht, ct = lk.lstm_recurrence(*leaves[:4], peep, mask)
+        loss = (y * dy.to(device)).sum() + ht.sum() + 0.5 * ct.sum()
+        return torch.autograd.grad(loss, leaves)
+
+    before = lk.lstm_recurrence_fwd.launches
+    card = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.launches == before + 1
     for got, want in zip(card, grads("cpu")):
         assert got.norm() > 0
         assert _rel_l2(got.cpu(), want) <= 1e-4

@@ -18,7 +18,9 @@ Phases, each an uncaught exception on failure:
    scaled_dot_product_attention's (forward, or its backward through
    ``torch.autograd.grad`` on a saved graph) as a yardstick (CUDA events,
    median of 20 samples of 10 back-to-back launches), and the data-sheet
-   bound.
+   bound. B1 is also checked and timed at the flagship train step's shape
+   (B 32, no key mask) and a serving admission's (8 rows, bucket 512);
+   those lines are repeated before the ``kernels`` line.
 4. serving: the flagship LM (vocab 32000, d 768, 12 heads, 12 layers,
    max_length 577, bf16, random seeded weights) behind a
    SlotGenerationEngine (8 slots, K = 4) answering 16 greedy requests;
@@ -60,6 +62,7 @@ without peepholes and masked, and timed beside the cuDNN LSTM layer
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -220,9 +223,43 @@ def phase_build():
         f"(nvcc {' '.join(cuda_lib.NVCC_FLAGS)})")
     for name, info in logs.items():
         log(f"  {name}: nvcc {info['seconds']:.1f}s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {line.strip()}")
+        for kernel, usage in _ptxas_usage(info["log"]):
+            log(f"    {kernel}: {usage}")
+
+
+def _kernel_name(mangled):
+    """A mangled kernel symbol as ``name<dtype, int args>``: the first
+    length-prefixed identifier ending in "kernel", its 16-bit element type
+    and its integer template arguments."""
+    idents, i = [], 0
+    while i < len(mangled):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            j = i + len(digits.group())
+            idents.append(mangled[j:j + int(digits.group())])
+            i = j + int(digits.group())
+        else:
+            i += 1
+    name = next((w for w in idents if w.endswith("kernel")), mangled)
+    args = [t for key, t in (("__nv_bfloat16", "bf16"), ("__half", "f16"))
+            if key in mangled] + re.findall(r"Li(\d+)E", mangled)
+    return f"{name}<{', '.join(args)}>"
+
+
+def _ptxas_usage(text):
+    """(kernel, "registers; spills") per kernel in nvcc's -Xptxas -v
+    output."""
+    out, kernel, spills = [], "?", ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            kernel = _kernel_name(line.split("Function properties for")[-1]
+                                  .strip())
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((kernel, f"{line.split(':', 1)[-1].strip()}; "
+                                f"{spills}"))
+    return out
 
 
 # ----------------------------------------------------------------- phase 3
@@ -257,9 +294,13 @@ def _bound(q3, h, lengths, t, tensors=4, flop_per_pair=4, row_terms=1,
                                        else "operations")
 
 
-def check_kernel(name, b, h, t, d, lengths, seed):
+def check_kernel(name, b, h, t, d, lengths, seed, masked=True):
+    """A forward kernel against its plain version on causal bf16 inputs
+    with the prefix key mask of ``lengths`` (or none), with its times,
+    SDPA's and the bound."""
     spec = KERNELS[name]
     q3, k3, v3, km = _attention_case(b, h, t, d, lengths, seed)
+    km = km if masked else None
     o_k, lse_k = spec["wrapper"](q3, k3, v3, km, h, True)
     o_p, lse_p = spec["plain"](q3, k3, v3, km, h, True)
     torch.cuda.synchronize()
@@ -269,23 +310,28 @@ def check_kernel(name, b, h, t, d, lengths, seed):
         raise AssertionError(f"{name}: non-finite output")
     err_o = (o_k[live].float() - o_p[live].float()).abs().max().item()
     err_l = (lse_k[live] - lse_p[live]).abs().max().item()
-    log(f"{name} B={b} H={h} T={t} D={d} bf16 causal lengths "
-        f"[{min(lengths)}..{max(lengths)}] fully-masked rows "
-        f"{int(dead.sum()) * t}: o max-abs {err_o:.3e} (tol {O_TOL}), "
-        f"lse max-abs {err_l:.3e} (tol {LSE_TOL})")
+    what = (f"lengths [{min(lengths)}..{max(lengths)}] fully-masked rows "
+            f"{int(dead.sum()) * t}" if masked else "unmasked")
+    log(f"{name} B={b} H={h} T={t} D={d} bf16 causal {what}: o max-abs "
+        f"{err_o:.3e} (tol {O_TOL}), lse max-abs {err_l:.3e} (tol "
+        f"{LSE_TOL})")
     if not (err_o <= O_TOL and err_l <= LSE_TOL):
         raise AssertionError(f"{name}: disagrees with its plain version")
     ms = time_ms(lambda: spec["wrapper"](q3, k3, v3, km, h, True))
     plain_ms = time_ms(lambda: spec["plain"](q3, k3, v3, km, h, True))
     q4, k4, v4 = (x.view(b, h, t, d) for x in (q3, k3, v3))
-    allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
-               [None, None] & (km > 0)[:, None, None, :])
+    if masked:
+        allowed = (torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+                   [None, None] & (km > 0)[:, None, None, :])
+        sdpa = dict(attn_mask=allowed)
+    else:
+        sdpa = dict(is_causal=True)
     library_ms = time_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q4, k4, v4,
-                                                       attn_mask=allowed))
-    bound_ms, bound_by = _bound(q3, h, lengths, t)
+                         .scaled_dot_product_attention(q4, k4, v4, **sdpa))
+    bound_ms, bound_by = _bound(q3, h, lengths, t, masked=masked)
     log(f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} (scaled_dot_product_attention) bound_us "
+        f"{library_ms:.4f} (scaled_dot_product_attention"
+        f"{'' if masked else ', is_causal'}) bound_us "
         f"{bound_ms * 1e3:.1f} ({bound_by})")
     return {"max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -477,12 +523,31 @@ def check_lstm_kernel(t=128, n=64, h=512):
             "library_ms": library_ms}
 
 
+def time_short_main_shapes():
+    """B1 at the two other shapes the main path gives it, checked and timed
+    as in check_kernel: the flagship train step's (B 32, T 512, no key
+    mask, as fit_batch runs it) and a serving admission's (8 rows, bucket
+    512, prefix key mask of 200-512 tokens). Returns a summary line each."""
+    lines = []
+    for what, b, lengths, masked in (
+            ("train step (B 32, unmasked)", 32, [512] * 32, False),
+            ("serving admission (8 rows, bucket 512)", 8,
+             np.random.default_rng(7).integers(200, 513, 8), True)):
+        r = check_kernel("shortseq_attention", b, 12, 512, 64, lengths, 8,
+                         masked)
+        lines.append(f"shortseq_attention at the {what}: kernel_ms "
+                     f"{r['ms']:.4f} library_ms {r['library_ms']:.4f} "
+                     f"bound_us {r['bound_ms'] * 1e3:.1f} ({r['bound_by']})")
+    return lines
+
+
 def phase_kernel_checks():
     rng = np.random.default_rng(0)
     # B1 at the flagship prefill: one length-1 row, one fully masked row
     lens = rng.integers(2, 513, 32)
     lens[0], lens[1] = 1, 0
     short = check_kernel("shortseq_attention", 32, 12, 512, 64, lens, 1)
+    short["main_shapes"] = time_short_main_shapes()
     # B3 at T = 2048 and at the ragged T = 577 (one fully masked row)
     flash = check_kernel("flash_forward", 4, 12, 2048, 64,
                          [2048, 1536, 777, 1], 2)
@@ -935,6 +1000,8 @@ def main():
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"]
     for name in ("flash_backward_dq", "flash_backward_dkv"):
         launches[name] = long[name]
+    for line in measured["shortseq_attention"].pop("main_shapes"):
+        log(line)
     rows = []
     for name, spec in KERNELS.items():
         rows.append({"name": name, "route": "cuda",

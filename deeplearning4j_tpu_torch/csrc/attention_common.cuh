@@ -1,22 +1,24 @@
-// Device helpers shared by the two attention-forward kernels
-// (shortseq_attention.cu, flash_forward.cu).
+// Device helpers shared by the attention kernels.
 //
-// Both files hold two variants of their kernel, each one CTA of 256
-// threads (8 warps) per (b*h, tile of 64 query rows):
+// The f32 forward variants (shortseq_fwd_f32_kernel, flash_fwd_f32_kernel)
+// and both backward families (attention_bwd_common.cuh: B2, B4, B5) use
+// what remains here; the bf16 / f16 forwards (B1, B3) have their own
+// register-resident core, attention_fwd_core.cuh, and take only the
+// constants and conversions.
 //
-// - bf16 / f16 inputs: the products run on the tensor cores through WMMA
-//   (16 x 16 x 16 mma.sync tiles, f32 accumulation). Operands are staged
-//   in shared memory in the input type, head dim zero-padded to a
-//   multiple of 16, row stride dpad + 8 elements (a 16-byte skew against
-//   bank conflicts). Warp w owns query-row block w % 4 and every other
-//   key or output-column block (parity w / 4).
-// - f32 inputs: the products run on the CUDA cores in f32 (the tensor
-//   cores would round the inputs to TF32). The CTA is a 16 x 16 thread
-//   grid (tx over keys or output columns, ty over query rows); operands
-//   are staged as f32 with an odd row stride (d + 1), so 16 lanes reading
-//   one column of 16 rows hit 16 banks.
+// - Constants: kNeg (the finite mask value), kMinL (the clamp of l),
+//   kThreads / kQRows (256-thread CTAs of 64 query rows), DType codes.
+// - Tensor-core helpers of the backward (WMMA 16 x 16 x 16 mma.sync
+//   tiles, f32 accumulation): stage_tile copies rows into shared memory in
+//   the input type, head dim zero-padded to a multiple of 16, row stride
+//   dpad + 8 elements (a 16-byte skew against bank conflicts); FragA /
+//   FragB / FragBT / FragC are the WMMA fragments.
+// - CUDA-core (f32) helpers: stage_rows (f32 rows with an odd row stride
+//   d + 1, so 16 lanes reading one column of 16 rows hit 16 banks),
+//   score_tile, pv_tile and write_rows on a 16 x 16 thread grid (tx over
+//   keys or output columns, ty over query rows), warp_max / warp_sum.
 //
-// Scores, softmax statistics and output accumulators are f32 in both.
+// Scores, softmax statistics and output accumulators are f32 in all.
 
 #pragma once
 
@@ -116,53 +118,6 @@ using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T,
                                      nvcuda::wmma::row_major>;
 using FragC =
     nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-// Raw scores of the warp's query-row block rb against the staged key
-// tile (nkp keys, a multiple of 16): S[rb*16.., col0 + cb*16..] = q . k for
-// the key blocks cb of parity `half`, stored f32 with row stride ss.
-template <typename T, int DMAX>
-__device__ __forceinline__ void tc_scores(float* sc, int ss, int col0,
-                                          const FragA<T> (&qa)[DMAX / 16],
-                                          const T* ks, int ld, int dpad,
-                                          int nkp, int rb, int half) {
-  for (int cb = half; cb < nkp / 16; cb += 2) {
-    FragC acc;
-    nvcuda::wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DMAX / 16; ++kk) {
-      if (kk < dpad / 16) {
-        FragBT<T> kb;
-        nvcuda::wmma::load_matrix_sync(kb, ks + cb * 16 * ld + kk * 16, ld);
-        nvcuda::wmma::mma_sync(acc, qa[kk], kb, acc);
-      }
-    }
-    nvcuda::wmma::store_matrix_sync(sc + rb * 16 * ss + col0 + cb * 16, acc,
-                                    ss, nvcuda::wmma::mem_row_major);
-  }
-}
-
-// acc[f] += P[rb*16.., pcol0..pcol0+nkp) . V_tile for the warp's output
-// column blocks cb = half + 2f (P: 16-bit, row stride pld; V staged with
-// row stride ld).
-template <typename T, int FPW>
-__device__ __forceinline__ void tc_pv(FragC (&acc)[FPW], const T* p, int pld,
-                                      int pcol0, const T* vs, int ld,
-                                      int dpad, int nkp, int rb, int half) {
-  for (int kk = 0; kk < nkp / 16; ++kk) {
-    FragA<T> pa;
-    nvcuda::wmma::load_matrix_sync(pa, p + rb * 16 * pld + pcol0 + kk * 16,
-                                   pld);
-#pragma unroll
-    for (int f = 0; f < FPW; ++f) {
-      const int cb = half + 2 * f;
-      if (cb < dpad / 16) {
-        FragB<T> vb;
-        nvcuda::wmma::load_matrix_sync(vb, vs + kk * 16 * ld + cb * 16, ld);
-        nvcuda::wmma::mma_sync(acc[f], pa, vb, acc[f]);
-      }
-    }
-  }
-}
 
 // ---- CUDA-core (f32) variant ----
 

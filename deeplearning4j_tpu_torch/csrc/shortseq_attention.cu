@@ -1,161 +1,37 @@
-// Short-sequence causal attention forward for Hopper (sm_90a).
+// Short-sequence causal attention forward (B1) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel _short_fwd_kernel
 // (deeplearning4j_tpu/kernels/pallas_shortseq.py:127, called by
-// _short_fwd_impl :233), which holds one whole [T, T] logits tile per head in VMEM and runs
-// a plain, non-streaming softmax. The TPU grid walks heads in order with
-// tens of MB of VMEM; a Hopper CTA has at most 227 KB of shared memory and
-// 132 SMs run CTAs in parallel, so the work is cut into one CTA per
-// (b*h, 64-query-row tile) and the [T, T] tile becomes that CTA's
-// [64, kend] f32 score block (kend = the keys the tile can see: its causal
-// horizon, or T).
-//
-// Per CTA: stage the 64 query rows; stream K through shared memory in key
-// tiles and write every score (scaled, masked with the finite -1e30) into
-// the score block; one plain max / exp / sum per row (l clamped at 1e-20,
-// lse = m + log l); stream V in key tiles and accumulate o = p . v in f32
-// registers; write o in the input type and lse as [B*H, T] f32.
+// _short_fwd_impl :233), which holds one whole [T, T] logits tile per head
+// in VMEM and runs a plain, non-streaming softmax. A Hopper SM has 227 KB
+// of shared memory and a register file, not tens of MB of VMEM, so the
+// whole-row softmax is not carried over: bf16 / f16 inputs run the online
+// form of attention_fwd_core.cuh (a TMA ring of K / V tiles, scores,
+// softmax and output in registers, both products on wgmma), which
+// computes the same function up to rounding. At T = 512 its CTAs of 64
+// query rows give 8 per b*h, so the grid fills the card at the flagship's
+// B*H; the query tiles of one b*h are grid neighbours (K and V come from
+// HBM once and from L2 after), diagonal-heavy tiles first. B3 launches
+// the same core: no tile size or ring depth measured better for T <= 512
+// alone (PERF.md).
 //
 // What bounds it on H100: at the flagship prefill (B=32, H=12, T=512, D=64,
 // bf16) the function moves ~101 MB (q, k, v, o once each) and needs
 // ~13 GFLOP after the causal skip: ~30 us at 3.35 TB/s against ~13 us at
-// 989 TF/s, so the data sheet calls it memory-bound. For bf16/f16 the two
-// products run on the tensor cores (WMMA mma.sync, f32 accumulation; p is
-// rounded to the input type for p . v, as the TPU kernel does); the
-// scores round-trip through the shared-memory score block, where the
-// masking and the softmax happen. K and V are staged in 128-key tiles and
-// read from HBM once per query tile (8x at T=512; the re-reads hit the
-// 50 MB L2). f32 inputs run the same algorithm on the CUDA cores, 4-8
-// multiply-adds per staged element read. The [64, T] f32 score block
-// (132 KB at T=512) allows one CTA per SM at T=512, and the measurements
-// point to that as the limit: the kernel's time does not drop with the
-// causal skip, and the flash kernel (64 x 64 score tiles) is faster at
-// T=512 (PERF.md). Register-resident scores (raw mma.sync or wgmma) and
-// TMA staging are the next steps.
+// 989 TF/s, so the data sheet calls it memory-bound. The design reads each
+// K / V tile once per 64 query rows from L2, keeps every score on chip,
+// and overlaps the next tile's copy with the current tile's products.
+//
+// f32 inputs keep the CUDA-core algorithm below (the tensor cores would
+// round them to TF32): a [64, kend] f32 score block in shared memory, a
+// plain max / exp / sum per row, then o = p . v, 4-8 multiply-adds per
+// staged element read.
 
-#include "attention_common.cuh"
+#include "attention_fwd_core.cuh"
 
 namespace dl4j {
 namespace {
 
-constexpr int kTcKeys = 128;             // keys per staged tile (16-bit)
-
-// bf16 / f16: both products on the tensor cores.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-    shortseq_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const float* __restrict__ kmask, T* __restrict__ o,
-                           float* __restrict__ lse, int h, int t, int d,
-                           int causal, float scale) {
-  constexpr int FPW = DMAX / 32 > 0 ? DMAX / 32 : 1;   // output blocks/warp
-  constexpr int MAXJ = 512 / 32;                        // scores per lane
-  extern __shared__ __align__(128) float smem[];
-  const int bh = blockIdx.y, q0 = blockIdx.x * kQRows;
-  const int nq = min(kQRows, t - q0);
-  const int kend = causal ? min(t, q0 + kQRows) : t;
-  const int kpad = round_up16(kend), dpad = round_up16(d);
-  const int ld = dpad + 8;                // staged row stride (elements)
-  const int ss = kpad + 4;                // score row stride (floats)
-  T* qs = reinterpret_cast<T*>(smem);     // [64][ld] query rows
-  T* kv = qs + kQRows * ld;               // [128][ld] K tile, V tile, o
-  float* sc = reinterpret_cast<float*>(kv + kTcKeys * ld);  // [64][ss]
-  T* pr = reinterpret_cast<T*>(sc);       // p in place: row stride 2 * ss
-  float* row_l = sc + kQRows * ss;        // [64] softmax denominators
-  const size_t base = (size_t)bh * t * d;
-  const float* km = kmask ? kmask + (size_t)(bh / h) * t : nullptr;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rb = warp & 3, half = warp >> 2;
-
-  stage_tile(qs, q + base + (size_t)q0 * d, nq, kQRows, d, dpad, ld);
-  __syncthreads();
-  FragA<T> qa[DMAX / 16];
-#pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk)
-    if (kk < dpad / 16)
-      nvcuda::wmma::load_matrix_sync(qa[kk], qs + rb * 16 * ld + kk * 16, ld);
-  for (int j0 = 0; j0 < kend; j0 += kTcKeys) {
-    const int nk = min(kTcKeys, kend - j0), nkp = round_up16(nk);
-    __syncthreads();
-    stage_tile(kv, k + base + (size_t)j0 * d, nk, nkp, d, dpad, ld);
-    __syncthreads();
-    tc_scores<T, DMAX>(sc, ss, j0, qa, kv, ld, dpad, nkp, rb, half);
-  }
-  __syncthreads();
-
-  // scale, mask and a plain softmax, one warp per row; p overwrites its
-  // own score row in the input type (all of a lane's reads land in
-  // registers before any write), zero past kend up to the 16-key padding.
-  // Lane l handles keys l + 32i; whether each is a real key (j < kend and
-  // unmasked) is the same for every row, so it is read once into bits.
-  unsigned real = 0;
-#pragma unroll
-  for (int i = 0; i < MAXJ; ++i) {
-    const int j = lane + 32 * i;
-    if (j < kend && (km == nullptr || km[j] > 0.f)) real |= 1u << i;
-  }
-  for (int r = warp; r < kQRows; r += kThreads / 32) {
-    const float* row = sc + r * ss;
-    float sv[MAXJ];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < MAXJ; ++i) {
-      const int j = lane + 32 * i;
-      sv[i] = kNeg;
-      if (j < kend) {
-        const bool keep = ((real >> i) & 1u) && (!causal || j <= q0 + r);
-        sv[i] = keep ? row[j] * scale : kNeg;
-        m = fmaxf(m, sv[i]);
-      }
-    }
-    m = warp_max(m);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAXJ; ++i) {
-      const int j = lane + 32 * i;
-      sv[i] = j < kend ? __expf(sv[i] - m) : 0.f;
-      s += sv[i];
-    }
-    s = warp_sum(s);
-    const float l = fmaxf(s, kMinL);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < MAXJ; ++i) {
-      const int j = lane + 32 * i;
-      if (j < kpad) pr[r * 2 * ss + j] = from_f32<T>(r < nq ? sv[i] : 0.f);
-    }
-    if (lane == 0 && r < nq) {
-      row_l[r] = l;
-      lse[(size_t)bh * t + q0 + r] = m + logf(l);
-    }
-  }
-
-  FragC acc[FPW];
-#pragma unroll
-  for (int f = 0; f < FPW; ++f) nvcuda::wmma::fill_fragment(acc[f], 0.f);
-  for (int j0 = 0; j0 < kend; j0 += kTcKeys) {
-    const int nk = min(kTcKeys, kend - j0), nkp = round_up16(nk);
-    __syncthreads();
-    stage_tile(kv, v + base + (size_t)j0 * d, nk, nkp, d, dpad, ld);
-    __syncthreads();
-    tc_pv<T, FPW>(acc, pr, 2 * ss, j0, kv, ld, dpad, nkp, rb, half);
-  }
-  __syncthreads();
-  float* os = reinterpret_cast<float*>(kv);   // [64][dpad] f32 output
-#pragma unroll
-  for (int f = 0; f < FPW; ++f) {
-    const int cb = half + 2 * f;
-    if (cb < dpad / 16)
-      nvcuda::wmma::store_matrix_sync(os + rb * 16 * dpad + cb * 16, acc[f],
-                                      dpad, nvcuda::wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nq * d; i += kThreads) {
-    const int r = i / d, c = i - r * d;
-    o[base + (size_t)(q0 + r) * d + c] = from_f32<T>(os[r * dpad + c] /
-                                                     row_l[r]);
-  }
-}
 
 // f32: the same algorithm on the CUDA cores.
 template <int DMAX>
@@ -251,12 +127,6 @@ size_t f32_smem(int t, int d) {
                           (size_t)kQRows * (t + 1) + kQRows);
 }
 
-size_t tc_smem(int t, int d, size_t elem) {
-  const size_t ld = round_up16(d) + 8;
-  return elem * (kQRows + kTcKeys) * ld +
-         sizeof(float) * ((size_t)kQRows * (round_up16(t) + 4) + kQRows);
-}
-
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* kmask, void* o, void* lse, int bh, int h,
@@ -273,12 +143,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     return launch(shortseq_fwd_f32_kernel<128>, f32_smem<128>(t, d),
                   DL4J_ARGS);
   } else {
-    const size_t smem = tc_smem(t, d, sizeof(T));
-    if (d <= 32)
-      return launch(shortseq_fwd_tc_kernel<T, 32>, smem, DL4J_ARGS);
-    if (d <= 64)
-      return launch(shortseq_fwd_tc_kernel<T, 64>, smem, DL4J_ARGS);
-    return launch(shortseq_fwd_tc_kernel<T, 128>, smem, DL4J_ARGS);
+    const FwdArgs a{q, k, v, static_cast<const float*>(kmask), o,
+                    static_cast<float*>(lse), h, t, d, causal, scale};
+    return dispatch_fwd<T>(a, bh, stream);
   }
 #undef DL4J_ARGS
 }

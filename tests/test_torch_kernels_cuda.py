@@ -1,8 +1,9 @@
 """PyTorch port, on the card: each hand-written attention kernel, forward
 and backward, against its plain PyTorch version at small shapes (every
-supported dtype, head dims 8-128, ragged and length-1 T, a fully masked
-row), the shapes the wrappers refuse, and gradients through an attention
-layer on the card; the LSTM recurrence kernel (B6) against its plain
+supported dtype, head dims 8-128, T at every tile edge, a key mask with
+holes, a fully masked row), the two forwards against each other, the
+shapes the wrappers refuse, and gradients through an attention layer on
+the card; the LSTM recurrence kernel (B6) against its plain
 version (f32 / bf16, peepholes, masks, T 1-128, N 1 / 64, H 16 / 512), its
 refusals and its gradients. Every test here needs a CUDA card and skips without
 one. The module imports no JAX, so it runs where JAX is not installed:
@@ -29,33 +30,71 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 5e-2),
-                                       (torch.float16, 1e-2)])
-@pytest.mark.parametrize("kernel", ["short", "flash"])
-@pytest.mark.parametrize("t,d", [(1, 8), (77, 32), (256, 64), (512, 128),
-                                 (600, 64)])
-def test_kernel_matches_plain_on_card(cuda_device, kernel, t, d, dtype, tol):
-    if kernel == "short" and t > ss.MAX_T:
-        pytest.skip("T above the short-sequence kernel's range")
+#: max-abs of o against the plain version: f32 only reorders sums; f16 and
+#: bf16 round p to the input type before p . v and o on the way out
+FWD_TOL = {torch.float32: 1e-4, torch.float16: 1e-2, torch.bfloat16: 5e-2}
+#: sequence lengths around the forward kernels' 64-key and 64 / 128-row
+#: tile edges; B3 also takes T past the short-sequence range
+FWD_T = [1, 63, 64, 65, 127, 128, 129, 511, 512]
+FWD_CASES = [(kernel, t) for kernel in ("short", "flash")
+             for t in FWD_T + ([577, 2049] if kernel == "flash" else [])]
+
+
+def _holey_mask(t, lengths, device):
+    """[3, T] key mask: batch row 0 keeps every key, row 1 a prefix of
+    max(T // 2, 1) keys with every 7th key from key 3 on masked (holes,
+    key 0 kept, so every causal row sees a real key), row 2 none (fully
+    masked)."""
+    j = torch.arange(t, device=device)[None]
+    keep = j < torch.tensor(lengths, device=device)[:, None]
+    return (keep & ((j % 7 != 3) | (torch.arange(3, device=device)[:, None]
+                                    != 1))).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("d", [8, 24, 64, 128])
+@pytest.mark.parametrize("kernel,t", FWD_CASES)
+def test_kernel_matches_plain_on_card(cuda_device, kernel, t, d, dtype):
+    """B1 (short) or B3 (flash) against attention_fwd_plain, causal and
+    not, with a key mask that has holes and a fully masked batch row
+    (finite o and lse there)."""
     fwd = ss.short_attention_fwd if kernel == "short" else ff.flash_forward
     b, h = 3, 2
     g = torch.Generator(device=cuda_device).manual_seed(t * d)
     q3, k3, v3 = (torch.randn(b * h, t, d, generator=g, device=cuda_device)
                   .to(dtype) for _ in range(3))
-    lengths = torch.tensor([t, max(t // 2, 1), 0], device=cuda_device)
-    km = (torch.arange(t, device=cuda_device)[None] <
-          lengths[:, None]).float()
+    km = _holey_mask(t, [t, max(t // 2, 1), 0], cuda_device)
     for causal in (True, False):
         before = fwd.launches
         o_k, lse_k = fwd(q3, k3, v3, km, h, causal)
         o_p, lse_p = ss.attention_fwd_plain(q3, k3, v3, km, h, causal)
         torch.cuda.synchronize()
         assert fwd.launches == before + 1
+        assert o_k.dtype == dtype and lse_k.shape == (b * h, t)
         assert torch.isfinite(o_k).all() and torch.isfinite(lse_k).all()
         live = slice(0, 2 * h)            # batch row 2 is fully masked
-        assert (o_k[live].float() - o_p[live].float()).abs().max() <= tol
+        assert (o_k[live].float() - o_p[live].float()).abs().max() <= \
+            FWD_TOL[dtype]
         assert (lse_k[live] - lse_p[live]).abs().max() <= 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [1, 64, 200, 512])
+def test_short_and_flash_forwards_agree_on_card(cuda_device, t, causal):
+    """B1 and B3 compute one function: at T <= 512 in bf16 they agree with
+    each other within the bf16 tolerance of either against the plain
+    version, on a holey key mask with a fully masked row included."""
+    b, h, d = 3, 4, 64
+    g = torch.Generator(device=cuda_device).manual_seed(t + 5)
+    q3, k3, v3 = (torch.randn(b * h, t, d, generator=g, device=cuda_device)
+                  .to(torch.bfloat16) for _ in range(3))
+    km = _holey_mask(t, [t, max(t // 2, 1), 0], cuda_device)
+    o_s, lse_s = ss.short_attention_fwd(q3, k3, v3, km, h, causal)
+    o_f, lse_f = ff.flash_forward(q3, k3, v3, km, h, causal)
+    torch.cuda.synchronize()
+    assert (o_s.float() - o_f.float()).abs().max() <= FWD_TOL[torch.bfloat16]
+    assert (lse_s - lse_f).abs().max() <= 1e-2
 
 
 def test_kernel_rejects_unsupported_shapes(cuda_device):
@@ -144,36 +183,57 @@ def test_backward_kernels_reject_unsupported_shapes(cuda_device):
                               rows)
 
 
-@pytest.mark.parametrize("t", [37, 600], ids=["short", "flash"])
-def test_attention_layer_gradients_flow_through_kernels(cuda_device, t):
+#: relative L2 of the card's Wq / Wk / Wv / x gradients against the CPU
+#: f32 plain path: f32 reorders sums; bf16 rounds x, the weights, q / k / v
+#: and the kernels' p and ds (~0.4% each)
+LAYER_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [37, 512, 600], ids=["short", "short512",
+                                                   "flash"])
+def test_attention_layer_gradients_flow_through_kernels(cuda_device, t,
+                                                         dtype):
     """The attention helper on a card is differentiable: the gradients of
-    Wq / Wk / Wv through SelfAttentionLayer.forward are nonzero, come from
-    the backward kernels, and match the plain path on the CPU."""
+    Wq / Wk / Wv and x through SelfAttentionLayer.forward are nonzero, come
+    from the forward and backward kernels (B1 + B2 for T <= 512, B3 + B4 +
+    B5 above), and match the plain path on the CPU. Batch row 2 is fully
+    masked: its output is finite and, with zero loss weight, it adds
+    nothing to the gradients, which stay finite (the backward recomputes
+    p = exp(s - lse) there from the forward's lse)."""
     layer = SelfAttentionLayer(n_in=32, n_out=32, num_heads=4, causal=True,
                                activation="identity")
     params = layer.init_params(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(2, t, 32, generator=g)
-    w = torch.randn(2, t, 32, generator=g)
-    mask = (torch.arange(t)[None] < torch.tensor([[t], [t // 2]])).float()
+    x = torch.randn(3, t, 32, generator=g)
+    w = torch.randn(3, t, 32, generator=g)
+    w[2] = 0.0
+    mask = (torch.arange(t)[None] <
+            torch.tensor([[t], [t // 2], [0]])).float()
 
-    def grads(device):
-        ps = {k: p.to(device).requires_grad_(True) for k, p in
+    def grads(device, dt):
+        ps = {k: p.to(device, dt).requires_grad_(True) for k, p in
               params.items()}
-        y, _ = layer.forward(ps, {}, x.to(device), mask.to(device))
-        return torch.autograd.grad((y * w.to(device)).sum(),
-                                   [ps[k] for k in ("Wq", "Wk", "Wv")])
+        xs = x.to(device, dt).requires_grad_(True)
+        y, _ = layer.forward(ps, {}, xs, mask.to(device))
+        out = torch.autograd.grad((y.float() * w.to(device)).sum(),
+                                  [ps[k] for k in ("Wq", "Wk", "Wv")] + [xs])
+        return y, out
 
-    counters = (ss.short_attention_bwd, fb.flash_backward_dq,
+    counters = (ss.short_attention_fwd, ss.short_attention_bwd,
+                ff.flash_forward, fb.flash_backward_dq,
                 fb.flash_backward_dkv)
     before = [c.launches for c in counters]
-    card = grads(cuda_device)
+    y, card = grads(cuda_device, dtype)
     torch.cuda.synchronize()
     launched = [c.launches - n for c, n in zip(counters, before)]
-    assert launched == ([1, 0, 0] if t <= ss.MAX_T else [0, 1, 1])
-    for got, want in zip(card, grads("cpu")):
-        assert got.norm() > 0
-        assert _rel_l2(got.cpu(), want) <= 1e-4
+    assert launched == ([1, 1, 0, 0, 0] if t <= ss.MAX_T else
+                        [0, 0, 1, 1, 1])
+    assert torch.isfinite(y).all()
+    for got, want in zip(card, grads("cpu", torch.float32)[1]):
+        assert torch.isfinite(got).all() and got.norm() > 0
+        assert _rel_l2(got.cpu(), want) <= LAYER_GRAD_TOL[dtype]
 
 
 # ------------------------------------------------------------ LSTM (B6)

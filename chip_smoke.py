@@ -13,14 +13,16 @@ Phases, each an uncaught exception on failure:
 3. kernel checks: each forward kernel against its plain PyTorch version
    on the card at the main path's shapes (o max-abs <= 5e-2, lse max-abs
    <= 1e-2), and each backward kernel against the plain backward (dq, dk,
-   dv rel-L2 <= 2e-2 in bf16); fully masked batch rows are checked for
-   finiteness only. Each with its time, the plain version's,
-   scaled_dot_product_attention's (forward, or its backward through
-   ``torch.autograd.grad`` on a saved graph) as a yardstick (CUDA events,
-   median of 20 samples of 10 back-to-back launches), and the data-sheet
-   bound. B1 is also checked and timed at the flagship train step's shape
-   (B 32, no key mask) and a serving admission's (8 rows, bucket 512);
-   those lines are repeated before the ``kernels`` line.
+   dv rel-L2 <= 2e-2 in bf16, and bitwise equal over two calls); fully
+   masked batch rows are checked for finiteness only. Each with its time,
+   the plain version's, scaled_dot_product_attention's (forward, or its
+   backward of all three gradients through ``torch.autograd.grad`` on a
+   saved graph, with a boolean mask and, unmasked, with ``is_causal``; the
+   faster is the yardstick) (CUDA events, median of 20 samples of 10
+   back-to-back launches), and the data-sheet bound. B1 is also checked
+   and timed at the flagship train step's shape (B 32, no key mask) and a
+   serving admission's (8 rows, bucket 512); those lines are repeated
+   before the ``kernels`` line.
 4. serving: the flagship LM (vocab 32000, d 768, 12 heads, 12 layers,
    max_length 577, bf16, random seeded weights) behind a
    SlotGenerationEngine (8 slots, K = 4) answering 16 greedy requests;
@@ -349,9 +351,36 @@ def _rel_l2(got, want):
             want.float().norm().clamp_min(1e-30)).item()
 
 
+def _sdpa_bwd_ms(q3, k3, v3, km, do, b, h, masked):
+    """Time of scaled_dot_product_attention's backward (one
+    ``torch.autograd.grad`` of q, k and v on a saved graph) on the same
+    inputs: with the causal-and-key mask as a boolean ``attn_mask`` and,
+    when there is no key mask, also with ``is_causal=True``, which lets
+    SDPA take its flash backward. {"attn_mask" / "is_causal": ms}."""
+    bh, t, d = q3.shape
+    q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_(True)
+                  for x in (q3, k3, v3))
+    do4 = do.view(b, h, t, d)
+    allowed = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+    if masked:
+        allowed = allowed[None, None] & (km > 0)[:, None, None, :]
+    calls = {"attn_mask": dict(attn_mask=allowed)}
+    if not masked:
+        calls["is_causal"] = dict(is_causal=True)
+    out = {}
+    for what, kw in calls.items():
+        o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                              **kw)
+        out[what] = time_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True))
+    return out
+
+
 def check_bwd_kernel(name, b, h, t, d, lengths, seed, masked):
     """A backward kernel against the plain backward on the same (q, k, v,
-    o, lse, dO, delta), with its times and bound."""
+    o, lse, dO, delta), bitwise equal over two calls, with its times, the
+    library backward's (the faster of its two forms, see _sdpa_bwd_ms) and
+    the bound."""
     spec = KERNELS[name]
     q3, k3, v3, km = _attention_case(b, h, t, d, lengths, seed)
     km = km if masked else None
@@ -366,8 +395,13 @@ def check_bwd_kernel(name, b, h, t, d, lengths, seed, masked):
         run = lambda: spec["wrapper"](*args, do, lse, delta)
     got = run()
     got = got if isinstance(got, tuple) else (got,)
+    again = run()
+    again = again if isinstance(again, tuple) else (again,)
     want = attention_bwd_plain(*args, o, lse, do, delta)
     torch.cuda.synchronize()
+    if not all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+               for x, y in zip(got, again)):
+        raise AssertionError(f"{name}: two calls gave different bits")
     live = torch.from_numpy(np.repeat(np.asarray(lengths) > 0, h)).cuda()
     errs = {}
     for gi, x in zip(spec["grads"], got):
@@ -384,22 +418,17 @@ def check_bwd_kernel(name, b, h, t, d, lengths, seed, masked):
     ms = time_ms(run)
     plain_ms = time_ms(lambda: attention_bwd_plain(*args, o, lse, do,
                                                    delta))
-    q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_(True)
-                  for x in (q3, k3, v3))
-    allowed = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
-    if masked:
-        allowed = allowed[None, None] & (km > 0)[:, None, None, :]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=allowed)
-    do4 = do.view(b, h, t, d)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        out, (q4, k4, v4), do4, retain_graph=True))
+    library = _sdpa_bwd_ms(q3, k3, v3, km, do, b, h, masked)
+    library_ms = min(library.values())
     tensors, per_pair = BWD_WORK[name]
     bound_ms, bound_by = _bound(q3, h, lengths, t, tensors, per_pair, 2,
                                 masked)
     log(f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} (scaled_dot_product_attention backward) "
-        f"bound_us {bound_ms * 1e3:.1f} ({bound_by})")
+        f"{library_ms:.4f} (scaled_dot_product_attention backward, all "
+        f"three gradients: "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in library.items())}) "
+        f"bound_us {bound_ms * 1e3:.1f} ({bound_by}); bitwise equal over "
+        f"two calls")
     return {"max_abs_err": max(
                 (x[live].float() - want[gi][live].float()).abs().max().item()
                 for gi, x in zip(spec["grads"], got)),

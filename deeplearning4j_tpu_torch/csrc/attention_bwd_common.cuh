@@ -1,5 +1,8 @@
-// Device code shared by the attention-backward kernels
-// (shortseq_attention_bwd.cu, flash_backward.cu).
+// Device code of the attention-backward kernels that keep PR 2's tile
+// design: B4 (flash_backward.cu, flash_attention_bwd_dq) for every input
+// type, and the f32 kernels of B2 and B5 (shortseq_attention_bwd.cu,
+// flash_backward.cu). The bf16 / f16 B2 and B5 run attention_bwd_core.cuh,
+// which takes BwdArgs from here.
 //
 // The backward from the forward's saved lse and delta = rowsum(dO . O):
 //   s  = scale * q . k, replaced by -1e30 where the key is in the causal
@@ -11,23 +14,24 @@
 // Work is cut into 64-query x 64-key tile pairs, and a CTA of 256 threads
 // takes one of two roles:
 //
-// - dkv (bwd_dkv_*): one 64-key tile of one b*h. K and V stay staged in
+// - dkv (bwd_dkv_f32): one 64-key tile of one b*h. K and V stay staged in
 //   shared memory; the CTA walks the query tiles from the causal diagonal
 //   to T, and dk, dv accumulate on chip (f32) and are written once.
 // - dq (bwd_dq_*): one 64-query tile. Q, dO, lse and delta stay staged;
 //   the CTA walks the key tiles up to the causal diagonal, and dq
 //   accumulates on chip and is written once.
 //
-// Each tile pair recomputes s (= Q K^T) and dO V^T, turns them into p and
-// ds in one elementwise pass (probs_and_grads), and feeds them to the
-// role's products. Tiles wholly in the causal future are never visited;
-// a ragged T and the key mask are handled by index (rows past T are
-// zero-staged, and their p and ds are 0).
+// Each tile pair recomputes s (= Q K^T) and dO V^T into shared memory,
+// turns them into p and ds in one elementwise pass (probs_and_grads), and
+// feeds them to the role's products. Tiles wholly in the causal future are
+// never visited; a ragged T and the key mask are handled by index (rows
+// past T are zero-staged, and their p and ds are 0).
 //
-// bf16 / f16 inputs run every product on the tensor cores (WMMA 16x16x16,
-// f32 accumulation; p and ds are rounded to the input type before their
-// products, as the TPU kernels round them). f32 inputs run the same
-// algorithm on the CUDA cores (the tensor cores would round to TF32).
+// bf16 / f16 inputs (B4's bwd_dq_tc) run every product on the tensor cores
+// (WMMA 16x16x16, f32 accumulation; p and ds are rounded to the input type
+// before their products, as the TPU kernels round them). f32 inputs run
+// the same algorithm on the CUDA cores (the tensor cores would round to
+// TF32).
 
 #pragma once
 
@@ -53,10 +57,6 @@ struct BwdArgs {
   int h, t, d, causal;
   float scale;
 };
-
-template <typename T>
-using FragAT = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, T,
-                                      nvcuda::wmma::col_major>;
 
 __host__ __device__ __forceinline__ int num_tiles(int t) {
   return (t + kQRows - 1) / kQRows;
@@ -150,19 +150,16 @@ __device__ __forceinline__ void tc_abt(float* c, int ss, const T* a,
   }
 }
 
-// acc[f] += A . X for the warp's rows rb*16.. and column blocks
-// half + 2f: A is the 64 x 64 16-bit tile p (row stride pld), or its
-// transpose when TRANS; X is staged [64][ld].
-template <typename T, int FPW, bool TRANS>
+// acc[f] += P . X for the warp's rows rb*16.. and column blocks
+// half + 2f: P is the 64 x 64 16-bit tile p or ds (row stride pld); X is
+// staged [64][ld].
+template <typename T, int FPW>
 __device__ __forceinline__ void tc_acc(FragC (&acc)[FPW], const T* p,
                                        int pld, const T* x, int ld,
                                        int dpad, int rb, int half) {
   for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-    typename std::conditional<TRANS, FragAT<T>, FragA<T>>::type fa;
-    if constexpr (TRANS)
-      nvcuda::wmma::load_matrix_sync(fa, p + kk * 16 * pld + rb * 16, pld);
-    else
-      nvcuda::wmma::load_matrix_sync(fa, p + rb * 16 * pld + kk * 16, pld);
+    FragA<T> fa;
+    nvcuda::wmma::load_matrix_sync(fa, p + rb * 16 * pld + kk * 16, pld);
 #pragma unroll
     for (int f = 0; f < FPW; ++f) {
       const int cb = half + 2 * f;
@@ -198,7 +195,7 @@ __device__ __forceinline__ void tc_store_rows(T* out, float* stage,
   __syncthreads();
 }
 
-// Shared-memory carve-up of both roles: two resident tiles (X0, X1), two
+// Shared-memory carve-up of the dq role: two resident tiles (X0, X1), two
 // streamed tiles (Y0, Y1), the S and dP tiles, and the row terms.
 template <typename T>
 struct TcBwdSmem {
@@ -221,57 +218,6 @@ inline size_t tc_bwd_smem(int d, size_t elem) {
   const size_t ld = round_up16(d) + 8;
   return elem * 4 * kQRows * ld +
          sizeof(float) * (2 * (size_t)kQRows * kBwdTcSS + 2 * kQRows);
-}
-
-// dkv role: key tile j0 of head bh.
-template <typename T, int DMAX>
-__device__ __forceinline__ void bwd_dkv_tc(const BwdArgs& a, int bh, int j0,
-                                           unsigned char* raw) {
-  constexpr int FPW = DMAX / 32 > 0 ? DMAX / 32 : 1;
-  const int t = a.t, d = a.d, dpad = round_up16(d), ld = dpad + 8;
-  const int nk = min(kKeyTile, t - j0);
-  TcBwdSmem<T> sm(raw, ld);
-  const size_t base = (size_t)bh * t * d;
-  const T* q = static_cast<const T*>(a.q) + base;
-  const T* dout = static_cast<const T*>(a.dout) + base;
-  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.h) * t : nullptr;
-  const int warp = threadIdx.x >> 5, rb = warp & 3, half = warp >> 2;
-  const int pld = 2 * kBwdTcSS;
-
-  stage_tile(sm.x0, static_cast<const T*>(a.k) + base + (size_t)j0 * d, nk,
-             kKeyTile, d, dpad, ld);
-  stage_tile(sm.x1, static_cast<const T*>(a.v) + base + (size_t)j0 * d, nk,
-             kKeyTile, d, dpad, ld);
-  FragC dk[FPW], dv[FPW];
-#pragma unroll
-  for (int f = 0; f < FPW; ++f) {
-    nvcuda::wmma::fill_fragment(dk[f], 0.f);
-    nvcuda::wmma::fill_fragment(dv[f], 0.f);
-  }
-  for (int q0 = a.causal ? j0 : 0; q0 < t; q0 += kQRows) {
-    const int nq = min(kQRows, t - q0);
-    __syncthreads();
-    stage_tile(sm.y0, q + (size_t)q0 * d, nq, kQRows, d, dpad, ld);
-    stage_tile(sm.y1, dout + (size_t)q0 * d, nq, kQRows, d, dpad, ld);
-    stage_row_terms(sm.row_lse, sm.row_delta, a, bh, q0, nq);
-    __syncthreads();
-    tc_abt(sm.s, kBwdTcSS, sm.y0, sm.x0, ld, dpad, rb, half);
-    tc_abt(sm.dp, kBwdTcSS, sm.y1, sm.x1, ld, dpad, rb, half);
-    __syncthreads();
-    probs_and_grads<T>(sm.s, sm.dp, kBwdTcSS, sm.row_lse, sm.row_delta, q0,
-                       nq, j0, nk, a.causal, km, a.scale);
-    __syncthreads();
-    tc_acc<T, FPW, true>(dv, reinterpret_cast<const T*>(sm.s), pld, sm.y1,
-                         ld, dpad, rb, half);
-    tc_acc<T, FPW, true>(dk, reinterpret_cast<const T*>(sm.dp), pld, sm.y0,
-                         ld, dpad, rb, half);
-  }
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(sm.y0);   // spans Y0 and Y1
-  tc_store_rows<T, FPW>(static_cast<T*>(a.dk) + base + (size_t)j0 * d,
-                        stage, dk, nk, d, dpad, rb, half);
-  tc_store_rows<T, FPW>(static_cast<T*>(a.dv) + base + (size_t)j0 * d,
-                        stage, dv, nk, d, dpad, rb, half);
 }
 
 // dq role: query tile q0 of head bh.
@@ -309,8 +255,8 @@ __device__ __forceinline__ void bwd_dq_tc(const BwdArgs& a, int bh, int q0,
     probs_and_grads<T>(sm.s, sm.dp, kBwdTcSS, sm.row_lse, sm.row_delta, q0,
                        nq, j0, nk, a.causal, km, a.scale);
     __syncthreads();
-    tc_acc<T, FPW, false>(dq, reinterpret_cast<const T*>(sm.dp),
-                          2 * kBwdTcSS, sm.y0, ld, dpad, rb, half);
+    tc_acc<T, FPW>(dq, reinterpret_cast<const T*>(sm.dp), 2 * kBwdTcSS,
+                   sm.y0, ld, dpad, rb, half);
   }
   __syncthreads();
   tc_store_rows<T, FPW>(static_cast<T*>(a.dq) + base + (size_t)q0 * d,
@@ -482,16 +428,7 @@ __device__ __forceinline__ void bwd_dq_f32(const BwdArgs& a, int bh, int q0,
                      nq, d);
 }
 
-// One role's work for the CTA, by element type.
-template <typename T, int DMAX>
-__device__ __forceinline__ void bwd_dkv(const BwdArgs& a, int bh, int j0,
-                                        unsigned char* smem) {
-  if constexpr (std::is_same<T, float>::value)
-    bwd_dkv_f32<DMAX>(a, bh, j0, smem);
-  else
-    bwd_dkv_tc<T, DMAX>(a, bh, j0, smem);
-}
-
+// B4's work for the CTA, by element type.
 template <typename T, int DMAX>
 __device__ __forceinline__ void bwd_dq(const BwdArgs& a, int bh, int q0,
                                        unsigned char* smem) {

@@ -46,9 +46,7 @@
 
 #pragma once
 
-#include <cuda.h>
-
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace dl4j {
 
@@ -63,29 +61,8 @@ struct FwdArgs {
   float scale;
 };
 
-constexpr int kFwdKeys = 64;                     // keys per K / V tile
+constexpr int kFwdKeys = kTileRows;              // keys per K / V tile
 constexpr int kStages = 2;                       // depth of the K / V ring
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNeg2 = kNeg * kLog2e;           // kNeg in log2 units
-
-// Two floats as one 32-bit pair of T, x in the low half.
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float x, float y) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(x, y);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Scale, mask and fold one 64-key tile of raw scores s (a warp's 16 rows
 // in the m16n8 C layout: s[i][e] is row g + 8 (e / 2), key 8 i + 2 tig +
@@ -152,132 +129,6 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NKT][4], float (&m)[2],
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
-                                            int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle, 8-row groups 1024
-// bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-// Pins the accumulator registers' order against the wgmma fence / wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-}
-
-// wgmma.m64n64k16 with f32 accumulators d (the m16n8 C layout per warp):
-// S-type (A and B from shared memory, both K-major) and R-type (A from
-// registers in the m16n8k16 A layout, B MN-major from shared memory).
-// scale_d = 0 overwrites d instead of adding to it.
-#define DL4J_ACC32(d)                                                     \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),             \
-      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),         \
-      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),         \
-      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),         \
-      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),         \
-      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),         \
-      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),         \
-      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-#define DL4J_D32                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}, "
-#define DL4J_WGMMA_N64(TY)                                                \
-  __device__ __forceinline__ void wgmma_ss_##TY(                          \
-      float (&d)[8][4], uint64_t da, uint64_t db, int scale_d) {          \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"             \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY \
-                 " " DL4J_D32 "%32, %33, p, 1, 1, 0, 0;\n}\n"             \
-                 : DL4J_ACC32(d)                                          \
-                 : "l"(da), "l"(db), "r"(scale_d));                       \
-  }                                                                       \
-  __device__ __forceinline__ void wgmma_rs_##TY(                          \
-      float (&d)[8][4], const uint32_t (&a)[4], uint64_t db,              \
-      int scale_d) {                                                      \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"             \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY \
-                 " " DL4J_D32 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-                 : DL4J_ACC32(d)                                          \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),   \
-                   "r"(scale_d));                                         \
-  }
-DL4J_WGMMA_N64(bf16)
-DL4J_WGMMA_N64(f16)
-#undef DL4J_WGMMA_N64
-#undef DL4J_D32
-#undef DL4J_ACC32
-
-template <typename T>
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    wgmma_ss_bf16(d, da, db, scale_d);
-  else
-    wgmma_ss_f16(d, da, db, scale_d);
-}
-
-template <typename T>
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    wgmma_rs_bf16(d, a, db, scale_d);
-  else
-    wgmma_rs_f16(d, a, db, scale_d);
-}
-
-// Byte offset of 16-byte chunk c of row r in a 64-row TMA tile: the
-// 64-column halves are 64 x 128 bytes apart, and the 128-byte swizzle XORs
-// the chunk with r % 8.
-__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
-  return (uint32_t)((c >> 3) * 64 * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
 // The epilogue of a warp's 16 rows (rows row0 + g, + 8; local rows
 // 16 warp + g, + 8 of the Q tile at sq): lse = m + log l per row (exactly
 // kNeg for a fully masked row), and o = acc / l in the input type, staged
@@ -290,7 +141,7 @@ __device__ __forceinline__ void finish_rows(const float (&acc)[DMAX / 8][4],
                                             T* o, uint32_t sq, int row0,
                                             int t, int d) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int rl0 = 16 * (threadIdx.x >> 5);
+  float inv[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float lt = l[hr];
@@ -300,29 +151,9 @@ __device__ __forceinline__ void finish_rows(const float (&acc)[DMAX / 8][4],
     const int row = row0 + g + 8 * hr;
     if (tig == 0 && row < t)
       lse[row] = (m[hr] == kNeg2 ? kNeg : m[hr] * kLn2) + logf(lt);
-    const float inv = 1.f / lt;
-#pragma unroll
-    for (int i = 0; i < DMAX / 8; ++i) {
-      const uint32_t pv = pack2<T>(acc[i][2 * hr] * inv,
-                                   acc[i][2 * hr + 1] * inv);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                       sq + tile_offset(rl0 + g + 8 * hr, i) + tig * 4),
-                   "r"(pv)
-                   : "memory");
-    }
+    inv[hr] = 1.f / lt;
   }
-  __syncwarp();
-#pragma unroll
-  for (int i = lane; i < 16 * (DMAX / 8); i += 32) {
-    const int r = i / (DMAX / 8), c = i % (DMAX / 8), row = row0 + r;
-    if (row < t && c < d / 8) {
-      uint4 val;
-      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-                   : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
-                   : "r"(sq + tile_offset(rl0 + r, c)));
-      *reinterpret_cast<uint4*>(o + (size_t)row * d + c * 8) = val;
-    }
-  }
+  store_rows<T, DMAX>(acc, inv, o, sq, row0, t, d);
 }
 
 template <int DMAX>
@@ -330,54 +161,6 @@ constexpr size_t fwd_smem_bytes() {
   // alignment slack, Q, the K and V rings, the mbarriers
   return 1024 + (size_t)64 * DMAX * 2 +
          2 * (size_t)kStages * kFwdKeys * DMAX * 2 + 8 * (1 + 4 * kStages);
-}
-
-// S = Q K^T of one tile: DMAX / 16 wgmma k16 steps over the warpgroup's Q
-// tile (sq) and the K tile (sk), both K-major.
-template <typename T, int DMAX>
-__device__ __forceinline__ void start_scores(float (&s)[8][4], uint32_t sq,
-                                             uint32_t sk) {
-#pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk)
-    wgmma_ss<T>(s, sw128_desc(sq + (kk >> 2) * 64 * 128 + (kk & 3) * 32),
-                sw128_desc(sk + (kk >> 2) * kFwdKeys * 128 + (kk & 3) * 32),
-                kk > 0);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// O += P V of one tile: 4 k16 steps, P from registers, V (sv) MN-major,
-// one n64 chain per 64-column half.
-template <typename T, int NH>
-__device__ __forceinline__ void start_pv(float (&acc)[NH][8][4],
-                                         const uint32_t (&pa)[4][4],
-                                         uint32_t sv) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int hh = 0; hh < NH; ++hh)
-      wgmma_rs<T>(acc[hh], pa[kc],
-                  sw128_desc(sv + hh * kFwdKeys * 128 + kc * 16 * 128), 1);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// p (C layout, f32) in the input type as the A operands of the four k16
-// steps of P V: k16 step kc takes n8 key tiles 2 kc and 2 kc + 1.
-template <typename T, int NKT>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
-                                       const float (&s)[NKT][4]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    pa[kc][0] = pack2<T>(s[2 * kc][0], s[2 * kc][1]);
-    pa[kc][1] = pack2<T>(s[2 * kc][2], s[2 * kc][3]);
-    pa[kc][2] = pack2<T>(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-    pa[kc][3] = pack2<T>(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kc][e])::"memory");
-  }
 }
 
 template <typename T, int DMAX>
@@ -478,7 +261,8 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
     mbar_wait(k_full(st), ph);
     // probe: scores
     wgmma_fence();
-    start_scores<T, DMAX>(s, sq, sk + st * kTileBytes);
+    mma_abt<T, DMAX>(s, sq, sk + st * kTileBytes);
+    wgmma_commit();
     wgmma_wait();
     fence_regs(s);
     release(k_empty(st));
@@ -496,12 +280,13 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
       }
       fence_regs(acc[hh]);
     }
-    pack_p<T>(pa, s);
+    pack_a<T>(pa, s);
     // probe: wait
     mbar_wait(v_full(st), ph);
     // probe: pv
     wgmma_fence();
-    start_pv<T, NH>(acc, pa, sv + st * kTileBytes);
+    mma_pb<T, NH>(acc, pa, sv + st * kTileBytes);
+    wgmma_commit();
     wgmma_wait();
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) fence_regs(acc[hh]);
@@ -522,55 +307,6 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
                        d);
   // probe: done
 }
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime at first
-// use, so the library links without -lcuda.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &res) != cudaSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) != cudaSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A [bh, t, d] 16-bit tensor as 64 x 64 boxes with the 128-byte swizzle;
-// boxes past t or d are zero-filled.
-template <typename T>
-bool encode_map(CUtensorMap* map, const void* ptr, int bh, int t, int d) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)kFwdKeys, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map,
-             std::is_same<T, __nv_bfloat16>::value
-                 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-             3, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 
 template <typename T, int DMAX>
 cudaError_t launch_fwd(const FwdArgs& a, int bh, cudaStream_t stream) {

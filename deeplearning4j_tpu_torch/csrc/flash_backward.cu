@@ -1,4 +1,5 @@
-// Flash attention backward for Hopper (sm_90a): the dq and dkv kernels.
+// Flash attention backward for Hopper (sm_90a): the dq (B4) and dkv (B5)
+// kernels.
 //
 // Replace the TPU kernels _dq_kernel and _dkv_kernel
 // (deeplearning4j_tpu/kernels/pallas_attention.py:114 and :153, driven by
@@ -7,27 +8,33 @@
 // the other operand's blocks in order. Hopper CTAs run in parallel in no
 // order, so each kernel's accumulation runs inside one CTA instead:
 //
-// - flash_attention_bwd_dq: one CTA per (b*h, 64-query tile) loops over
-//   64-key tiles up to the causal diagonal, dq accumulated on chip.
-// - flash_attention_bwd_dkv: one CTA per (b*h, 64-key tile) loops over
-//   64-query tiles from the diagonal to T, dk and dv accumulated on chip.
+// - flash_attention_bwd_dq (B4): one CTA per (b*h, 64-query tile) loops
+//   over 64-key tiles up to the causal diagonal, dq accumulated on chip.
+//   It keeps PR 2's design (attention_bwd_common.cuh: WMMA products whose
+//   s / dP and p / ds tiles round-trip through shared memory) for every
+//   input type.
+// - flash_attention_bwd_dkv (B5): one CTA per (b*h, 64-key tile) loops
+//   over 64-query tiles from the diagonal to T, dk and dv accumulated on
+//   chip. bf16 / f16 inputs run the dkv role of attention_bwd_core.cuh: K
+//   and V resident, (Q, dO) tiles and their lse / delta through a TMA ring,
+//   S^T, dP^T, dV and dK on wgmma with P^T and dS^T packed in registers as
+//   the A operands of the last two; f32 inputs keep the CUDA-core kernel
+//   (the tensor cores would round them to TF32).
 //
 // Both recompute p from the saved lse and take delta = rowsum(dO . O) from
 // the caller, who may pass the global row term (the sequence-parallel ring
-// backward does). The tile-pair arithmetic is shared with the
-// short-sequence backward (attention_bwd_common.cuh).
+// backward does).
 //
 // What bounds them on H100: at (B=4, H=12, T=2048, D=64, bf16, causal)
 // the dq kernel needs ~6 * D FLOP per visible query-key pair (~39 us at
 // 989 TF/s) against ~25 MB of q, k, v, dO and dq (~8 us at 3.35 TB/s),
 // and the dkv kernel ~8 * D per pair (~52 us) against ~38 MB: both are
-// compute-bound by the data sheet. This first version runs every product
-// through WMMA with the s / dP tiles and the 16-bit p / ds tiles
-// round-tripping through shared memory; register-resident tiles (raw
-// mma.sync or wgmma with known layouts) and TMA-fed operand rings are the
-// next steps.
+// compute-bound by the data sheet. The dkv core keeps every operand tile
+// in shared memory once, overlaps the next tile's copy with this tile's
+// products, and leaves only the elementwise p / ds pass between the
+// products, which is now its largest phase (PERF.md).
 
-#include "attention_bwd_common.cuh"
+#include "attention_bwd_core.cuh"
 
 namespace dl4j {
 namespace {
@@ -38,24 +45,39 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   bwd_dq<T, DMAX>(a, blockIdx.y, blockIdx.x * kQRows, smem);
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bwd_dkv<T, DMAX>(a, blockIdx.y, blockIdx.x * kKeyTile, smem);
+  bwd_dkv_f32<DMAX>(a, blockIdx.y, blockIdx.x * kKeyTile, smem);
+}
+
+template <typename T>
+cudaError_t run_dq(const BwdArgs& a, int bh, cudaStream_t s) {
+  const dim3 grid(num_tiles(a.t), bh);
+  const size_t smem = bwd_smem<T>(a.d);
+  if (a.d <= 32) return launch_bwd(flash_dq_kernel<T, 32>, grid, smem, a, s);
+  if (a.d <= 64) return launch_bwd(flash_dq_kernel<T, 64>, grid, smem, a, s);
+  return launch_bwd(flash_dq_kernel<T, 128>, grid, smem, a, s);
+}
+
+template <typename T>
+cudaError_t run_dkv(const BwdArgs& a, int bh, cudaStream_t s) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return dispatch_bwd_core<T, false>(a, bh, s);
+  } else {
+    const dim3 grid(num_tiles(a.t), bh);
+    const size_t smem = bwd_smem<float>(a.d);
+    if (a.d <= 32)
+      return launch_bwd(flash_dkv_f32_kernel<32>, grid, smem, a, s);
+    if (a.d <= 64)
+      return launch_bwd(flash_dkv_f32_kernel<64>, grid, smem, a, s);
+    return launch_bwd(flash_dkv_f32_kernel<128>, grid, smem, a, s);
+  }
 }
 
 template <typename T>
 cudaError_t run(bool dq, const BwdArgs& a, int bh, cudaStream_t s) {
-  const dim3 grid(num_tiles(a.t), bh);
-  const size_t smem = bwd_smem<T>(a.d);
-  if (a.d <= 32)
-    return dq ? launch_bwd(flash_dq_kernel<T, 32>, grid, smem, a, s)
-              : launch_bwd(flash_dkv_kernel<T, 32>, grid, smem, a, s);
-  if (a.d <= 64)
-    return dq ? launch_bwd(flash_dq_kernel<T, 64>, grid, smem, a, s)
-              : launch_bwd(flash_dkv_kernel<T, 64>, grid, smem, a, s);
-  return dq ? launch_bwd(flash_dq_kernel<T, 128>, grid, smem, a, s)
-            : launch_bwd(flash_dkv_kernel<T, 128>, grid, smem, a, s);
+  return dq ? run_dq<T>(a, bh, s) : run_dkv<T>(a, bh, s);
 }
 
 int entry(bool dq, const void* q, const void* k, const void* v,

@@ -1,5 +1,5 @@
-// Short-sequence attention backward for Hopper (sm_90a): dq, dk and dv
-// from one launch.
+// Short-sequence attention backward (B2) for Hopper (sm_90a): dq, dk and
+// dv from one launch.
 //
 // Replaces the TPU kernel _short_bwd_kernel
 // (deeplearning4j_tpu/kernels/pallas_shortseq.py:160, driven by
@@ -10,7 +10,7 @@
 // key tile contributes to, needs either a reduction across CTAs or a
 // second walk over the key tiles. This kernel takes the second walk: its
 // grid holds, for each b*h, one CTA per 64-key tile that walks the query
-// tiles from the causal diagonal down and accumulates dk and dv on chip,
+// tiles from the causal diagonal to T and accumulates dk and dv on chip,
 // and one CTA per 64-query tile that walks the key tiles up to the
 // diagonal and accumulates dq on chip. Each gradient element is summed by
 // one CTA in a fixed order, so the result is the same on every run (f32
@@ -21,37 +21,47 @@
 // What bounds it on H100: at the flagship train step (B=32, H=12, T=512,
 // D=64, bf16, causal) the function moves ~176 MB (q, k, v, dO, dq, dk, dv
 // once each, plus lse and delta: ~53 us at 3.35 TB/s) and needs ~10 * D
-// FLOP per visible query-key pair (~33 us at 989 TF/s), so the data sheet
-// calls it memory-bound. The tile arithmetic (attention_bwd_common.cuh)
-// runs every product through WMMA; s and p are computed twice per tile
-// pair (once by each role), and every tile round-trips through shared
-// memory. Register-resident tiles and TMA staging are the next steps.
+// FLOP per visible query-key pair (~33 us at 989 TF/s; the second walk
+// makes it 14 * D, ~46 us), so the data sheet calls it memory-bound. bf16
+// / f16 inputs run attention_bwd_core.cuh: K / V or Q / dO tiles through a
+// TMA ring, all four products of a tile pair on wgmma, and S, dP, p and ds
+// in registers only, so each CTA reads its operands once from L2 and
+// writes its gradient once. Its dkv and dq CTAs are interleaved in the
+// grid, the longest walks of a b*h first. f32 inputs keep the CUDA-core
+// kernel of attention_bwd_common.cuh (the tensor cores would round them
+// to TF32).
 
-#include "attention_bwd_common.cuh"
+#include "attention_bwd_core.cuh"
 
 namespace dl4j {
 namespace {
 
-// blockIdx.x < tiles: the dkv role for key tile blockIdx.x; otherwise the
-// dq role for query tile blockIdx.x - tiles.
-template <typename T, int DMAX>
+// f32: blockIdx.x < tiles is the dkv role for key tile blockIdx.x;
+// otherwise the dq role for query tile blockIdx.x - tiles.
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-    shortseq_bwd_kernel(BwdArgs a) {
+    shortseq_bwd_f32_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tiles = num_tiles(a.t);
   if ((int)blockIdx.x < tiles)
-    bwd_dkv<T, DMAX>(a, blockIdx.y, blockIdx.x * kKeyTile, smem);
+    bwd_dkv_f32<DMAX>(a, blockIdx.y, blockIdx.x * kKeyTile, smem);
   else
-    bwd_dq<T, DMAX>(a, blockIdx.y, (blockIdx.x - tiles) * kQRows, smem);
+    bwd_dq_f32<DMAX>(a, blockIdx.y, (blockIdx.x - tiles) * kQRows, smem);
 }
 
 template <typename T>
 cudaError_t run(const BwdArgs& a, int bh, cudaStream_t s) {
-  const dim3 grid(2 * num_tiles(a.t), bh);
-  const size_t smem = bwd_smem<T>(a.d);
-  if (a.d <= 32) return launch_bwd(shortseq_bwd_kernel<T, 32>, grid, smem, a, s);
-  if (a.d <= 64) return launch_bwd(shortseq_bwd_kernel<T, 64>, grid, smem, a, s);
-  return launch_bwd(shortseq_bwd_kernel<T, 128>, grid, smem, a, s);
+  if constexpr (!std::is_same<T, float>::value) {
+    return dispatch_bwd_core<T, true>(a, bh, s);
+  } else {
+    const dim3 grid(2 * num_tiles(a.t), bh);
+    const size_t smem = bwd_smem<float>(a.d);
+    if (a.d <= 32)
+      return launch_bwd(shortseq_bwd_f32_kernel<32>, grid, smem, a, s);
+    if (a.d <= 64)
+      return launch_bwd(shortseq_bwd_f32_kernel<64>, grid, smem, a, s);
+    return launch_bwd(shortseq_bwd_f32_kernel<128>, grid, smem, a, s);
+  }
 }
 
 }  // namespace

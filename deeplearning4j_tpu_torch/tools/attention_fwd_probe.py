@@ -102,8 +102,8 @@ def build():
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     csrc = cuda_lib.CSRC
     core = (csrc / "attention_fwd_core.cuh").read_text()
-    (PROBE_DIR / "attention_common.cuh").write_text(
-        (csrc / "attention_common.cuh").read_text())
+    for header in ("attention_common.cuh", "hopper_common.cuh"):
+        (PROBE_DIR / header).write_text((csrc / header).read_text())
     srcs = {
         "plain": core + ENTRY,
         "stamped": STAMPS + _instrumented(core) + ENTRY,

@@ -2,8 +2,8 @@
 and backward, against its plain PyTorch version at small shapes (every
 supported dtype, head dims 8-128, T at every tile edge, a key mask with
 holes, a fully masked row), the two forwards against each other, the
-shapes the wrappers refuse, and gradients through an attention layer on
-the card; the LSTM recurrence kernel (B6) against its plain
+backward kernels' bitwise determinism over two calls, the shapes the
+wrappers refuse, and gradients through an attention layer on the card; the LSTM recurrence kernel (B6) against its plain
 version (f32 / bf16, peepholes, masks, T 1-128, N 1 / 64, H 16 / 512), its
 refusals and its gradients. Every test here needs a CUDA card and skips without
 one. The module imports no JAX, so it runs where JAX is not installed:
@@ -125,50 +125,79 @@ def _rel_l2(got, want, floor=None):
 BWD_TOL = {torch.float32: 1e-4, torch.float16: 5e-3, torch.bfloat16: 2e-2}
 
 
+#: the backward kernels' cases: T around the 64-key / 64-query tile edges
+#: for both, and past the short-sequence range for B4 + B5
+BWD_CASES = [(kernel, t) for kernel in ("short", "flash")
+             for t in FWD_T + ([577, 2049] if kernel == "flash" else [])]
+
+
+def _bwd_case(t, d, dtype, device, seed):
+    """q, k, v, dO [6, T, D] (B 3, H 2) and the holey key mask of
+    :func:`_holey_mask` (batch row 1 ragged with holes, row 2 fully
+    masked)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q3, k3, v3, do = (torch.randn(6, t, d, generator=g, device=device)
+                      .to(dtype) for _ in range(4))
+    return q3, k3, v3, do, _holey_mask(t, [t, max(t // 2, 1), 0], device)
+
+
+def _run_bwd(kernel, q3, k3, v3, km, h, causal, o, lse, do, delta):
+    """(dq, dk, dv) from B2 (short) or B4 + B5 (flash), and the launches
+    each of their counters took."""
+    counters = ((ss.short_attention_bwd,) if kernel == "short" else
+                (fb.flash_backward_dq, fb.flash_backward_dkv))
+    before = [c.launches for c in counters]
+    if kernel == "short":
+        got = ss.short_attention_bwd(q3, k3, v3, km, h, causal, o, lse, do,
+                                     delta)
+    else:
+        got = fb.flash_backward(q3, k3, v3, km, h, causal, o, lse, do, delta)
+    return got, [c.launches - n for c, n in zip(counters, before)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=str)
-@pytest.mark.parametrize("kernel", ["short", "flash"])
-@pytest.mark.parametrize("t", [1, 77, 512, 600])
-@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("d", [8, 24, 64, 128])
+@pytest.mark.parametrize("kernel,t", BWD_CASES)
 def test_backward_kernels_match_plain_on_card(cuda_device, kernel, t, d,
                                               dtype):
     """B2 (short) or B4 + B5 (flash) against attention_bwd_plain on the
-    same (q, k, v, o, lse, dO, δ), causal and not, with a ragged and a
-    fully masked batch row."""
-    if kernel == "short" and t > ss.MAX_T:
-        pytest.skip("T above the short-sequence kernel's range")
-    b, h = 3, 2
-    g = torch.Generator(device=cuda_device).manual_seed(7 * t + d)
-    q3, k3, v3, do = (torch.randn(b * h, t, d, generator=g,
-                                  device=cuda_device).to(dtype)
-                      for _ in range(4))
-    lengths = torch.tensor([t, max(t // 2, 1), 0], device=cuda_device)
-    km = (torch.arange(t, device=cuda_device)[None] <
-          lengths[:, None]).float()
+    same (q, k, v, o, lse, dO, δ), causal and not, with a key mask that
+    has holes and a fully masked batch row (finite gradients there)."""
+    h = 2
+    q3, k3, v3, do, km = _bwd_case(t, d, dtype, cuda_device, 7 * t + d)
     live = slice(0, 2 * h)                # batch row 2 is fully masked
     for causal in (True, False):
         o, lse = ss.attention_fwd_plain(q3, k3, v3, km, h, causal)
         delta = ss.row_delta(do, o)
         want = ss.attention_bwd_plain(q3, k3, v3, km, h, causal, o, lse, do,
                                       delta)
-        if kernel == "short":
-            before = ss.short_attention_bwd.launches
-            got = ss.short_attention_bwd(q3, k3, v3, km, h, causal, o, lse,
-                                         do, delta)
-            launched = ss.short_attention_bwd.launches - before
-        else:
-            before = (fb.flash_backward_dq.launches,
-                      fb.flash_backward_dkv.launches)
-            got = fb.flash_backward(q3, k3, v3, km, h, causal, o, lse, do,
-                                    delta)
-            launched = (fb.flash_backward_dq.launches - before[0]) * \
-                (fb.flash_backward_dkv.launches - before[1])
+        got, launched = _run_bwd(kernel, q3, k3, v3, km, h, causal, o, lse,
+                                 do, delta)
         torch.cuda.synchronize()
-        assert launched == 1
+        assert all(n == 1 for n in launched)
         for name, x, y in zip(("dq", "dk", "dv"), got, want):
             assert x.dtype == dtype and torch.isfinite(x).all(), name
             assert _rel_l2(x[live], y[live], do[live]) <= BWD_TOL[dtype], \
                 name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kernel,t", [("short", 300), ("flash", 577)])
+def test_backward_kernels_are_deterministic_on_card(cuda_device, kernel, t,
+                                                    d, dtype):
+    """Each gradient element is summed by one CTA in a fixed order: two
+    calls of B2, or of B4 + B5, on the same inputs give the same bits."""
+    h = 2
+    q3, k3, v3, do, km = _bwd_case(t, d, dtype, cuda_device, t + d)
+    o, lse = ss.attention_fwd_plain(q3, k3, v3, km, h, True)
+    delta = ss.row_delta(do, o)
+    first, _ = _run_bwd(kernel, q3, k3, v3, km, h, True, o, lse, do, delta)
+    second, _ = _run_bwd(kernel, q3, k3, v3, km, h, True, o, lse, do, delta)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x.view(torch.int16), y.view(torch.int16)), name
 
 
 def test_backward_kernels_reject_unsupported_shapes(cuda_device):

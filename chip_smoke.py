@@ -47,7 +47,8 @@ Phases, each an uncaught exception on failure:
    CHARRNN_LR) through ``MultiLayerNetwork._fit_batch`` on seeded one-hot
    sequences: the first-step loss and four gradients against the same
    weights in f32 on the CPU (2 rows), then 2 warm and 8 timed steps; the
-   LSTM kernel must launch 2 times a step and the loss must fall.
+   LSTM kernel must launch 2 times a step, on its cluster route, and the
+   loss must fall.
 9. truncated BPTT: ``fit`` with the example's 50-step window over the same
    T 128 batch (3 windows): 2 launches per window, the (h, c) carry handed
    from each window to the next.
@@ -57,10 +58,15 @@ Phases, each an uncaught exception on failure:
    twin's.
 11. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
-The LSTM kernel (B6) is checked in phase 3 against its plain version at
-the char-RNN's shape (T 128, N 64, H 512) in f32 and bf16, with and
-without peepholes and masked, and timed beside the cuDNN LSTM layer
-(``torch.nn.LSTM``, the same weights) as the yardstick.
+The LSTM kernel (B6) is checked in phase 3 against its plain version on
+both of its routes (``LSTM_CASES``): the cluster route at the char-RNN's
+shape (T 128, N 64, H 512, bf16) with and without peepholes, masked, and
+at N 61; the cooperative route in f32 and in bf16 at H 600. Each launch
+must take the route named; each route is timed, beside the cuDNN LSTM
+layer (``torch.nn.LSTM``, the same weights) as the yardstick. Phases 8
+and 9 must run every LSTM launch on the cluster route, phase 10 (f32) on
+the cooperative one. The B4 + B5 line before the ``kernels`` line sets
+the flash backward's two kernels against SDPA's whole backward.
 """
 
 import json
@@ -194,10 +200,16 @@ def time_ms(fn, warmup: int = 3, reps: int = 20, batch: int = 10) -> float:
 def reset_launches():
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
+    lk.lstm_recurrence_fwd.routes = dict.fromkeys(lk.ROUTES, 0)
 
 
 def read_launches():
     return {n: s["wrapper"].launches for n, s in KERNELS.items()}
+
+
+def lstm_routes():
+    """B6's launches by route since the last reset_launches()."""
+    return dict(lk.lstm_recurrence_fwd.routes)
 
 
 # ----------------------------------------------------------------- phase 1
@@ -479,32 +491,55 @@ def _cudnn_twin(params, n_in, h, dtype):
     return ref
 
 
+def _lstm_check(t, n, h, dtype, peep, masked, seed, route):
+    """B6 on one case against its plain version; the launch must take
+    ``route``. Returns the max-abs error."""
+    args = _lstm_inputs(t, n, h, dtype, peep, masked, seed)
+    before = lstm_routes()
+    got = lk.lstm_recurrence_fwd(*args)
+    took = [r for r, c in lstm_routes().items() if c != before[r]]
+    want = lk.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError("lstm_recurrence: non-finite output")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    log(f"lstm_recurrence T={t} N={n} H={h} {str(dtype)[6:]} "
+        f"peepholes {peep} masked {masked}: route {took}, y/hT/cT max-abs "
+        f"{err:.3e} (tol {LSTM_TOL[dtype]})")
+    if took != [route]:
+        raise AssertionError(f"lstm_recurrence took route {took}, expected "
+                             f"{route}")
+    if not err <= LSTM_TOL[dtype]:
+        raise AssertionError("lstm_recurrence: disagrees with its plain "
+                             "version")
+    return err
+
+
+#: B6's cases: (T, N, H, dtype, peepholes, masked, route). The cluster
+#: route at the char-RNN shape (bf16), with and without peepholes, masked,
+#: and with N not a multiple of a cluster's rows; the cooperative route in
+#: f32 and at a bf16 width the cluster route does not take (H > 512)
+LSTM_CASES = [
+    (128, 64, 512, torch.bfloat16, False, False, "cluster"),
+    (128, 64, 512, torch.bfloat16, True, False, "cluster"),
+    (128, 64, 512, torch.bfloat16, True, True, "cluster"),
+    (128, 61, 512, torch.bfloat16, True, True, "cluster"),
+    (128, 64, 512, torch.float32, False, False, "cooperative"),
+    (128, 64, 512, torch.float32, True, False, "cooperative"),
+    (128, 64, 600, torch.bfloat16, True, False, "cooperative"),
+]
+
+
 def check_lstm_kernel(t=128, n=64, h=512):
-    """B6 against its plain version at the char-RNN's shape (f32 and bf16,
-    peepholes off and on, one masked case), then its time, the plain
-    version's and the layer-level comparison with cuDNN."""
+    """B6 against its plain version on both routes (LSTM_CASES), then its
+    time on each route, the plain version's and the layer-level
+    comparison with cuDNN."""
     errs = {}
-    for dtype, peep, masked in ((torch.float32, False, False),
-                                (torch.float32, True, False),
-                                (torch.bfloat16, False, False),
-                                (torch.bfloat16, True, False),
-                                (torch.bfloat16, True, True)):
-        args = _lstm_inputs(t, n, h, dtype, peep, masked, 31)
-        got = lk.lstm_recurrence_fwd(*args)
-        want = lk.lstm_recurrence_plain(*args)
-        torch.cuda.synchronize()
-        if not all(torch.isfinite(x).all() for x in got):
-            raise AssertionError("lstm_recurrence: non-finite output")
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(got, want))
-        errs[(dtype, peep, masked)] = err
-        log(f"lstm_recurrence T={t} N={n} H={h} {str(dtype)[6:]} "
-            f"peepholes {peep} masked {masked}: y/hT/cT max-abs {err:.3e} "
-            f"(tol {LSTM_TOL[dtype]})")
-        if not err <= LSTM_TOL[dtype]:
-            raise AssertionError("lstm_recurrence: disagrees with its plain "
-                                 "version")
-    log(f"  launch plan {lk.lstm_plan(n, h, torch.bfloat16)} (bf16), "
+    for i, case in enumerate(LSTM_CASES):
+        errs[case[:6]] = _lstm_check(*case[:6], 31 + i, case[6])
+    log(f"  launch plans: {lk.lstm_plan(n, h, torch.bfloat16)} (bf16), "
+        f"{lk.lstm_plan(n, 600, torch.bfloat16)} (bf16, H 600), "
         f"{lk.lstm_plan(1, h, torch.float32)} (f32, N=1)")
     # the main path's case: the char-RNN's GravesLSTM, bf16, unmasked
     args = _lstm_inputs(t, n, h, torch.bfloat16, True, False, 32)
@@ -513,8 +548,11 @@ def check_lstm_kernel(t=128, n=64, h=512):
                        reps=5, batch=2)
     f32_args = _lstm_inputs(t, n, h, torch.float32, True, False, 33)
     f32_ms = time_ms(lambda: lk.lstm_recurrence_fwd(*f32_args))
+    wide_args = _lstm_inputs(t, n, 600, torch.bfloat16, True, False, 36)
+    wide_ms = time_ms(lambda: lk.lstm_recurrence_fwd(*wide_args))
     bound_ms, bound_by = _lstm_bound(t, n, h, torch.bfloat16, True, False)
     f32_bound, _ = _lstm_bound(t, n, h, torch.float32, True, False)
+    wide_bound, _ = _lstm_bound(t, n, 600, torch.bfloat16, True, False)
     # layer level: the port's LSTM layer (input projection + B6) against
     # cuDNN's with the same weights; agreement checked in f32
     layer = GravesLSTM(n_in=h, n_out=h, activation="tanh", peephole=False)
@@ -541,14 +579,17 @@ def check_lstm_kernel(t=128, n=64, h=512):
         f"{agree:.3e} (tol {CUDNN_AGREE_TOL})")
     if not agree <= CUDNN_AGREE_TOL:
         raise AssertionError("the cuDNN yardstick computes another function")
-    log(f"  kernel_ms {ms:.4f} (f32 {f32_ms:.4f}) plain_ms {plain_ms:.4f} "
-        f"bound_us {bound_ms * 1e3:.1f} ({bound_by}; f32 {f32_bound * 1e3:.1f}"
-        f") | layer (projection + recurrence, nIn {h}, bf16): cuDNN "
-        f"{library_ms:.4f} ms, port {layer_ms:.4f} ms (peepholes "
-        f"{peep_layer_ms:.4f} ms); f32: cuDNN {library_f32_ms:.4f} ms, port "
-        f"{layer_f32_ms:.4f} ms")
-    return {"max_abs_err": errs[(torch.bfloat16, True, False)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    log(f"  kernel_ms {ms:.4f} (cluster route, bf16, {ms / t * 1e3:.2f} us "
+        f"a step; cooperative route: f32 {f32_ms:.4f}, bf16 H 600 "
+        f"{wide_ms:.4f}) plain_ms {plain_ms:.4f} bound_us "
+        f"{bound_ms * 1e3:.1f} ({bound_by}; f32 {f32_bound * 1e3:.1f}, bf16 "
+        f"H 600 {wide_bound * 1e3:.1f}) | layer (projection + recurrence, "
+        f"nIn {h}, bf16): cuDNN {library_ms:.4f} ms, port {layer_ms:.4f} ms "
+        f"(peepholes {peep_layer_ms:.4f} ms); f32: cuDNN "
+        f"{library_f32_ms:.4f} ms, port {layer_f32_ms:.4f} ms")
+    return {"max_abs_err": errs[(t, n, h, torch.bfloat16, True, False)],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": library_ms}
 
 
@@ -593,6 +634,14 @@ def phase_kernel_checks():
         measured[name] = check_bwd_kernel(name, 4, 12, 2048, 64,
                                           [2048] * 4, 6, False)
         check_bwd_kernel(name, 4, 12, 577, 64, [577, 300, 1, 0], 7, True)
+    dq, dkv = measured["flash_backward_dq"], measured["flash_backward_dkv"]
+    short["main_shapes"].append(
+        f"flash backward at B 4, H 12, T 2048, D 64 causal: B4 "
+        f"{dq['ms']:.4f} ms + B5 {dkv['ms']:.4f} ms = "
+        f"{dq['ms'] + dkv['ms']:.4f} ms; SDPA's whole backward in this run "
+        f"{dq['library_ms']:.4f} / {dkv['library_ms']:.4f} ms (B4 alone "
+        f"{dq['ms'] / dq['library_ms']:.2f}x, B4 + B5 "
+        f"{(dq['ms'] + dkv['ms']) / dkv['library_ms']:.2f}x)")
     measured["lstm_recurrence"] = check_lstm_kernel()
     return measured
 
@@ -925,10 +974,13 @@ def phase_charrnn_train(card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"char-RNN train: losses {[round(v, 4) for v in warm + losses]}; "
         f"kernel launches in 8 steps {launches}")
-    if launches["lstm_recurrence"] != layers * 8:
-        raise AssertionError(f"lstm_recurrence launched "
-                             f"{launches['lstm_recurrence']} times in 8 "
-                             f"steps, expected {layers * 8}")
+    routes = lstm_routes()
+    log(f"char-RNN train: LSTM launches by route {routes}")
+    if launches["lstm_recurrence"] != layers * 8 or \
+            routes["cluster"] != layers * 8:
+        raise AssertionError(f"lstm_recurrence launched {routes} times in 8 "
+                             f"steps, expected {layers * 8} on the cluster "
+                             "route")
     if not (np.isfinite(warm + losses).all() and losses[-1] < warm[0]):
         raise AssertionError("char-RNN training loss is not finite and "
                              "falling")
@@ -958,9 +1010,13 @@ def phase_charrnn_tbptt(card, ds):
     log(f"char-RNN TBPTT: {net.iteration} updates from one batch (window "
         f"50 over T 128), score {losses[0]:.4f}; kernel launches "
         f"{launches}")
+    routes = lstm_routes()
+    log(f"char-RNN TBPTT: LSTM launches by route {routes}")
     if net.iteration != windows or \
-            launches["lstm_recurrence"] != layers * windows:
-        raise AssertionError("TBPTT did not run 3 windows of 2 launches")
+            launches["lstm_recurrence"] != layers * windows or \
+            routes["cluster"] != layers * windows:
+        raise AssertionError("TBPTT did not run 3 windows of 2 launches on "
+                             "the cluster route")
     handed = [sorted(k for c in carry for k in c) for carry in carries]
     if handed[0] or any(h != ["c", "c", "h", "h"] for h in handed[1:]) or \
             any(c[i]["h"].shape != (64, 512) for c in carries[1:]
@@ -1003,9 +1059,12 @@ def phase_charrnn_sample(card, net):
         f"{fetched}")
     if len(text) != 101 or set(text) - set(chars):
         raise AssertionError("sample returned a malformed string")
-    if launches["lstm_recurrence"] != 2 * 100 or fetched != 100:
-        raise AssertionError("sampling did not launch the LSTM kernel twice "
-                             "and read back once per character")
+    routes = lstm_routes()
+    if launches["lstm_recurrence"] != 2 * 100 or fetched != 100 or \
+            routes["cooperative"] != 2 * 100:
+        raise AssertionError(f"sampling did not launch the LSTM kernel "
+                             f"twice (cooperative route, f32) and read back "
+                             f"once per character: {routes}")
     log(f"sampling [{card}]: {wall / 100 * 1e3:.3f} ms per character "
         f"(rnn_time_step, N 1, f32 masters)")
     return launches

@@ -1,8 +1,8 @@
-// Device code of the attention-backward kernels that keep PR 2's tile
-// design: B4 (flash_backward.cu, flash_attention_bwd_dq) for every input
-// type, and the f32 kernels of B2 and B5 (shortseq_attention_bwd.cu,
-// flash_backward.cu). The bf16 / f16 B2 and B5 run attention_bwd_core.cuh,
-// which takes BwdArgs from here.
+// Device code of the f32 attention-backward kernels, which keep the first
+// tile design on the CUDA cores (the tensor cores would round f32 to
+// TF32): B2's (shortseq_attention_bwd.cu) and B4's and B5's
+// (flash_backward.cu). Every bf16 / f16 backward runs
+// attention_bwd_core.cuh, which takes BwdArgs from here.
 //
 // The backward from the forward's saved lse and delta = rowsum(dO . O):
 //   s  = scale * q . k, replaced by -1e30 where the key is in the causal
@@ -16,8 +16,8 @@
 //
 // - dkv (bwd_dkv_f32): one 64-key tile of one b*h. K and V stay staged in
 //   shared memory; the CTA walks the query tiles from the causal diagonal
-//   to T, and dk, dv accumulate on chip (f32) and are written once.
-// - dq (bwd_dq_*): one 64-query tile. Q, dO, lse and delta stay staged;
+//   to T, and dk, dv accumulate on chip and are written once.
+// - dq (bwd_dq_f32): one 64-query tile. Q, dO, lse and delta stay staged;
 //   the CTA walks the key tiles up to the causal diagonal, and dq
 //   accumulates on chip and is written once.
 //
@@ -26,12 +26,6 @@
 // feeds them to the role's products. Tiles wholly in the causal future are
 // never visited; a ragged T and the key mask are handled by index (rows
 // past T are zero-staged, and their p and ds are 0).
-//
-// bf16 / f16 inputs (B4's bwd_dq_tc) run every product on the tensor cores
-// (WMMA 16x16x16, f32 accumulation; p and ds are rounded to the input type
-// before their products, as the TPU kernels round them). f32 inputs run
-// the same algorithm on the CUDA cores (the tensor cores would round to
-// TF32).
 
 #pragma once
 
@@ -40,7 +34,6 @@
 namespace dl4j {
 
 constexpr int kKeyTile = 64;          // keys per tile (queries: kQRows)
-constexpr int kBwdTcSS = kKeyTile + 4;   // f32 tile row stride (WMMA)
 constexpr int kBwdF32SS = kKeyTile + 1;  // f32 tile row stride (CUDA cores)
 
 struct BwdArgs {
@@ -63,12 +56,9 @@ __host__ __device__ __forceinline__ int num_tiles(int t) {
 }
 
 // Turn a tile pair's raw products in place into P (over S) and dS (over
-// dP), both of type P with row stride ss * 4 / sizeof(P): S holds q . k
-// and dP holds dO . v for query rows q0 + r and keys j0 + c. Rows r >= nq
-// and keys c >= nk get p = ds = 0. One warp per row; every lane reads its
-// two entries of both rows before any lane writes (a 16-bit row overlaps
-// the first half of the f32 row it replaces).
-template <typename P>
+// dP), row stride ss: S holds q . k and dP holds dO . v for query rows
+// q0 + r and keys j0 + c. Rows r >= nq and keys c >= nk get p = ds = 0.
+// One warp per row, each lane on its own two entries.
 __device__ __forceinline__ void probs_and_grads(float* S, float* dP, int ss,
                                                 const float* row_lse,
                                                 const float* row_delta,
@@ -77,9 +67,6 @@ __device__ __forceinline__ void probs_and_grads(float* S, float* dP, int ss,
                                                 const float* km,
                                                 float scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pld = ss * (int)(sizeof(float) / sizeof(P));
-  P* ps = reinterpret_cast<P*>(S);
-  P* dss = reinterpret_cast<P*>(dP);
   bool real[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -88,28 +75,14 @@ __device__ __forceinline__ void probs_and_grads(float* S, float* dP, int ss,
   }
   for (int r = warp; r < kQRows; r += kThreads / 32) {
     const float l = row_lse[r], dl = row_delta[r];
-    float pv[2], dv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int jl = lane + 32 * i;
       const bool keep = real[i] && (!causal || j0 + jl <= q0 + r);
       const float s = keep ? S[r * ss + jl] * scale : kNeg;
-      float p = 0.f;
-      if (r < nq && jl < nk) {
-        if constexpr (std::is_same<P, float>::value)
-          p = expf(s - l);
-        else
-          p = __expf(s - l);
-      }
-      pv[i] = p;
-      dv[i] = p * (dP[r * ss + jl] - dl) * scale;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int jl = lane + 32 * i;
-      ps[r * pld + jl] = from_f32<P>(pv[i]);
-      dss[r * pld + jl] = from_f32<P>(dv[i]);
+      const float p = r < nq && jl < nk ? expf(s - l) : 0.f;
+      S[r * ss + jl] = p;
+      dP[r * ss + jl] = p * (dP[r * ss + jl] - dl) * scale;
     }
   }
 }
@@ -125,143 +98,6 @@ __device__ __forceinline__ void stage_row_terms(float* row_lse,
     row_lse[r] = r < nq ? a.lse[i] : 0.f;
     row_delta[r] = r < nq ? a.delta[i] : 0.f;
   }
-}
-
-// ---- tensor-core (bf16 / f16) variant ----
-
-// C[64][ss] (f32) = A[64][ld] . B[64][ld]^T over dpad columns; warp rb
-// computes rows rb*16.. and column blocks half, half + 2.
-template <typename T>
-__device__ __forceinline__ void tc_abt(float* c, int ss, const T* a,
-                                       const T* b, int ld, int dpad, int rb,
-                                       int half) {
-  for (int cb = half; cb < kKeyTile / 16; cb += 2) {
-    FragC acc;
-    nvcuda::wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < dpad / 16; ++kk) {
-      FragA<T> fa;
-      FragBT<T> fb;
-      nvcuda::wmma::load_matrix_sync(fa, a + rb * 16 * ld + kk * 16, ld);
-      nvcuda::wmma::load_matrix_sync(fb, b + cb * 16 * ld + kk * 16, ld);
-      nvcuda::wmma::mma_sync(acc, fa, fb, acc);
-    }
-    nvcuda::wmma::store_matrix_sync(c + rb * 16 * ss + cb * 16, acc, ss,
-                                    nvcuda::wmma::mem_row_major);
-  }
-}
-
-// acc[f] += P . X for the warp's rows rb*16.. and column blocks
-// half + 2f: P is the 64 x 64 16-bit tile p or ds (row stride pld); X is
-// staged [64][ld].
-template <typename T, int FPW>
-__device__ __forceinline__ void tc_acc(FragC (&acc)[FPW], const T* p,
-                                       int pld, const T* x, int ld,
-                                       int dpad, int rb, int half) {
-  for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-    FragA<T> fa;
-    nvcuda::wmma::load_matrix_sync(fa, p + rb * 16 * pld + kk * 16, pld);
-#pragma unroll
-    for (int f = 0; f < FPW; ++f) {
-      const int cb = half + 2 * f;
-      if (cb < dpad / 16) {
-        FragB<T> fb;
-        nvcuda::wmma::load_matrix_sync(fb, x + kk * 16 * ld + cb * 16, ld);
-        nvcuda::wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-  }
-}
-
-// Write the accumulated rows [0, n) of a [64, d] f32 result to out (type
-// T) through the f32 staging block stage[64][dpad].
-template <typename T, int FPW>
-__device__ __forceinline__ void tc_store_rows(T* out, float* stage,
-                                              const FragC (&acc)[FPW], int n,
-                                              int d, int dpad, int rb,
-                                              int half) {
-#pragma unroll
-  for (int f = 0; f < FPW; ++f) {
-    const int cb = half + 2 * f;
-    if (cb < dpad / 16)
-      nvcuda::wmma::store_matrix_sync(stage + rb * 16 * dpad + cb * 16,
-                                      acc[f], dpad,
-                                      nvcuda::wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n * d; i += kThreads) {
-    const int r = i / d, c = i - r * d;
-    out[(size_t)r * d + c] = from_f32<T>(stage[r * dpad + c]);
-  }
-  __syncthreads();
-}
-
-// Shared-memory carve-up of the dq role: two resident tiles (X0, X1), two
-// streamed tiles (Y0, Y1), the S and dP tiles, and the row terms.
-template <typename T>
-struct TcBwdSmem {
-  T *x0, *x1, *y0, *y1;
-  float *s, *dp, *row_lse, *row_delta;
-  __device__ TcBwdSmem(unsigned char* smem, int ld) {
-    const size_t tile = (size_t)kQRows * ld;
-    x0 = reinterpret_cast<T*>(smem);
-    x1 = x0 + tile;
-    y0 = x1 + tile;
-    y1 = y0 + tile;
-    s = reinterpret_cast<float*>(y1 + tile);
-    dp = s + kQRows * kBwdTcSS;
-    row_lse = dp + kQRows * kBwdTcSS;
-    row_delta = row_lse + kQRows;
-  }
-};
-
-inline size_t tc_bwd_smem(int d, size_t elem) {
-  const size_t ld = round_up16(d) + 8;
-  return elem * 4 * kQRows * ld +
-         sizeof(float) * (2 * (size_t)kQRows * kBwdTcSS + 2 * kQRows);
-}
-
-// dq role: query tile q0 of head bh.
-template <typename T, int DMAX>
-__device__ __forceinline__ void bwd_dq_tc(const BwdArgs& a, int bh, int q0,
-                                          unsigned char* raw) {
-  constexpr int FPW = DMAX / 32 > 0 ? DMAX / 32 : 1;
-  const int t = a.t, d = a.d, dpad = round_up16(d), ld = dpad + 8;
-  const int nq = min(kQRows, t - q0);
-  const int kend = a.causal ? min(t, q0 + kQRows) : t;
-  TcBwdSmem<T> sm(raw, ld);
-  const size_t base = (size_t)bh * t * d;
-  const T* k = static_cast<const T*>(a.k) + base;
-  const T* v = static_cast<const T*>(a.v) + base;
-  const float* km = a.kmask ? a.kmask + (size_t)(bh / a.h) * t : nullptr;
-  const int warp = threadIdx.x >> 5, rb = warp & 3, half = warp >> 2;
-
-  stage_tile(sm.x0, static_cast<const T*>(a.q) + base + (size_t)q0 * d, nq,
-             kQRows, d, dpad, ld);
-  stage_tile(sm.x1, static_cast<const T*>(a.dout) + base + (size_t)q0 * d,
-             nq, kQRows, d, dpad, ld);
-  stage_row_terms(sm.row_lse, sm.row_delta, a, bh, q0, nq);
-  FragC dq[FPW];
-#pragma unroll
-  for (int f = 0; f < FPW; ++f) nvcuda::wmma::fill_fragment(dq[f], 0.f);
-  for (int j0 = 0; j0 < kend; j0 += kKeyTile) {
-    const int nk = min(kKeyTile, kend - j0);
-    __syncthreads();
-    stage_tile(sm.y0, k + (size_t)j0 * d, nk, kKeyTile, d, dpad, ld);
-    stage_tile(sm.y1, v + (size_t)j0 * d, nk, kKeyTile, d, dpad, ld);
-    __syncthreads();
-    tc_abt(sm.s, kBwdTcSS, sm.x0, sm.y0, ld, dpad, rb, half);
-    tc_abt(sm.dp, kBwdTcSS, sm.x1, sm.y1, ld, dpad, rb, half);
-    __syncthreads();
-    probs_and_grads<T>(sm.s, sm.dp, kBwdTcSS, sm.row_lse, sm.row_delta, q0,
-                       nq, j0, nk, a.causal, km, a.scale);
-    __syncthreads();
-    tc_acc<T, FPW>(dq, reinterpret_cast<const T*>(sm.dp), 2 * kBwdTcSS,
-                   sm.y0, ld, dpad, rb, half);
-  }
-  __syncthreads();
-  tc_store_rows<T, FPW>(static_cast<T*>(a.dq) + base + (size_t)q0 * d,
-                        reinterpret_cast<float*>(sm.y0), dq, nq, d, dpad, rb,
-                        half);
 }
 
 // ---- CUDA-core (f32) variant ----
@@ -346,7 +182,7 @@ struct F32BwdSmem {
   }
 };
 
-inline size_t f32_bwd_smem(int d) {
+inline size_t bwd_smem(int d) {
   return sizeof(float) * (4 * (size_t)kQRows * (d + 1) +
                           2 * (size_t)kQRows * kBwdF32SS + 2 * kQRows);
 }
@@ -378,7 +214,7 @@ __device__ __forceinline__ void bwd_dkv_f32(const BwdArgs& a, int bh, int j0,
     f32_abt(sm.s, kBwdF32SS, sm.y0, sm.x0, ds, d);
     f32_abt(sm.dp, kBwdF32SS, sm.y1, sm.x1, ds, d);
     __syncthreads();
-    probs_and_grads<float>(sm.s, sm.dp, kBwdF32SS, sm.row_lse, sm.row_delta,
+    probs_and_grads(sm.s, sm.dp, kBwdF32SS, sm.row_lse, sm.row_delta,
                            q0, nq, j0, nk, a.causal, km, a.scale);
     __syncthreads();
     f32_acc_tn<DC>(dv, sm.s, kBwdF32SS, sm.y1, ds, d);
@@ -419,7 +255,7 @@ __device__ __forceinline__ void bwd_dq_f32(const BwdArgs& a, int bh, int q0,
     f32_abt(sm.s, kBwdF32SS, sm.x0, sm.y0, ds, d);
     f32_abt(sm.dp, kBwdF32SS, sm.x1, sm.y1, ds, d);
     __syncthreads();
-    probs_and_grads<float>(sm.s, sm.dp, kBwdF32SS, sm.row_lse, sm.row_delta,
+    probs_and_grads(sm.s, sm.dp, kBwdF32SS, sm.row_lse, sm.row_delta,
                            q0, nq, j0, nk, a.causal, km, a.scale);
     __syncthreads();
     pv_tile<DC>(dq, sm.dp, kBwdF32SS, sm.y0, ds, d, kKeyTile);
@@ -428,25 +264,7 @@ __device__ __forceinline__ void bwd_dq_f32(const BwdArgs& a, int bh, int q0,
                      nq, d);
 }
 
-// B4's work for the CTA, by element type.
-template <typename T, int DMAX>
-__device__ __forceinline__ void bwd_dq(const BwdArgs& a, int bh, int q0,
-                                       unsigned char* smem) {
-  if constexpr (std::is_same<T, float>::value)
-    bwd_dq_f32<DMAX>(a, bh, q0, smem);
-  else
-    bwd_dq_tc<T, DMAX>(a, bh, q0, smem);
-}
-
 // ---- host side ----
-
-template <typename T>
-size_t bwd_smem(int d) {
-  if constexpr (std::is_same<T, float>::value)
-    return f32_bwd_smem(d);
-  else
-    return tc_bwd_smem(d, sizeof(T));
-}
 
 template <typename Kern>
 cudaError_t launch_bwd(Kern kern, dim3 grid, size_t smem, const BwdArgs& a,

@@ -1,5 +1,6 @@
 // The bf16 / f16 attention backward shared by B2 (shortseq_attention_bwd.cu,
-// both roles in one grid) and B5 (flash_backward.cu, the dkv role), for
+// both roles in one grid), B4 (flash_backward.cu, the dq role) and B5
+// (flash_backward.cu, the dkv role), for
 // [BH, T, D] inputs (D a multiple of 8 up to 128), an optional [B, T] f32
 // key mask, and the forward's lse and delta = rowsum(dO . O) as [BH, T]
 // f32:
@@ -24,10 +25,10 @@
 //   issues dV += P^T dO and dK += dS^T Q with P^T and dS^T packed in
 //   registers as the A operands (dO and Q read MN-major). dK and dV stay
 //   in f32 registers and are written once.
-// - dq (B2 only): one 64-query tile; Q, dO (resident), lse and delta (in
-//   registers) stay, and a ring of (K, V) tiles runs up to the diagonal:
-//   S = Q K^T and dP = dO V^T (wgmma from shared memory), dS in registers,
-//   dQ += dS K (K read MN-major).
+// - dq (B2's second walk, and B4 alone): one 64-query tile; Q, dO
+//   (resident), lse and delta (in registers) stay, and a ring of (K, V)
+//   tiles runs up to the diagonal: S = Q K^T and dP = dO V^T (wgmma from
+//   shared memory), dS in registers, dQ += dS K (K read MN-major).
 //
 // No S, dP, p or ds tile is written to shared memory; every layout change
 // is the forward's (a C-layout tile packed as an A operand, a row-major
@@ -37,7 +38,8 @@
 // one CTA in a fixed order (no atomics), so two calls give the same bits;
 // B2 pays for that with a second recomputation of s and p in its dq CTAs.
 // Within a b*h the heaviest walks start first: B2 interleaves its roles
-// (dkv of key tile x, then dq of query tile tiles - 1 - x).
+// (dkv of key tile x, then dq of query tile tiles - 1 - x), and B4's block
+// x takes query tile tiles - 1 - x.
 //
 // Masking matches the forward's 64-row horizon: tiles are 64 keys by 64
 // queries, so a fully masked query row (lse exactly kNeg, mapped to exactly
@@ -53,7 +55,9 @@
 // (PERF.md): issuing dV before the dS^T pass, to run under it (P^T live
 // beside dS^T: a 16-byte spill, ~20% slower); issuing the next tile's S^T
 // and dP^T before this tile's dV and dK complete (~25% slower); a 3-deep
-// ring (no faster).
+// ring (no faster). The dq role alone (B4) takes 168 registers at D 64
+// and 197 at D 128, no spills; asking for 3 CTAs an SM at D 64 spilled 24
+// bytes and was no faster.
 
 #pragma once
 
@@ -64,6 +68,9 @@ namespace dl4j {
 
 constexpr int kBwdStages = 2;       // depth of the streamed-tile ring
 constexpr int kBwdThreads = 160;    // a consumer warpgroup and a producer warp
+
+// The roles a grid runs: dkv alone (B5), dq alone (B4), or both (B2).
+enum BwdRoles { kRolesDkv, kRolesDq, kRolesBoth };
 
 // lse in log2 units. A fully masked row's lse is kNeg (up to rounding) and
 // maps to exactly kNeg2, so that its replaced logits give p = 1 exactly.
@@ -433,11 +440,12 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
   // probe: done dq
 }
 
-// One grid of 64-row tiles per b*h (blockIdx.y): with WITH_DQ, x = 2 i is
+// One grid of 64-row tiles per b*h (blockIdx.y). kRolesBoth: x = 2 i is
 // the dkv role of key tile i and x = 2 i + 1 the dq role of query tile
-// tiles - 1 - i (the longest walks of both roles first); without, x is the
-// dkv role of key tile x.
-template <typename T, int DMAX, bool WITH_DQ>
+// tiles - 1 - i (the longest walks of both roles first); kRolesDkv: x is
+// the dkv role of key tile x; kRolesDq: x is the dq role of query tile
+// tiles - 1 - x.
+template <typename T, int DMAX, int ROLES>
 __global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
     attention_bwd_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -449,8 +457,9 @@ __global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
       (static_cast<uint32_t>(__cvta_generic_to_shared(bwd_smem)) + 1023u) &
       ~1023u};
   const int tiles = num_tiles(a.t), bh = blockIdx.y;
-  const bool dq_role = WITH_DQ && (blockIdx.x & 1);
-  const int x = WITH_DQ ? blockIdx.x >> 1 : blockIdx.x;
+  const bool dq_role =
+      ROLES == kRolesDq || (ROLES == kRolesBoth && (blockIdx.x & 1));
+  const int x = ROLES == kRolesBoth ? blockIdx.x >> 1 : blockIdx.x;
   const int tile = dq_role ? tiles - 1 - x : x;
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
@@ -479,7 +488,7 @@ __global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
   }
 }
 
-template <typename T, int DMAX, bool WITH_DQ>
+template <typename T, int DMAX, int ROLES>
 cudaError_t launch_bwd_core(const BwdArgs& a, int bh, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   if (!encode_map<T>(&tq, a.q, bh, a.t, a.d) ||
@@ -487,22 +496,23 @@ cudaError_t launch_bwd_core(const BwdArgs& a, int bh, cudaStream_t stream) {
       !encode_map<T>(&tv, a.v, bh, a.t, a.d) ||
       !encode_map<T>(&tdo, a.dout, bh, a.t, a.d))
     return cudaErrorInvalidValue;
-  auto kern = attention_bwd_kernel<T, DMAX, WITH_DQ>;
+  auto kern = attention_bwd_kernel<T, DMAX, ROLES>;
   constexpr size_t smem = bwd_core_smem<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((WITH_DQ ? 2 : 1) * num_tiles(a.t), bh);
+  const dim3 grid((ROLES == kRolesBoth ? 2 : 1) * num_tiles(a.t), bh);
   kern<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a);
   return cudaGetLastError();
 }
 
 // The bf16 / f16 backward at head-dim bucket 64 or 128 (columns past d are
-// zero-filled): both roles (B2) or the dkv role alone (B5).
-template <typename T, bool WITH_DQ>
+// zero-filled): both roles (B2), the dq role alone (B4) or the dkv role
+// alone (B5).
+template <typename T, int ROLES>
 cudaError_t dispatch_bwd_core(const BwdArgs& a, int bh, cudaStream_t stream) {
-  if (a.d <= 64) return launch_bwd_core<T, 64, WITH_DQ>(a, bh, stream);
-  return launch_bwd_core<T, 128, WITH_DQ>(a, bh, stream);
+  if (a.d <= 64) return launch_bwd_core<T, 64, ROLES>(a, bh, stream);
+  return launch_bwd_core<T, 128, ROLES>(a, bh, stream);
 }
 
 }  // namespace dl4j

@@ -1,18 +1,13 @@
 // Device helpers shared by the attention kernels.
 //
 // The f32 forward variants (shortseq_fwd_f32_kernel, flash_fwd_f32_kernel)
-// and both backward families (attention_bwd_common.cuh: B2, B4, B5) use
-// what remains here; the bf16 / f16 forwards (B1, B3) have their own
-// register-resident core, attention_fwd_core.cuh, and take only the
-// constants and conversions.
+// and the f32 backwards (attention_bwd_common.cuh: B2, B4, B5) use what
+// remains here; the bf16 / f16 kernels have their own register-resident
+// cores, attention_fwd_core.cuh and attention_bwd_core.cuh, and take only
+// the constants and conversions.
 //
 // - Constants: kNeg (the finite mask value), kMinL (the clamp of l),
 //   kThreads / kQRows (256-thread CTAs of 64 query rows), DType codes.
-// - Tensor-core helpers of the backward (WMMA 16 x 16 x 16 mma.sync
-//   tiles, f32 accumulation): stage_tile copies rows into shared memory in
-//   the input type, head dim zero-padded to a multiple of 16, row stride
-//   dpad + 8 elements (a 16-byte skew against bank conflicts); FragA /
-//   FragB / FragBT / FragC are the WMMA fragments.
 // - CUDA-core (f32) helpers: stage_rows (f32 rows with an odd row stride
 //   d + 1, so 16 lanes reading one column of 16 rows hit 16 banks),
 //   score_tile, pv_tile and write_rows on a 16 x 16 thread grid (tx over
@@ -26,7 +21,6 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -81,43 +75,6 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
-
-__host__ __device__ __forceinline__ int round_up16(int x) {
-  return (x + 15) & ~15;
-}
-
-// ---- tensor-core (bf16 / f16) variant ----
-
-// Copy rows [0, nrows) of a row-major [*, d] 16-bit tensor into shared
-// memory with row stride ld (elements), 16 bytes per thread per step;
-// columns [d, dpad) and rows [nrows, cap_rows) are zero-filled, so padded
-// products contribute exactly nothing. Needs d % 8 == 0 and a 16-byte
-// aligned source.
-template <typename T>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, int nrows,
-                                           int cap_rows, int d, int dpad,
-                                           int ld) {
-  const int chunks = dpad / 8;
-  for (int i = threadIdx.x; i < cap_rows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * d + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-template <typename T>
-using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, T,
-                                     nvcuda::wmma::row_major>;
-template <typename T>
-using FragBT = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T,
-                                      nvcuda::wmma::col_major>;
-template <typename T>
-using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T,
-                                     nvcuda::wmma::row_major>;
-using FragC =
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 
 // ---- CUDA-core (f32) variant ----
 

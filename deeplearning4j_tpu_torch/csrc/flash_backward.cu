@@ -10,12 +10,14 @@
 //
 // - flash_attention_bwd_dq (B4): one CTA per (b*h, 64-query tile) loops
 //   over 64-key tiles up to the causal diagonal, dq accumulated on chip.
-//   It keeps PR 2's design (attention_bwd_common.cuh: WMMA products whose
-//   s / dP and p / ds tiles round-trip through shared memory) for every
-//   input type.
+//   bf16 / f16 inputs run the dq role of attention_bwd_core.cuh: Q and dO
+//   resident, lse and delta in registers, (K, V) tiles through a TMA ring,
+//   S, dP and dQ on wgmma with dS packed in registers as the A operand of
+//   the last; block x takes query tile tiles - 1 - x, so the longest
+//   causal walks start first. f32 inputs keep the CUDA-core kernel.
 // - flash_attention_bwd_dkv (B5): one CTA per (b*h, 64-key tile) loops
 //   over 64-query tiles from the diagonal to T, dk and dv accumulated on
-//   chip. bf16 / f16 inputs run the dkv role of attention_bwd_core.cuh: K
+//   chip. bf16 / f16 inputs run the dkv role of the same core: K
 //   and V resident, (Q, dO) tiles and their lse / delta through a TMA ring,
 //   S^T, dP^T, dV and dK on wgmma with P^T and dS^T packed in registers as
 //   the A operands of the last two; f32 inputs keep the CUDA-core kernel
@@ -29,20 +31,20 @@
 // the dq kernel needs ~6 * D FLOP per visible query-key pair (~39 us at
 // 989 TF/s) against ~25 MB of q, k, v, dO and dq (~8 us at 3.35 TB/s),
 // and the dkv kernel ~8 * D per pair (~52 us) against ~38 MB: both are
-// compute-bound by the data sheet. The dkv core keeps every operand tile
-// in shared memory once, overlaps the next tile's copy with this tile's
+// compute-bound by the data sheet. The core keeps every operand tile in
+// shared memory once, overlaps the next tile's copy with this tile's
 // products, and leaves only the elementwise p / ds pass between the
-// products, which is now its largest phase (PERF.md).
+// products, which is its largest phase (PERF.md).
 
 #include "attention_bwd_core.cuh"
 
 namespace dl4j {
 namespace {
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bwd_dq<T, DMAX>(a, blockIdx.y, blockIdx.x * kQRows, smem);
+  bwd_dq_f32<DMAX>(a, blockIdx.y, blockIdx.x * kQRows, smem);
 }
 
 template <int DMAX>
@@ -53,20 +55,26 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
 
 template <typename T>
 cudaError_t run_dq(const BwdArgs& a, int bh, cudaStream_t s) {
-  const dim3 grid(num_tiles(a.t), bh);
-  const size_t smem = bwd_smem<T>(a.d);
-  if (a.d <= 32) return launch_bwd(flash_dq_kernel<T, 32>, grid, smem, a, s);
-  if (a.d <= 64) return launch_bwd(flash_dq_kernel<T, 64>, grid, smem, a, s);
-  return launch_bwd(flash_dq_kernel<T, 128>, grid, smem, a, s);
+  if constexpr (!std::is_same<T, float>::value) {
+    return dispatch_bwd_core<T, kRolesDq>(a, bh, s);
+  } else {
+    const dim3 grid(num_tiles(a.t), bh);
+    const size_t smem = bwd_smem(a.d);
+    if (a.d <= 32)
+      return launch_bwd(flash_dq_f32_kernel<32>, grid, smem, a, s);
+    if (a.d <= 64)
+      return launch_bwd(flash_dq_f32_kernel<64>, grid, smem, a, s);
+    return launch_bwd(flash_dq_f32_kernel<128>, grid, smem, a, s);
+  }
 }
 
 template <typename T>
 cudaError_t run_dkv(const BwdArgs& a, int bh, cudaStream_t s) {
   if constexpr (!std::is_same<T, float>::value) {
-    return dispatch_bwd_core<T, false>(a, bh, s);
+    return dispatch_bwd_core<T, kRolesDkv>(a, bh, s);
   } else {
     const dim3 grid(num_tiles(a.t), bh);
-    const size_t smem = bwd_smem<float>(a.d);
+    const size_t smem = bwd_smem(a.d);
     if (a.d <= 32)
       return launch_bwd(flash_dkv_f32_kernel<32>, grid, smem, a, s);
     if (a.d <= 64)

@@ -1,5 +1,7 @@
 // The Hopper (sm_90a) primitives shared by the bf16 / f16 attention cores,
-// attention_fwd_core.cuh (B1, B3) and attention_bwd_core.cuh (B2, B5):
+// attention_fwd_core.cuh (B1, B3) and attention_bwd_core.cuh (B2, B4, B5),
+// and by the LSTM's cluster route (lstm.cu: the wgmma fence / commit /
+// wait, the mbarrier helpers):
 //
 // - mbarriers (init, arrive, arrive with an expected byte count, parity
 //   wait) and the 3-d TMA tile load that completes on one;

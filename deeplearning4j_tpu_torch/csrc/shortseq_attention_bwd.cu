@@ -52,10 +52,10 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t run(const BwdArgs& a, int bh, cudaStream_t s) {
   if constexpr (!std::is_same<T, float>::value) {
-    return dispatch_bwd_core<T, true>(a, bh, s);
+    return dispatch_bwd_core<T, kRolesBoth>(a, bh, s);
   } else {
     const dim3 grid(2 * num_tiles(a.t), bh);
-    const size_t smem = bwd_smem<float>(a.d);
+    const size_t smem = bwd_smem(a.d);
     if (a.d <= 32)
       return launch_bwd(shortseq_bwd_f32_kernel<32>, grid, smem, a, s);
     if (a.d <= 64)

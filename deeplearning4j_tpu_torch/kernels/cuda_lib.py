@@ -43,10 +43,10 @@ ENTRIES = {
     "flash_backward": {"flash_attention_bwd_dq": _BWD_ARGTYPES,
                        "flash_attention_bwd_dkv": _BWD_ARGTYPES},
     # (xw, r, h0, c0, pi, pf, po, mask, y, hT, cT, xw_st, xw_sn, y_st,
-    # y_sn, t, n, h, dtype, stream) and (n, h, dtype, out[5])
+    # y_sn, t, n, h, dtype, stream, route*) and (n, h, dtype, out[8])
     "lstm": {"lstm_recurrence_fwd": [ctypes.c_void_p] * 11 +
              [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 +
-             [ctypes.c_void_p],
+             [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
              "lstm_plan": [ctypes.c_int] * 3 +
              [ctypes.POINTER(ctypes.c_longlong)]},
 }

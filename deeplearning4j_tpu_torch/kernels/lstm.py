@@ -5,7 +5,14 @@
   ``csrc/lstm.cu`` (replacing the TPU kernel ``_make_kernel``,
   ``kernels/lstm.py:42``, driven by ``_pallas_forward``). On a CUDA tensor
   it launches the kernel or raises; on a CPU tensor it calls the plain
-  version. Its ``launches`` attribute counts kernel launches.
+  version. Its ``launches`` attribute counts kernel launches, and
+  ``routes`` counts them by route.
+- :func:`lstm_plan` says which of the kernel's two routes a shape takes
+  and how it is launched: ``"cluster"`` (bf16 with H a multiple of 8 up to
+  512: thread-block clusters over slices of the batch, R resident in bf16,
+  products on the tensor cores, h exchanged through distributed shared
+  memory) or ``"cooperative"`` (f32, and bf16 shapes the cluster route
+  does not take: one cooperative grid, f32 products on the CUDA cores).
 - :func:`lstm_recurrence_plain` is the plain PyTorch version of the same
   function (a loop over T with the gate math of the JAX package's
   ``_lstm_recurrence``, ``nn/conf/layers/recurrent.py:33``, mask
@@ -39,6 +46,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 #: cudaErrorCooperativeLaunchTooLarge: the kernel's planner found no grid
 #: whose CTAs can all be resident at once
 _NO_COOPERATIVE_GRID = 720
+#: the C entries' route codes
+ROUTES = ("cooperative", "cluster")
+_PLAN_KEYS = ("route", "units", "ctas", "smem", "per_sm", "sms", "cluster",
+              "rows_per_cluster")
 
 
 def lstm_recurrence_plain(xw_t, R, h0, c0, peep: Optional[Sequence] = None,
@@ -117,23 +128,29 @@ def check_lstm_args(xw_t, R, h0, c0, peep, mask_t) -> None:
 
 def lstm_plan(n: int, h: int, dtype) -> dict:
     """The kernel's launch plan for a batch of ``n`` rows and ``h`` hidden
-    units on the current card: hidden units per CTA, CTAs, dynamic shared
-    memory, co-resident CTAs per SM and SMs. Raises when no grid can be
-    co-resident."""
-    out = (ctypes.c_longlong * 5)()
+    units in ``dtype`` on the current card (tensors 16-byte aligned, as
+    PyTorch allocates them): ``route`` ("cluster" or "cooperative"), hidden
+    ``units`` per CTA, ``ctas``, dynamic shared memory ``smem``,
+    ``per_sm`` (co-resident CTAs an SM, or clusters the card holds at
+    once), ``sms``, CTAs per ``cluster`` (0 on the cooperative route) and
+    ``rows_per_cluster``. Raises when no route takes the shape."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     with torch.cuda.device(torch.cuda.current_device()):
         rc = cuda_lib.load("lstm").lstm_plan(n, h, _DTYPE_CODE[dtype], out)
     if rc != 0:
         raise ValueError(f"no LSTM launch plan for N={n}, H={h}, {dtype} "
                          f"(CUDA error {rc})")
-    return dict(zip(("units", "ctas", "smem", "per_sm", "sms"), out))
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["route"] = ROUTES[plan["route"]]
+    return plan
 
 
 def lstm_recurrence_fwd(xw_t, R, h0, c0, peep=None, mask_t=None):
     """The recurrence forward: the Hopper kernel on a CUDA tensor (one
-    cooperative launch over all T), the plain version on a CPU tensor. On
-    the card y is laid out [N, T, H] and returned as its [T, N, H] view, so
-    the layer's transpose back is free."""
+    launch over all T, on the route :func:`lstm_plan` picks), the plain
+    version on a CPU tensor. On the card y is laid out [N, T, H] and
+    returned as its [T, N, H] view, so the layer's transpose back is
+    free."""
     if xw_t.device.type == "cpu":
         return lstm_recurrence_plain(xw_t, R, h0, c0, peep, mask_t)
     check_lstm_args(xw_t, R, h0, c0, peep, mask_t)
@@ -147,26 +164,29 @@ def lstm_recurrence_fwd(xw_t, R, h0, c0, peep=None, mask_t=None):
         mask_t.to(torch.float32).contiguous()
     pi, pf, po = (None, None, None) if peep is None else peep
     ptr = lambda x: None if x is None else x.data_ptr()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(xw_t.device):
         rc = cuda_lib.load("lstm").lstm_recurrence_fwd(
             xw_t.data_ptr(), R.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             ptr(pi), ptr(pf), ptr(po), ptr(mask), y.data_ptr(),
             ht.data_ptr(), ct.data_ptr(), xw_t.stride(0), xw_t.stride(1),
             y_t.stride(0), y_t.stride(1), t, n, h, _DTYPE_CODE[xw_t.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(route))
     if rc == _NO_COOPERATIVE_GRID:
         raise ValueError(f"no co-resident LSTM grid for N={n}, H={h}, "
-                         f"{xw_t.dtype}: the R slices do not fit the "
-                         "card's shared memory")
+                         f"{xw_t.dtype} on either route: the R slices do "
+                         "not fit the card's shared memory")
     if rc != 0:
         raise RuntimeError(f"lstm_recurrence_fwd kernel launch failed: CUDA "
                            f"error {rc} (T={t}, N={n}, H={h}, "
                            f"{xw_t.dtype})")
     lstm_recurrence_fwd.launches += 1
+    lstm_recurrence_fwd.routes[ROUTES[route.value]] += 1
     return y_t, ht, ct
 
 
 lstm_recurrence_fwd.launches = 0
+lstm_recurrence_fwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 class LSTMRecurrence(torch.autograd.Function):

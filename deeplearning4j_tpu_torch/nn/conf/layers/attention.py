@@ -28,14 +28,15 @@ from ....kernels.layernorm import layernorm
 from ....ops.activations import gelu
 from ...helpers import get_helper
 from ..serde import register_config
-from .base import FeedForwardLayerConf
+from ..input_type import InputType
+from .base import BaseRecurrentLayerConf
 
 NEG = -1e30
 
 
 @register_config
 @dataclasses.dataclass
-class SelfAttentionLayer(FeedForwardLayerConf):
+class SelfAttentionLayer(BaseRecurrentLayerConf):
     """Input [N, T, n_in] → [N, T, n_out]; n_out = num_heads * head_size.
     ``fused_qkv`` (one concatenated projection in the JAX package) computes
     the same products as three separate ones, so the port always runs
@@ -166,10 +167,19 @@ class SelfAttentionLayer(FeedForwardLayerConf):
 
 @register_config
 @dataclasses.dataclass
-class LayerNormalization(FeedForwardLayerConf):
+class LayerNormalization(BaseRecurrentLayerConf):
     """Last-axis layer norm; statistics in at least f32 whatever the
     compute dtype."""
     eps: float = 1e-5
+
+    def set_n_in(self, it: InputType) -> None:
+        if not self.n_in:
+            self.n_in = it.size
+        if not self.n_out:
+            self.n_out = self.n_in
+
+    def get_output_type(self, it: InputType) -> InputType:
+        return it
 
     def init_params(self, gen, dtype=torch.float32) -> Dict:
         d = self.n_out or self.n_in
@@ -184,9 +194,15 @@ class LayerNormalization(FeedForwardLayerConf):
 
 @register_config
 @dataclasses.dataclass
-class TransformerFeedForward(FeedForwardLayerConf):
+class TransformerFeedForward(BaseRecurrentLayerConf):
     """Per-token MLP: gelu(x W1 + b1) W2 + b2 over [N, T, C]."""
     hidden_mult: int = 4
+
+    def set_n_in(self, it: InputType) -> None:
+        if not self.n_in:
+            self.n_in = it.size
+        if not self.n_out:
+            self.n_out = self.n_in
 
     def init_params(self, gen, dtype=torch.float32) -> Dict:
         h = self.hidden_mult * self.n_in
@@ -208,9 +224,9 @@ class TransformerFeedForward(FeedForwardLayerConf):
 
 @register_config
 @dataclasses.dataclass
-class TokenAndPositionEmbedding(FeedForwardLayerConf):
-    """Token ids [N, T] → embeddings + learned positions [N, T, n_out].
-    ``n_in`` is the vocabulary size."""
+class TokenAndPositionEmbedding(BaseRecurrentLayerConf):
+    """Token ids [N, T], or one-hot [N, T, V], → embeddings + learned
+    positions [N, T, n_out]. ``n_in`` is the vocabulary size."""
     max_length: int = 512
 
     def init_params(self, gen, dtype=torch.float32) -> Dict:
@@ -220,11 +236,14 @@ class TokenAndPositionEmbedding(FeedForwardLayerConf):
 
     def forward(self, params, state, x, mask=None, *, train=False,
                 gen=None):
-        t = x.shape[1]
+        ids = x.long()
+        if ids.dim() == 3:                 # one-hot [N, T, V]
+            ids = ids.argmax(-1)
+        t = ids.shape[1]
         if t > self.max_length:
             raise ValueError(f"sequence length {t} > max_length "
                              f"{self.max_length}")
-        out = params["W"][x] + params["P"][None, :t]
+        out = params["W"][ids] + params["P"][None, :t]
         return self.maybe_dropout(out, train=train, gen=gen), state
 
     def embed_at(self, params, ids, positions):

@@ -6,10 +6,11 @@ Usage, from the repository root on a machine with one Hopper GPU and nvcc::
     python3 -m deeplearning4j_tpu_torch.tools.attention_bwd_probe \\
         [--parent DIR] [--variant NAME=FLAGS ...]
 
-It times B2 (``shortseq_attention_bwd``) and B5 (``flash_attention_bwd_dkv``)
-at ``chip_smoke.py`` phase 3's shapes (CUDA events, the median of 20
-samples of 10 back-to-back launches; host microseconds per enqueued launch,
-tensor-map encoding included), in turns within the call, for:
+It times B2 (``shortseq_attention_bwd``), B4 (``flash_attention_bwd_dq``)
+and B5 (``flash_attention_bwd_dkv``) at ``chip_smoke.py`` phase 3's shapes
+(CUDA events, the median of 20 samples of 10 back-to-back launches; host
+microseconds per enqueued launch, tensor-map encoding included), in turns
+within the call, for:
 
 - ``current``: the libraries of ``csrc/`` as the port builds them;
 - ``parent``: ``shortseq_attention_bwd.cu`` and ``flash_backward.cu`` of
@@ -63,12 +64,18 @@ PROBE_DIR = cuda_lib.BUILD_DIR.parent / "probe"
 #: the backward sources the stamped core needs beside it
 HEADERS = ("attention_common.cuh", "hopper_common.cuh",
            "attention_bwd_common.cuh")
-#: (library, C entry) of B2 and B5
+#: (library, C entry) of B2, B4 and B5
 ENTRIES = {"B2": ("shortseq_attention_bwd", "shortseq_attention_bwd"),
+           "B4": ("flash_backward", "flash_attention_bwd_dq"),
            "B5": ("flash_backward", "flash_attention_bwd_dkv")}
+#: the gradients each kernel writes (dq, dk, dv) and its roles' code in
+#: probe_bwd (the core's BwdRoles: dkv 0, dq 1, both 2)
+WRITES = {"B2": (True, True, True), "B4": (True, False, False),
+          "B5": (False, True, True)}
+ROLE_CODE = {"B2": 2, "B4": 1, "B5": 0}
 
 ENTRY = r"""
-extern "C" int probe_bwd(int with_dq, const void* q, const void* k,
+extern "C" int probe_bwd(int roles, const void* q, const void* k,
                          const void* v, const void* kmask, const void* dout,
                          const void* lse, const void* delta, void* dq,
                          void* dk, void* dv, int bh, int h, int t, int d,
@@ -79,8 +86,11 @@ extern "C" int probe_bwd(int with_dq, const void* q, const void* k,
                   static_cast<const float*>(delta), dq, dk, dv, h, t, d,
                   causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dq ? (int)dispatch_bwd_core<__nv_bfloat16, true>(a, bh, s)
-                 : (int)dispatch_bwd_core<__nv_bfloat16, false>(a, bh, s);
+  if (roles == kRolesBoth)
+    return (int)dispatch_bwd_core<__nv_bfloat16, kRolesBoth>(a, bh, s);
+  if (roles == kRolesDq)
+    return (int)dispatch_bwd_core<__nv_bfloat16, kRolesDq>(a, bh, s);
+  return (int)dispatch_bwd_core<__nv_bfloat16, kRolesDkv>(a, bh, s);
 }
 """
 
@@ -151,8 +161,8 @@ def _finish(procs):
 
 
 def build(parent, variants):
-    """Build the stamped core, the parent tree's B2 / B5 libraries and the
-    variants, all nvcc processes started together. Returns the stamped
+    """Build the stamped core, the parent tree's B2 / B4 / B5 libraries and
+    the variants, all nvcc processes started together. Returns the stamped
     library and {tree: {library name: CDLL}} with "current" first."""
     csrc = cuda_lib.CSRC
     stamped_dir = PROBE_DIR / "stamped"
@@ -272,20 +282,23 @@ def shapes():
          [512] * 32, False),
         ("B2", "B2 ragged (B 32, T 512, lengths 0..512)", 32, 12, 512, lens,
          True),
+        ("B4", "B4 (B 4, H 12, T 2048, D 64, unmasked)", 4, 12, 2048,
+         [2048] * 4, False),
+        ("B4", "B4 ragged (B 4, T 577)", 4, 12, 577, [577, 300, 1, 0], True),
         ("B5", "B5 (B 4, H 12, T 2048, D 64, unmasked)", 4, 12, 2048,
          [2048] * 4, False),
         ("B5", "B5 ragged (B 4, T 577)", 4, 12, 577, [577, 300, 1, 0], True),
     ]
 
 
-def split(stamped, case, h, with_dq, grads):
+def split(stamped, case, h, roles, grads):
     """Each role's share of its consumer warps' cycles by phase, from one
     stamped launch."""
     q, k, v, do, mask, lse, delta = case
     bh, t, d = q.shape
 
     def run():
-        rc = stamped.probe_bwd(int(with_dq), q.data_ptr(), k.data_ptr(),
+        rc = stamped.probe_bwd(roles, q.data_ptr(), k.data_ptr(),
                                v.data_ptr(), _ptr(mask), do.data_ptr(),
                                lse.data_ptr(), delta.data_ptr(),
                                *(_ptr(x) for x in grads), bh, h, t, d, 1,
@@ -334,9 +347,8 @@ def main(argv=None):
         case = _case(b, h, t, 64, lengths, masked, 1)
         live = torch.from_numpy(np.repeat(np.asarray(lengths) > 0, h)).cuda()
         libname, entry = ENTRIES[kernel]
-        with_dq = kernel == "B2"
-        grads = tuple(torch.empty_like(case[0]) if with_dq or i else None
-                      for i in range(3))
+        grads = tuple(torch.empty_like(case[0]) if w else None
+                      for w in WRITES[kernel])
         row = {"shape": label, "card": card, "order": order, "ms": {},
                "host_us_per_launch": {}, "rel_l2": {}}
         for name in dict.fromkeys(order):
@@ -353,7 +365,8 @@ def main(argv=None):
                 lambda: _launch(fn, case, h, grads))
         print(json.dumps(row))
         print(json.dumps({"shape": label, "warp_cycle_split":
-                          split(stamped, case, h, with_dq, grads)}))
+                          split(stamped, case, h, ROLE_CODE[kernel],
+                                grads)}))
 
 
 if __name__ == "__main__":

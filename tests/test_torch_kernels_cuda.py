@@ -3,10 +3,12 @@ and backward, against its plain PyTorch version at small shapes (every
 supported dtype, head dims 8-128, T at every tile edge, a key mask with
 holes, a fully masked row), the two forwards against each other, the
 backward kernels' bitwise determinism over two calls, the shapes the
-wrappers refuse, and gradients through an attention layer on the card; the LSTM recurrence kernel (B6) against its plain
-version (f32 / bf16, peepholes, masks, T 1-128, N 1 / 64, H 16 / 512), its
-refusals and its gradients. Every test here needs a CUDA card and skips without
-one. The module imports no JAX, so it runs where JAX is not installed:
+wrappers refuse, and gradients through an attention layer on the card;
+the LSTM recurrence kernel (B6) against its plain version on both of its
+routes (f32 / bf16, peepholes, masks, strided xw, T 1-128, N 1-200, H
+16-1024), the route its plan picks, its refusals and its gradients. Every
+test here needs a CUDA card and skips without one. The module imports no
+JAX, so it runs where JAX is not installed:
 ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest``.
 
 Fully masked rows are checked for finiteness only: the kernels average
@@ -359,6 +361,77 @@ def test_lstm_kernel_rejects_unsupported_inputs(cuda_device):
             torch.zeros(big, 4 * big, device=cuda_device),
             torch.zeros(1, big, device=cuda_device),
             torch.zeros(1, big, device=cuda_device))
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
+@pytest.mark.parametrize("peephole,masked", [(False, False), (True, True)],
+                         ids=["plain", "peep-masked"])
+@pytest.mark.parametrize("h", [32, 256, 512, 600])
+@pytest.mark.parametrize("n", [1, 8, 13, 64, 200])
+def test_lstm_cluster_route_matches_plain_on_card(cuda_device, n, h,
+                                                  peephole, masked, strided):
+    """bf16 on the route the plan names (the cluster route up to H 512,
+    N any, including N not a multiple of a cluster's rows; H 600 is wider
+    than 16 CTAs of 32 units and takes the cooperative route), with
+    peepholes, masks and xw as the [T, N, 4H] view of an [N, T, 4H]
+    projection."""
+    args = _lstm_case(17, n, h, torch.bfloat16, peephole, masked,
+                      cuda_device, seed=n * h + 3)
+    if strided:
+        args = (args[0].transpose(0, 1).contiguous().transpose(0, 1),) + \
+            args[1:]
+    route = lk.lstm_plan(n, h, torch.bfloat16)["route"]
+    assert route == ("cluster" if h <= 512 else "cooperative")
+    before = dict(lk.lstm_recurrence_fwd.routes)
+    got = lk.lstm_recurrence_fwd(*args)
+    want = lk.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert {r: c - before[r] for r, c in
+            lk.lstm_recurrence_fwd.routes.items()} == {
+        r: int(r == route) for r in lk.ROUTES}
+    assert got[0].shape == (17, n, h) and got[0].dtype == torch.bfloat16
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= \
+            LSTM_TOL[torch.bfloat16]
+
+
+def test_lstm_plan_picks_the_route(cuda_device):
+    """bf16 with H a multiple of 8 up to 512 takes the cluster route
+    (ceil(H / 32) CTAs a cluster of 8, 16 or 32 batch rows); f32 (the
+    sampling path's N 1 included), bf16 wider than 512 and bf16 widths
+    that are not a multiple of 8 take the cooperative route."""
+    for n, h, dtype, route, cluster in (
+            (64, 512, torch.bfloat16, "cluster", 16),
+            (1, 32, torch.bfloat16, "cluster", 1),
+            (200, 256, torch.bfloat16, "cluster", 8),
+            (64, 600, torch.bfloat16, "cooperative", 0),
+            (64, 100, torch.bfloat16, "cooperative", 0),
+            (64, 512, torch.float32, "cooperative", 0),
+            (1, 512, torch.float32, "cooperative", 0)):
+        plan = lk.lstm_plan(n, h, dtype)
+        assert (plan["route"], plan["cluster"]) == (route, cluster), \
+            (n, h, dtype, plan)
+        if route == "cluster":
+            assert plan["rows_per_cluster"] in (8, 16, 32)
+            assert plan["ctas"] == cluster * -(-n // plan["rows_per_cluster"])
+            assert plan["units"] == 32 and plan["per_sm"] >= 1
+
+
+def test_lstm_refused_shape_raises(cuda_device):
+    """A bf16 width neither route takes (R slices of H 2048 fit neither a
+    cluster's nor a co-resident grid's shared memory) raises from the plan
+    and from the wrapper, which launches nothing."""
+    big = 2048
+    with pytest.raises(ValueError, match="no LSTM launch plan"):
+        lk.lstm_plan(1, big, torch.bfloat16)
+    before = lk.lstm_recurrence_fwd.launches
+    z = lambda *shape: torch.zeros(*shape, device=cuda_device,
+                                   dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no co-resident"):
+        lk.lstm_recurrence_fwd(z(1, 1, 4 * big), z(big, 4 * big),
+                               z(1, big), z(1, big))
+    assert lk.lstm_recurrence_fwd.launches == before
 
 
 @pytest.mark.parametrize("peephole,masked", [(False, False), (True, True)])

@@ -1,7 +1,7 @@
-"""PyTorch port: the attention probes (``tools/attention_fwd_probe.py``,
-``tools/attention_bwd_probe.py``) rewrite a kernel core's ``// probe:``
-comments into ``clock64()`` stamps and build it beside copies of the
-headers it includes. These tests hold the rewrite and the copied header
+"""PyTorch port: the kernel probes (``tools/attention_fwd_probe.py``,
+``tools/attention_bwd_probe.py``, ``tools/lstm_probe.py``) rewrite a
+kernel's ``// probe:`` comments into ``clock64()`` stamps and build it
+beside copies of the headers it includes. These tests hold the rewrite and the copied header
 set against the shipped sources on the CPU, so a core edited without its
 probe fails here rather than in a chip run."""
 
@@ -12,6 +12,7 @@ import pytest
 from deeplearning4j_tpu_torch.kernels import cuda_lib
 from deeplearning4j_tpu_torch.tools import attention_bwd_probe as bwd
 from deeplearning4j_tpu_torch.tools import attention_fwd_probe as fwd
+from deeplearning4j_tpu_torch.tools import lstm_probe
 
 
 def _source(name):
@@ -62,3 +63,21 @@ def test_fwd_probe_stamps_every_phase():
     assert names <= set(fwd.PHASES) | {"done"}
     out = fwd._instrumented(core)
     assert "// probe:" not in out and out.count("atomicAdd") == 1
+
+
+def test_lstm_probe_copies_every_header_the_kernel_includes():
+    assert _includes("lstm.cu") == set(lstm_probe.HEADERS)
+
+
+def test_lstm_probe_stamps_every_phase():
+    """The cluster kernel opens its counters once, marks every phase but
+    the prologue once, and adds its counters to the device array once,
+    after the stamps' definitions; no probe comment survives."""
+    src = _source("lstm.cu")
+    marks = re.findall(r"// probe: (\w+)", src)
+    assert marks.count("begin") == 1 and marks.count("done") == 1
+    assert sorted(m for m in marks if m not in ("begin", "done")) == \
+        sorted(p for p in lstm_probe.PHASES if p != "prologue")
+    out = lstm_probe.instrumented(src)
+    assert "// probe:" not in out and out.count("atomicAdd") == 1
+    assert out.index("#define PROBE_MARK") < out.index("PROBE_MARK(0)")

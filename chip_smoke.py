@@ -29,6 +29,23 @@ Phases, each an uncaught exception on failure:
    the short-sequence kernel must launch on every admission, at most one
    readback per decode block, and the card's prefill logits must match
    the same weights run in f32 on the CPU.
+4b. paged serving and speculation, on the same net with the engine at
+   t_max 576 (pages of 16, 36 a slot). Prefix sharing: 8 slots, K = 4,
+   the default pool (289 pages); after one warm request, 16 requests of
+   one 256-token prefix plus 64-256-token tails, 64 new tokens each: at
+   least 15 x 256 prefix hit tokens, at most one readback per decode
+   block, the page audit clean and nothing mapped after the drain, and a
+   hit's first-token logits (prefix in pages, tail on top) against the
+   whole prompt in f32 on the CPU; then the prefill of 8 tails on the
+   shared pages timed against the slab's prefill of the whole prompts,
+   and each of them, a paged and a slab decode block profiled.
+   Concurrency: 32 slots on the 8-slot slab's bytes (289 pages), 32
+   requests of 32-64 prompt tokens: at least 24 slots active at once.
+   Speculation (spec_k 4), slab and paged, against the same 8 requests
+   (256-token prompts repeating a 32-token motif) decoded without it,
+   with the default fallback and with none (spec_threshold 0): one
+   readback per verify block, the audit clean, and verify_block's window
+   logits against decode_block's at the same positions.
 5. long prompt: the same width at 2 layers, max_length 2048,
    TransformerDecoder.generate on 4 prompts of 1536 tokens (bucket
    T = 2048 > 512): the flash kernel must launch.
@@ -745,7 +762,275 @@ def phase_serving(card):
         f"(8 slots, 16 blocks of K=4, {dec_ms / 64:.2f} ms per step)")
 
     check_logits(net, [prompts[1], prompts[2]], 512, "flagship 12-layer")
-    return launches["shortseq_attention"]
+    return launches["shortseq_attention"], net
+
+
+# ---------------------------------------------------------------- phase 4b
+#: the paged phase's engine context: page_size 16 divides it, 36 pages a
+#: slot; the embedding's max_length is 577
+PAGED_T_MAX = 576
+PAGE_SIZE = 16
+
+
+def _rel_l2_rows(got, want):
+    got, want = got.cpu().double(), want.cpu().double()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+def _drive(engine, prompts, new_tokens):
+    """Serve ``prompts`` to the end, sampling before every decode cycle
+    the active slots and (paged) the page accounting. Returns (requests,
+    wall s, stats delta, decode readbacks, peak active slots, page stats
+    at the most pages mapped)."""
+    peak = {"active": 0, "kv": None}
+    step = engine._step
+
+    def sampling_step():
+        peak["active"] = max(peak["active"], engine.stats()["active_slots"])
+        kv = engine.kv_page_stats()
+        if kv is not None and (peak["kv"] is None or
+                               kv["mapped"] > peak["kv"]["mapped"]):
+            peak["kv"] = kv
+        step()
+
+    engine._step = sampling_step
+    stats0 = engine.stats()
+    fetched0 = fetch_counts("engine.decode")["engine.decode"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, new_tokens) for p in prompts]
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine._step = step
+    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats().items()}
+    fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
+    for p, r in zip(prompts, reqs):
+        out = r.result(timeout=0)
+        if len(out) != len(p) + new_tokens or not (out[:len(p)] == p).all():
+            raise AssertionError(f"request returned {len(out)} tokens, "
+                                 f"expected {len(p) + new_tokens}")
+    if fetched > stats["decode_blocks"]:
+        raise AssertionError(f"{fetched} decode readbacks for "
+                             f"{stats['decode_blocks']} decode blocks")
+    return reqs, wall, stats, fetched, peak["active"], peak["kv"]
+
+
+def _audit(engine, what):
+    problems = engine._pager.audit(engine._slot_pages)
+    if problems:
+        raise AssertionError(f"{what}: page audit failed: {problems[:4]}")
+    if engine.kv_page_stats()["mapped"]:
+        raise AssertionError(f"{what}: pages left mapped after the drain")
+
+
+def check_paged_hit_logits(net, prefix, tail):
+    """First-token logits of a prefix-cache hit on the card (the prefix
+    prefilled into pages, then the tail on top of them; bf16, plain
+    paged attention) against the whole prompt through the CPU f32 twin;
+    raises above LOGIT_REL_TOL."""
+    dec = TransformerDecoder(net, t_max=PAGED_T_MAX)
+    pool = dec.init_paged_pool(PAGED_T_MAX // PAGE_SIZE + 1, PAGE_SIZE)
+    ptab = np.arange(1, PAGED_T_MAX // PAGE_SIZE + 1)[None]
+    dec.paged_prefill(pool, prefix[None], [0], [len(prefix)], ptab)
+    tokens = np.zeros((1, 256), np.int64)
+    tokens[0, :len(tail)] = tail
+    _, got, _ = dec.paged_prefill(pool, tokens, [len(prefix)], [len(tail)],
+                                  ptab)
+    prompt = np.concatenate([prefix, tail])
+    ref = TransformerDecoder(_cpu_twin(net), t_max=PAGED_T_MAX)
+    full, lengths = _padded([prompt], 512)
+    _, want, _ = ref.prefill(ref.init_cache(1), full, lengths)
+    rel = _rel_l2_rows(got, want)
+    same = bool(got.argmax(-1).item() == want.argmax(-1).item())
+    log(f"paged prefix hit: first-token logits rel-L2 card bf16 vs CPU "
+        f"f32 = {rel:.3e} (tol {LOGIT_REL_TOL}), argmax agree {same}")
+    if not (np.isfinite(rel) and rel <= LOGIT_REL_TOL):
+        raise AssertionError("paged hit logits disagree with the CPU "
+                             "reference")
+
+
+def check_verify_logits(net, prompts):
+    """verify_block's window logits against decode_block's (decode_step
+    after decode_step) at the same positions, from identical slab caches;
+    raises above LOGIT_REL_TOL."""
+    dec = TransformerDecoder(net, t_max=PAGED_T_MAX)
+    tokens, lengths = _padded(prompts, 256)
+    ids0, _, caches = dec.prefill(dec.init_cache(len(prompts)), tokens,
+                                  lengths)
+    twin = {n: {kk: t.clone() for kk, t in kv.items()}
+            for n, kv in caches.items()}
+    ids, steps, emitted = ids0, [], []
+    for j in range(5):
+        ids, logits, caches = dec.decode_step(caches, ids, lengths + j)
+        steps.append(logits)
+        emitted.append(ids)
+    draft = torch.stack(emitted[:4], dim=1)
+    window = torch.cat([ids0[:, None], draft], dim=1)
+    pos = torch.as_tensor(lengths, device=ids0.device)
+    with torch.no_grad():
+        got = dec._walk_window(dec._device_params(),
+                               net._inference_state(), twin, window, pos,
+                               torch.full_like(pos, 5))
+    rel = max(_rel_l2_rows(got[:, j], steps[j]) for j in range(5))
+    log(f"speculation: verify window logits vs decode_block's, rel-L2 "
+        f"{rel:.3e} over 5 positions x {len(prompts)} rows (tol "
+        f"{LOGIT_REL_TOL})")
+    if not (np.isfinite(rel) and rel <= LOGIT_REL_TOL):
+        raise AssertionError("verify window logits disagree with "
+                             "decode_block's")
+
+
+def phase_paged_serving(card, net):
+    """The flagship net behind paged and speculative engines: prefix
+    sharing, concurrency at the slab's bytes, speculation slab and paged
+    with the same requests decoded plainly in the same call."""
+    rng = np.random.default_rng(21)
+    new_tokens = 64
+    reset_launches()
+
+    # -- prefix sharing: one 256-token prefix (16 full pages), 16 tails
+    prefix = rng.integers(0, 32000, 256)
+    prompts = [np.concatenate([prefix, rng.integers(0, 32000, int(n))])
+               for n in rng.integers(64, 257, 16)]
+    engine = SlotGenerationEngine(net, num_slots=8, block_size=4,
+                                  t_max=PAGED_T_MAX, paged=True,
+                                  page_size=PAGE_SIZE)
+    engine.submit(np.concatenate([prefix, rng.integers(0, 32000, 64)]), 4)
+    engine.run_until_drained()              # warm: publishes the prefix
+    _, wall, st, fetched, _, kv = _drive(engine, prompts, new_tokens)
+    log(f"paged prefix [{card}]: 16 requests (256-token shared prefix + "
+        f"64-256-token tails, 64 new, 8 slots, K=4, {engine.num_pages} "
+        f"pages of {PAGE_SIZE}): prefix hits {st['prefix_cache_hits']}, "
+        f"misses {st['prefix_cache_misses']}, hit tokens "
+        f"{st['prefix_cache_hit_tokens']}; engine "
+        f"{16 * new_tokens / wall:.1f} generated tok/s ({wall:.2f}s); "
+        f"readbacks {fetched} for {st['decode_blocks']} decode blocks "
+        f"({fetched / st['decode_blocks']:.3f} a block); at the most pages "
+        f"mapped: {kv['mapped']} mapped, {kv['shared']} shared, "
+        f"fragmentation {kv['fragmentation']}, pool "
+        f"{kv['pool_bytes'] / 2**20:.1f} MiB")
+    if st["prefix_cache_hit_tokens"] < 15 * 256:
+        raise AssertionError(f"prefix hit tokens "
+                             f"{st['prefix_cache_hit_tokens']} < 15 x 256")
+    _audit(engine, "paged prefix")
+    check_paged_hit_logits(net, prefix, prompts[0][256:])
+
+    # prefill rates in this call: 8 tails of 256 on the shared prefix's
+    # pages against the slab's prefill of the same 8 whole prompts
+    dec = engine.decoder
+    n_pp = PAGED_T_MAX // PAGE_SIZE
+    pool = dec.init_paged_pool(8 * n_pp + 1, PAGE_SIZE)
+    dec.paged_prefill(pool, prefix[None], [0], [256],
+                      np.arange(1, n_pp + 1)[None])
+    tails = np.stack([rng.integers(0, 32000, 256) for _ in range(8)])
+    ptab = np.zeros((8, n_pp), np.int64)
+    ptab[:, :16] = np.arange(1, 17)
+    ptab[:, 16:32] = n_pp + 1 + np.arange(8 * 16).reshape(8, 16)
+    full = np.concatenate([np.tile(prefix, (8, 1)), tails], axis=1)
+    tail_ms = time_ms(lambda: dec.paged_prefill(
+        pool, tails, np.full(8, 256), np.full(8, 256), ptab),
+        warmup=2, reps=5, batch=1)
+    slab_caches = dec.init_cache(8)
+    slab_ms = time_ms(lambda: dec.prefill(slab_caches, full,
+                                          np.full(8, 512)),
+                      warmup=2, reps=5, batch=1)
+    log(f"paged prefix [{card}]: prefill of 8 x 256-token tails on the "
+        f"shared pages {tail_ms:.2f} ms ({8 * 256 / tail_ms * 1e3:.0f} "
+        f"tail tok/s, {8 * 512 / tail_ms * 1e3:.0f} prompt tok/s served); "
+        f"slab prefill of the 8 whole 512-token prompts {slab_ms:.2f} ms "
+        f"({8 * 512 / slab_ms * 1e3:.0f} prompt tok/s)")
+    profile_step(lambda: dec.paged_prefill(
+        pool, tails, np.full(8, 256), np.full(8, 256), ptab),
+        "paged tail prefill (8 x 256 tokens on 256 shared)")
+    profile_step(lambda: dec.prefill(slab_caches, full, np.full(8, 512)),
+                 "slab prefill (8 x 512 tokens)")
+    ids = np.zeros(8, np.int64)
+    profile_step(lambda: dec.paged_decode_block(
+        pool, ptab, ids, np.full(8, 500), block_size=4),
+        "paged decode block (8 lanes at 500, K=4)")
+    profile_step(lambda: dec.decode_block(
+        slab_caches, ids, np.full(8, 500), block_size=4),
+        "slab decode block (8 lanes at 500, K=4)")
+
+    # -- concurrency at the 8-slot slab's bytes
+    engine = SlotGenerationEngine(net, num_slots=32, block_size=4,
+                                  t_max=PAGED_T_MAX, paged=True,
+                                  page_size=PAGE_SIZE,
+                                  num_pages=8 * n_pp + 1)
+    slab_bytes = sum(t.numel() * t.element_size()
+                     for kv_ in slab_caches.values() for t in kv_.values())
+    prompts = [rng.integers(0, 32000, int(n))
+               for n in rng.integers(32, 65, 32)]
+    _, wall, st, fetched, peak, kv = _drive(engine, prompts, new_tokens)
+    log(f"paged concurrency [{card}]: 32 requests (32-64-token prompts, "
+        f"64 new) on {engine.num_pages} pages ({engine._pool_bytes()} "
+        f"bytes; the 8-slot slab {slab_bytes}): peak active slots {peak} "
+        f"(bar 24 = 3 x the slab's 8), most pages mapped {kv['mapped']}, "
+        f"preempted {st['page_preempted']}; engine "
+        f"{32 * new_tokens / wall:.1f} generated tok/s ({wall:.2f}s); "
+        f"readbacks {fetched} for {st['decode_blocks']} blocks")
+    if peak < 24:
+        raise AssertionError(f"peak active slots {peak} < 24")
+    _audit(engine, "paged concurrency")
+
+    # -- speculation: 256-token prompts repeating a 32-token motif
+    prompts = [np.tile(rng.integers(0, 32000, 32), 8) for _ in range(8)]
+    # each cache: plain blocks, the default speculative engine (with
+    # random weights acceptance is low, so it soon falls back to plain
+    # blocks), and one that never falls back (spec_threshold 0: every
+    # block is a verify block)
+    rates, outs = {}, {}
+    for paged in (False, True):
+        for mode in ("off", "on", "always"):
+            kw = dict(paged=True, page_size=PAGE_SIZE) if paged else {}
+            if mode != "off":
+                kw.update(speculative=True, spec_k=4)
+            if mode == "always":
+                kw.update(spec_threshold=0.0)
+            engine = SlotGenerationEngine(net, num_slots=8, block_size=4,
+                                          t_max=PAGED_T_MAX, **kw)
+            engine.submit(prompts[0][:64], 4)
+            engine.run_until_drained()          # warm
+            reqs, wall, st, fetched, _, _ = _drive(engine, prompts,
+                                                   new_tokens)
+            what = f"{'paged' if paged else 'slab'} spec {mode}"
+            rates[what] = 8 * new_tokens / wall
+            outs[what] = [r.result(0) for r in reqs]
+            line = (f"speculation [{card}]: {what}: "
+                    f"{rates[what]:.1f} generated tok/s ({wall:.2f}s), "
+                    f"{st['decode_blocks']} decode blocks, readbacks "
+                    f"{fetched}")
+            if mode != "off":
+                if not st["spec_blocks"]:
+                    raise AssertionError(f"{what}: no verify block ran")
+                line += (f"; {st['spec_blocks']} verify blocks, acceptance "
+                         f"{st['spec_accepted_tokens']}/"
+                         f"{st['spec_drafted']} = "
+                         f"{st['spec_accepted_tokens'] / st['spec_drafted']:.3f}"
+                         f", {st['spec_emitted_tokens'] / st['spec_blocks']:.2f}"
+                         f" tokens emitted a verify block (8 lanes), "
+                         f"fallback blocks {st['spec_fallbacks']}")
+            log(line)
+            if paged:
+                _audit(engine, what)
+    for paged in ("slab", "paged"):
+        for mode in ("on", "always"):
+            same = sum((a == b).all() for a, b in zip(
+                outs[f"{paged} spec {mode}"], outs[f"{paged} spec off"]))
+            log(f"speculation [{card}]: {paged} spec {mode} / off "
+                f"{rates[f'{paged} spec {mode}'] / rates[f'{paged} spec off']:.3f}"
+                f"x generated tok/s; {same}/8 outputs identical (bf16 "
+                "verify windows and decode steps round differently: not a "
+                "gate)")
+    check_verify_logits(net, prompts)
+    launches = read_launches()
+    log(f"paged phase: kernel launches {launches} (paged admissions and "
+        "every cache seam run plain attention; the slab engines' "
+        "admissions run the short-sequence kernel)")
+    if launches["shortseq_attention"] < 12:
+        raise AssertionError("the slab engines' admissions did not launch "
+                             "the short-sequence kernel")
 
 
 # ----------------------------------------------------------------- phase 5
@@ -869,7 +1154,7 @@ def _kernel_us(event) -> float:
     return 0.0
 
 
-def profile_step(step):
+def profile_step(step, what="step"):
     """One more ``step()`` under torch.profiler: device time by kernel name
     and the device's busy share of the step's wall time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -884,7 +1169,7 @@ def profile_step(step):
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    log(f"profiled step: wall {wall_us / 1e3:.2f} ms, kernels "
+    log(f"profiled {what}: wall {wall_us / 1e3:.2f} ms, kernels "
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.3f} of wall: the device's "
         f"busy share, one stream), {sum(r[2] for r in rows)} launches")
     for key, us, count in rows[:15]:
@@ -1077,7 +1362,10 @@ def main():
     card = phase_environment()
     phase_build()
     measured = phase_kernel_checks()
-    launches = {"shortseq_attention": phase_serving(card),
+    serving_launches, flagship = phase_serving(card)
+    phase_paged_serving(card, flagship)
+    del flagship
+    launches = {"shortseq_attention": serving_launches,
                 "flash_forward": phase_long_prompt()}
     train = phase_train_flagship(card)
     long = phase_train_long(card)

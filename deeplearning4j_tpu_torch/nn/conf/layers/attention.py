@@ -10,7 +10,10 @@ serving allocation per step) and returns the same dict.
 Attention goes through the ``attention`` helper seam: on a CUDA tensor
 that is a hand-written kernel pair, forward and backward
 (``kernels/flash_forward.py`` routes by T), and it launches or raises. The
-materialized softmax below runs only for CPU tensors.
+materialized softmax below runs only for CPU tensors. The cache seams
+(decode, chunk windows, and the paged pool [P, H, page_size, Dh] read
+through per-slot page tables) are length-masked plain attention on every
+device, as in the JAX package, which has no kernel for them either.
 
 ``forward(..., train=True, gen=g)`` applies dropout where the JAX layers
 do: on the attention input, on the FFN hidden activation and on the
@@ -149,20 +152,169 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         (out [B, 1, n_out], cache)."""
         q, k, v = self._project_qkv(params, x)          # [B, 1, H, Dh]
         ck, cv = cache["k"], cache["v"]
-        t_max = ck.shape[2]
-        pos = positions.reshape(-1).clamp(max=t_max - 1)
+        pos = positions.reshape(-1).clamp(max=ck.shape[2] - 1)
         rows = torch.arange(x.shape[0], device=x.device)
         ck[rows, :, pos] = k[:, 0].to(ck.dtype)
         cv[rows, :, pos] = v[:, 0].to(cv.dtype)
+        out = self._decode_attend(q, ck, cv, pos)
+        return self._project_out(params, out.to(x.dtype)), cache
+
+    def _decode_attend(self, q, ck, cv, pos):
+        """q [B, 1, H, Dh] over keys [B, H, T, Dh] at positions <= pos
+        [B]; scores and softmax in f32. Returns [B, 1, H, Dh] in cv's
+        dtype."""
         scale = 1.0 / math.sqrt(self._head_size())
         logits = torch.einsum("bhd,bhtd->bht", q[:, 0].float(),
                               ck.float()) * scale
-        kpos = torch.arange(t_max, device=x.device)
-        keep = kpos[None, :] <= pos[:, None]             # [B, T_max]
+        kpos = torch.arange(ck.shape[2], device=q.device)
+        keep = kpos[None, :] <= pos[:, None]             # [B, T]
         logits = logits.masked_fill(~keep[:, None, :], NEG)
         probs = torch.softmax(logits, dim=-1)             # f32
-        out = torch.einsum("bht,bhtd->bhd", probs.to(cv.dtype), cv)
-        return self._project_out(params, out[:, None].to(x.dtype)), cache
+        return torch.einsum("bht,bhtd->bhd", probs.to(cv.dtype),
+                            cv)[:, None]
+
+    def _window_attend(self, q, ck, cv, qpos):
+        """Window queries q [B, C, H, Dh] over keys [B, H, T, Dh], query i
+        seeing positions <= qpos[:, i]; scores and softmax in f32. Returns
+        [B, C, H, Dh] in cv's dtype."""
+        scale = 1.0 / math.sqrt(self._head_size())
+        logits = torch.einsum("bqhd,bhtd->bhqt", q.float(),
+                              ck.float()) * scale
+        kpos = torch.arange(ck.shape[2], device=q.device)
+        keep = kpos[None, None, :] <= qpos[:, :, None]   # [B, C, T]
+        logits = logits.masked_fill(~keep[:, None], NEG)
+        probs = torch.softmax(logits, dim=-1)             # f32
+        return torch.einsum("bhqt,bhtd->bqhd", probs.to(cv.dtype), cv)
+
+    def chunk_forward(self, params, x, cache: Dict, pos0, valid=None):
+        """A window of C tokens x [B, C, n_in] whose first token sits at
+        absolute position ``pos0`` ([B] integer tensor): writes the
+        window's k/v into the cache and attends query i over
+        cache[:, :, :pos0+i+1], so earlier context is read back through
+        the cache decode_forward uses. Returns (out [B, C, n_out], cache).
+
+        ``valid=None``: ``pos0`` is clamped so the window fits the cache
+        (the window slides left over filled cells) and every cell is
+        written. ``valid`` ([B]) given: ``pos0`` is not clamped and only
+        cells [pos0, pos0 + valid) below the cache depth are written; a
+        row with valid 0 (a frozen lane) writes nothing. The JAX package
+        drops the other cells with an out-of-range scatter; the slab has
+        no trash cell, so here each of them rewrites its row's spare cell
+        (pos0 - 1, or pos0 + valid when pos0 is 0) with the value that
+        cell already holds. No kept cell of the row is the spare cell, so
+        no two writes of different values meet in one cell."""
+        q, k, v = self._project_qkv(params, x)           # [B, C, H, Dh]
+        ck, cv = cache["k"], cache["v"]
+        b, c = x.shape[:2]
+        t_max = ck.shape[2]
+        if c > t_max:
+            raise ValueError(f"window of {c} > cache depth {t_max}")
+        rows = torch.arange(b, device=x.device)
+        cols = torch.arange(c, device=x.device)[None, :]
+        kk, vv = k.to(ck.dtype), v.to(cv.dtype)
+        if valid is None:
+            w = pos0.reshape(-1).clamp(0, t_max - c)[:, None] + cols
+            idx = w
+        else:
+            p0 = pos0.reshape(-1)
+            n = valid.reshape(-1)
+            w = p0[:, None] + cols
+            keep = (cols < n[:, None]) & (w < t_max)
+            spare = torch.where(p0 > 0, p0 - 1, p0 + n).clamp(max=t_max - 1)
+            keep4 = keep[:, :, None, None]
+            kk = torch.where(keep4, kk, ck[rows, :, spare][:, None])
+            vv = torch.where(keep4, vv, cv[rows, :, spare][:, None])
+            idx = torch.where(keep, w, spare[:, None])
+        ck[rows[:, None], :, idx] = kk
+        cv[rows[:, None], :, idx] = vv
+        out = self._window_attend(q, ck, cv, w)
+        return self._project_out(params, out.to(x.dtype)), cache
+
+    # ---- paged KV cache (models/paging.py + models/generation.py) ----
+    def init_page_pool(self, num_pages: int, page_size: int,
+                       dtype=torch.float32, device="cpu") -> Dict:
+        """Paged decode cache: {"k", "v"} each [P, H, page_size, Dh], a
+        pool of pages shared by every slot and addressed through per-slot
+        page tables. Page 0 is the reserved null page: unmapped table
+        entries and redirected writes land there, and length masks keep
+        it from being attended."""
+        if not self.causal:
+            raise ValueError("KV-cache decoding needs causal=True "
+                             "(autoregressive attention)")
+        shape = (num_pages, self.num_heads, page_size, self._head_size())
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def _paged_gather(self, pool, ptable):
+        """Page table [B, NP] → the rows' contiguous logical view
+        [B, H, NP*page_size, Dh] (entry j covers positions [j*ps,
+        (j+1)*ps)), so the attention after it is the slab's."""
+        b, n_pages = ptable.shape
+        g = pool[ptable]                          # [B, NP, H, ps, Dh]
+        return g.permute(0, 2, 1, 3, 4).reshape(
+            b, self.num_heads, n_pages * pool.shape[2], -1)
+
+    def paged_decode_forward(self, params, x, pool: Dict, ptable,
+                             positions):
+        """One decode step over a paged cache: x [B, 1, n_in] at
+        ``positions`` [B], page tables ``ptable`` [B, NP]. Writes each
+        row's k/v into the page its table maps for that position (a row
+        whose table is redirected to the null page writes there), then
+        attends over the gathered view with decode_forward's math, so the
+        logits equal the slab path's. Returns (out [B, 1, n_out],
+        pool)."""
+        q, k, v = self._project_qkv(params, x)          # [B, 1, H, Dh]
+        pk, pv = pool["k"], pool["v"]
+        ps = pk.shape[2]
+        pos = positions.reshape(-1).clamp(max=ptable.shape[1] * ps - 1)
+        rows = torch.arange(x.shape[0], device=x.device)
+        pids = ptable[rows, pos // ps]
+        offs = pos % ps
+        pk[pids, :, offs] = k[:, 0].to(pk.dtype)
+        pv[pids, :, offs] = v[:, 0].to(pv.dtype)
+        out = self._decode_attend(q, self._paged_gather(pk, ptable),
+                                  self._paged_gather(pv, ptable), pos)
+        return self._project_out(params, out.to(x.dtype)), pool
+
+    def paged_chunk_forward(self, params, x, pool: Dict, ptable, pos0,
+                            valid=None):
+        """A window x [B, C, n_in] starting at absolute position ``pos0``
+        [B] over a paged cache. Writes the window's k/v through the page
+        tables (positions below ``pos0`` are never written, which keeps
+        mapped shared pages read-only) and attends query i over the
+        gathered view at positions <= pos0 + i. Cells at or past
+        ``valid`` [B] (default the whole window) or past the table's
+        reach go to the null page. Returns (out [B, C, n_out], pool)."""
+        q, k, v = self._project_qkv(params, x)          # [B, C, H, Dh]
+        pk, pv = pool["k"], pool["v"]
+        c = x.shape[1]
+        ps = pk.shape[2]
+        n_pages = ptable.shape[1]
+        p0 = pos0.reshape(-1)
+        cols = torch.arange(c, device=x.device)[None, :]
+        w = p0[:, None] + cols                           # [B, C]
+        keep = w < n_pages * ps
+        if valid is not None:
+            keep = keep & (cols < valid.reshape(-1)[:, None])
+        pids = torch.gather(ptable, 1, (w // ps).clamp(max=n_pages - 1))
+        pids = torch.where(keep, pids, 0)                # null-page redirect
+        offs = torch.where(keep, w % ps, 0)
+        pk[pids, :, offs] = k.to(pk.dtype)
+        pv[pids, :, offs] = v.to(pv.dtype)
+        out = self._window_attend(q, self._paged_gather(pk, ptable),
+                                  self._paged_gather(pv, ptable), w)
+        return self._project_out(params, out.to(x.dtype)), pool
+
+    def paged_prefill_forward(self, params, x, pool: Dict, ptable,
+                              pos0=None, valid=None):
+        """Prompt prefill into pages: one window starting at each row's
+        ``pos0`` (0 for a fresh prompt, the shared-prefix length after a
+        prefix-cache hit), i.e. :meth:`paged_chunk_forward`."""
+        if pos0 is None:
+            pos0 = torch.zeros(x.shape[0], dtype=torch.long,
+                               device=x.device)
+        return self.paged_chunk_forward(params, x, pool, ptable, pos0,
+                                        valid)
 
 
 @register_config
@@ -252,3 +404,13 @@ class TokenAndPositionEmbedding(BaseRecurrentLayerConf):
         decode block's overshooting lanes sit at the context edge)."""
         pos = positions.reshape(-1).clamp(max=self.max_length - 1)
         return (params["W"][ids.reshape(-1)] + params["P"][pos])[:, None, :]
+
+    def embed_chunk(self, params, ids, pos0):
+        """Window embedding: ids [B, C] at absolute positions pos0 + [0, C)
+        per row (``pos0`` [B]), positions clamped to max_length - 1 →
+        [B, C, n_out]."""
+        c = ids.shape[1]
+        pos = (pos0.reshape(-1)[:, None] +
+               torch.arange(c, device=ids.device)[None, :]).clamp(
+                   max=self.max_length - 1)
+        return params["W"][ids.long()] + params["P"][pos]

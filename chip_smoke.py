@@ -46,6 +46,27 @@ Phases, each an uncaught exception on failure:
    with the default fallback and with none (spec_threshold 0): one
    readback per verify block, the audit clean, and verify_block's window
    logits against decode_block's at the same positions.
+4c. the scheduling and resilience tier, on the same net, engine t_max
+   576, every timed engine with EDF, adaptive K and the numerics sentinel
+   (checked in (d) to change no token). (a) chunked prefill, slab and
+   paged, windows of 128: 8 short requests (32-64 tokens, 256 new)
+   decoding when 4 long ones (448-512 tokens) arrive, with and without
+   chunking: the longest gap between decode-block retirements of the
+   short lanes and the long requests' time to first token, at most one
+   readback a decode block; a 480-token prompt's final-window logits
+   (slab and paged) against the whole-prompt prefill on the card and the
+   CPU f32 twin (rel-L2 <= 5e-2). (b) recompute_logits on 8 rows of 512:
+   12 B1 launches, logits against the prefill's. (c) 32 requests with
+   mixed deadlines under headroom shedding, 4 cancelled mid-decode: every
+   request ends, no slot or page left held; the K adaptive block chose
+   and the block latency against its target. (d) the sentinel: a clean
+   run token-identical to a sentinel-off engine's in the same call (and
+   both rates), a NaN injection failing exactly its request with
+   NumericalFault and none of its block's tokens, a flipped shared-prefix
+   page caught by the verifier at rate 1.0. (e) EngineSupervisor: a crash
+   at engine.step mid-decode; every request completes once at full
+   length, with no nvcc build and no weight cast after the restart. The
+   phase prints its wall time.
 5. long prompt: the same width at 2 layers, max_length 2048,
    TransformerDecoder.generate on 4 prompts of 1536 tokens (bucket
    T = 2048 > 512): the flash kernel must launch.
@@ -113,8 +134,12 @@ from deeplearning4j_tpu_torch.models import (CharacterIterator,
 from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTM
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
+                                                    NumericalFault)
 from deeplearning4j_tpu_torch.ops.dataset import DataSet
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts
+from deeplearning4j_tpu_torch.parallel import (EngineSupervisor,
+                                               FaultInjector)
 from deeplearning4j_tpu_torch.utils import (graph_from_numpy,
                                             network_from_numpy)
 
@@ -1033,6 +1058,393 @@ def phase_paged_serving(card, net):
                              "the short-sequence kernel")
 
 
+# ---------------------------------------------------------------- phase 4c
+#: phase 4c's window and the sentinel its timed engines run with (no page
+#: verification: its readbacks would sit in the timings)
+TIER_CHUNK = 128
+SENTINEL = IntegrityConfig(kv_verify=False)
+
+
+def _tier_engine(net, dec, **kw):
+    """An engine of the tier as phase 4c times it: EDF, adaptive K and
+    the sentinel (``dec`` must be a sentinel decoder)."""
+    kw.setdefault("num_slots", 8)
+    kw.setdefault("integrity", SENTINEL)
+    return SlotGenerationEngine(net, decoder=dec, t_max=PAGED_T_MAX,
+                                scheduling="edf", adaptive_block=True, **kw)
+
+
+def _serve(engine, hook=None):
+    """run_until_drained's loop with ``hook()`` after every admission and
+    every cycle."""
+    while True:
+        engine._sweep_pending()
+        engine._admit()
+        if hook is not None:
+            hook()
+        if not engine._any_active():
+            if not engine._pending:
+                return
+            continue
+        engine._step()
+        if hook is not None:
+            hook()
+
+
+def _stall_run(net, dec, paged, chunk, shorts, longs, warm):
+    """8 short requests decoding (256 new tokens) when 4 long ones (16
+    new) arrive, after the ``warm`` prompts (a long and a short one, no
+    prefix shared with the measured ones). Returns (longest and median gap between decode-block
+    retirements that carried a short lane, from the longs' arrival until
+    the last long's first token; the longs' times to first token; decode
+    readbacks, decode blocks)."""
+    kw = dict(paged=True, page_size=PAGE_SIZE) if paged else {}
+    engine = _tier_engine(net, dec, num_slots=12, prefill_chunk=chunk, **kw)
+    for p in warm:
+        engine.submit(p, 4)
+    engine.run_until_drained()              # warm both prefill paths
+    short_reqs = [engine.submit(p, 256) for p in shorts]
+    retires = []
+    retire = engine._retire_block
+
+    def timed_retire(block):
+        retire(block)
+        if any(r in short_reqs for _, r in block[1]):
+            retires.append(time.perf_counter())
+    engine._retire_block = timed_retire
+    engine._sweep_pending()
+    engine._admit()
+    for _ in range(4):                      # the shorts are decoding
+        engine._step()
+    torch.cuda.synchronize()
+    stats0 = engine.stats()
+    fetched0 = fetch_counts("engine.decode")["engine.decode"]
+    t_sub = time.perf_counter()
+    long_reqs = [engine.submit(p, 16) for p in longs]
+    ttft = {}
+
+    def first_tokens():
+        now = time.perf_counter()
+        for i, r in enumerate(long_reqs):
+            if i not in ttft and r.generated:
+                ttft[i] = now - t_sub
+    _serve(engine, first_tokens)
+    torch.cuda.synchronize()
+    for p, r in zip(shorts + longs, short_reqs + long_reqs):
+        want = len(p) + (256 if r in short_reqs else 16)
+        if len(r.result(timeout=0)) != want:
+            raise AssertionError(f"a request returned "
+                                 f"{len(r.result(timeout=0))} tokens, "
+                                 f"expected {want}")
+    st = {k: v - stats0.get(k, 0) for k, v in engine.stats().items()}
+    fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
+    if fetched > st["decode_blocks"]:
+        raise AssertionError(f"{fetched} decode readbacks for "
+                             f"{st['decode_blocks']} decode blocks")
+    if paged:
+        _audit(engine, "stall run")
+    t_last = t_sub + max(ttft.values())
+    window = [t_sub] + [t for t in retires if t_sub < t]
+    window = [t for t in window if t <= t_last] + \
+        [t for t in window if t > t_last][:1]
+    gaps = np.diff(window) * 1e3
+    return (float(gaps.max()), float(np.median(gaps)),
+            sorted(v * 1e3 for v in ttft.values()), fetched,
+            st["decode_blocks"], st["prefill_chunks"])
+
+
+def check_chunk_logits(net, dec, prompt):
+    """A prompt's next-token logits after windows of TIER_CHUNK (one slab
+    row through ``prefill_chunk``, and pages through ``paged_prefill``)
+    against the whole prompt's prefill on the card (B1) and through the
+    CPU f32 twin; raises above LOGIT_REL_TOL."""
+    n = len(prompt)
+    full, lengths = _padded([prompt], 512)
+    _, whole, _ = dec.prefill(dec.init_cache(1), full, lengths)
+    ref = TransformerDecoder(_cpu_twin(net), t_max=PAGED_T_MAX)
+    _, twin, _ = ref.prefill(ref.init_cache(1), full, lengths)
+    slab = dec.init_cache(1)
+    n_pp = PAGED_T_MAX // PAGE_SIZE
+    pool = dec.init_paged_pool(n_pp + 1, PAGE_SIZE)
+    ptab = np.arange(1, n_pp + 1)[None]
+    for pos0 in range(0, n, TIER_CHUNK):
+        window = np.zeros((1, TIER_CHUNK), np.int64)
+        valid = min(TIER_CHUNK, n - pos0)
+        window[0, :valid] = prompt[pos0:pos0 + valid]
+        _, got_slab, slab = dec.prefill_chunk(slab, window, pos0, valid, 0)
+        _, got_paged, pool = dec.paged_prefill(pool, window, [pos0],
+                                               [valid], ptab)
+    errs = {f"{what} vs {against}": _rel_l2_rows(got, want)
+            for what, got in (("slab windows", got_slab),
+                              ("paged windows", got_paged))
+            for against, want in (("card whole", whole),
+                                  ("CPU f32", twin))}
+    log(f"chunked prefill: final-window logits rel-L2 "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
+        f"{LOGIT_REL_TOL}; {n} tokens, windows of {TIER_CHUNK})")
+    if not all(np.isfinite(v) and v <= LOGIT_REL_TOL
+               for v in errs.values()):
+        raise AssertionError("chunked-prefill logits disagree")
+
+
+def check_recompute(net, dec, rng):
+    """recompute_logits on 8 rows of 512: one B1 launch a layer, logits
+    as the cached prefill's."""
+    tokens = rng.integers(0, 32000, (8, 512))
+    lengths = np.full(8, 512)
+    torch.cuda.synchronize()
+    reset_launches()
+    _, got = dec.recompute_logits(tokens, lengths)
+    torch.cuda.synchronize()
+    launched = read_launches()["shortseq_attention"]
+    _, want, _ = dec.prefill(dec.init_cache(8), tokens, lengths)
+    rel = _rel_l2_rows(got, want)
+    rec_ms = time_ms(lambda: dec.recompute_logits(tokens, lengths),
+                     warmup=1, reps=5, batch=1)
+    caches = dec.init_cache(8)
+    pre_ms = time_ms(lambda: dec.prefill(caches, tokens, lengths),
+                     warmup=1, reps=5, batch=1)
+    log(f"recompute_logits: 8 x 512, B1 launches {launched} (12 layers), "
+        f"logits rel-L2 vs the cached prefill {rel:.3e} (tol "
+        f"{LOGIT_REL_TOL}); {rec_ms:.2f} ms against the prefill's "
+        f"{pre_ms:.2f} ms")
+    if launched != 12:
+        raise AssertionError(f"recompute_logits launched B1 {launched} "
+                             "times, expected 12")
+    if not (np.isfinite(rel) and rel <= LOGIT_REL_TOL):
+        raise AssertionError("recompute logits disagree with the prefill's")
+
+
+def _burst(card, net, dec, rng):
+    """32 requests with mixed deadlines, EDF, headroom shedding, 4
+    cancelled mid-decode, on a paged engine."""
+    engine = _tier_engine(net, dec, paged=True, page_size=PAGE_SIZE,
+                          shed_headroom=True)
+    engine.submit(rng.integers(0, 32000, 64), 16)
+    engine.submit(rng.integers(0, 32000, 128), 16)
+    engine.run_until_drained()              # warm: the latency averages
+    ks, lat = [], []
+    choose, retire = engine._choose_block_size, engine._retire_block
+
+    def recording_choose():
+        ks.append(choose())
+        return ks[-1]
+
+    def timed_retire(block):
+        retire(block)
+        lat.append((time.perf_counter() - block[3]) * 1e3)
+    engine._choose_block_size = recording_choose
+    engine._retire_block = timed_retire
+    deadlines = [None, 60.0, 3.0, 0.05] * 8
+    reqs = [engine.submit(rng.integers(0, 32000, int(rng.integers(32, 257))),
+                          int(rng.integers(32, 97)), deadline=d)
+            for d in deadlines]
+    targets = [r for r, d in zip(reqs, deadlines) if d is None][:4]
+
+    def cancel_mid_decode():
+        for r in targets:
+            if len(r.generated) >= 2 and not r.done() and \
+                    not r._cancel_requested:
+                r.cancel()
+    t0 = time.perf_counter()
+    _serve(engine, cancel_mid_decode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats()
+    states = {}
+    for r in reqs:
+        states[r.state] = states.get(r.state, 0) + 1
+    k_hist = {k: ks.count(k) for k in sorted(set(ks))}
+    log(f"deadlines [{card}]: 32 requests (deadlines none / 60 s / 3 s / "
+        f"0.05 s, 4 cancelled mid-decode), EDF, headroom shedding: "
+        f"{states}; headroom_shed {st['headroom_shed']}, "
+        f"deadline_exceeded {st['deadline_exceeded']}, cancelled "
+        f"{st['cancelled']}, completed {st['completed'] - 2}; {wall:.2f}s")
+    log(f"adaptive K [{card}]: blocks by K {k_hist}; block latency "
+        f"(dispatch to retire) median {np.median(lat):.2f} ms, max "
+        f"{max(lat):.2f} ms against block_latency_target "
+        f"{engine.block_latency_target * 1e3:.0f} ms")
+    if not all(r.done() for r in reqs):
+        raise AssertionError("a request of the burst never ended")
+    if st["cancelled"] != 4 or any(r.state != r.CANCELLED for r in targets):
+        raise AssertionError(f"cancelled {st['cancelled']}, expected the 4 "
+                             "targets")
+    if st["headroom_shed"] < 1:
+        raise AssertionError("no infeasible request was shed by headroom")
+    if engine._any_active() or engine.stats()["queue_depth"]:
+        raise AssertionError("a slot or a queued request is left over")
+    _audit(engine, "deadline burst")
+
+
+def _sentinel_checks(card, net, dec_s, rng):
+    prompts = [rng.integers(0, 32000, int(n))
+               for n in rng.integers(64, 257, 8)]
+    plain = TransformerDecoder(net, t_max=PAGED_T_MAX)
+    rates, outs = {}, {}
+    for what in ("off", "on", "on", "off"):
+        engine = _tier_engine(net, plain if what == "off" else dec_s,
+                              integrity=None if what == "off" else SENTINEL)
+        engine.submit(prompts[0][:64], 4)
+        engine.run_until_drained()
+        reqs, wall, st, fetched, _, _ = _drive(engine, prompts, 64)
+        rates.setdefault(what, []).append(8 * 64 / wall)
+        outs[what] = [r.result(0) for r in reqs]
+        if what == "on" and st["numerical_faults"]:
+            raise AssertionError("the sentinel tripped on a clean run")
+    same = sum((a == b).all() for a, b in zip(outs["on"], outs["off"]))
+    log(f"sentinel [{card}]: generated tok/s off "
+        f"{', '.join(f'{x:.1f}' for x in rates['off'])}, on "
+        f"{', '.join(f'{x:.1f}' for x in rates['on'])} (runs off, on, on, "
+        f"off; 8 requests of 64-256 tokens, 64 new, 8 slots); {same}/8 "
+        f"outputs identical on and off")
+    if same != 8:
+        raise AssertionError("the sentinel changed tokens")
+    # NaN logits on the first block's first lane, paged
+    inj = FaultInjector()
+    inj.corrupt("device.corrupt_logits", mode="nan", at=1)
+    engine = _tier_engine(net, dec_s, paged=True, page_size=PAGE_SIZE,
+                          fault_injector=inj)
+    reqs = [engine.submit(p, 64) for p in prompts]
+    engine.run_until_drained()
+    faulted = [r for r in reqs if isinstance(r._error, NumericalFault)]
+    done = [r for r in reqs if r.state == r.DONE and
+            len(r.result(0)) == len(r.prompt) + 64]
+    log(f"sentinel [{card}]: NaN injected at the first block: "
+        f"{len(faulted)} NumericalFault (tokens kept "
+        f"{[len(r.generated) for r in faulted]}), {len(done)} completed, "
+        f"numerical_faults {engine.stats()['numerical_faults']}")
+    if len(faulted) != 1 or len(faulted[0].generated) != 1 or \
+            len(done) != 7:
+        raise AssertionError("the NaN injection did not fail exactly its "
+                             "request before any of its block's tokens")
+    _audit(engine, "NaN injection")
+    # a flipped page of a registered prefix, caught on the next hit
+    inj = FaultInjector()
+    engine = _tier_engine(net, dec_s, paged=True, page_size=PAGE_SIZE,
+                          fault_injector=inj,
+                          integrity=IntegrityConfig(kv_verify_rate=1.0))
+    prefix = rng.integers(0, 32000, 256)
+    tail = lambda: rng.integers(0, 32000, 32)          # noqa: E731
+    engine.submit(np.concatenate([prefix, tail()]), 8)
+    engine.run_until_drained()
+    inj.corrupt("device.corrupt_page", mode="flip", at=1,
+                where="registered")
+    engine.submit(np.concatenate([prefix, tail()]), 8)
+    engine.run_until_drained()
+    last = engine.submit(np.concatenate([prefix, tail()]), 8)
+    engine.run_until_drained()
+    st = engine.stats()
+    log(f"page verifier [{card}]: flipped shared-prefix page: "
+        f"kv_page_corruptions {st['kv_page_corruptions']}, prefix hits "
+        f"{st['prefix_cache_hits']}, the next request "
+        f"{len(last.result(0)) - len(last.prompt)} tokens")
+    if st["kv_page_corruptions"] != 1 or \
+            len(last.result(0)) != len(last.prompt) + 8:
+        raise AssertionError("the verifier missed the flipped page")
+    _audit(engine, "page verifier")
+
+
+def _supervised_restart(card, net, dec_s, rng):
+    prompts = [rng.integers(0, 32000, int(n))
+               for n in rng.integers(64, 257, 8)]
+    inj = FaultInjector()
+    inj.raise_once("engine.step", RuntimeError("injected crash"), at=12)
+    engine = _tier_engine(net, dec_s, fault_injector=inj)
+    sup = EngineSupervisor(engine, timeout=60.0, interval=0.1,
+                           max_restarts=2)
+    took = []
+    restart = sup._restart
+
+    def timed_restart(cause):
+        t0 = time.perf_counter()
+        restart(cause)
+        took.append(time.perf_counter() - t0)
+    sup._restart = timed_restart
+    casts, builds = dec_s.param_casts, cuda_lib.NVCC_RUNS
+    ends = []
+    sup.start()
+    try:
+        t0 = time.perf_counter()
+        reqs = [sup.submit(p, 64) for p in prompts]
+        for r in reqs:
+            r.add_done_callback(ends.append)
+        outs = [r.result(timeout=300) for r in reqs]
+        wall = time.perf_counter() - t0
+        st = sup.stats()
+    finally:
+        sup.stop()
+    log(f"supervisor [{card}]: crash at engine.step hit 12: restarts "
+        f"{sup.restarts}, recovered {sup.recovered_requests}, requeued "
+        f"{st['requeued']}, completed {st['completed']}, failed "
+        f"{st['failed']}; restart "
+        f"{took[0] * 1e3 if took else float('nan'):.2f} ms (quarantine, "
+        f"rebuild, requeue); 8 requests in {wall:.2f}s; nvcc runs after "
+        f"{cuda_lib.NVCC_RUNS - builds}, weight casts after "
+        f"{dec_s.param_casts - casts}")
+    if sup.restarts != 1 or st["completed"] != 8 or st["failed"] or \
+            len(ends) != 8 or \
+            any(len(o) != len(p) + 64 for o, p in zip(outs, prompts)):
+        raise AssertionError("supervised recovery lost, duplicated or cut "
+                             "a request")
+    if cuda_lib.NVCC_RUNS != builds or dec_s.param_casts != casts:
+        raise AssertionError("the restart built a kernel or cast weights")
+
+
+def phase_tier(card, net):
+    """Phase 4c: chunked prefill, recompute, deadlines / cancel /
+    shedding / adaptive K, the sentinel and page verifier, and supervised
+    restart, on the flagship net."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    dec_s = TransformerDecoder(net, t_max=PAGED_T_MAX, sentinel=True)
+    reset_launches()
+    shorts = [rng.integers(0, 32000, int(n)) for n in rng.integers(32, 65, 8)]
+    longs = [rng.integers(0, 32000, int(n))
+             for n in rng.integers(448, 513, 4)]
+    warm = [rng.integers(0, 32000, 480), rng.integers(0, 32000, 48)]
+    for paged in (False, True):
+        rows = {}
+        for chunk in (None, TIER_CHUNK):
+            rows[chunk] = _stall_run(net, dec_s, paged, chunk, shorts,
+                                     longs, warm)
+        for chunk, (gmax, gmed, ttft, fetched, blocks, windows) in \
+                rows.items():
+            log(f"chunked prefill [{card}]: "
+                f"{'paged' if paged else 'slab'}, "
+                f"{'windows of ' + str(chunk) if chunk else 'whole'}: "
+                f"short lanes' longest retire gap {gmax:.2f} ms (median "
+                f"{gmed:.2f}) while 4 long prompts prefill; long TTFT ms "
+                f"{[round(t, 2) for t in ttft]}; {windows} windows; "
+                f"readbacks {fetched} for {blocks} decode blocks")
+        log(f"chunked prefill [{card}]: {'paged' if paged else 'slab'} "
+            f"chunked / whole: longest gap "
+            f"{rows[TIER_CHUNK][0] / rows[None][0]:.3f}x, last long TTFT "
+            f"{rows[TIER_CHUNK][2][-1] / rows[None][2][-1]:.3f}x")
+    slab_b1 = read_launches()["shortseq_attention"]
+    log(f"tier phase: B1 launches in the slab engines' admissions "
+        f"{slab_b1}")
+    # what a cycle's window costs against the whole admission it replaces
+    caches = dec_s.init_cache(12)
+    tokens, lengths = _padded(longs, 512)
+    window = tokens[:1, 3 * TIER_CHUNK:4 * TIER_CHUNK]
+    profile_step(lambda: dec_s.prefill_chunk(caches, window, 3 * TIER_CHUNK,
+                                             TIER_CHUNK, 0),
+                 "slab window (1 x 128 at 384)")
+    profile_step(lambda: dec_s.prefill_slots(caches, tokens, lengths,
+                                             np.arange(4)),
+                 "slab admission of the 4 long prompts (bucket 512)")
+    del caches
+    if slab_b1 < 12:
+        raise AssertionError("the slab engines' admissions did not launch "
+                             "B1")
+    check_chunk_logits(net, dec_s, rng.integers(0, 32000, 480))
+    check_recompute(net, dec_s, rng)
+    _burst(card, net, dec_s, rng)
+    _sentinel_checks(card, net, dec_s, rng)
+    _supervised_restart(card, net, dec_s, rng)
+    log(f"tier phase: {time.perf_counter() - t_phase:.1f}s wall")
+
+
 # ----------------------------------------------------------------- phase 5
 def phase_long_prompt():
     conf = transformer_lm_conf(vocab_size=32000, d_model=768, num_heads=12,
@@ -1364,6 +1776,7 @@ def main():
     measured = phase_kernel_checks()
     serving_launches, flagship = phase_serving(card)
     phase_paged_serving(card, flagship)
+    phase_tier(card, flagship)
     del flagship
     launches = {"shortseq_attention": serving_launches,
                 "flash_forward": phase_long_prompt()}

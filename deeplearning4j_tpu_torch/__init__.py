@@ -12,6 +12,10 @@ module has an obvious counterpart there:
                  plain PyTorch versions, plus plain-torch LayerNorm.
 - ``models``   — the transformer LM, its KV-cache decoder and the slot
                  engine that serves it.
+- ``parallel`` — serving errors, fault injection and the engine
+                 supervisor.
+- ``observability`` — the numerics sentinel, KV-page checksums and the
+                 serving tier's interval clock.
 - ``utils``    — loading JAX checkpoints and parameters.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

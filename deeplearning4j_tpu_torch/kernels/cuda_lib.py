@@ -54,6 +54,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: nvcc processes this process has started (a serving engine rebuilt
+#: around a loaded decoder, as a supervisor restart is, adds none)
+NVCC_RUNS = 0
 
 
 def _nvcc() -> str:
@@ -88,6 +91,7 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
     each, all started together, and wait for all of them. Returns, per
     library built, ``{"seconds": nvcc wall time, "log": nvcc's output}``;
     raises with nvcc's stderr when any build fails."""
+    global NVCC_RUNS
     _require_cuda()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -100,6 +104,7 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, out, time.perf_counter())
+    NVCC_RUNS += len(procs)
     failures, logs = [], {}
     for name, (proc, tmp, out, t0) in procs.items():
         stdout, stderr = proc.communicate()

@@ -1,6 +1,7 @@
 """The transformer LM (configuration, training batches), its KV-cache
-decoder and the slot engine (slab or paged, with the prefix cache and
-speculative decoding); the GravesLSTM character RNN."""
+decoder and the slot engine (slab or paged, with the prefix cache,
+speculative decoding, and the scheduling and resilience tier); the
+GravesLSTM character RNN."""
 
 from .char_rnn import CharacterIterator, char_rnn_conf
 from .transformer import generate, lm_batch_sparse, transformer_lm_conf

@@ -232,6 +232,11 @@ class PageAllocator:
                     self._lru.move_to_end(dg)
         return added
 
+    def cached_page(self, digest: bytes) -> Optional[int]:
+        """The page the prefix index holds for ``digest``, or None."""
+        with self._lock:
+            return self._chains.get(digest)
+
     def evict_digests(self, digests: Sequence[bytes]) -> int:
         """Drop prefix-index entries by digest (each loses the index's
         retention ref; pages still mapped stay alive until released).

@@ -1,6 +1,11 @@
-"""Integrity checks of served state (the JAX package's
-``observability/``)."""
+"""Integrity checks of served state and the serving tier's interval clock
+(the JAX package's ``observability/``)."""
 
-from .integrity import page_content_checksum
+from .clock import interval_now
+from .integrity import (IntegrityConfig, NumericalFault, PageVerifier,
+                        as_integrity, corrupt_host_frames, logits_fault,
+                        page_content_checksum)
 
-__all__ = ["page_content_checksum"]
+__all__ = ["IntegrityConfig", "NumericalFault", "PageVerifier",
+           "as_integrity", "corrupt_host_frames", "interval_now",
+           "logits_fault", "page_content_checksum"]

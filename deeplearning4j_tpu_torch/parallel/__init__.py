@@ -1,5 +1,9 @@
-"""Serving errors."""
+"""Serving lifecycle errors, fault injection and supervised restart."""
 
-from .faults import RejectedError
+from .failures import EngineSupervisor, HeartbeatMonitor, WorkerLostError
+from .faults import (NULL_INJECTOR, Cancelled, DeadlineExceeded,
+                     FaultInjector, RejectedError)
 
-__all__ = ["RejectedError"]
+__all__ = ["Cancelled", "DeadlineExceeded", "EngineSupervisor",
+           "FaultInjector", "HeartbeatMonitor", "NULL_INJECTOR",
+           "RejectedError", "WorkerLostError"]

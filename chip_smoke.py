@@ -94,6 +94,13 @@ Phases, each an uncaught exception on failure:
    ``rnn_time_step`` on the trained net: 2 launches and one readback per
    character; the card's next-character probabilities match the CPU f32
    twin's.
+10b. the char-RNN as a ``ComputationGraph`` (``phase_graph_rnn``, the
+   same width, bf16, TBPTT window 50): ``fit_batch`` (3 windows, 2 x 3
+   B6 launches a step), ``evaluate`` and ``evaluate_roc_multi_class``
+   over 4 batches (one readback a batch), 16 steps of ``rnn_time_step``
+   against the twin's full sequence, and 200 sampled characters (one B6
+   launch a layer and one readback a character); the first window's loss
+   and gradients and the evaluation's accuracy against the CPU f32 twin.
 11. ResNet-50: ``bench.py``'s configuration (``resnet50_conf(1000, 224,
    224, 3)``, nesterovs lr 0.1, l2 1e-4, bf16 on f32 masters) through
    ``ComputationGraph.fit_batch`` on seeded synthetic images: against the
@@ -113,6 +120,12 @@ Phases, each an uncaught exception on failure:
    ``MultiLayerNetwork.fit`` on synthetic MNIST: ms a step; VGG16
    (``vgg16_conf``, 224 x 224, B 4) forward against its CPU f32 twin
    (rel-L2 <= 5e-2).
+12b. evaluation (``phase_evaluate``): ResNet-50's ``evaluate`` over 4
+   synthetic batches of 128 in bf16 (one readback a batch, its counts
+   equal to argmax of ``output()``); LeNet's ``evaluate`` and
+   ``score_examples`` (f32, B 128) against its CPU f32 twin; a LeNet with
+   a batch norm after each conv (C 20, 50) trained 4 steps in bf16 and
+   f32 with every BN on its kernel, against its twin.
 13. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the three batch-norm variants of ``csrc/batchnorm.cu``
@@ -126,8 +139,16 @@ and the wrapper calls' back to back) beside its bytes bound, the plain
 version and its yardstick
 (``F.batch_norm``'s forward + backward, composed with relu, or with the
 add and relu, for the variants no single PyTorch call computes), sums
-those over one step's sites for the ``kernels`` line, and checks that
-f16 is refused.
+those over one step's sites for the ``kernels`` line. Its C4 rows
+(``check_c4_variants``) hold the shapes the card used to refuse (fault
+C4) against their plain versions and time them, printed in a
+``c4_variants`` JSON line: batch norms of C 3, 20 and 50 in bf16, f32
+and f16 and of C 8192 bf16 / 4096 f32 (the general route, where the
+fused one does not take them); LSTMs with hardsigmoid / softsign and
+relu / identity, in f16, and in f32 at H 2048 (the streamed route); and
+attention at D 36 (zero-padded) and D 256 (the CUDA-core DMAX 256
+instance), short
+and flash, forward and backward.
 
 The LSTM kernel (B6) is checked in phase 3 against its plain version on
 both of its routes (``LSTM_CASES``): the cluster route at the char-RNN's
@@ -151,6 +172,7 @@ import time
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.kernels import cuda_lib
 from deeplearning4j_tpu_torch.kernels.flash_backward import (
     flash_backward_dkv, flash_backward_dq)
@@ -176,6 +198,7 @@ from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
 from deeplearning4j_tpu_torch.nn.graph.vertices import LayerVertex
 from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
                                                     NumericalFault)
+from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.dataset import DataSet
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts
 from deeplearning4j_tpu_torch.parallel import (EngineSupervisor,
@@ -184,8 +207,8 @@ from deeplearning4j_tpu_torch.tools.bn_probe import device_ms
 from deeplearning4j_tpu_torch.utils import (graph_from_numpy,
                                             network_from_numpy)
 
-#: H100 SXM data-sheet peaks (not measured): HBM bytes/s, dense bf16 FLOP/s
-#: on the tensor cores, f32 FLOP/s on the CUDA cores
+#: H100 SXM data-sheet peaks (not measured): HBM bytes/s, dense bf16
+#: (and f16) FLOP/s on the tensor cores, f32 FLOP/s on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -206,7 +229,7 @@ LOGIT_REL_TOL = 5e-2
 #: carried through 128 dependent steps); in bf16 both round h and c to
 #: bf16 every step, so an order difference can flip a rounding (4e-3 at
 #: |h| ~ 1), and the flip carries forward
-LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 #: max-abs of the cuDNN LSTM layer against the port's in f32 (TF32 off):
 #: a semantics check of the yardstick (gate order, weights), not a bound
 CUDNN_AGREE_TOL = 1e-3
@@ -565,13 +588,14 @@ def _lstm_inputs(t, n, h, dtype, peephole, masked, seed):
 def _lstm_bound(t, n, h, dtype, peephole, masked):
     """(bound_ms, bound_by): xw in, y out, R, h0 / c0 / hT / cT and the
     peepholes (and the f32 mask) moved once, against 2·T·N·H·4H FLOP of
-    recurrent products at the dtype's peak (bf16 tensor cores, f32 CUDA
-    cores); the gate math is not counted."""
+    recurrent products at the dtype's peak (bf16 and f16: the 16-bit
+    tensor cores' dense rate; f32: the CUDA cores); the gate math is not
+    counted."""
     es = torch.empty((), dtype=dtype).element_size()
     nbytes = es * (t * n * 4 * h + t * n * h + h * 4 * h + 4 * n * h +
                    3 * h * peephole) + 4 * t * n * masked
     t_bytes = nbytes / HBM_BYTES_PER_S
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
     t_ops = 2 * t * n * h * 4 * h / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -591,21 +615,29 @@ def _cudnn_twin(params, n_in, h, dtype):
     return ref
 
 
-def _lstm_check(t, n, h, dtype, peep, masked, seed, route):
+def _lstm_check(t, n, h, dtype, peep, masked, seed, route, acts=None,
+                scale=1.0):
     """B6 on one case against its plain version; the launch must take
-    ``route``. Returns the max-abs error."""
+    ``route``. ``acts`` (gate, cell) names the activations (sigmoid /
+    tanh by default); ``scale`` multiplies xw and R. Returns the max-abs
+    error."""
     args = _lstm_inputs(t, n, h, dtype, peep, masked, seed)
+    if scale != 1.0:
+        args = (args[0] * scale, args[1] * scale) + args[2:]
+    acts = acts or lk.DEFAULT_ACTS
     before = lstm_routes()
-    got = lk.lstm_recurrence_fwd(*args)
+    got = lk.lstm_recurrence_fwd(*args, *acts)
     took = [r for r, c in lstm_routes().items() if c != before[r]]
-    want = lk.lstm_recurrence_plain(*args)
+    want = lk.lstm_recurrence_plain(*args, *(get_activation(a)
+                                             for a in acts))
     torch.cuda.synchronize()
     if not all(torch.isfinite(x).all() for x in got):
         raise AssertionError("lstm_recurrence: non-finite output")
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want))
     log(f"lstm_recurrence T={t} N={n} H={h} {str(dtype)[6:]} "
-        f"peepholes {peep} masked {masked}: route {took}, y/hT/cT max-abs "
+        f"peepholes {peep} masked {masked} gate/cell {acts[0]}/{acts[1]}: "
+        f"route {took}, y/hT/cT max-abs "
         f"{err:.3e} (tol {LSTM_TOL[dtype]})")
     if took != [route]:
         raise AssertionError(f"lstm_recurrence took route {took}, expected "
@@ -744,6 +776,8 @@ def phase_kernel_checks():
         f"{(dq['ms'] + dkv['ms']) / dkv['library_ms']:.2f}x)")
     measured["lstm_recurrence"] = check_lstm_kernel()
     measured.update(check_bn_kernels())
+    rows = check_c4_variants()
+    log(json.dumps({"c4_variants": rows}))
     return measured
 
 
@@ -1834,6 +1868,359 @@ def phase_charrnn_sample(card, net):
     return launches
 
 
+# ------------------------------------------------------------ phase 10b
+#: the graph char-RNN's evaluation against its CPU f32 twin over the same
+#: batches: the accuracy and the average AUC (absolute; bf16 rounding ties
+#: and reorders near-equal probabilities, which moves the AUC, a rank
+#: statistic, by a few 1e-4); the output probabilities the evaluation
+#: reads back are held at LOGIT_REL_TOL (_output_err)
+EVAL_ACC_TOL = 1e-3
+EVAL_AUC_TOL = 2e-3
+GRAPH_RNN_EVAL_BATCHES = 4
+GRAPH_RNN_SAMPLE = 200
+
+
+def _charrnn_graph_conf(tbptt_length=50, vocab=80, hidden=512, layers=2):
+    """bench.py's char-RNN (char_rnn_conf's settings) as a
+    ComputationGraph: GravesLSTM x 2 -> softmax RnnOutputLayer, rmsprop,
+    l2 1e-3, truncated BPTT."""
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import RnnOutputLayer
+    g = (NeuralNetConfiguration.Builder().seed(12345)
+         .learning_rate(CHARRNN_LR).updater("rmsprop").rms_decay(0.95)
+         .weight_init("xavier").regularization(True).l2(0.001)
+         .graph_builder().add_inputs("in"))
+    prev = "in"
+    for i in range(layers):
+        g.add_layer(f"lstm{i}", GravesLSTM(n_out=hidden, activation="tanh"),
+                    prev)
+        prev = f"lstm{i}"
+    g.add_layer("out", RnnOutputLayer(n_out=vocab, loss="mcxent",
+                                      activation="softmax"), prev)
+    return (g.set_outputs("out").set_input_types(InputType.recurrent(vocab))
+            .backprop_type("truncated_bptt").tbptt_fwd_length(tbptt_length)
+            .tbptt_back_length(tbptt_length).build())
+
+
+def check_graph_rnn_twin(net, ds):
+    """The first TBPTT window's loss and gradients of the card's bf16
+    graph against the same weights in f32 on the CPU."""
+    got_g, got_l = net.compute_gradient_and_score(ds)
+    want_g, want_l = _cpu_twin(net).compute_gradient_and_score(ds)
+    rel_l = abs(got_l - want_l) / abs(want_l)
+    errs = {f"{v}.{k}": _rel_l2(got_g[v][k].cpu(), want_g[v][k])
+            for v, k in (("lstm0", "W"), ("lstm0", "R"), ("lstm1", "R"),
+                         ("out", "W"))}
+    log(f"graph char-RNN: first-window loss card bf16 {got_l:.6f} vs CPU "
+        f"f32 {want_l:.6f} (rel {rel_l:.3e}, tol {TRAIN_LOSS_TOL}); "
+        f"gradient rel-L2 "
+        f"{', '.join(f'{k} {e:.3e}' for k, e in errs.items())} (tol "
+        f"{TRAIN_GRAD_TOL})")
+    if not (rel_l <= TRAIN_LOSS_TOL and
+            all(e <= TRAIN_GRAD_TOL for e in errs.values())):
+        raise AssertionError("card graph char-RNN disagrees with the CPU "
+                             "f32 reference")
+
+
+def _eval_readbacks(fn, tag):
+    """(fn(), readbacks under ``tag`` during it)."""
+    before = fetch_counts(tag)[tag]
+    out = fn()
+    return out, fetch_counts(tag)[tag] - before
+
+
+class _Recorded:
+    """An evaluation for ``do_evaluation`` that keeps the output it is
+    handed (the host array read back, one a batch) and passes it on to
+    ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.outputs = inner, []
+
+    def eval(self, labels, output, mask=None):
+        self.outputs.append(np.asarray(output, np.float32))
+        self.inner.eval(labels, output, mask=mask)
+
+
+def _recorded_eval(net, data):
+    """The classification evaluation of ``net``'s first output over
+    ``data`` through do_evaluation, with the outputs it read back."""
+    name = net.conf.network_outputs[0]
+    return net.do_evaluation(data, {name: _Recorded(Evaluation())})[name]
+
+
+def _output_err(got, want):
+    """rel-L2 of two lists of output probabilities (classes last), taken
+    on the log-probabilities less their mean over the classes: the logits
+    up to a constant a row, so a near-uniform output still shows how it
+    differs."""
+    def centered(outs):
+        lp = np.log(np.maximum(np.concatenate(
+            [o.reshape(-1, o.shape[-1]) for o in outs]).astype(np.float64),
+            1e-30))
+        return torch.from_numpy(lp - lp.mean(-1, keepdims=True))
+    return _rel_l2(centered(got), centered(want))
+
+
+def phase_graph_rnn(card):
+    """bench.py's char-RNN built as a ComputationGraph (2 x 512 GravesLSTM,
+    vocab 80, B 64, T 128, bf16, rmsprop, l2 1e-3): fit_batch with
+    truncated BPTT (window 50: 3 windows, 2 x 3 B6 launches a step),
+    evaluate and evaluate_roc_multi_class (one readback a batch), and 200
+    sampled characters through rnn_time_step (one B6 launch a layer a
+    character), each held against the CPU f32 twin."""
+    t0 = time.perf_counter()
+    b, t, vocab, layers, windows = 64, 128, 80, 2, 3
+    net = ComputationGraph(_charrnn_graph_conf(),
+                           compute_dtype=torch.bfloat16).init()
+    x, y = _motif_batch(b, t, vocab, 23)
+    check_graph_rnn_twin(net, DataSet(x[:2, :50], y[:2, :50]))
+    ds = DataSet(torch.from_numpy(x).cuda().bfloat16(),
+                 torch.from_numpy(y).cuda().bfloat16())
+    warm, _, _ = train_steps(net, ds, 1)
+    losses, wall, launches = train_steps(net, ds, 4)
+    routes = lstm_routes()
+    log(f"graph char-RNN TBPTT: losses {[round(v, 4) for v in warm + losses]}"
+        f" (the last window's of each step), {net.iteration} updates; "
+        f"kernel launches in 4 steps {launches}, LSTM routes {routes}")
+    if net.iteration != 5 * windows or \
+            launches["lstm_recurrence"] != 4 * layers * windows:
+        raise AssertionError(f"graph TBPTT ran {net.iteration} updates and "
+                             f"{launches['lstm_recurrence']} B6 launches, "
+                             f"expected {5 * windows} and "
+                             f"{4 * layers * windows}")
+    if not np.isfinite(warm + losses).all():
+        raise AssertionError("graph char-RNN loss is not finite")
+    log(f"graph char-RNN TBPTT [{card}]: {wall / 4 * 1e3:.2f} ms per step "
+        f"(3 windows, B {b}, T {t})")
+    # evaluation: bf16 on the card against the CPU f32 twin
+    batches = [DataSet(*_motif_batch(b, t, vocab, 60 + i))
+               for i in range(GRAPH_RNN_EVAL_BATCHES)]
+    twin = _cpu_twin(net)
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    ev, reads = _eval_readbacks(lambda: net.evaluate(batches), "graph.eval")
+    roc, roc_reads = _eval_readbacks(
+        lambda: net.evaluate_roc_multi_class(batches), "graph.eval")
+    eval_s = time.perf_counter() - t1
+    eval_launches = read_launches()["lstm_recurrence"]
+    # the probabilities the evaluation reads back, against the twin's
+    rec, want = _recorded_eval(net, batches), _recorded_eval(twin, batches)
+    want_roc = twin.evaluate_roc_multi_class(batches)
+    prob_err = _output_err(rec.outputs, want.outputs)
+    auc, want_auc = roc.calculate_average_auc(), \
+        want_roc.calculate_average_auc()
+    n = GRAPH_RNN_EVAL_BATCHES
+    log(f"graph char-RNN evaluate: accuracy card {ev.accuracy():.6f} vs CPU "
+        f"f32 {want.inner.accuracy():.6f} (tol {EVAL_ACC_TOL}), {ev.total} "
+        f"predictions, readbacks {reads} + {roc_reads} for {n} + {n} "
+        f"batches, B6 launches {eval_launches}; read-back probabilities "
+        f"(centered log) rel-L2 {prob_err:.3e} (tol {LOGIT_REL_TOL}); "
+        f"average AUC card {auc:.6f} vs CPU {want_auc:.6f} (tol "
+        f"{EVAL_AUC_TOL}); {eval_s:.2f}s")
+    if reads != n or roc_reads != n or ev.total != n * b * t or \
+            eval_launches != 2 * layers * n:
+        raise AssertionError("graph evaluation did not read back once a "
+                             "batch or launch B6 once a layer a batch")
+    if not (abs(ev.accuracy() - want.inner.accuracy()) <= EVAL_ACC_TOL and
+            prob_err <= LOGIT_REL_TOL and
+            abs(auc - want_auc) <= EVAL_AUC_TOL and
+            np.array_equal(rec.inner.confusion, ev.confusion)):
+        raise AssertionError("card graph evaluation disagrees with the CPU "
+                             "f32 twin")
+    # rnn_time_step: the card's steps against the twin's full sequence
+    probe = x[:2, :16]
+    net.rnn_clear_previous_state()
+    steps = np.stack([net.rnn_time_step(probe[:, i])[0] for i in range(16)],
+                     1)
+    full = twin.output(probe)[0]
+    err = float(np.abs(steps - full).max())
+    log(f"graph rnn_time_step: 16 single steps on the card vs the CPU f32 "
+        f"twin's full-sequence output max-abs {err:.3e} (tol "
+        f"{SAMPLE_PROB_TOL})")
+    if not err <= SAMPLE_PROB_TOL:
+        raise AssertionError("card rnn_time_step disagrees with the full "
+                             "forward")
+    # sampling 200 characters: one B6 launch a layer a character
+    rng = np.random.default_rng(5)
+    net.rnn_clear_previous_state()
+    xs = np.zeros((1, vocab), np.float32)
+    xs[0, 0] = 1.0
+    torch.cuda.synchronize()
+    reset_launches()
+    fetched0 = fetch_counts("graph.rnn_time_step")["graph.rnn_time_step"]
+    t2 = time.perf_counter()
+    text = [0]
+    for _ in range(GRAPH_RNN_SAMPLE):
+        probs = net.rnn_time_step(xs)[0][0].astype(np.float64)
+        nxt = int(rng.choice(vocab, p=probs / probs.sum()))
+        text.append(nxt)
+        xs = np.zeros((1, vocab), np.float32)
+        xs[0, nxt] = 1.0
+    sample_s = time.perf_counter() - t2
+    sl = read_launches()["lstm_recurrence"]
+    fetched = fetch_counts("graph.rnn_time_step")["graph.rnn_time_step"] - \
+        fetched0
+    log(f"graph sampling: {GRAPH_RNN_SAMPLE} characters, B6 launches {sl}, "
+        f"readbacks {fetched}, LSTM routes {lstm_routes()}; "
+        f"{sample_s / GRAPH_RNN_SAMPLE * 1e3:.3f} ms per character [{card}]")
+    if sl != layers * GRAPH_RNN_SAMPLE or fetched != GRAPH_RNN_SAMPLE:
+        raise AssertionError("graph sampling did not launch B6 once a layer "
+                             "a character with one readback")
+    log(f"phase graph_rnn: {time.perf_counter() - t0:.1f}s wall")
+    return launches
+
+
+# ------------------------------------------------------------ phase 12b
+def _lenet_bn_conf(learning_rate=0.02):
+    """LeNet with a batch norm after each conv (C = 20 and 50, the
+    general route's widths in bf16), from the existing builders."""
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer,
+                                                         SubsamplingLayer)
+    b = (NeuralNetConfiguration.Builder().seed(123)
+         .learning_rate(learning_rate).updater("nesterovs").momentum(0.9)
+         .weight_init("xavier").regularization(True).l2(5e-4).list())
+    for c in (20, 50):
+        b.layer(ConvolutionLayer(n_out=c, kernel_size=[5, 5], stride=[1, 1],
+                                 activation="identity"))
+        b.layer(BatchNormalization(activation="relu"))
+        b.layer(SubsamplingLayer(kernel_size=[2, 2], stride=[2, 2],
+                                 pooling_type="max"))
+    b.layer(DenseLayer(n_out=500, activation="relu"))
+    b.layer(OutputLayer(n_out=10, loss="mcxent", activation="softmax"))
+    return b.set_input_type(InputType.convolutional(28, 28, 1)).build()
+
+
+def _mnist_batches(n, seed, b=128):
+    g = np.random.default_rng(seed)
+    return [DataSet(g.random((b, 28, 28, 1), np.float32),
+                    np.eye(10, dtype=np.float32)[g.integers(0, 10, b)])
+            for _ in range(n)]
+
+
+def _bn_routes():
+    return {k: dict(f.routes) for k, f in (("fwd", bnk.bn_train_fwd),
+                                            ("bwd", bnk.bn_train_bwd))}
+
+
+def check_lenet_bn(card, dtype):
+    """The BN LeNet in ``dtype``: 4 fit steps with every BN on its kernel
+    (the general route at C 20 and 50 in bf16; C 20 is fused in f32), the
+    first step's loss against the CPU f32 twin, and (f32) its gradients
+    and the running statistics after the 4 steps."""
+    net = MultiLayerNetwork(_lenet_bn_conf(), compute_dtype=dtype).init()
+    batches = _mnist_batches(4, 43)
+    twin = _cpu_twin_mln(net)
+    got_g, got_l = net.compute_gradient_and_score(batches[0])
+    want_g, want_l = twin.compute_gradient_and_score(batches[0])
+    rel_l = abs(got_l - want_l) / abs(want_l)
+    errs = {f"{i}.{k}": _rel_l2(got_g[i][k].cpu(), want_g[i][k])
+            for i, k in ((0, "W"), (1, "gamma"), (3, "W"), (4, "gamma"),
+                         (7, "W"))}
+    for f in (bnk.bn_train_fwd, bnk.bn_train_bwd):
+        f.routes = dict.fromkeys(bnk.ROUTES, 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    net.fit(batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    twin.fit(batches)
+    state_err = max(_rel_l2(net.state[i][k].cpu(), twin.state[i][k])
+                    for i in (1, 4) for k in ("mean", "var"))
+    what = str(dtype)[6:]
+    log(f"lenet-bn {what}: first-step loss card {got_l:.6f} vs CPU f32 "
+        f"{want_l:.6f} (rel {rel_l:.3e}); gradient rel-L2 "
+        f"{', '.join(f'{k} {e:.3e}' for k, e in errs.items())}; running "
+        f"statistics after 4 steps rel-L2 {state_err:.3e}; BN launches "
+        f"{launches['batchnorm_train']} + {launches['batchnorm_train.bwd']} "
+        f"by route {_bn_routes()}; {wall / 4 * 1e3:.2f} ms a step [{card}]")
+    if launches["batchnorm_train"] != 8 or \
+            launches["batchnorm_train.bwd"] != 8:
+        raise AssertionError("the BN LeNet did not run each BN on its kernel "
+                             "once a direction a step")
+    if not rel_l <= TRAIN_LOSS_TOL or not np.isfinite(float(net.score_value)):
+        raise AssertionError("the BN LeNet's loss disagrees with its CPU "
+                             "twin")
+    if dtype == torch.float32 and not (
+            all(e <= TRAIN_GRAD_TOL for e in errs.values()) and
+            state_err <= RESNET_STATE_TOL):
+        raise AssertionError("the f32 BN LeNet's gradients or running "
+                             "statistics disagree with its CPU twin")
+    return launches
+
+
+def phase_evaluate(card):
+    """evaluate of ResNet-50 (B 128, bf16, 4 synthetic batches, inference
+    BN), its read-back probabilities on 4 images held against its CPU f32
+    twin; evaluate and score_examples of LeNet (f32, B 128) against its
+    CPU f32 twin; the BN LeNet trained 4 steps in bf16 and f32. One
+    readback a batch."""
+    t0 = time.perf_counter()
+    r50 = ComputationGraph(resnet50_conf(1000, 224, 224, 3),
+                           compute_dtype=torch.bfloat16).init()
+    batches = []
+    for i in range(4):
+        x, y = _images(128, 224, 3, 1000, 70 + i)
+        batches.append(DataSet(x, y.cpu().numpy()))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev, reads = _eval_readbacks(lambda: r50.evaluate(batches), "graph.eval")
+    r50_s = time.perf_counter() - t1
+    # the first 4 images against the twin: the probabilities read back
+    # (one-hot at initialization: inference BN on the initial running
+    # statistics lets the activations grow through 50 layers) and the
+    # logits of the same inference forward
+    rec = _recorded_eval(r50, batches)
+    x4, twin = batches[0].features[:4], _cpu_twin(r50)
+    want = _recorded_eval(twin, DataSet(x4.cpu(), batches[0].labels[:4]))
+    got4 = rec.outputs[0][:4]
+    prob_err = _output_err([got4], want.outputs)
+    logit_err = _rel_l2(_logits(r50, x4), _logits(twin, x4.cpu()))
+    log(f"resnet50 evaluate (B 128 x 4, bf16, inference BN): accuracy "
+        f"{ev.accuracy():.6f} over {ev.total} images, readbacks {reads}, "
+        f"{r50_s:.2f}s ({4 * 128 / r50_s:.1f} images/s) [{card}]; 4 images "
+        f"vs the CPU f32 twin: read-back probabilities (centered log, "
+        f"largest {np.round(got4.max(-1), 6).tolist()}) rel-L2 "
+        f"{prob_err:.3e}, logits rel-L2 {logit_err:.3e} (tol "
+        f"{RESNET_LOGIT_TOL})")
+    if reads != 4 or ev.total != sum(d.num_examples() for d in batches) \
+            or not np.array_equal(rec.inner.confusion, ev.confusion) \
+            or not max(prob_err, logit_err) <= RESNET_LOGIT_TOL:
+        raise AssertionError("ResNet-50 evaluation did not read back once a "
+                             "batch or disagrees with its CPU twin")
+    del r50, batches
+    lenet = MultiLayerNetwork(lenet_conf(learning_rate=0.02)).init()
+    train = _mnist_batches(3, 44)
+    lenet.fit(train)
+    test = _mnist_batches(4, 45)
+    twin = _cpu_twin_mln(lenet)
+    ev, reads = _eval_readbacks(lambda: lenet.evaluate(test),
+                                "multilayer.eval")
+    want = twin.evaluate(test)
+    per = lenet.score_examples(test[0], add_regularization=True)
+    per_want = twin.score_examples(test[0], add_regularization=True)
+    per_err = float(np.abs(per - per_want).max() / np.abs(per_want).max())
+    log(f"lenet evaluate (f32, B 128 x 4): accuracy card {ev.accuracy():.6f}"
+        f" vs CPU f32 {want.accuracy():.6f} (tol {EVAL_ACC_TOL}), readbacks "
+        f"{reads}; score_examples [{per.shape[0]}] max relative difference "
+        f"{per_err:.3e} (tol {TRAIN_LOSS_TOL})")
+    if reads != 4 or not abs(ev.accuracy() - want.accuracy()) <= \
+            EVAL_ACC_TOL or not per_err <= TRAIN_LOSS_TOL:
+        raise AssertionError("LeNet evaluation disagrees with its CPU twin")
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        launches[dtype] = check_lenet_bn(card, dtype)
+    log(f"phase evaluate: {time.perf_counter() - t0:.1f}s wall")
+    return launches
+
+
 # ------------------------------------------------------------ phase 11
 #: (M, C) of ResNet-50's batch norms at B 128, 224 x 224 (M = N·H·W), and
 #: how many BN layers of each variant sit at each in one step: "relu" the
@@ -1866,7 +2253,7 @@ BN_LIBRARY = {"identity": "F.batch_norm",
 #: where the two sum the statistics in other orders; f32: summation order
 #: only), and of mean / var / dgamma / dbeta (f32 sums of the same terms
 #: in other orders, in both dtypes)
-BN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+BN_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-5}
 BN_STAT_TOL = 1e-5
 #: the ResNet-50 phase against its CPU f32 twin: inference logits (B 4),
 #: the running statistics after the first step (B 8); the first step's
@@ -2061,15 +2448,6 @@ def check_bn_kernels():
         (y_p, *_), _ = _bn_fwd_bwd(variant, "plain", *case)
         measured[BN_HELPER[variant]]["max_abs_err"] = \
             (y.float() - y_p.float()).abs().max().item()
-    try:
-        bnk.bn_train_fwd(torch.zeros(8, 16, device="cuda",
-                                     dtype=torch.float16),
-                         *(torch.ones(16, device="cuda") for _ in range(3)),
-                         1e-5)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("the batch-norm kernel took an f16 tensor")
     for variant, r in by_variant.items():
         log(f"batch-norm {variant} over one ResNet-50 step's sites (bf16, "
             f"fwd + bwd): kernels {r['ms']:.4f} ms on the device (wrapper "
@@ -2083,6 +2461,136 @@ def check_bn_kernels():
             f"{r['wrapper_ms']:.4f}), plain {r['plain_ms']:.4f}, "
             f"yardstick {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}")
     return measured
+
+
+# ------------------------------------------------- phase 3: C4 variants
+#: batch norms the fused kernel does not take, on the general route:
+#: (M, C, dtype); the first three are an RGB input's and LeNet's BN sites
+C4_BN = [(m, c, dt) for m, c in ((401408, 3), (100352, 20), (25088, 50))
+         for dt in (torch.bfloat16, torch.float32, torch.float16)] + \
+    [(6272, 8192, torch.bfloat16), (6272, 4096, torch.float32)]
+#: LSTMs the cluster route does not take: (T, N, H, dtype, peepholes,
+#: masked, route, (gate, cell), scale of xw and R). relu gates with an
+#: identity cell are unbounded, so their inputs are scaled down
+C4_LSTM = [
+    (128, 64, 512, torch.bfloat16, True, True, "cooperative",
+     ("hardsigmoid", "softsign"), 1.0),
+    (128, 64, 512, torch.float32, True, False, "cooperative",
+     ("hardsigmoid", "softsign"), 1.0),
+    (32, 64, 512, torch.float32, False, False, "cooperative",
+     ("relu", "identity"), 0.3),
+    (128, 64, 512, torch.float16, True, True, "cooperative",
+     lk.DEFAULT_ACTS, 1.0),
+    (32, 64, 2048, torch.float32, False, False, "streamed",
+     lk.DEFAULT_ACTS, 1.0),
+]
+#: attention head dims no kernel took before: (name, B, H, T, D)
+C4_ATTN = [(name, b, h, t, d) for d in (36, 256) for name, b, h, t in (
+    ("shortseq_attention", 4, 4, 512), ("flash_forward", 1, 4, 2048),
+    ("shortseq_attention_bwd", 4, 4, 512), ("flash_backward_dq", 1, 4, 2048),
+    ("flash_backward_dkv", 1, 4, 2048))]
+
+
+def _c4_row(kernel, shape, dtype, route, r):
+    return {"kernel": kernel, "shape": shape, "dtype": str(dtype)[6:],
+            "route": route, **{k: r.get(k) for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+
+
+def check_c4_bn(m, c, dtype, seed):
+    """The three batch-norm variants at (M, C) in ``dtype`` (the general
+    route, or the fused one where it takes the shape) against their plain
+    versions (check_bn_site's gates); the
+    identity BN's forward + backward timed beside its plain version,
+    F.batch_norm and the bytes bound."""
+    way = bnk.route(torch.empty(m, c, device="cuda", dtype=dtype),
+                    torch.empty(c, device="cuda"))
+    for variant in BN_HELPER:
+        line, _ = check_bn_site(variant, m, c, dtype, seed, False)
+        log(f"  C4 {line}")
+    case = _bn_case(m, c, dtype, seed)
+    xk, res, dy, gamma, beta, shift = case
+    (y, *_), _ = _bn_fwd_bwd("identity", "kernel", *case)
+    (y_p, *_), _ = _bn_fwd_bwd("identity", "plain", *case)
+    err = (y.float() - y_p.float()).abs().max().item()
+    lib = time_ms(_bn_library("identity", xk, res, dy, gamma, beta),
+                  reps=10)
+    r = {"max_abs_err": err,
+         "ms": time_ms(lambda: _bn_fwd_bwd("identity", "kernel", *case),
+                       reps=10),
+         "plain_ms": time_ms(lambda: _bn_fwd_bwd("identity", "plain",
+                                                 *case), reps=5),
+         "library_ms": lib,
+         "bound_ms": m * c * xk.element_size() * 5 / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes"}
+    log(f"  C4 batch norm [{m}, {c}] {str(dtype)[6:]} {way} route, "
+        f"identity fwd+bwd: kernel_ms {r['ms']:.4f} plain_ms "
+        f"{r['plain_ms']:.4f} library_ms {lib:.4f} (F.batch_norm) bound_ms "
+        f"{r['bound_ms']:.4f} (bytes)")
+    return _c4_row("batchnorm_train", [m, c], dtype, way, r)
+
+
+def check_c4_lstm(t, n, h, dtype, peep, masked, route, acts, scale, seed):
+    """B6 on a C4 case against its plain version, timed beside it, the
+    bound and (sigmoid / tanh without peepholes) the cuDNN LSTM layer."""
+    err = _lstm_check(t, n, h, dtype, peep, masked, seed, route, acts,
+                      scale)
+    args = _lstm_inputs(t, n, h, dtype, peep, masked, seed)
+    args = (args[0] * scale, args[1] * scale) + args[2:]
+    fns = tuple(get_activation(a) for a in acts)
+    ms = time_ms(lambda: lk.lstm_recurrence_fwd(*args, *acts), reps=5,
+                 batch=2)
+    plain_ms = time_ms(lambda: lk.lstm_recurrence_plain(*args, *fns),
+                       warmup=1, reps=3, batch=1)
+    library_ms = None
+    if tuple(acts) == lk.DEFAULT_ACTS and not peep:
+        ref = torch.nn.LSTM(h, h, batch_first=True).cuda().to(dtype)
+        ref.flatten_parameters()
+        x = torch.randn(n, t, h, device="cuda", dtype=dtype)
+        with torch.no_grad():
+            library_ms = time_ms(lambda: ref(x), reps=5, batch=2)
+    bound_ms, bound_by = _lstm_bound(t, n, h, dtype, peep, masked)
+    plan = lk.lstm_plan(n, h, dtype, *acts)
+    log(f"  C4 lstm T {t} N {n} H {h} {str(dtype)[6:]} {acts[0]}/{acts[1]} "
+        f"route {plan['route']} (resident R rows {plan['resident_rows']}): "
+        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms} (cuDNN LSTM layer, projection included) bound_ms "
+        f"{bound_ms:.4f} ({bound_by})")
+    return _c4_row("lstm_recurrence", [t, n, h], dtype,
+                   f"{route} {acts[0]}/{acts[1]}",
+                   {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+
+
+def check_c4_attention(name, b, h, t, d, seed):
+    """An attention kernel at a C4 head dim (zero-padded to a multiple of
+    8, or the D 256 instance) against its plain version, causal bf16 with
+    a prefix key mask, through check_kernel / check_bwd_kernel."""
+    lengths = [t] + [t // 2 + 7] * (b - 1)
+    if name in ("shortseq_attention", "flash_forward"):
+        r = check_kernel(name, b, h, t, d, lengths, seed)
+    else:
+        r = check_bwd_kernel(name, b, h, t, d, lengths, seed, True)
+    route = "CUDA-core D 256 instance" if d > 128 else \
+        f"padded to D {-(-d // 8) * 8}"
+    return _c4_row(name, [b, h, t, d], torch.bfloat16, route, r)
+
+
+def check_c4_variants():
+    """Every C4 variant (shapes the card refused before) against its plain
+    version, with its times: the rows of PERF.md's C4 table."""
+    t0 = time.perf_counter()
+    rows = [check_c4_bn(m, c, dt, 400 + i) for i, (m, c, dt) in
+            enumerate(C4_BN)]
+    rows += [check_c4_lstm(*case, 500 + i) for i, case in
+             enumerate(C4_LSTM)]
+    rows += [check_c4_attention(*case, 600 + i) for i, case in
+             enumerate(C4_ATTN)]
+    log(f"C4 variants: {len(rows)} checked in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return rows
 
 
 def _conv_flops(conf, b, fused):
@@ -2340,8 +2848,10 @@ def main():
     phase_charrnn_tbptt(card, charrnn_ds)
     phase_charrnn_sample(card, charrnn)
     del charrnn, charrnn_ds
+    phase_graph_rnn(card)
     resnet = phase_resnet(card)
     phase_lenet_vgg(card)
+    phase_evaluate(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
         launches[name] = resnet[name] + resnet[f"{name}.bwd"]
     launches["lstm_recurrence"] = lstm_train["lstm_recurrence"]

@@ -4,7 +4,8 @@ for one NVIDIA H100 (Hopper, sm_90a).
 The subpackages mirror the JAX package's layout and public names, so each
 module has an obvious counterpart there:
 
-- ``ops``      — activations, seeded init, the device-transfer seam.
+- ``ops``      — activations, seeded init, the device-transfer seam,
+                 DataSet / MultiDataSet and the normalizers.
 - ``nn``       — configuration tier (the same JSON as the JAX package),
                  layers, vertices, ComputationGraph, the helper registry.
 - ``kernels``  — hand-written Hopper kernels (``csrc/*.cu``, built with
@@ -16,6 +17,9 @@ module has an obvious counterpart there:
                  supervisor.
 - ``observability`` — the numerics sentinel, KV-page checksums and the
                  serving tier's interval clock.
+- ``eval``     — classification, regression, ROC and metadata
+                 evaluation (numpy).
+- ``optimize`` — training listeners.
 - ``utils``    — loading JAX checkpoints and parameters.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

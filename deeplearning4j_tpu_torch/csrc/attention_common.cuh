@@ -1,17 +1,21 @@
 // Device helpers shared by the attention kernels.
 //
-// The f32 forward variants (shortseq_fwd_f32_kernel, flash_fwd_f32_kernel)
-// and the f32 backwards (attention_bwd_common.cuh: B2, B4, B5) use what
-// remains here; the bf16 / f16 kernels have their own register-resident
-// cores, attention_fwd_core.cuh and attention_bwd_core.cuh, and take only
-// the constants and conversions.
+// The CUDA-core (f32 arithmetic) forward variants (shortseq_fwd_f32_kernel,
+// flash_fwd_f32_kernel) and backwards (attention_bwd_common.cuh: B2, B4,
+// B5) use what remains here: f32 inputs at every head dim, and every dtype
+// at 128 < D <= 256 (the DMAX = 256 instance, on 32-row tiles). The bf16 /
+// f16 kernels up to D 128 have their own register-resident cores,
+// attention_fwd_core.cuh and attention_bwd_core.cuh, and take only the
+// constants and conversions.
 //
 // - Constants: kNeg (the finite mask value), kMinL (the clamp of l),
 //   kThreads / kQRows (256-thread CTAs of 64 query rows), DType codes.
-// - CUDA-core (f32) helpers: stage_rows (f32 rows with an odd row stride
-//   d + 1, so 16 lanes reading one column of 16 rows hit 16 banks),
-//   score_tile, pv_tile and write_rows on a 16 x 16 thread grid (tx over
-//   keys or output columns, ty over query rows), warp_max / warp_sum.
+// - CUDA-core (f32) helpers: stage_rows (rows of any dtype staged as f32
+//   with an odd row stride d + 1, so 16 lanes reading one column of 16
+//   rows hit 16 banks), score_tile, pv_tile and write_rows on a 16 x 16
+//   thread grid (tx over keys or output columns, ty over query rows; RA =
+//   rows / 16 query rows a thread: 4 on 64-row tiles, 2 on 32-row ones),
+//   causal_end, warp_max / warp_sum.
 //
 // Scores, softmax statistics and output accumulators are f32 in all.
 
@@ -37,6 +41,21 @@ constexpr int kQRows = 64;        // query rows per CTA
 constexpr float kMinL = 1e-20f;   // softmax denominator clamp
 
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
+// The widest head dim a kernel takes: 128 < D <= kMaxD runs the DMAX = 256
+// instance of the CUDA-core kernels on kWideRows-row tiles (64 rows of
+// 256 columns would not fit the shared memory of the backward, nor the
+// shortseq forward's score block at T 512, nor the dk / dv accumulators
+// in a thread's 255 registers).
+constexpr int kMaxD = 256;
+constexpr int kWideRows = 32;
+
+// The key a tile of query rows starting at q0 reaches (exclusive): its
+// 64-row group's causal horizon, so a tile of 32 rows averages a fully
+// masked row over the same keys as a 64-row tile does.
+__device__ __forceinline__ int causal_end(int t, int q0, int causal) {
+  return causal ? min(t, q0 / kQRows * kQRows + kQRows) : t;
+}
 
 // The element type T of a kernel whose first parameter is const T*.
 template <typename F>
@@ -89,36 +108,36 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int nrows,
   }
 }
 
-// sc[r * ss + jl] = scale * (q_r . k_jl), for the 64 staged query rows and
-// the nk staged keys jl < nk of a tile starting at absolute key j0, with
-// the reference's masking: a key in the causal future of query q0 + r, or
-// one whose key-mask entry is 0, gets kNeg. Each thread computes a 4 x KB
-// register tile (rows ty + 16a, keys tx + 16b), reading each staged
-// element once per 4 (or KB) multiply-adds.
-template <int KB>
+// sc[r * ss + jl] = scale * (q_r . k_jl), for the 16 RA staged query rows
+// and the nk staged keys jl < nk of a tile starting at absolute key j0,
+// with the reference's masking: a key in the causal future of query
+// q0 + r, or one whose key-mask entry is 0, gets kNeg. Each thread
+// computes an RA x KB register tile (rows ty + 16a, keys tx + 16b),
+// reading each staged element once per RA (or KB) multiply-adds.
+template <int KB, int RA = 4>
 __device__ __forceinline__ void score_tile(float* sc, int ss, const float* qs,
                                            const float* ks, int ds, int d,
                                            int nk, int q0, int j0, int causal,
                                            const float* km, float scale) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][KB];
+  float acc[RA][KB];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int b = 0; b < KB; ++b) acc[a][b] = 0.f;
   for (int c = 0; c < d; ++c) {
-    float qa[4], kb[KB];
+    float qa[RA], kb[KB];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * ds + c];
+    for (int a = 0; a < RA; ++a) qa[a] = qs[(ty + 16 * a) * ds + c];
 #pragma unroll
     for (int b = 0; b < KB; ++b) kb[b] = ks[(tx + 16 * b) * ds + c];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int b = 0; b < KB; ++b) acc[a][b] = fmaf(qa[a], kb[b], acc[a][b]);
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int r = ty + 16 * a;
 #pragma unroll
     for (int b = 0; b < KB; ++b) {
@@ -135,34 +154,34 @@ __device__ __forceinline__ void score_tile(float* sc, int ss, const float* qs,
 
 // acc[a][c] += sum_{jl < nk} p[ty + 16a][jl] * v[jl][tx + 16c] over one
 // staged value tile (probabilities p in sc with row stride ss).
-template <int DC>
-__device__ __forceinline__ void pv_tile(float (&acc)[4][DC], const float* sc,
+template <int DC, int RA>
+__device__ __forceinline__ void pv_tile(float (&acc)[RA][DC], const float* sc,
                                         int ss, const float* vs, int ds, int d,
                                         int nk) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   for (int jl = 0; jl < nk; ++jl) {
-    float pa[4], vb[DC];
+    float pa[RA], vb[DC];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) pa[a] = sc[(ty + 16 * a) * ss + jl];
+    for (int a = 0; a < RA; ++a) pa[a] = sc[(ty + 16 * a) * ss + jl];
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
       vb[c] = col < d ? vs[jl * ds + col] : 0.f;
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(pa[a], vb[c], acc[a][c]);
   }
 }
 
 // o[row] = acc / l for the CTA's real query rows (r < nq).
-template <typename T, int DC>
-__device__ __forceinline__ void write_rows(T* o, const float (&acc)[4][DC],
+template <typename T, int DC, int RA>
+__device__ __forceinline__ void write_rows(T* o, const float (&acc)[RA][DC],
                                            const float* row_l, int nq, int d) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int r = ty + 16 * a;
     if (r >= nq) continue;
     const float l = row_l[r];

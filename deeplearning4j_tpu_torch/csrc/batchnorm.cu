@@ -71,6 +71,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -668,7 +669,12 @@ cudaError_t launch(int dtype, int v, const Args& a, const long long* plan,
   const cudaError_t e = cudaLaunchCooperativeKernel(
       kernel_for(dtype, v), dim3((unsigned)plan[kGrid]), dim3(kThreads),
       params, (size_t)plan[kSmem], st);
-  if (e != cudaSuccess) return e;
+  // a refused launch also sets the thread's last error: clear it, so that
+  // the next launch's cudaGetLastError() does not report it again
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
   return cudaGetLastError();
 }
 
@@ -817,4 +823,347 @@ extern "C" int batchnorm_bwd(const void* dy, const void* x, const void* y,
   a.tile_rows = (int)plan[kTileRows];
   return (int)launch(dtype, variant, a, plan,
                      static_cast<cudaStream_t>(stream));
+}
+
+// ---- the general route: any C >= 1, f32 / f16 / bf16, any alignment ----
+//
+// The fused kernel above takes C in whole 16-byte vectors, one vector a
+// thread of one CTA (C at most 512 vectors), f32 or bf16, on 16-byte
+// aligned rows. Every other batch norm the JAX package computes (an RGB
+// input's C = 3, LeNet's 20 and 50 channels, C above 4096 bf16 / 2048 f32,
+// f16 activations or parameters) takes this route: three plain launches a
+// direction, one element a thread, with the fused kernel's arithmetic and
+// its determinism (fixed grid, fixed summation orders, no atomics):
+//   stats:    CTA (bx, by) sums its row chunk [bx M / GX, (bx+1) M / GX) of
+//             channels [by L, by L + L), L = min(C, 32): thread (rg, l)
+//             adds rows rg, rg + 256 / L, ... of channel by L + l in f32,
+//             then thread l adds the row groups in order into the CTA's
+//             partial [bx, 2, C];
+//   finalize: one thread a channel adds the GX partials in order in f64
+//             and writes the statistics (forward), dgamma / dbeta
+//             (backward) and the coefficients rounded to x's dtype;
+//   apply:    one element a thread (grid-stride), y (or dx, dres) with
+//             the fused kernel's rounded operations in f32.
+// Bound by bytes like the fused kernel; it reads x (dy) twice from device
+// memory or L2 and its loads are not vectorised, so it is slower; it exists
+// so that the card computes every shape the reference computes.
+namespace dl4j_bn_gen {
+
+constexpr int kF32 = 0, kF16 = 1, kBF16 = 2;
+constexpr int kGenThreads = 256;
+using dl4j_bn::kFwd;
+using dl4j_bn::kFwdRelu;
+using dl4j_bn::kFwdRes;
+using dl4j_bn::kFwdResRelu;
+using dl4j_bn::kBwd;
+using dl4j_bn::kBwdRelu;
+using dl4j_bn::kBwdResRelu;
+
+__device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float ld(const __half* p, long long i) {
+  return __half2float(p[i]);
+}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+template <typename T> __device__ __forceinline__ T to(float v);
+template <> __device__ __forceinline__ float to<float>(float v) { return v; }
+template <> __device__ __forceinline__ __half to<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to T's precision, as a float
+template <typename T> __device__ __forceinline__ float rnd(float v);
+template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <> __device__ __forceinline__ float rnd<__half>(float v) {
+  return __half2float(__float2half_rn(v));
+}
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a per-channel parameter in its own dtype (gd: 0 f32, 1 f16, 2 bf16)
+__device__ __forceinline__ float param(const void* p, int gd, long long i) {
+  return gd == kF32 ? static_cast<const float*>(p)[i]
+         : gd == kF16 ? __half2float(static_cast<const __half*>(p)[i])
+                      : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+__device__ __forceinline__ void store_param(void* p, int gd, long long i,
+                                            float v) {
+  if (gd == kF32)
+    static_cast<float*>(p)[i] = v;
+  else if (gd == kF16)
+    static_cast<__half*>(p)[i] = __float2half_rn(v);
+  else
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+}
+
+struct GenArgs {
+  const void* x;      // forward x; backward x
+  const void* dy;     // backward dy
+  const void* res;    // forward res (variants 2, 3)
+  const void* y;      // backward res_relu: the tail's output
+  const void* gamma;
+  const void* beta;
+  const float* shift;  // forward: the shift hint [c]
+  const float* mean;   // backward: the forward's statistics [c]
+  const float* rstd;
+  float* stats;        // forward: mean, var, rstd [3, c]
+  void* out0;          // forward y; backward dx
+  void* dres;          // backward res_relu: the masked dy
+  void* dgb;           // backward: dgamma, dbeta [2, c] in gamma's dtype
+  float* partial;      // [gx, 2, c]
+  float* coef;         // [2, c]
+  long long m;
+  int c, gx, gd, var;
+  float eps;
+};
+
+// dy of element i, masked where the BN output is not positive: by the
+// tail's saved output (res_relu) or by y = x * scale + shift recomputed
+// with the forward's rounded operations (relu)
+template <typename T>
+__device__ __forceinline__ float masked_dy(const GenArgs& a, long long i,
+                                           float x, float kT, float shT) {
+  const float g = ld(static_cast<const T*>(a.dy), i);
+  if (a.var == kBwdResRelu)
+    return ld(static_cast<const T*>(a.y), i) > 0.f ? g : 0.f;
+  if (a.var == kBwdRelu)
+    return rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(x, kT)), shT)) > 0.f ? g : 0.f;
+  return g;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGenThreads) bn_gen_stats(GenArgs a) {
+  __shared__ float red[2][kGenThreads];
+  const int c = a.c, lanes = c < 32 ? c : 32, rgs = kGenThreads / lanes;
+  const int tid = threadIdx.x, l = tid % lanes, rg = tid / lanes;
+  const int ch = blockIdx.y * lanes + l;
+  const bool active = rg < rgs && ch < c;
+  const long long r0 = a.m * blockIdx.x / a.gx;
+  const long long r1 = a.m * (blockIdx.x + 1) / a.gx;
+  const bool bwd = a.var >= kBwd;
+  float ctr = 0.f, rs = 0.f, kT = 0.f, shT = 0.f;
+  if (active) {
+    if (!bwd) {
+      ctr = a.shift[ch];
+    } else {
+      ctr = a.mean[ch];
+      rs = a.rstd[ch];
+      const float scale = __fmul_rn(param(a.gamma, a.gd, ch), rs);
+      kT = rnd<T>(scale);
+      if (a.var == kBwdRelu)
+        shT = rnd<T>(__fsub_rn(param(a.beta, a.gd, ch), __fmul_rn(ctr, scale)));
+    }
+  }
+  float s1 = 0.f, s2 = 0.f;
+  if (active) {
+    for (long long r = r0 + rg; r < r1; r += rgs) {
+      const long long i = r * c + ch;
+      const float x = ld(static_cast<const T*>(a.x), i);
+      if (!bwd) {
+        const float d = __fsub_rn(x, ctr);
+        s1 = __fadd_rn(s1, d);
+        s2 = __fadd_rn(s2, __fmul_rn(d, d));
+      } else {
+        const float g = masked_dy<T>(a, i, x, kT, shT);
+        const float xhat = __fmul_rn(__fsub_rn(x, ctr), rs);
+        s1 = __fadd_rn(s1, g);
+        s2 = __fadd_rn(s2, __fmul_rn(g, xhat));
+      }
+    }
+  }
+  red[0][tid] = s1;
+  red[1][tid] = s2;
+  __syncthreads();
+  if (tid < lanes && ch < c) {
+    float q0 = 0.f, q1 = 0.f;
+    for (int g = 0; g < rgs; ++g) {
+      q0 = __fadd_rn(q0, red[0][g * lanes + tid]);
+      q1 = __fadd_rn(q1, red[1][g * lanes + tid]);
+    }
+    float* mine = a.partial + 2LL * c * blockIdx.x;
+    mine[ch] = q0;
+    mine[c + ch] = q1;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGenThreads) bn_gen_finalize(GenArgs a) {
+  const int c = a.c;
+  const long long ch = (long long)blockIdx.x * kGenThreads + threadIdx.x;
+  if (ch >= c) return;
+  double q0 = 0.0, q1 = 0.0;
+  for (int g = 0; g < a.gx; ++g) {
+    q0 += (double)a.partial[2LL * c * g + ch];
+    q1 += (double)a.partial[2LL * c * g + c + ch];
+  }
+  const float n = (float)a.m;
+  if (a.var < kBwd) {
+    const float m1 = __fdiv_rn((float)q0, n);
+    const float m2 = __fdiv_rn((float)q1, n);
+    const float mean = __fadd_rn(a.shift[ch], m1);
+    const float var = fmaxf(__fsub_rn(m2, __fmul_rn(m1, m1)), 0.f);
+    const float r = rsqrtf(__fadd_rn(var, a.eps));
+    const float scale = __fmul_rn(param(a.gamma, a.gd, ch), r);
+    const float shift =
+        __fsub_rn(param(a.beta, a.gd, ch), __fmul_rn(mean, scale));
+    a.stats[ch] = mean;
+    a.stats[c + ch] = var;
+    a.stats[2LL * c + ch] = r;
+    a.coef[ch] = rnd<T>(scale);
+    a.coef[c + ch] = rnd<T>(shift);
+  } else {
+    const float db = (float)q0, dg = (float)q1;
+    store_param(a.dgb, a.gd, ch, dg);
+    store_param(a.dgb, a.gd, c + ch, db);
+    a.coef[ch] = rnd<T>(__fdiv_rn(db, n));
+    a.coef[c + ch] = rnd<T>(__fdiv_rn(dg, n));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGenThreads) bn_gen_apply(GenArgs a) {
+  const long long total = a.m * a.c;
+  const long long stride = (long long)gridDim.x * kGenThreads;
+  const bool bwd = a.var >= kBwd;
+  const bool res = a.var == kFwdRes || a.var == kFwdResRelu;
+  const bool relu = a.var == kFwdRelu || a.var == kFwdResRelu;
+  for (long long i = (long long)blockIdx.x * kGenThreads + threadIdx.x;
+       i < total; i += stride) {
+    const int ch = (int)(i % a.c);
+    const float x = ld(static_cast<const T*>(a.x), i);
+    const float ca = __ldg(a.coef + ch), cb = __ldg(a.coef + a.c + ch);
+    float o;
+    if (!bwd) {
+      o = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(x, ca)), cb));
+      if (res) o = rnd<T>(__fadd_rn(o, ld(static_cast<const T*>(a.res), i)));
+      if (relu) o = o < 0.f ? 0.f : o;   // NaN stays NaN, as jnp.maximum
+    } else {
+      const float mean = __ldg(a.mean + ch), rs = __ldg(a.rstd + ch);
+      const float scale = __fmul_rn(param(a.gamma, a.gd, ch), rs);
+      const float kT = rnd<T>(scale);
+      const float shT =
+          a.var == kBwdRelu
+              ? rnd<T>(__fsub_rn(param(a.beta, a.gd, ch), __fmul_rn(mean, scale)))
+              : 0.f;
+      const float g = masked_dy<T>(a, i, x, kT, shT);
+      if (a.var == kBwdResRelu) static_cast<T*>(a.dres)[i] = to<T>(g);
+      const float t1 = rnd<T>(__fsub_rn(g, ca));
+      const float xhat = __fmul_rn(__fsub_rn(x, mean), rs);
+      o = __fmul_rn(kT, __fsub_rn(t1, __fmul_rn(xhat, cb)));
+    }
+    static_cast<T*>(a.out0)[i] = to<T>(o);
+  }
+}
+
+template <typename T>
+cudaError_t run(const GenArgs& a, cudaStream_t st) {
+  const int lanes = a.c < 32 ? a.c : 32;
+  const dim3 sgrid((unsigned)a.gx, (unsigned)((a.c + lanes - 1) / lanes));
+  bn_gen_stats<T><<<sgrid, kGenThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bn_gen_finalize<T><<<(a.c + kGenThreads - 1) / kGenThreads, kGenThreads, 0,
+                       st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  const long long total = a.m * a.c;
+  long long blocks = (total + kGenThreads - 1) / kGenThreads;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
+  bn_gen_apply<T><<<(unsigned)blocks, kGenThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int dtype, const GenArgs& a, cudaStream_t st) {
+  switch (dtype) {
+    case kF32: return run<float>(a, st);
+    case kF16: return run<__half>(a, st);
+    case kBF16: return run<__nv_bfloat16>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+inline bool dtype_ok(int d) { return d == kF32 || d == kF16 || d == kBF16; }
+
+}  // namespace dl4j_bn_gen
+
+// The general route's forward on x [m, c] (any c >= 1; dtype 0 f32, 1 f16,
+// 2 bf16; any alignment): y like x, stats [3, c] f32, res for variants 2
+// and 3, gamma / beta [c] in gdtype (0, 1 or 2), shift [c] f32; scratch
+// (2 gx + 2) c f32, gx >= 1 the row chunks of the statistics pass. Three
+// launches on `stream`, no synchronisation. Returns a cudaError_t.
+extern "C" int batchnorm_gen_fwd(const void* x, const void* res,
+                                 const void* gamma, const void* beta,
+                                 const float* shift, void* y, float* stats,
+                                 float* scratch, long long m, int c, int gx,
+                                 int dtype, int gdtype, int variant,
+                                 float eps, void* stream) {
+  using namespace dl4j_bn_gen;
+  const bool has_res = variant == kFwdRes || variant == kFwdResRelu;
+  if (variant < kFwd || variant > kFwdResRelu || has_res != (res != nullptr) ||
+      !dtype_ok(dtype) || !dtype_ok(gdtype) || m < 1 || c < 1 || gx < 1 ||
+      gx > 65535)
+    return (int)cudaErrorInvalidValue;
+  GenArgs a = {};
+  a.x = x;
+  a.res = res;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.shift = shift;
+  a.stats = stats;
+  a.out0 = y;
+  a.partial = scratch;
+  a.coef = scratch + 2LL * c * gx;
+  a.m = m;
+  a.c = c;
+  a.gx = gx;
+  a.gd = gdtype;
+  a.var = variant;
+  a.eps = eps;
+  return (int)dispatch(dtype, a, static_cast<cudaStream_t>(stream));
+}
+
+// The general route's backward: dx like x, dgb [2, c] (dgamma, dbeta) in
+// gdtype, for variant 6 the masked dy into dres (y then required), beta
+// read by variant 5; scratch as for the forward. Returns a cudaError_t.
+extern "C" int batchnorm_gen_bwd(const void* dy, const void* x, const void* y,
+                                 const void* gamma, const void* beta,
+                                 const float* mean, const float* rstd,
+                                 void* dx, void* dres, void* dgb,
+                                 float* scratch, long long m, int c, int gx,
+                                 int dtype, int gdtype, int variant,
+                                 void* stream) {
+  using namespace dl4j_bn_gen;
+  if (variant < kBwd || variant > kBwdResRelu || !dtype_ok(dtype) ||
+      !dtype_ok(gdtype) || m < 1 || c < 1 || gx < 1 || gx > 65535 ||
+      (variant == kBwdRelu && beta == nullptr) ||
+      (variant == kBwdResRelu && (y == nullptr || dres == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  GenArgs a = {};
+  a.x = x;
+  a.dy = dy;
+  a.y = y;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.mean = mean;
+  a.rstd = rstd;
+  a.out0 = dx;
+  a.dres = dres;
+  a.dgb = dgb;
+  a.partial = scratch;
+  a.coef = scratch + 2LL * c * gx;
+  a.m = m;
+  a.c = c;
+  a.gx = gx;
+  a.gd = gdtype;
+  a.var = variant;
+  return (int)dispatch(dtype, a, static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,10 @@
 //   the A operands of the last two; f32 inputs keep the CUDA-core kernel
 //   (the tensor cores would round them to TF32).
 //
+// Head dims 128 < D <= 256, every dtype, run the CUDA-core kernels'
+// DMAX = 256 instance (attention_bwd_common.cuh) on 32-row tiles, inputs
+// staged as f32.
+//
 // Both recompute p from the saved lse and take delta = rowsum(dO . O) from
 // the caller, who may pass the global row term (the sequence-parallel ring
 // backward does).
@@ -41,46 +45,53 @@
 namespace dl4j {
 namespace {
 
-template <int DMAX>
+template <typename T, int DMAX, int ROWS>
 __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bwd_dq_f32<DMAX>(a, blockIdx.y, blockIdx.x * kQRows, smem);
+  bwd_dq_f32<T, DMAX, ROWS>(a, blockIdx.y, blockIdx.x * ROWS, smem);
 }
 
-template <int DMAX>
+template <typename T, int DMAX, int ROWS>
 __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bwd_dkv_f32<DMAX>(a, blockIdx.y, blockIdx.x * kKeyTile, smem);
+  bwd_dkv_f32<T, DMAX, ROWS>(a, blockIdx.y, blockIdx.x * ROWS, smem);
+}
+
+// The CUDA-core kernel of role DQ at the head dim: f32 at D <= 128 on
+// 64-row tiles, every dtype at D <= 256 on 32-row tiles.
+template <typename T, bool DQ>
+cudaError_t run_f32(const BwdArgs& a, int bh, cudaStream_t s) {
+  const int rows = a.d > 128 ? kWideRows : kQRows;
+  const dim3 grid(num_tiles(a.t, rows), bh);
+  const size_t smem = bwd_smem(a.d, rows);
+#define DL4J_LAUNCH(DMAX, ROWS)                                         \
+  launch_bwd(DQ ? flash_dq_f32_kernel<T, DMAX, ROWS>                    \
+                : flash_dkv_f32_kernel<T, DMAX, ROWS>,                  \
+             grid, smem, a, s)
+  if (a.d > 128) return DL4J_LAUNCH(kMaxD, kWideRows);
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.d <= 32) return DL4J_LAUNCH(32, kQRows);
+    if (a.d <= 64) return DL4J_LAUNCH(64, kQRows);
+    return DL4J_LAUNCH(128, kQRows);
+  }
+#undef DL4J_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t run_dq(const BwdArgs& a, int bh, cudaStream_t s) {
   if constexpr (!std::is_same<T, float>::value) {
-    return dispatch_bwd_core<T, kRolesDq>(a, bh, s);
-  } else {
-    const dim3 grid(num_tiles(a.t), bh);
-    const size_t smem = bwd_smem(a.d);
-    if (a.d <= 32)
-      return launch_bwd(flash_dq_f32_kernel<32>, grid, smem, a, s);
-    if (a.d <= 64)
-      return launch_bwd(flash_dq_f32_kernel<64>, grid, smem, a, s);
-    return launch_bwd(flash_dq_f32_kernel<128>, grid, smem, a, s);
+    if (a.d <= 128) return dispatch_bwd_core<T, kRolesDq>(a, bh, s);
   }
+  return run_f32<T, true>(a, bh, s);
 }
 
 template <typename T>
 cudaError_t run_dkv(const BwdArgs& a, int bh, cudaStream_t s) {
   if constexpr (!std::is_same<T, float>::value) {
-    return dispatch_bwd_core<T, kRolesDkv>(a, bh, s);
-  } else {
-    const dim3 grid(num_tiles(a.t), bh);
-    const size_t smem = bwd_smem(a.d);
-    if (a.d <= 32)
-      return launch_bwd(flash_dkv_f32_kernel<32>, grid, smem, a, s);
-    if (a.d <= 64)
-      return launch_bwd(flash_dkv_f32_kernel<64>, grid, smem, a, s);
-    return launch_bwd(flash_dkv_f32_kernel<128>, grid, smem, a, s);
+    if (a.d <= 128) return dispatch_bwd_core<T, kRolesDkv>(a, bh, s);
   }
+  return run_f32<T, false>(a, bh, s);
 }
 
 template <typename T>
@@ -119,7 +130,8 @@ int entry(bool dq, const void* q, const void* k, const void* v,
 // 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or null;
 // lse, delta: [bh, t] f32. dq (or dk and dv): [bh, t, d] in `dtype`; the
 // outputs an entry does not write may be null. Requires t >= 1,
-// d % 8 == 0, d <= 128. Return cudaGetLastError().
+// d % 8 == 0, d <= 256 (above 128 the CUDA-core kernels' DMAX = 256
+// instance). Return cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* kmask,
                                       const void* dout, const void* lse,

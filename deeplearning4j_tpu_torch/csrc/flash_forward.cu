@@ -26,7 +26,8 @@
 // runs on mbarriers); its limit is the register softmax between the two
 // products (PERF.md). f32 inputs keep the CUDA-core algorithm below
 // (the tensor cores would round them to TF32), with m and l in shared
-// memory and the accumulator in registers.
+// memory and the accumulator in registers; so do head dims 128 < D <= 256
+// in every dtype (its DMAX = 256 instance on 32-row tiles).
 
 #include "attention_fwd_core.cuh"
 
@@ -35,47 +36,50 @@ namespace {
 
 constexpr int kKeys = 64;        // keys per K/V tile (f32)
 
-// f32: the same algorithm on the CUDA cores.
-template <int DMAX>
+// The same algorithm on the CUDA cores, f32 arithmetic: f32 inputs on
+// 64-row query tiles, and every dtype at 128 < D <= 256 (DMAX 256) on
+// 32-row tiles, its inputs staged as f32.
+template <typename T, int DMAX, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ kmask,
-                         float* __restrict__ o, float* __restrict__ lse, int h,
-                         int t, int d, int causal, float scale) {
+    flash_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const float* __restrict__ kmask, T* __restrict__ o,
+                         float* __restrict__ lse, int h, int t, int d,
+                         int causal, float scale) {
   constexpr int KB = kKeys / 16, DC = DMAX / 16, SS = kKeys + 1;
+  constexpr int RA = ROWS / 16;
   extern __shared__ __align__(128) float smem[];
-  const int bh = blockIdx.y, q0 = blockIdx.x * kQRows;
-  const int nq = min(kQRows, t - q0);
-  const int kend = causal ? min(t, q0 + kQRows) : t;
+  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, t - q0);
+  const int kend = causal_end(t, q0, causal);
   const int ds = d + 1;
-  float* qs = smem;                       // [64][ds] query rows
-  float* kv = qs + kQRows * ds;           // [64][ds] K tile, then V tile
-  float* sc = kv + kKeys * ds;            // [64][SS] tile scores → p
-  float* row_m = sc + kQRows * SS;        // [64] running max
-  float* row_l = row_m + kQRows;          // [64] running denominator
-  float* row_a = row_l + kQRows;          // [64] this tile's rescale factor
+  float* qs = smem;                       // [ROWS][ds] query rows
+  float* kv = qs + ROWS * ds;             // [64][ds] K tile, then V tile
+  float* sc = kv + kKeys * ds;            // [ROWS][SS] tile scores → p
+  float* row_m = sc + ROWS * SS;          // [ROWS] running max
+  float* row_l = row_m + ROWS;            // [ROWS] running denominator
+  float* row_a = row_l + ROWS;            // [ROWS] this tile's rescale factor
   const size_t base = (size_t)bh * t * d;
   const float* km = kmask ? kmask + (size_t)(bh / h) * t : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (threadIdx.x < kQRows) {
+  if (threadIdx.x < ROWS) {
     row_m[threadIdx.x] = kNeg;
     row_l[threadIdx.x] = 0.f;
   }
-  stage_rows(qs, q + base + (size_t)q0 * d, nq, kQRows, d, ds);
-  float acc[4][DC] = {};
+  stage_rows(qs, q + base + (size_t)q0 * d, nq, ROWS, d, ds);
+  float acc[RA][DC] = {};
   for (int j0 = 0; j0 < kend; j0 += kKeys) {
     const int nk = min(kKeys, kend - j0);
     __syncthreads();
     stage_rows(kv, k + base + (size_t)j0 * d, nk, nk, d, ds);
     __syncthreads();
-    score_tile<KB>(sc, SS, qs, kv, ds, d, nk, q0, j0, causal, km, scale);
+    score_tile<KB, RA>(sc, SS, qs, kv, ds, d, nk, q0, j0, causal, km,
+                       scale);
     __syncthreads();
     // online softmax update, one warp per row (rows past nq hold zero
     // queries: finite, never written out)
-    for (int r = warp; r < kQRows; r += kThreads / 32) {
+    for (int r = warp; r < ROWS; r += kThreads / 32) {
       float* row = sc + r * SS;
       float mt = -INFINITY;
       for (int j = lane; j < nk; j += 32) mt = fmaxf(mt, row[j]);
@@ -100,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int ty = threadIdx.x >> 4;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < RA; ++a) {
       const float alpha = row_a[ty + 16 * a];
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
@@ -115,11 +119,12 @@ __global__ void __launch_bounds__(kThreads)
     lse[(size_t)bh * t + q0 + r] = row_m[r] + logf(l);
   }
   __syncthreads();
-  write_rows<float, DC>(o + base + (size_t)q0 * d, acc, row_l, nq, d);
+  write_rows<T, DC>(o + base + (size_t)q0 * d, acc, row_l, nq, d);
 }
 
 template <typename Kern>
-cudaError_t launch(Kern kern, size_t smem, const void* q, const void* k,
+cudaError_t launch(Kern kern, size_t smem, int rows, const void* q,
+                   const void* k,
                    const void* v, const void* kmask, void* o, void* lse,
                    int bh, int h, int t, int d, int causal, float scale,
                    cudaStream_t stream) {
@@ -127,7 +132,7 @@ cudaError_t launch(Kern kern, size_t smem, const void* q, const void* k,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   using T = typename KernelArg<Kern>::type;
-  const dim3 grid((t + kQRows - 1) / kQRows, bh);
+  const dim3 grid((t + rows - 1) / rows, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kmask),
@@ -135,9 +140,9 @@ cudaError_t launch(Kern kern, size_t smem, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-size_t f32_smem(int d) {
-  return sizeof(float) * (2 * (size_t)kQRows * (d + 1) +
-                          (size_t)kQRows * (kKeys + 1) + 3 * kQRows);
+size_t f32_smem(int d, int rows) {
+  return sizeof(float) * ((size_t)rows * (d + 1) + (size_t)kKeys * (d + 1) +
+                          (size_t)rows * (kKeys + 1) + 3 * (size_t)rows);
 }
 
 template <typename T>
@@ -146,12 +151,19 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      int t, int d, int causal, float scale,
                      cudaStream_t stream) {
 #define DL4J_ARGS q, k, v, kmask, o, lse, bh, h, t, d, causal, scale, stream
+  if (d > 128)   // every dtype
+    return launch(flash_fwd_f32_kernel<T, kMaxD, kWideRows>,
+                  f32_smem(d, kWideRows), kWideRows, DL4J_ARGS);
   if constexpr (std::is_same<T, float>::value) {
+    const size_t smem = f32_smem(d, kQRows);
     if (d <= 32)
-      return launch(flash_fwd_f32_kernel<32>, f32_smem(d), DL4J_ARGS);
+      return launch(flash_fwd_f32_kernel<T, 32, kQRows>, smem, kQRows,
+                    DL4J_ARGS);
     if (d <= 64)
-      return launch(flash_fwd_f32_kernel<64>, f32_smem(d), DL4J_ARGS);
-    return launch(flash_fwd_f32_kernel<128>, f32_smem(d), DL4J_ARGS);
+      return launch(flash_fwd_f32_kernel<T, 64, kQRows>, smem, kQRows,
+                    DL4J_ARGS);
+    return launch(flash_fwd_f32_kernel<T, 128, kQRows>, smem, kQRows,
+                  DL4J_ARGS);
   } else {
     const FwdArgs a{q, k, v, static_cast<const float*>(kmask), o,
                     static_cast<float*>(lse), h, t, d, causal, scale};
@@ -165,15 +177,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q, k, v, o: [bh, t, d] row-major in `dtype` (0 f32, 1 f16, 2 bf16),
 // 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or null;
-// lse: [bh, t] f32. Requires t >= 1, d % 8 == 0, d <= 128.
-// Returns cudaGetLastError().
+// lse: [bh, t] f32. Requires t >= 1, d % 8 == 0, d <= 256 (above 128 the
+// CUDA-core kernel's DMAX = 256 instance). Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* kmask, void* o,
                                    void* lse, int bh, int h, int t, int d,
                                    int causal, int dtype, float scale,
                                    void* stream) {
   using namespace dl4j;
-  if (t < 1 || d < 8 || d > 128 || d % 8 != 0 || bh < 1 || bh > 65535 ||
+  if (t < 1 || d < 8 || d > kMaxD || d % 8 != 0 || bh < 1 || bh > 65535 ||
       h < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

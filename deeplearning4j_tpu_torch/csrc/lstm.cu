@@ -16,9 +16,9 @@
 //
 // The TPU grid is (T,), run in order on one core with h and c in VMEM for
 // the whole sequence. On Hopper the T steps stay inside one launch, and
-// two routes take them (lstm_plan picks one from the dtype, the shape and
-// the card's occupancy, and reports it; neither is a fallback of the
-// other):
+// three routes take them (lstm_plan picks one from the dtype, the shape,
+// the activations and the card's occupancy, and reports it; none is a
+// fallback of another):
 //
 // - cluster (bf16, H a multiple of 8 up to 512): rows of the batch are
 //   independent, so the batch is cut into slices of NB rows (8, 16 or 32),
@@ -39,7 +39,8 @@
 //   The double buffer needs no "empty" signal: a CTA pushes h_t only after
 //   its step-t products, which needed every CTA's h_{t-1}, which each
 //   pushed after its own step t-1 read the buffer h_t is written into.
-// - cooperative (f32, and bf16 shapes the cluster does not take): ONE
+// - cooperative (f32, f16, bf16 shapes the cluster does not take, and
+//   every gate / cell activation pair other than sigmoid / tanh): ONE
 //   persistent cooperative launch. CTA b owns hidden units [b*u, (b+1)*u):
 //   the four gate columns of R for those units stay in its shared memory
 //   (as f32) for all T steps, its c stays in shared memory, and the gate
@@ -52,6 +53,19 @@
 //   grid.sync(). h_{t-1} is read from y[t-1] (never overwritten in place)
 //   with L1-bypassing loads, since other CTAs wrote it during this launch.
 //
+// - streamed (any dtype, H whose f32 R slices do not fit the card's shared
+//   memory, such as H 2048): the cooperative kernel keeps the first rows
+//   of each CTA's R slice in shared memory (as many as fit beside the h
+//   staging and c) and reads the rest from global memory (L2) at every
+//   step. lstm_plan reports the resident rows.
+//
+// Activations: the gates and the cell take any elementwise activation of
+// ops/activations.py by code (act() below, the same code uniformly across
+// the grid); the cluster route takes sigmoid / tanh only, and the
+// cooperative and streamed routes compile that pair in (an instance of
+// their own, STD) so the char-RNN's launches run no switch. softmax and
+// logsoftmax are row-wise and have no code (the wrapper raises).
+//
 // What bounds it on H100: at the char-RNN shape (T 128, N 64, H 512, bf16)
 // the recurrent products are 2*T*N*H*4H = 17.2 GFLOP (17 us at the 989
 // TF/s bf16 tensor rate) against ~44 MB of xw, y and R (13 us at 3.35
@@ -60,11 +74,13 @@
 // is the products (each reads the CTA's 128 KB R slice from shared
 // memory, the largest phase), the gate math, the push and the wait for
 // the cluster's slices (PERF.md, tools/lstm_probe.py). The cooperative
-// route's f32 R slices limit H to what fits the card's shared memory
-// (H = 1024 fits; 2048 is refused).
+// route's f32 R slices fit the card's shared memory up to H ~ 1300 (1024
+// fits); wider H takes the streamed route, bound by the bytes of R read
+// from L2 / HBM at every step.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "hopper_common.cuh"
@@ -83,7 +99,7 @@ constexpr int kThreads = 256;
 // rows × 64·units columns (64 KB of f32)
 constexpr int kStageFloats = 16384;
 constexpr int kMaxUnits = 64;           // hidden units per CTA, at most
-enum { kF32 = 0, kBF16 = 2 };
+enum { kF32 = 0, kF16 = 1, kBF16 = 2 };
 
 struct Args {
   const void* xw;       // [T, N, 4H] at strides (xw_st, xw_sn, 1)
@@ -99,12 +115,15 @@ struct Args {
   void* ct;             // [N, H]
   long long xw_st, xw_sn, y_st, y_sn;
   int t_len, n, h, units;
+  int gate_act, cell_act;   // activation codes (act() below)
+  int kres;                 // R rows resident in shared memory (streamed)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -113,6 +132,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // L2-only loads: h_{t-1} was written by other CTAs during this launch.
 __device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
@@ -120,6 +143,14 @@ __device__ __forceinline__ float ld_cg(const __nv_bfloat16* p) {
   const unsigned short bits =
       __ldcg(reinterpret_cast<const unsigned short*>(p));
   return __bfloat162float(__ushort_as_bfloat16(bits));
+}
+__device__ __forceinline__ float ld_cg(const __half* p) {
+  const unsigned short bits =
+      __ldcg(reinterpret_cast<const unsigned short*>(p));
+  return __half2float(__ushort_as_half(bits));
+}
+__device__ __forceinline__ void load_raw(const __half* p, float& r) {
+  r = ld_cg(p);
 }
 __device__ __forceinline__ void load_raw(const float* p, float& r) {
   r = ld_cg(p);
@@ -153,8 +184,78 @@ __device__ __forceinline__ void unpack(const uint4& r, float* out,
   }
 }
 
+__device__ __forceinline__ void unpack(const uint4& r, float* out,
+                                       const __half*) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // element 2i is word i's low half
+    out[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+    out[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+  }
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// Activation codes, as kernels/lstm.py numbers them: the elementwise
+// activations of ops/activations.py with their default parameters (rrelu
+// at its test-mode slope, (1/8 + 1/3) / 2).
+enum Act {
+  kIdentity = 0, kSigmoid, kTanh, kRelu, kLeakyRelu, kElu, kSelu, kSoftplus,
+  kSoftsign, kHardSigmoid, kHardTanh, kCube, kRationalTanh, kRectifiedTanh,
+  kSwish, kGelu, kMish, kThresholdedRelu, kRRelu, kNumActs
+};
+
+__device__ __forceinline__ float softplus(float x) {
+  return x > 20.f ? x : log1pf(expf(x));   // F.softplus's threshold 20
+}
+
+__device__ __forceinline__ float act(int code, float x) {
+  switch (code) {
+    case kIdentity: return x;
+    case kSigmoid: return sigmoid(x);
+    case kTanh: return tanhf(x);
+    case kRelu: return fmaxf(x, 0.f);
+    case kLeakyRelu: return x >= 0.f ? x : 0.01f * x;
+    case kElu: return x > 0.f ? x : expm1f(x);
+    case kSelu:
+      return 1.0507009873554805f * (x > 0.f ? x : 1.6732632423543772f *
+                                                     expm1f(x));
+    case kSoftplus: return softplus(x);
+    case kSoftsign: return x / (1.f + fabsf(x));
+    case kHardSigmoid: return fminf(fmaxf(0.2f * x + 0.5f, 0.f), 1.f);
+    case kHardTanh: return fminf(fmaxf(x, -1.f), 1.f);
+    case kCube: return x * x * x;
+    case kRationalTanh: {
+      const float a = 0.6666667f * x, a2 = a * a;
+      const float r = 1.f - 1.f / (1.f + fabsf(a) + a2 + 1.41645f * a2 * a2);
+      return 1.7159f * (a > 0.f ? r : a < 0.f ? -r : 0.f);
+    }
+    case kRectifiedTanh: return fmaxf(tanhf(x), 0.f);
+    case kSwish: return x * sigmoid(x);
+    case kGelu:
+      return 0.5f * x *
+             (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+    case kMish: return x * tanhf(softplus(x));
+    case kThresholdedRelu: return x > 1.f ? x : 0.f;
+    case kRRelu: return x >= 0.f ? x : (0.125f + 1.f / 3.f) * 0.5f * x;
+    default: return x;
+  }
+}
+
+// The gate and cell activations of a launch: sigmoid / tanh compiled in
+// (STD, the char-RNN's pair, as before the activation codes), or act() on
+// the launch's codes.
+template <bool STD>
+__device__ __forceinline__ float gate_act(int code, float x) {
+  if constexpr (STD) return sigmoid(x);
+  else return act(code, x);
+}
+template <bool STD>
+__device__ __forceinline__ float cell_act(int code, float x) {
+  if constexpr (STD) return tanhf(x);
+  else return act(code, x);
 }
 
 // rows of the batch handled per pass: one (row, unit) pair per thread
@@ -170,8 +271,11 @@ __host__ __device__ inline int chunk_cols(int units) {
 
 __host__ __device__ inline int padded_h(int h) { return (h + 3) / 4 * 4; }
 
-__host__ __device__ inline size_t smem_bytes(int n, int h, int units) {
-  return (size_t)padded_h(h) * units * sizeof(float4) +          // R slice
+// shared memory of a launch keeping `kres` rows of each R slice (all
+// padded_h(h) rows unless streamed)
+__host__ __device__ inline size_t smem_bytes(int n, int h, int units,
+                                             int kres) {
+  return (size_t)kres * units * sizeof(float4) +                 // R slice
          (size_t)rows_per_pass(units) * (chunk_cols(units) + 4) *
              sizeof(float) +                                     // h chunk
          (size_t)n * units * sizeof(float);                      // c
@@ -215,11 +319,13 @@ __device__ __forceinline__ void stage_h(const T* hp, long long hp_sn, int H,
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool STREAM, bool STD>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.h, N = a.n, u = a.units;
-  const int hpad = padded_h(H);
+  // rows of the R slice in shared memory: all of them, or (streamed) the
+  // first kres, the rest read from global memory every step
+  const int hpad = STREAM ? a.kres : padded_h(H);
   const int rows = rows_per_pass(u);
   const int cols = chunk_cols(u), hstride = cols + 4;
   float4* r_s = reinterpret_cast<float4*>(smem);           // [hpad][u]
@@ -290,11 +396,13 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
         __syncthreads();
         // columns past H are zero in h_s and r_s; skip whole groups of 4
         const int kend = min(cols, (H - k0 + 3) / 4 * 4);
+        // (streamed) rows from kres on come from global memory
+        const int kshm = STREAM ? max(0, min(kend, hpad - k0)) : kend;
         if (active) {
           const float* hrow = h_s + lrow * hstride;
           const float4* rcol = r_s + (size_t)k0 * u + j;
 #pragma unroll 8
-          for (int kk = 0; kk < kend; kk += 4) {
+          for (int kk = 0; kk < kshm; kk += 4) {
             const float4 hv = *reinterpret_cast<const float4*>(hrow + kk);
             const float hs[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
@@ -304,6 +412,30 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
               acc.y = fmaf(hs[q], w.y, acc.y);
               acc.z = fmaf(hs[q], w.z, acc.z);
               acc.w = fmaf(hs[q], w.w, acc.w);
+            }
+          }
+          if constexpr (STREAM) {
+            // all 16 loads of 4 rows issue before their products, so a
+            // group costs about one L2 round trip
+#pragma unroll 2
+            for (int kk = kshm; kk < kend; kk += 4) {
+              const float4 hv = *reinterpret_cast<const float4*>(hrow + kk);
+              const float hs[4] = {hv.x, hv.y, hv.z, hv.w};
+              float w[4][4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int k = min(k0 + kk + q, H - 1);   // h_s is 0 past H
+                const T* row = R + (size_t)k * 4 * H + unit;
+#pragma unroll
+                for (int g = 0; g < 4; ++g) w[q][g] = to_f(row[g * H]);
+              }
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                acc.x = fmaf(hs[q], w[q][0], acc.x);
+                acc.y = fmaf(hs[q], w[q][1], acc.y);
+                acc.z = fmaf(hs[q], w[q][2], acc.z);
+                acc.w = fmaf(hs[q], w[q][3], acc.w);
+              }
             }
           }
         }
@@ -319,11 +451,13 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
           pre_i += c_prev * wpi;
           pre_f += c_prev * wpf;
         }
-        const float ig = sigmoid(pre_i), fg = sigmoid(pre_f);
-        const float gg = tanhf(pre_g);
+        const float ig = gate_act<STD>(a.gate_act, pre_i);
+        const float fg = gate_act<STD>(a.gate_act, pre_f);
+        const float gg = cell_act<STD>(a.cell_act, pre_g);
         float c = fg * c_prev + ig * gg;
         if (peep) pre_o += c * wpo;
-        float hv = sigmoid(pre_o) * tanhf(c);
+        float hv = gate_act<STD>(a.gate_act, pre_o) *
+                   cell_act<STD>(a.cell_act, c);
         if (a.mask != nullptr) {
           hv = m * hv + (1.f - m) * h_prev;
           c = m * c + (1.f - m) * c_prev;
@@ -757,13 +891,15 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 // A launch plan. route 0: cooperative (units hidden units a CTA, ctas
 // CTAs, per_sm co-resident CTAs an SM); route 1: cluster (cluster CTAs a
 // cluster of 32 units each, nb batch rows a cluster, ctas CTAs in all,
-// per_sm the clusters the card can hold at once).
+// per_sm the clusters the card can hold at once); route 2: streamed (as
+// cooperative, kres rows of each R slice resident).
 struct Plan {
   int route, units, ctas, per_sm, sms, cluster, nb;
   size_t smem;
+  int kres;
 };
 
-enum Route { kCooperative = 0, kCluster = 1 };
+enum Route { kCooperative = 0, kCluster = 1, kStreamed = 2 };
 
 cudaError_t device_limits(int* sms, int* max_smem) {
   int dev = 0;
@@ -776,11 +912,25 @@ cudaError_t device_limits(int* sms, int* max_smem) {
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
+// The cooperative kernel of a launch: streamed or resident R, the compiled
+// sigmoid / tanh pair or the activation codes.
+template <typename T, int VEC>
+const void* cooperative_kernel(bool stream, bool std_acts) {
+  if (stream)
+    return std_acts ? (const void*)lstm_fwd_kernel<T, VEC, true, true>
+                    : (const void*)lstm_fwd_kernel<T, VEC, true, false>;
+  return std_acts ? (const void*)lstm_fwd_kernel<T, VEC, false, true>
+                  : (const void*)lstm_fwd_kernel<T, VEC, false, false>;
+}
+
 // The smallest power-of-two units per CTA that gives at most one CTA per
 // SM, raised until the grid's shared memory fits and every CTA can be
 // co-resident (a cooperative launch requires it).
+// Where no units count fits whole R slices (the streamed route), the same
+// search keeps the largest multiple of 4 rows of each slice that fits
+// beside the h staging and c.
 template <typename T, int VEC>
-cudaError_t cooperative_plan(int n, int h, Plan* p) {
+cudaError_t cooperative_plan(int n, int h, bool std_acts, Plan* p) {
   int dev = 0, sms = 0, max_smem = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (e = device_limits(&sms, &max_smem)) != cudaSuccess ||
@@ -790,24 +940,36 @@ cudaError_t cooperative_plan(int n, int h, Plan* p) {
   if (!coop) return cudaErrorNotSupported;
   // the opt-in ceiling once, so that no plan lowers it below what another
   // shape's cached plan launches with
-  if ((e = cudaFuncSetAttribute(lstm_fwd_kernel<T, VEC>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                max_smem)) != cudaSuccess)
-    return e;
-  int units = 1;
-  while (units < kMaxUnits && (h + units - 1) / units > sms) units *= 2;
-  for (; units <= kMaxUnits; units *= 2) {
-    const size_t smem = smem_bytes(n, h, units);
-    if (smem > (size_t)max_smem) continue;
-    int per_sm = 0;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, lstm_fwd_kernel<T, VEC>, kThreads, smem)) !=
+  for (int stream = 0; stream < 2; ++stream)
+    if ((e = cudaFuncSetAttribute(
+             cooperative_kernel<T, VEC>(stream, std_acts),
+             cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem)) !=
         cudaSuccess)
       return e;
-    const int ctas = (h + units - 1) / units;
-    if (per_sm > 0 && ctas <= per_sm * sms) {
-      *p = Plan{kCooperative, units, ctas, per_sm, sms, 0, 0, smem};
-      return cudaSuccess;
+  int first = 1;
+  while (first < kMaxUnits && (h + first - 1) / first > sms) first *= 2;
+  for (int stream = 0; stream < 2; ++stream) {
+    const void* kern = cooperative_kernel<T, VEC>(stream, std_acts);
+    for (int units = first; units <= kMaxUnits; units *= 2) {
+      int kres = padded_h(h);
+      if (stream) {
+        const size_t fixed = smem_bytes(n, h, units, 0);
+        if (fixed > (size_t)max_smem) continue;
+        kres = (int)((max_smem - fixed) / (units * sizeof(float4))) / 4 * 4;
+        if (kres >= padded_h(h)) continue;   // the resident route took it
+      }
+      const size_t smem = smem_bytes(n, h, units, kres);
+      if (smem > (size_t)max_smem) continue;
+      int per_sm = 0;
+      if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kern, kThreads, smem)) != cudaSuccess)
+        return e;
+      const int ctas = (h + units - 1) / units;
+      if (per_sm > 0 && ctas <= per_sm * sms) {
+        *p = Plan{stream ? kStreamed : kCooperative, units, ctas, per_sm, sms,
+                  0, 0, smem, kres};
+        return cudaSuccess;
+      }
     }
   }
   return cudaErrorCooperativeLaunchTooLarge;
@@ -890,7 +1052,7 @@ cudaError_t cluster_plan(int n, int h, Plan* p) {
             csize * ((n + nb - 1) / nb),
             active[best], sms,
             csize,        nb,
-            cluster_smem_bytes(nb)};
+            cluster_smem_bytes(nb), 0};
   return cudaSuccess;
 }
 
@@ -898,35 +1060,41 @@ cudaError_t cluster_plan(int n, int h, Plan* p) {
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
 
-// The route and plan of an [N, H] launch in T, from scratch: bf16 takes the
-// cluster route where it takes the shape (R and h0 16-byte aligned), every
-// other launch the cooperative one, with 16-byte staging loads when every
-// row of h0 and y starts 16-byte aligned (`vec`).
+// The route and plan of an [N, H] launch in T, from scratch: bf16 with
+// sigmoid gates and a tanh cell (`std_acts`) takes the cluster route where
+// it takes the shape (R and h0 16-byte aligned), every other launch the
+// cooperative one (or the streamed one where whole R slices do not fit),
+// with 16-byte staging loads when every row of h0 and y starts 16-byte
+// aligned (`vec`).
 template <typename T>
-cudaError_t make_plan(int n, int h, bool aligned, bool vec, Plan* p) {
-  if (std::is_same<T, __nv_bfloat16>::value && aligned && DL4J_LSTM_CLUSTER) {
+cudaError_t make_plan(int n, int h, bool aligned, bool vec, bool std_acts,
+                      Plan* p) {
+  if (std::is_same<T, __nv_bfloat16>::value && aligned && std_acts &&
+      DL4J_LSTM_CLUSTER) {
     const cudaError_t e = cluster_plan(n, h, p);
     if (e != cudaErrorNotSupported) return e;
   }
-  return vec ? cooperative_plan<T, kVec<T>>(n, h, p)
-             : cooperative_plan<T, 1>(n, h, p);
+  return vec ? cooperative_plan<T, kVec<T>>(n, h, std_acts, p)
+             : cooperative_plan<T, 1>(n, h, std_acts, p);
 }
 
 // Planning is a handful of CUDA attribute and occupancy queries;
 // rnn_time_step launches at one shape many times, so the last plan per
 // element type is kept.
 template <typename T>
-cudaError_t cached_plan(int n, int h, bool aligned, bool vec, Plan* p) {
+cudaError_t cached_plan(int n, int h, bool aligned, bool vec, bool std_acts,
+                        Plan* p) {
   static std::mutex mu;
   static int last_dev = -1, last_n = 0, last_h = 0, last_flags = 0;
   static Plan last;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const int flags = (int)aligned | (int)vec << 1;
+  const int flags = (int)aligned | (int)vec << 1 | (int)std_acts << 2;
   std::lock_guard<std::mutex> lock(mu);
   if (dev != last_dev || n != last_n || h != last_h || flags != last_flags) {
-    if ((e = make_plan<T>(n, h, aligned, vec, &last)) != cudaSuccess)
+    if ((e = make_plan<T>(n, h, aligned, vec, std_acts, &last)) !=
+        cudaSuccess)
       return e;
     last_dev = dev;
     last_n = n;
@@ -944,18 +1112,26 @@ cudaError_t launch_cluster(const Args& a, const Plan& p, cudaStream_t s) {
       cluster_config(p.cluster, p.ctas / p.cluster, p.smem, &attr, s);
   cudaError_t e = cudaLaunchKernelEx(&cfg, lstm_cluster_kernel<NB>, a,
                                      p.cluster);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // a refused launch also sets the last error
+    return e;
+  }
   return cudaGetLastError();
 }
 
 template <typename T, int VEC>
 cudaError_t launch_cooperative(Args a, const Plan& p, cudaStream_t s) {
   a.units = p.units;
+  a.kres = p.kres;
   void* params[] = {&a};
+  const void* kern = cooperative_kernel<T, VEC>(
+      p.route == kStreamed, a.gate_act == kSigmoid && a.cell_act == kTanh);
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)lstm_fwd_kernel<T, VEC>, dim3(p.ctas), dim3(kThreads),
-      params, p.smem, s);
-  if (e != cudaSuccess) return e;
+      kern, dim3(p.ctas), dim3(kThreads), params, p.smem, s);
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // a refused launch also sets the last error
+    return e;
+  }
   return cudaGetLastError();
 }
 
@@ -967,8 +1143,9 @@ cudaError_t run(const Args& a, cudaStream_t s, int* route) {
   const bool vec = a.h % v == 0 && a.y_st % v == 0 && a.y_sn % v == 0 &&
                    reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.y) % 16 == 0;
+  const bool std_acts = a.gate_act == kSigmoid && a.cell_act == kTanh;
   Plan p;
-  cudaError_t e = cached_plan<T>(a.n, a.h, aligned, vec, &p);
+  cudaError_t e = cached_plan<T>(a.n, a.h, aligned, vec, std_acts, &p);
   if (e != cudaSuccess) return e;
   if (route != nullptr) *route = p.route;
   if (p.route == kCluster) {
@@ -986,33 +1163,44 @@ cudaError_t run(const Args& a, cudaStream_t s, int* route) {
 }  // namespace
 }  // namespace dl4j_lstm
 
-// The launch plan for [N, H] in `dtype` (0 f32, 2 bf16), tensors aligned:
-// out[0] the route (0 cooperative, 1 cluster), out[1] hidden units per
-// CTA, out[2] CTAs, out[3] dynamic shared memory bytes, out[4] co-resident
-// CTAs per SM (cooperative) or clusters the card holds at once (cluster),
-// out[5] SMs, out[6] CTAs per cluster (0: cooperative), out[7] batch rows
-// per cluster. Returns a cudaError_t (cudaErrorCooperativeLaunchTooLarge
-// when no route takes the shape).
-extern "C" int lstm_plan(int n, int h, int dtype, long long* out) {
+// The launch plan for [N, H] in `dtype` (0 f32, 1 f16, 2 bf16) with gate
+// and cell activation codes `gate`, `cell` (Act), tensors aligned: out[0]
+// the route (0 cooperative, 1 cluster, 2 streamed), out[1] hidden units
+// per CTA, out[2] CTAs, out[3] dynamic shared memory bytes, out[4]
+// co-resident CTAs per SM (cooperative, streamed) or clusters the card
+// holds at once (cluster), out[5] SMs, out[6] CTAs per cluster (0 off the
+// cluster route), out[7] batch rows per cluster, out[8] rows of each R
+// slice in shared memory (streamed; 0 otherwise). Returns a cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge when no route takes the shape).
+extern "C" int lstm_plan_act(int n, int h, int dtype, int gate, int cell,
+                             long long* out) {
   using namespace dl4j_lstm;
-  if (n < 1 || h < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || h < 1 || gate < 0 || gate >= kNumActs || cell < 0 ||
+      cell >= kNumActs)
+    return (int)cudaErrorInvalidValue;
+  const bool std_acts = gate == kSigmoid && cell == kTanh;
   Plan p;
   cudaError_t e;
   switch (dtype) {
     case kF32:
-      e = make_plan<float>(n, h, true, h % kVec<float> == 0, &p);
+      e = make_plan<float>(n, h, true, h % kVec<float> == 0, std_acts, &p);
+      break;
+    case kF16:
+      e = make_plan<__half>(n, h, true, h % kVec<__half> == 0, std_acts, &p);
       break;
     case kBF16:
       e = make_plan<__nv_bfloat16>(n, h, true,
-                                   h % kVec<__nv_bfloat16> == 0, &p);
+                                   h % kVec<__nv_bfloat16> == 0, std_acts,
+                                   &p);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
-  const long long vals[8] = {p.route,  p.units,   p.ctas, (long long)p.smem,
-                             p.per_sm, p.sms,     p.cluster, p.nb};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  const long long vals[9] = {p.route,  p.units, p.ctas,    (long long)p.smem,
+                             p.per_sm, p.sms,   p.cluster, p.nb,
+                             p.kres};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
   return 0;
 }
 
@@ -1020,30 +1208,34 @@ extern "C" int lstm_plan(int n, int h, int dtype, long long* out) {
 // contiguous; h0, c0: [N, H] contiguous; pi, pf, po: [H] or all null;
 // mask: [T, N] f32 contiguous or null; y: [T, N, H] at strides (y_st,
 // y_sn, 1); ht, ct: [N, H] contiguous. All tensors but the mask in `dtype`
-// (0 f32, 2 bf16). One launch on `stream`, no synchronisation; *route (if
-// not null) is set to the route launched (0 cooperative, 1 cluster).
-// Returns cudaGetLastError() (or the planning / launch error).
-extern "C" int lstm_recurrence_fwd(const void* xw, const void* r,
-                                   const void* h0, const void* c0,
-                                   const void* pi, const void* pf,
-                                   const void* po, const void* mask, void* y,
-                                   void* ht, void* ct, long long xw_st,
-                                   long long xw_sn, long long y_st,
-                                   long long y_sn, int t, int n, int h,
-                                   int dtype, void* stream, int* route) {
+// (0 f32, 1 f16, 2 bf16); gate / cell activation codes (Act). One launch
+// on `stream`, no synchronisation; *route (if not null) is set to the
+// route launched (0 cooperative, 1 cluster, 2 streamed). Returns
+// cudaGetLastError() (or the planning / launch error).
+extern "C" int lstm_recurrence_fwd_act(
+    const void* xw, const void* r, const void* h0, const void* c0,
+    const void* pi, const void* pf, const void* po, const void* mask, void* y,
+    void* ht, void* ct, long long xw_st, long long xw_sn, long long y_st,
+    long long y_sn, int t, int n, int h, int dtype, int gate, int cell,
+    void* stream, int* route) {
   using namespace dl4j_lstm;
   if (t < 1 || n < 1 || h < 1 || (pi == nullptr) != (pf == nullptr) ||
-      (pi == nullptr) != (po == nullptr))
+      (pi == nullptr) != (po == nullptr) || gate < 0 || gate >= kNumActs ||
+      cell < 0 || cell >= kNumActs)
     return (int)cudaErrorInvalidValue;
-  const Args a{xw, r, h0, c0, pi, pf, po, static_cast<const float*>(mask),
-               y, ht, ct, xw_st, xw_sn, y_st, y_sn, t, n, h, 0};
+  const Args a{xw,    r,     h0,   c0,   pi,   pf, po,
+               static_cast<const float*>(mask), y, ht, ct, xw_st, xw_sn, y_st,
+               y_sn,  t,     n,    h,    0,    gate, cell, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
       return (int)run<float>(a, s, route);
+    case kF16:
+      return (int)run<__half>(a, s, route);
     case kBF16:
       return (int)run<__nv_bfloat16>(a, s, route);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+

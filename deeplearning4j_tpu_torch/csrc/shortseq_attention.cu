@@ -25,7 +25,8 @@
 // f32 inputs keep the CUDA-core algorithm below (the tensor cores would
 // round them to TF32): a [64, kend] f32 score block in shared memory, a
 // plain max / exp / sum per row, then o = p . v, 4-8 multiply-adds per
-// staged element read.
+// staged element read. Head dims 128 < D <= 256 run it in every dtype
+// (DMAX 256, 32-row query tiles so the score block fits at T 512).
 
 #include "attention_fwd_core.cuh"
 
@@ -33,41 +34,42 @@ namespace dl4j {
 namespace {
 
 
-// f32: the same algorithm on the CUDA cores.
+// The same algorithm on the CUDA cores, f32 arithmetic, on ROWS-row query
+// tiles (inputs of any dtype staged as f32).
 template <int DMAX>
 struct F32Tiles {
   static constexpr int kKeys = DMAX <= 64 ? 128 : 64;   // keys per K/V tile
 };
 
-template <int DMAX>
+template <typename T, int DMAX, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-    shortseq_fwd_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
+    shortseq_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
                             const float* __restrict__ kmask,
-                            float* __restrict__ o, float* __restrict__ lse,
+                            T* __restrict__ o, float* __restrict__ lse,
                             int h, int t, int d, int causal, float scale) {
   constexpr int KT = F32Tiles<DMAX>::kKeys;
-  constexpr int KB = KT / 16, DC = DMAX / 16;
+  constexpr int KB = KT / 16, DC = DMAX / 16, RA = ROWS / 16;
   extern __shared__ __align__(128) float smem[];
-  const int bh = blockIdx.y, q0 = blockIdx.x * kQRows;
-  const int nq = min(kQRows, t - q0);
-  const int kend = causal ? min(t, q0 + kQRows) : t;
+  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, t - q0);
+  const int kend = causal_end(t, q0, causal);
   const int ds = d + 1, ss = kend + 1;
-  float* qs = smem;                       // [64][ds] query rows
-  float* kv = qs + kQRows * ds;           // [KT][ds] K tile, then V tile
-  float* sc = kv + KT * ds;               // [64][ss] scores → probabilities
-  float* row_l = sc + kQRows * ss;        // [64] softmax denominators
+  float* qs = smem;                       // [ROWS][ds] query rows
+  float* kv = qs + ROWS * ds;             // [KT][ds] K tile, then V tile
+  float* sc = kv + KT * ds;               // [ROWS][ss] scores → probabilities
+  float* row_l = sc + ROWS * ss;          // [ROWS] softmax denominators
   const size_t base = (size_t)bh * t * d;
   const float* km = kmask ? kmask + (size_t)(bh / h) * t : nullptr;
 
-  stage_rows(qs, q + base + (size_t)q0 * d, nq, kQRows, d, ds);
+  stage_rows(qs, q + base + (size_t)q0 * d, nq, ROWS, d, ds);
   for (int j0 = 0; j0 < kend; j0 += KT) {
     const int nk = min(KT, kend - j0);
     __syncthreads();
     stage_rows(kv, k + base + (size_t)j0 * d, nk, nk, d, ds);
     __syncthreads();
-    score_tile<KB>(sc + j0, ss, qs, kv, ds, d, nk, q0, j0, causal, km, scale);
+    score_tile<KB, RA>(sc + j0, ss, qs, kv, ds, d, nk, q0, j0, causal, km,
+                       scale);
   }
   __syncthreads();
 
@@ -92,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float acc[4][DC] = {};
+  float acc[RA][DC] = {};
   for (int j0 = 0; j0 < kend; j0 += KT) {
     const int nk = min(KT, kend - j0);
     __syncthreads();
@@ -100,11 +102,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     pv_tile<DC>(acc, sc + j0, ss, kv, ds, d, nk);
   }
-  write_rows<float, DC>(o + base + (size_t)q0 * d, acc, row_l, nq, d);
+  write_rows<T, DC>(o + base + (size_t)q0 * d, acc, row_l, nq, d);
 }
 
 template <typename Kern>
-cudaError_t launch(Kern kern, size_t smem, const void* q, const void* k,
+cudaError_t launch(Kern kern, size_t smem, int rows, const void* q,
+                   const void* k,
                    const void* v, const void* kmask, void* o, void* lse,
                    int bh, int h, int t, int d, int causal, float scale,
                    cudaStream_t stream) {
@@ -112,7 +115,7 @@ cudaError_t launch(Kern kern, size_t smem, const void* q, const void* k,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   using T = typename KernelArg<Kern>::type;
-  const dim3 grid((t + kQRows - 1) / kQRows, bh);
+  const dim3 grid((t + rows - 1) / rows, bh);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(kmask),
@@ -121,10 +124,10 @@ cudaError_t launch(Kern kern, size_t smem, const void* q, const void* k,
 }
 
 template <int DMAX>
-size_t f32_smem(int t, int d) {
-  return sizeof(float) * ((size_t)kQRows * (d + 1) +
+size_t f32_smem(int t, int d, int rows) {
+  return sizeof(float) * ((size_t)rows * (d + 1) +
                           (size_t)F32Tiles<DMAX>::kKeys * (d + 1) +
-                          (size_t)kQRows * (t + 1) + kQRows);
+                          (size_t)rows * (t + 1) + rows);
 }
 
 template <typename T>
@@ -133,15 +136,18 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      int t, int d, int causal, float scale,
                      cudaStream_t stream) {
 #define DL4J_ARGS q, k, v, kmask, o, lse, bh, h, t, d, causal, scale, stream
+  if (d > 128)   // every dtype
+    return launch(shortseq_fwd_f32_kernel<T, kMaxD, kWideRows>,
+                  f32_smem<kMaxD>(t, d, kWideRows), kWideRows, DL4J_ARGS);
   if constexpr (std::is_same<T, float>::value) {
     if (d <= 32)
-      return launch(shortseq_fwd_f32_kernel<32>, f32_smem<32>(t, d),
-                    DL4J_ARGS);
+      return launch(shortseq_fwd_f32_kernel<T, 32, kQRows>,
+                    f32_smem<32>(t, d, kQRows), kQRows, DL4J_ARGS);
     if (d <= 64)
-      return launch(shortseq_fwd_f32_kernel<64>, f32_smem<64>(t, d),
-                    DL4J_ARGS);
-    return launch(shortseq_fwd_f32_kernel<128>, f32_smem<128>(t, d),
-                  DL4J_ARGS);
+      return launch(shortseq_fwd_f32_kernel<T, 64, kQRows>,
+                    f32_smem<64>(t, d, kQRows), kQRows, DL4J_ARGS);
+    return launch(shortseq_fwd_f32_kernel<T, 128, kQRows>,
+                  f32_smem<128>(t, d, kQRows), kQRows, DL4J_ARGS);
   } else {
     const FwdArgs a{q, k, v, static_cast<const float*>(kmask), o,
                     static_cast<float*>(lse), h, t, d, causal, scale};
@@ -155,7 +161,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q, k, v, o: [bh, t, d] row-major in `dtype` (0 f32, 1 f16, 2 bf16),
 // 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or null;
-// lse: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0, d <= 128.
+// lse: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0, d <= 256 (above
+// 128 the CUDA-core kernel's DMAX = 256 instance). `scale` multiplies the
+// logits (1 / sqrt of the true head dim where the caller zero-padded it).
 // Returns cudaGetLastError().
 extern "C" int shortseq_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* kmask,
@@ -163,7 +171,7 @@ extern "C" int shortseq_attention_fwd(const void* q, const void* k,
                                       int d, int causal, int dtype,
                                       float scale, void* stream) {
   using namespace dl4j;
-  if (t < 1 || t > 512 || d < 8 || d > 128 || d % 8 != 0 || bh < 1 ||
+  if (t < 1 || t > 512 || d < 8 || d > kMaxD || d % 8 != 0 || bh < 1 ||
       bh > 65535 || h < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

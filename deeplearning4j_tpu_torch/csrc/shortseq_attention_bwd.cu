@@ -29,39 +29,50 @@
 // writes its gradient once. Its dkv and dq CTAs are interleaved in the
 // grid, the longest walks of a b*h first. f32 inputs keep the CUDA-core
 // kernel of attention_bwd_common.cuh (the tensor cores would round them
-// to TF32).
+// to TF32), and so do head dims 128 < D <= 256 in every dtype (its
+// DMAX = 256 instance on 32-row tiles, inputs staged as f32).
 
 #include "attention_bwd_core.cuh"
 
 namespace dl4j {
 namespace {
 
-// f32: blockIdx.x < tiles is the dkv role for key tile blockIdx.x;
+// CUDA-core: blockIdx.x < tiles is the dkv role for key tile blockIdx.x;
 // otherwise the dq role for query tile blockIdx.x - tiles.
-template <int DMAX>
+template <typename T, int DMAX, int ROWS>
 __global__ void __launch_bounds__(kThreads)
     shortseq_bwd_f32_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int tiles = num_tiles(a.t);
+  const int tiles = num_tiles(a.t, ROWS);
   if ((int)blockIdx.x < tiles)
-    bwd_dkv_f32<DMAX>(a, blockIdx.y, blockIdx.x * kKeyTile, smem);
+    bwd_dkv_f32<T, DMAX, ROWS>(a, blockIdx.y, blockIdx.x * ROWS, smem);
   else
-    bwd_dq_f32<DMAX>(a, blockIdx.y, (blockIdx.x - tiles) * kQRows, smem);
+    bwd_dq_f32<T, DMAX, ROWS>(a, blockIdx.y, (blockIdx.x - tiles) * ROWS,
+                              smem);
 }
 
 template <typename T>
 cudaError_t run(const BwdArgs& a, int bh, cudaStream_t s) {
   if constexpr (!std::is_same<T, float>::value) {
-    return dispatch_bwd_core<T, kRolesBoth>(a, bh, s);
-  } else {
-    const dim3 grid(2 * num_tiles(a.t), bh);
-    const size_t smem = bwd_smem(a.d);
-    if (a.d <= 32)
-      return launch_bwd(shortseq_bwd_f32_kernel<32>, grid, smem, a, s);
-    if (a.d <= 64)
-      return launch_bwd(shortseq_bwd_f32_kernel<64>, grid, smem, a, s);
-    return launch_bwd(shortseq_bwd_f32_kernel<128>, grid, smem, a, s);
+    if (a.d <= 128) return dispatch_bwd_core<T, kRolesBoth>(a, bh, s);
   }
+  const int rows = a.d > 128 ? kWideRows : kQRows;
+  const dim3 grid(2 * num_tiles(a.t, rows), bh);
+  const size_t smem = bwd_smem(a.d, rows);
+  if (a.d > 128)   // every dtype
+    return launch_bwd(shortseq_bwd_f32_kernel<T, kMaxD, kWideRows>, grid,
+                      smem, a, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.d <= 32)
+      return launch_bwd(shortseq_bwd_f32_kernel<T, 32, kQRows>, grid, smem,
+                        a, s);
+    if (a.d <= 64)
+      return launch_bwd(shortseq_bwd_f32_kernel<T, 64, kQRows>, grid, smem,
+                        a, s);
+    return launch_bwd(shortseq_bwd_f32_kernel<T, 128, kQRows>, grid, smem, a,
+                      s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -70,7 +81,8 @@ cudaError_t run(const BwdArgs& a, int bh, cudaStream_t s) {
 // q, k, v, dout, dq, dk, dv: [bh, t, d] row-major in `dtype` (0 f32, 1 f16,
 // 2 bf16), 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or
 // null; lse, delta: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0,
-// d <= 128. Returns cudaGetLastError().
+// d <= 256 (above 128 the CUDA-core kernel's DMAX = 256 instance).
+// Returns cudaGetLastError().
 extern "C" int shortseq_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* kmask,
                                       const void* dout, const void* lse,

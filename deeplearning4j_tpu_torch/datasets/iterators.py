@@ -12,7 +12,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
-from ..ops.dataset import DataSet
+from ..ops.dataset import DataSet, MultiDataSet
 
 
 class DataSetIterator:
@@ -82,11 +82,11 @@ class ArrayDataSetIterator(DataSetIterator):
 
 
 def as_iterator(data) -> DataSetIterator:
-    """A DataSet, a list or tuple of them, or an iterator, as a
-    DataSetIterator."""
+    """A DataSet or MultiDataSet, a list or tuple of them, or an iterator,
+    as a DataSetIterator."""
     if isinstance(data, DataSetIterator):
         return data
-    if isinstance(data, DataSet):
+    if isinstance(data, (DataSet, MultiDataSet)):
         return ListDataSetIterator([data])
     if isinstance(data, (list, tuple)):
         return ListDataSetIterator(list(data))

@@ -26,15 +26,23 @@ forward's rounded operations, so the mask is y > 0 and y is not kept.
 
 Activations are [..., C] with the channels last, normalized over every
 other axis, seen as [M, C]. Each direction has a wrapper per helper that
-launches the Hopper kernel (``csrc/batchnorm.cu``, one cooperative launch
-a call) on a CUDA tensor and calls the plain version (:func:`bn_fwd_plain`,
-:func:`bn_bwd_plain`) on a CPU tensor; its ``launches`` attribute counts
-kernel launches. On the card the kernel reads gamma and beta in their own
-dtype (f32 or bf16) and writes dgamma / dbeta in it, so a call casts
-nothing; what the kernel does not take (activations other than f32 /
-bf16, C not a multiple of the 16-byte vector or above 512 vectors, a
-non-contiguous tensor, per-channel operands of another dtype) raises, and
-so does a refused launch; nothing falls back."""
+launches a Hopper kernel of ``csrc/batchnorm.cu`` on a CUDA tensor and
+calls the plain version (:func:`bn_fwd_plain`, :func:`bn_bwd_plain`) on a
+CPU tensor; its ``launches`` attribute counts kernel launches and its
+``routes`` counts them by route (:func:`route`):
+
+- ``"fused"``: f32 or bf16 activations and parameters, C a whole number
+  of 16-byte vectors and at most 512 of them (bf16 C % 8 == 0 up to 4096,
+  f32 C % 4 == 0 up to 2048), 16-byte aligned rows: one persistent
+  cooperative launch a direction;
+- ``"general"``: every other batch norm the JAX package computes (any
+  C >= 1, f16 activations or parameters, C above 512 vectors, a
+  misaligned base pointer): three plain launches a direction (statistics
+  partials, an f64 finalize, the elementwise pass) with the same
+  arithmetic and the same determinism.
+
+What neither takes (not [M, C], a device mismatch, a non-contiguous
+tensor) raises, and so does a refused launch; nothing falls back."""
 
 from __future__ import annotations
 
@@ -45,10 +53,15 @@ import torch
 
 from .cuda_lib import _DTYPE_CODE, load
 
-#: dtypes the kernel takes, and its 16-byte vector width in elements
+#: dtypes the fused route takes, and its 16-byte vector width in elements
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
-#: 16-byte channel vectors a row may hold: one per thread of a CTA
+#: activation and parameter dtypes either route takes
+_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+#: 16-byte channel vectors a row may hold on the fused route: one per thread
+#: of a CTA
 _MAX_VECTORS = 512
+#: the kernel routes, as :func:`route` names them
+ROUTES = ("fused", "general")
 #: the kernel's variants, as ``csrc/batchnorm.cu`` numbers them
 FWD, FWD_RELU, FWD_RES, FWD_RES_RELU, BWD, BWD_RELU, BWD_RES_RELU = range(7)
 #: fields of a launch plan (``batchnorm_plan``)
@@ -116,28 +129,46 @@ _LIB = []
 
 
 def check_args(x2, *others) -> None:
-    """Raise on what the kernel does not take: x [M, C] contiguous on a
-    CUDA device, f32 or bf16, C a multiple of the 16-byte vector and at
-    most 512 vectors, 16-byte aligned; every other activation like x."""
+    """Raise on what is not a batch norm the kernels take: x [M, C] (M, C
+    >= 1) contiguous on a CUDA device, f32, f16 or bf16; every other
+    activation like x (shape, dtype, device, contiguous)."""
     if x2.device.type != "cuda":
         raise ValueError(f"kernel inputs must be CUDA tensors, got "
                          f"{x2.device}")
-    if x2.dtype not in _VEC:
-        raise ValueError(f"the batch-norm kernel takes float32 or bfloat16 "
-                         f"activations, got {x2.dtype}")
-    vec = _VEC[x2.dtype]
-    if x2.dim() != 2 or x2.shape[1] % vec or x2.shape[0] < 1 or \
-            x2.shape[1] > vec * _MAX_VECTORS:
-        raise ValueError(f"expected [M, C] with C a multiple of {vec} and "
-                         f"at most {vec * _MAX_VECTORS} for {x2.dtype}, got "
+    if x2.dtype not in _DTYPES:
+        raise ValueError(f"the batch-norm kernels take float32, float16 or "
+                         f"bfloat16 activations, got {x2.dtype}")
+    if x2.dim() != 2 or x2.shape[0] < 1 or x2.shape[1] < 1:
+        raise ValueError(f"expected [M, C] activations, got "
                          f"{tuple(x2.shape)}")
     for t in (x2,) + others:
         if t.shape != x2.shape or t.dtype != x2.dtype or \
-                t.device != x2.device or not t.is_contiguous() or \
-                t.data_ptr() % 16:
-            raise ValueError("batch-norm activations must be contiguous, "
-                             "16-byte aligned [M, C] tensors of one dtype "
-                             "on one device")
+                t.device != x2.device or not t.is_contiguous():
+            raise ValueError("batch-norm activations must be contiguous "
+                             "[M, C] tensors of one dtype on one device")
+
+
+def route(x2, gamma, *others) -> str:
+    """The kernel route of a batch norm over ``x2`` [M, C] with parameters
+    of ``gamma``'s dtype (see the module docstring); the base pointers of
+    ``x2`` and of the ``others`` the launch reads must be 16-byte aligned
+    for the fused route."""
+    vec = _VEC.get(x2.dtype)
+    if vec is None or gamma.dtype not in _VEC or x2.shape[1] % vec or \
+            x2.shape[1] > vec * _MAX_VECTORS or \
+            any(t.data_ptr() % 16 for t in (x2,) + others):
+        return "general"
+    return "fused"
+
+
+def general_chunks(m: int, c: int, device) -> int:
+    """Row chunks of the general route's statistics pass: about 4 CTAs an
+    SM over all channel blocks, never more chunks than row groups."""
+    lanes = min(c, 32)
+    blocks_y = -(-c // lanes)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = -(-m // (256 // lanes))
+    return max(1, min(-(-4 * sms // blocks_y), groups, 1024))
 
 
 def _check_channel(c, device, dtypes, *vs) -> None:
@@ -191,59 +222,90 @@ def _on(device):
 
 
 def _launch_fwd(x2, gamma, beta, shift_hint, eps, res2, relu):
+    """Forward launch on the route the shape takes → ((y, mean, var, rstd),
+    route)."""
     check_args(x2, *(() if res2 is None else (res2,)))
     m, c = x2.shape
     dev = x2.device
-    _check_channel(c, dev, _VEC, gamma, beta)
+    _check_channel(c, dev, _DTYPES, gamma, beta)
     _check_channel(c, dev, (torch.float32,), shift_hint)
     variant = (FWD_RELU if relu else FWD) if res2 is None else \
         (FWD_RES_RELU if relu else FWD_RES)
+    way = route(x2, gamma, *(() if res2 is None else (res2,)))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    res_ptr = None if res2 is None else res2.data_ptr()
     with _on(dev):
         lib = _lib()
-        _, addr, scratch = _plan(lib, m, c, x2.dtype, variant, dev)
         y = torch.empty_like(x2)
-        # mean, var, rstd [3, C], then the kernel's scratch
-        buf = torch.empty(3 * c + scratch, dtype=torch.float32, device=dev)
-        rc = lib.batchnorm_fwd(
-            x2.data_ptr(), None if res2 is None else res2.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), shift_hint.data_ptr(),
-            y.data_ptr(), buf.data_ptr(), buf.data_ptr() + 12 * c, addr, m,
-            c, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype], variant,
-            float(eps), torch._C._cuda_getCurrentRawStream(dev.index))
+        if way == "fused":
+            _, addr, scratch = _plan(lib, m, c, x2.dtype, variant, dev)
+            # mean, var, rstd [3, C], then the kernel's scratch
+            buf = torch.empty(3 * c + scratch, dtype=torch.float32,
+                              device=dev)
+            rc = lib.batchnorm_fwd(
+                x2.data_ptr(), res_ptr, gamma.data_ptr(), beta.data_ptr(),
+                shift_hint.data_ptr(), y.data_ptr(), buf.data_ptr(),
+                buf.data_ptr() + 12 * c, addr, m, c, _DTYPE_CODE[x2.dtype],
+                _DTYPE_CODE[gamma.dtype], variant, float(eps), stream)
+        else:
+            gx = general_chunks(m, c, dev)
+            buf = torch.empty(3 * c + (2 * gx + 2) * c, dtype=torch.float32,
+                              device=dev)
+            rc = lib.batchnorm_gen_fwd(
+                x2.data_ptr(), res_ptr, gamma.data_ptr(), beta.data_ptr(),
+                shift_hint.data_ptr(), y.data_ptr(), buf.data_ptr(),
+                buf.data_ptr() + 12 * c, m, c, gx, _DTYPE_CODE[x2.dtype],
+                _DTYPE_CODE[gamma.dtype], variant, float(eps), stream)
     if rc != 0:
-        raise RuntimeError(f"batchnorm_fwd kernel launch failed: CUDA "
-                           f"error {rc}")
-    return (y, *buf[:3 * c].view(3, c).unbind(0))
+        raise RuntimeError(f"batchnorm forward kernel launch failed "
+                           f"({way} route): CUDA error {rc}")
+    return (y, *buf[:3 * c].view(3, c).unbind(0)), way
 
 
 def _launch_bwd(dy2, x2, gamma, mean, rstd, variant, y2=None, beta=None):
+    """Backward launch → ((dx, dgamma, dbeta, dres), route)."""
     tail = variant == BWD_RES_RELU
     check_args(x2, dy2, *((y2,) if tail else ()))
     m, c = x2.shape
     dev = x2.device
-    _check_channel(c, dev, _VEC, gamma,
+    _check_channel(c, dev, _DTYPES, gamma,
                    *((beta,) if variant == BWD_RELU else ()))
     _check_channel(c, dev, (torch.float32,), mean, rstd)
+    way = route(x2, gamma, dy2, *((y2,) if tail else ()))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with _on(dev):
         lib = _lib()
-        _, addr, scratch = _plan(lib, m, c, x2.dtype, variant, dev)
         dx = torch.empty_like(x2)
         dres = torch.empty_like(x2) if tail else dy2
         dgb = torch.empty((2, c), dtype=gamma.dtype, device=dev)
-        buf = torch.empty(scratch, dtype=torch.float32, device=dev)
-        rc = lib.batchnorm_bwd(
-            dy2.data_ptr(), x2.data_ptr(), y2.data_ptr() if tail else None,
-            gamma.data_ptr(),
-            beta.data_ptr() if variant == BWD_RELU else None,
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            dres.data_ptr() if tail else None, dgb.data_ptr(),
-            buf.data_ptr(), addr, m, c, _DTYPE_CODE[x2.dtype],
-            _DTYPE_CODE[gamma.dtype], variant,
-            torch._C._cuda_getCurrentRawStream(dev.index))
+        common = (dy2.data_ptr(), x2.data_ptr(),
+                  y2.data_ptr() if tail else None, gamma.data_ptr(),
+                  beta.data_ptr() if variant == BWD_RELU else None,
+                  mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                  dres.data_ptr() if tail else None, dgb.data_ptr())
+        if way == "fused":
+            _, addr, scratch = _plan(lib, m, c, x2.dtype, variant, dev)
+            buf = torch.empty(scratch, dtype=torch.float32, device=dev)
+            rc = lib.batchnorm_bwd(*common, buf.data_ptr(), addr, m, c,
+                                   _DTYPE_CODE[x2.dtype],
+                                   _DTYPE_CODE[gamma.dtype], variant, stream)
+        else:
+            gx = general_chunks(m, c, dev)
+            buf = torch.empty((2 * gx + 2) * c, dtype=torch.float32,
+                              device=dev)
+            rc = lib.batchnorm_gen_bwd(*common, buf.data_ptr(), m, c, gx,
+                                       _DTYPE_CODE[x2.dtype],
+                                       _DTYPE_CODE[gamma.dtype], variant,
+                                       stream)
     if rc != 0:
-        raise RuntimeError(f"batchnorm_bwd kernel launch failed: CUDA "
-                           f"error {rc}")
-    return dx, dgb[0], dgb[1], dres
+        raise RuntimeError(f"batchnorm backward kernel launch failed "
+                           f"({way} route): CUDA error {rc}")
+    return (dx, dgb[0], dgb[1], dres), way
+
+
+def _count(fn, way):
+    fn.launches += 1
+    fn.routes[way] += 1
 
 
 def bn_train_fwd(x2, gamma, beta, shift_hint, eps, relu=False):
@@ -252,8 +314,8 @@ def bn_train_fwd(x2, gamma, beta, shift_hint, eps, relu=False):
     plain version on a CPU tensor."""
     if x2.device.type == "cpu":
         return bn_fwd_plain(x2, gamma, beta, shift_hint, eps, relu=relu)
-    out = _launch_fwd(x2, gamma, beta, shift_hint, eps, None, relu)
-    bn_train_fwd.launches += 1
+    out, way = _launch_fwd(x2, gamma, beta, shift_hint, eps, None, relu)
+    _count(bn_train_fwd, way)
     return out
 
 
@@ -264,10 +326,10 @@ def bn_train_bwd(dy2, x2, gamma, mean, rstd, beta=None, relu=False):
     if x2.device.type == "cpu":
         return bn_bwd_plain(dy2, x2, gamma, mean, rstd, None, relu,
                             beta)[:3]
-    out = _launch_bwd(dy2, x2, gamma, mean, rstd,
-                      BWD_RELU if relu else BWD, beta=beta)[:3]
-    bn_train_bwd.launches += 1
-    return out
+    out, way = _launch_bwd(dy2, x2, gamma, mean, rstd,
+                           BWD_RELU if relu else BWD, beta=beta)
+    _count(bn_train_bwd, way)
+    return out[:3]
 
 
 def bn_add_act_fwd(x2, gamma, beta, shift_hint, res2, eps, relu):
@@ -275,8 +337,8 @@ def bn_add_act_fwd(x2, gamma, beta, shift_hint, res2, eps, relu):
     (y, mean, var, rstd)."""
     if x2.device.type == "cpu":
         return bn_fwd_plain(x2, gamma, beta, shift_hint, eps, res2, relu)
-    out = _launch_fwd(x2, gamma, beta, shift_hint, eps, res2, relu)
-    bn_add_act_fwd.launches += 1
+    out, way = _launch_fwd(x2, gamma, beta, shift_hint, eps, res2, relu)
+    _count(bn_add_act_fwd, way)
     return out
 
 
@@ -284,14 +346,15 @@ def bn_add_act_bwd(dy2, x2, y2, gamma, mean, rstd, relu):
     """batchnorm_add_act_train backward → (dx, dgamma, dbeta, dres)."""
     if x2.device.type == "cpu":
         return bn_bwd_plain(dy2, x2, gamma, mean, rstd, y2, relu)
-    out = _launch_bwd(dy2, x2, gamma, mean, rstd,
-                      BWD_RES_RELU if relu else BWD, y2=y2)
-    bn_add_act_bwd.launches += 1
+    out, way = _launch_bwd(dy2, x2, gamma, mean, rstd,
+                           BWD_RES_RELU if relu else BWD, y2=y2)
+    _count(bn_add_act_bwd, way)
     return out
 
 
 for _fn in (bn_train_fwd, bn_train_bwd, bn_add_act_fwd, bn_add_act_bwd):
     _fn.launches = 0
+    _fn.routes = dict.fromkeys(ROUTES, 0)
 
 
 # --------------------------------------------------------- autograd Functions

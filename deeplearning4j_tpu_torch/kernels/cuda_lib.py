@@ -43,11 +43,12 @@ ENTRIES = {
     "flash_backward": {"flash_attention_bwd_dq": _BWD_ARGTYPES,
                        "flash_attention_bwd_dkv": _BWD_ARGTYPES},
     # (xw, r, h0, c0, pi, pf, po, mask, y, hT, cT, xw_st, xw_sn, y_st,
-    # y_sn, t, n, h, dtype, stream, route*) and (n, h, dtype, out[8])
-    "lstm": {"lstm_recurrence_fwd": [ctypes.c_void_p] * 11 +
-             [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 +
+    # y_sn, t, n, h, dtype, gate, cell, stream, route*) and (n, h, dtype,
+    # gate, cell, out[9])
+    "lstm": {"lstm_recurrence_fwd_act": [ctypes.c_void_p] * 11 +
+             [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 +
              [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
-             "lstm_plan": [ctypes.c_int] * 3 +
+             "lstm_plan_act": [ctypes.c_int] * 5 +
              [ctypes.POINTER(ctypes.c_longlong)]},
     # (x, res, gamma, beta, shift, y, stats, scratch, plan, m, c, dtype,
     # gdtype, variant, eps, stream), (dy, x, y, gamma, beta, mean, rstd, dx,
@@ -60,9 +61,23 @@ ENTRIES = {
                   [ctypes.c_longlong] + [ctypes.c_int] * 4 +
                   [ctypes.c_void_p],
                   "batchnorm_plan": [ctypes.c_longlong] +
-                  [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]},
+                  [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)],
+                  # the general route: (x, res, gamma, beta, shift, y,
+                  # stats, scratch, m, c, gx, dtype, gdtype, variant, eps,
+                  # stream) and (dy, x, y, gamma, beta, mean, rstd, dx,
+                  # dres, dgb, scratch, m, c, gx, dtype, gdtype, variant,
+                  # stream)
+                  "batchnorm_gen_fwd": [ctypes.c_void_p] * 8 +
+                  [ctypes.c_longlong] + [ctypes.c_int] * 5 +
+                  [ctypes.c_float, ctypes.c_void_p],
+                  "batchnorm_gen_bwd": [ctypes.c_void_p] * 11 +
+                  [ctypes.c_longlong] + [ctypes.c_int] * 5 +
+                  [ctypes.c_void_p]},
 }
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+#: the widest head dim an attention kernel takes (above 128: the CUDA-core
+#: kernels' DMAX = 256 instance)
+MAX_HEAD_DIM = 256
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -152,8 +167,9 @@ def load(name: str) -> ctypes.CDLL:
 def check_attention_args(q3, k3, v3, key_mask, h: int, max_t=None) -> None:
     """Raise on anything the attention kernels do not take: q/k/v must be
     contiguous [BH, T, D] CUDA tensors of one float dtype on one device,
-    D a multiple of 8 and at most 128; the key mask a contiguous f32
-    [BH / h, T] on the same device."""
+    D a multiple of 8 and at most 256 (the wrappers zero-pad any other D up
+    to 256 first: ``shortseq_attention.padded_fwd``); the key mask a
+    contiguous f32 [BH / h, T] on the same device."""
     if q3.device.type != "cuda":
         raise ValueError(f"kernel inputs must be CUDA tensors, got "
                          f"{q3.device}")
@@ -167,8 +183,9 @@ def check_attention_args(q3, k3, v3, key_mask, h: int, max_t=None) -> None:
     if q3.dim() != 3:
         raise ValueError(f"expected [BH, T, D] inputs, got {tuple(q3.shape)}")
     bh, t, d = q3.shape
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"head dim {d} must be a multiple of 8 in [8, 128]")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} must be a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}]")
     if max_t is not None and t > max_t:
         raise ValueError(f"T={t} > {max_t}")
     if h < 1 or bh % h or bh > 65535:
@@ -210,9 +227,10 @@ def _ptr(x):
 
 
 def launch_attention(name: str, q3, k3, v3, key_mask, h: int,
-                     causal: bool):
+                     causal: bool, scale=None):
     """Allocate (o, lse) and launch kernel ``name`` on the current stream
-    (no synchronisation); raises if the launch is refused."""
+    (no synchronisation); raises if the launch is refused. ``scale``
+    multiplies the logits (1/√D of q's D by default)."""
     bh, t, d = q3.shape
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
@@ -221,7 +239,8 @@ def launch_attention(name: str, q3, k3, v3, key_mask, h: int,
         fn = getattr(load(name), entry)
         rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _ptr(key_mask),
                 o.data_ptr(), lse.data_ptr(), bh, h, t, d, int(causal),
-                _DTYPE_CODE[q3.dtype], float(d) ** -0.5,
+                _DTYPE_CODE[q3.dtype],
+                float(d) ** -0.5 if scale is None else float(scale),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -230,7 +249,7 @@ def launch_attention(name: str, q3, k3, v3, key_mask, h: int,
 
 def launch_attention_bwd(name: str, entry: str, q3, k3, v3, key_mask,
                          h: int, causal: bool, do, lse, delta,
-                         outputs=("dq", "dk", "dv")):
+                         outputs=("dq", "dk", "dv"), scale=None):
     """Allocate the gradients named in ``outputs`` (each like q) and launch
     backward entry ``entry`` of library ``name`` on the current stream (no
     synchronisation); raises if the launch is refused. Returns the
@@ -243,7 +262,8 @@ def launch_attention_bwd(name: str, entry: str, q3, k3, v3, key_mask,
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 _ptr(grads.get("dq")), _ptr(grads.get("dk")),
                 _ptr(grads.get("dv")), bh, h, t, d, int(causal),
-                _DTYPE_CODE[q3.dtype], float(d) ** -0.5,
+                _DTYPE_CODE[q3.dtype],
+                float(d) ** -0.5 if scale is None else float(scale),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")

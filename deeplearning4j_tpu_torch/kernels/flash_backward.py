@@ -18,9 +18,19 @@ kernel pair.
 from __future__ import annotations
 
 from .cuda_lib import check_attention_bwd_args, launch_attention_bwd
-from .shortseq_attention import attention_bwd_plain, row_delta
+from .shortseq_attention import attention_bwd_plain, padded_bwd, row_delta
 
 flash_backward_plain = attention_bwd_plain
+
+
+def _launcher(entry, outputs):
+    """The launch of ``entry`` as :func:`padded_bwd` calls it."""
+    def launch(q3, k3, v3, key_mask, h, causal, lse, do, delta, scale):
+        check_attention_bwd_args(q3, k3, v3, key_mask, h, do, lse, delta)
+        return launch_attention_bwd("flash_backward", entry, q3, k3, v3,
+                                    key_mask, h, causal, do, lse, delta,
+                                    outputs=outputs, scale=scale)
+    return launch
 
 
 def flash_backward_dq(q3, k3, v3, key_mask, h: int, causal: bool, do, lse,
@@ -29,10 +39,8 @@ def flash_backward_dq(q3, k3, v3, key_mask, h: int, causal: bool, do, lse,
     if q3.device.type == "cpu":
         return attention_bwd_plain(q3, k3, v3, key_mask, h, causal, None,
                                    lse, do, delta)[0]
-    check_attention_bwd_args(q3, k3, v3, key_mask, h, do, lse, delta)
-    (dq,) = launch_attention_bwd("flash_backward", "flash_attention_bwd_dq",
-                                 q3, k3, v3, key_mask, h, causal, do, lse,
-                                 delta, outputs=("dq",))
+    (dq,) = padded_bwd(_launcher("flash_attention_bwd_dq", ("dq",)), q3,
+                       k3, v3, key_mask, h, causal, lse, do, delta)
     flash_backward_dq.launches += 1
     return dq
 
@@ -47,10 +55,8 @@ def flash_backward_dkv(q3, k3, v3, key_mask, h: int, causal: bool, do, lse,
     if q3.device.type == "cpu":
         return attention_bwd_plain(q3, k3, v3, key_mask, h, causal, None,
                                    lse, do, delta)[1:]
-    check_attention_bwd_args(q3, k3, v3, key_mask, h, do, lse, delta)
-    out = launch_attention_bwd("flash_backward", "flash_attention_bwd_dkv",
-                               q3, k3, v3, key_mask, h, causal, do, lse,
-                               delta, outputs=("dk", "dv"))
+    out = padded_bwd(_launcher("flash_attention_bwd_dkv", ("dk", "dv")), q3,
+                     k3, v3, key_mask, h, causal, lse, do, delta)
     flash_backward_dkv.launches += 1
     return out
 

@@ -31,8 +31,9 @@ import torch
 
 from .cuda_lib import check_attention_args, launch_attention
 from .flash_backward import flash_backward
-from .shortseq_attention import (MAX_T, attention_fwd_plain, row_delta,
-                                 short_attention_bwd, short_attention_fwd)
+from .shortseq_attention import (MAX_T, attention_fwd_plain, padded_fwd,
+                                 row_delta, short_attention_bwd,
+                                 short_attention_fwd)
 
 #: the plain version of the flash forward is the whole-row softmax
 flash_forward_plain = attention_fwd_plain
@@ -44,10 +45,15 @@ def flash_forward(q3, k3, v3, key_mask=None, h: int = 1,
     tensor, the plain version on a CPU tensor. Returns (o, lse [BH, T])."""
     if q3.device.type == "cpu":
         return flash_forward_plain(q3, k3, v3, key_mask, h, causal)
-    check_attention_args(q3, k3, v3, key_mask, h)
-    out = launch_attention("flash_forward", q3, k3, v3, key_mask, h, causal)
+    out = padded_fwd(_flash_fwd, q3, k3, v3, key_mask, h, causal)
     flash_forward.launches += 1
     return out
+
+
+def _flash_fwd(q3, k3, v3, key_mask, h, causal, scale):
+    check_attention_args(q3, k3, v3, key_mask, h)
+    return launch_attention("flash_forward", q3, k3, v3, key_mask, h,
+                            causal, scale)
 
 
 flash_forward.launches = 0

@@ -18,25 +18,37 @@ masked keys' logits, and l is clamped at 1e-20, so a fully masked row
 yields a finite uniform average. lse and δ are [B·H, T] f32 (the TPU's
 8-wide row carrier was a tiling artifact). The backward recomputes
 p = exp(s − lse) from the saved lse and takes δ = rowsum(dO·O):
-dv = pᵀ·dO, ds = p·(dO·vᵀ − δ)·scale, dq = ds·k, dk = dsᵀ·q."""
+dv = pᵀ·dO, ds = p·(dO·vᵀ − δ)·scale, dq = ds·k, dk = dsᵀ·q.
+
+Head dims: the kernels take D a multiple of 8 up to 256 (above 128, in
+every dtype, the DMAX = 256 instance of the CUDA-core kernels on 32-row
+tiles). Every wrapper runs
+through :func:`padded_fwd` / :func:`padded_bwd`, which zero-pad q, k, v
+and dO along D to the next multiple of 8, pass the true D's 1/√D as the
+scale and slice o and the gradients back: zero columns add nothing to the
+scores, so the result is exact. D above 256 raises."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-from .cuda_lib import (check_attention_args, check_attention_bwd_args,
-                       launch_attention, launch_attention_bwd)
+from .cuda_lib import (MAX_HEAD_DIM, check_attention_args,
+                       check_attention_bwd_args, launch_attention,
+                       launch_attention_bwd)
 
 MAX_T = 512
 NEG = -1e30
 
 
-def _scores(q3, k3, key_mask, h: int, causal: bool):
-    """[BH, T, T] f32 scaled logits with the −1e30 replacement masks."""
+def _scores(q3, k3, key_mask, h: int, causal: bool, scale=None):
+    """[BH, T, T] f32 scaled logits (``scale`` 1/√D by default) with the
+    −1e30 replacement masks."""
     t, d = q3.shape[1:]
-    s = torch.einsum("btd,bsd->bts", q3.float(), k3.float()) / math.sqrt(d)
+    s = torch.einsum("btd,bsd->bts", q3.float(), k3.float())
+    s = s / math.sqrt(d) if scale is None else s * scale
     if key_mask is not None:
         keep = key_mask.float().repeat_interleave(h, dim=0) > 0   # [BH, T]
         s = s.masked_fill(~keep[:, None, :], NEG)
@@ -48,11 +60,12 @@ def _scores(q3, k3, key_mask, h: int, causal: bool):
 
 
 def attention_fwd_plain(q3, k3, v3, key_mask=None, h: int = 1,
-                        causal: bool = False):
+                        causal: bool = False, scale=None):
     """[BH, T, D] attention with the kernels' semantics, all in f32:
     returns (o [BH, T, D] in q's dtype, lse [BH, T] f32). ``key_mask`` is
-    [BH / h, T] (1 real / 0 masked)."""
-    s = _scores(q3, k3, key_mask, h, causal)
+    [BH / h, T] (1 real / 0 masked); ``scale`` multiplies the logits
+    (1/√D by default)."""
+    s = _scores(q3, k3, key_mask, h, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
@@ -66,13 +79,15 @@ def row_delta(do, o):
 
 
 def attention_bwd_plain(q3, k3, v3, key_mask, h: int, causal: bool, o, lse,
-                        do, delta=None):
+                        do, delta=None, scale=None):
     """The backward of :func:`attention_fwd_plain` from its saved lse, all
     in f32: returns (dq, dk, dv) in q's dtype. ``delta`` (δ, [BH, T] f32)
     may come from outside, as the ring backward passes it; ``o`` is read
     only when it does not."""
-    scale = 1.0 / math.sqrt(q3.shape[-1])
-    p = torch.exp(_scores(q3, k3, key_mask, h, causal) - lse[..., None])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q3.shape[-1])
+    p = torch.exp(_scores(q3, k3, key_mask, h, causal, scale) -
+                  lse[..., None])
     if delta is None:
         delta = row_delta(do, o)
     dof = do.float()
@@ -83,6 +98,65 @@ def attention_bwd_plain(q3, k3, v3, key_mask, h: int, causal: bool, o, lse,
     return tuple(g.to(q3.dtype) for g in (dq, dk, dv))
 
 
+def head_dim_padded(d: int) -> int:
+    """D rounded up to the kernels' multiple of 8; raises above 256."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}: no attention "
+                         "kernel takes it on the card (run it on the CPU)")
+    return -(-d // 8) * 8
+
+
+def _pad(x, dp):
+    return x if x.shape[-1] == dp else \
+        F.pad(x, (0, dp - x.shape[-1])).contiguous()
+
+
+def padded_fwd(fwd, q3, k3, v3, key_mask=None, h: int = 1,
+               causal: bool = False):
+    """``fwd(q, k, v, key_mask, h, causal, scale)`` on q, k, v zero-padded
+    along D to :func:`head_dim_padded`, with the true D's 1/√D: (o sliced
+    back to D, lse)."""
+    if k3.shape != q3.shape or v3.shape != q3.shape:
+        raise ValueError("q, k, v must share shape, dtype and device")
+    d = q3.shape[-1]
+    dp = head_dim_padded(d)
+    o, lse = fwd(_pad(q3, dp), _pad(k3, dp), _pad(v3, dp), key_mask, h,
+                 causal, d ** -0.5)
+    return (o if dp == d else o[..., :d].contiguous()), lse
+
+
+def padded_bwd(bwd, q3, k3, v3, key_mask, h: int, causal: bool, lse, do,
+               delta):
+    """``bwd(q, k, v, key_mask, h, causal, lse, do, delta, scale)`` on q, k,
+    v and dO zero-padded along D (δ from the unpadded dO and O), with the
+    true D's 1/√D; each gradient it returns sliced back to D."""
+    if k3.shape != q3.shape or v3.shape != q3.shape:
+        raise ValueError("q, k, v must share shape, dtype and device")
+    if do.shape != q3.shape:
+        raise ValueError("dO must be a contiguous, 16-byte aligned tensor "
+                         "of q's shape, dtype and device")
+    d = q3.shape[-1]
+    dp = head_dim_padded(d)
+    grads = bwd(_pad(q3, dp), _pad(k3, dp), _pad(v3, dp), key_mask, h,
+                causal, lse, _pad(do, dp), delta, d ** -0.5)
+    return tuple(g if dp == d else g[..., :d].contiguous() for g in grads)
+
+
+def _short_fwd(q3, k3, v3, key_mask, h, causal, scale):
+    check_attention_args(q3, k3, v3, key_mask, h, max_t=MAX_T)
+    return launch_attention("shortseq_attention", q3, k3, v3, key_mask, h,
+                            causal, scale)
+
+
+def _short_bwd(q3, k3, v3, key_mask, h, causal, lse, do, delta, scale):
+    check_attention_bwd_args(q3, k3, v3, key_mask, h, do, lse, delta,
+                             max_t=MAX_T)
+    return launch_attention_bwd("shortseq_attention_bwd",
+                                "shortseq_attention_bwd", q3, k3, v3,
+                                key_mask, h, causal, do, lse, delta,
+                                scale=scale)
+
+
 def short_attention_fwd(q3, k3, v3, key_mask=None, h: int = 1,
                         causal: bool = False):
     """Short-sequence attention forward on [BH, T, D] (T <= 512): the
@@ -90,9 +164,7 @@ def short_attention_fwd(q3, k3, v3, key_mask=None, h: int = 1,
     Returns (o, lse)."""
     if q3.device.type == "cpu":
         return attention_fwd_plain(q3, k3, v3, key_mask, h, causal)
-    check_attention_args(q3, k3, v3, key_mask, h, max_t=MAX_T)
-    out = launch_attention("shortseq_attention", q3, k3, v3, key_mask, h,
-                           causal)
+    out = padded_fwd(_short_fwd, q3, k3, v3, key_mask, h, causal)
     short_attention_fwd.launches += 1
     return out
 
@@ -110,11 +182,8 @@ def short_attention_bwd(q3, k3, v3, key_mask, h: int, causal: bool, o, lse,
                                    do, delta)
     if delta is None:
         delta = row_delta(do, o)
-    check_attention_bwd_args(q3, k3, v3, key_mask, h, do, lse, delta,
-                             max_t=MAX_T)
-    out = launch_attention_bwd("shortseq_attention_bwd",
-                               "shortseq_attention_bwd", q3, k3, v3,
-                               key_mask, h, causal, do, lse, delta)
+    out = padded_bwd(_short_bwd, q3, k3, v3, key_mask, h, causal, lse, do,
+                     delta)
     short_attention_bwd.launches += 1
     return out
 

@@ -7,14 +7,15 @@ VGG16."""
 from .char_rnn import CharacterIterator, char_rnn_conf
 from .lenet import lenet_conf
 from .resnet import resnet_conf, resnet50_conf, resnet_tiny_conf
-from .transformer import generate, lm_batch_sparse, transformer_lm_conf
+from .transformer import (generate, lm_batch, lm_batch_sparse,
+                          transformer_lm_conf)
 from .generation import (TransformerDecoder, SlotGenerationEngine,
                          GenerationRequest)
 from .paging import PageAllocator, prefix_route_key
 from .vgg16 import VGG16ImagePreProcessor, vgg16_conf
 
 __all__ = ["char_rnn_conf", "CharacterIterator",
-           "transformer_lm_conf", "lm_batch_sparse", "generate",
+           "transformer_lm_conf", "lm_batch", "lm_batch_sparse", "generate",
            "TransformerDecoder",
            "SlotGenerationEngine", "GenerationRequest",
            "PageAllocator", "prefix_route_key",

@@ -76,6 +76,18 @@ def lm_batch_sparse(tokens: np.ndarray):
             np.asarray(tokens[:, 1:], np.int32))
 
 
+def lm_batch(tokens: np.ndarray, vocab_size: int):
+    """(features, one-hot labels) for next-token training from token ids
+    [N, T+1]: inputs are tokens[:, :-1], labels tokens[:, 1:] as float32
+    one-hot [N, T, vocab]. The one-hot is built directly (np.eye at vocab
+    32k would transiently allocate a 4 GB identity matrix)."""
+    x = np.asarray(tokens[:, :-1], np.int32)
+    tgt = np.asarray(tokens[:, 1:], np.int64)
+    y = np.zeros(tgt.shape + (vocab_size,), np.float32)
+    np.put_along_axis(y, tgt[..., None], 1.0, axis=-1)
+    return x, y
+
+
 def generate(net: ComputationGraph, prompt_ids, length: int,
              temperature: float = 1.0,
              rng: Optional[np.random.Generator] = None,

@@ -4,11 +4,12 @@
 The input projection ``x @ W + b`` for all timesteps is one matmul outside
 the recurrence ([N·T, nIn] × [nIn, 4H]); the recurrence itself is
 ``kernels/lstm.py``. On a CUDA tensor every LSTM goes to the helper
-registry's ``lstm`` entry, the hand-written kernel B6, for f32 and bf16,
-masked or not — unlike the JAX package, whose kernel is an opt-in helper
-for f32 only. A gate / cell activation pair other than sigmoid / tanh
-raises there instead of quietly running a loop of small kernels; CPU
-tensors run the plain loop (any activation pair). Autograd differentiates
+registry's ``lstm`` entry, the hand-written kernel B6, for f32, f16 and
+bf16, masked or not, with any elementwise gate / cell activation pair —
+unlike the JAX package, whose kernel is an opt-in helper for f32 only. A
+row-wise activation (softmax, logsoftmax) raises there instead of quietly
+running a loop of small kernels; CPU tensors run the plain loop (any
+activation pair). Autograd differentiates
 the recurrence (on the card through the kernel's ``LSTMRecurrence``).
 
 Gate blocks along the 4H axis are [input, forget, cell (g), output]. The

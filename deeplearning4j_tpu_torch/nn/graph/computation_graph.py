@@ -21,33 +21,64 @@ device in ``state[vertex]``; a train step replaces it with the detached
 new statistics, and inference reads it. In training the cached fusion
 plan (``fusion.py``) runs each BN → add → act residual tail as one
 ``batchnorm_add_act_train`` helper call, on the card the fused Hopper
-kernel; the other batch norms take the ``batchnorm_train`` kernel. The
-JAX graph's truncated BPTT is not ported."""
+kernel; the other batch norms take the ``batchnorm_train`` kernel.
+
+Truncated BPTT (:meth:`_fit_tbptt`) runs where the JAX graph runs it: a
+``truncated_bptt`` configuration with ``tbptt_fwd_length`` > 0 and a 3-D
+input; it makes one update per time window and carries only the recurrent
+vertices' (h, c), detached, into the next window. Every update calls the
+listeners' ``iteration_done``. :meth:`rnn_time_step` keeps the recurrent
+carry between calls. Evaluation (:meth:`do_evaluation` and the
+``evaluate*`` methods) brings each output head to the host once a batch
+through ``ops/transfer.py::device_fetch`` (tag ``graph.eval``)."""
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ...datasets.iterators import as_iterator
+from ...eval.evaluation import Evaluation
+from ...eval.regression import RegressionEvaluation
+from ...eval.roc import ROC, ROCMultiClass
 from ...ops import rng as rngmod
-from ...ops.dataset import DataSet
+from ...ops.dataset import DataSet, MultiDataSet
 from ...ops.platform import resolve_device, state_on
+from ...ops.transfer import device_fetch
 from ...ops.updaters import make_updater, normalize_gradient, schedule_lr
 from ...kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_score,
                                  sparse_shaped)
 from ..conf.layers import OutputLayer
 from ..conf.layers.convolution import detached_running_update
 from ..helpers import get_helper
+from ..multilayer import _clone_tree, _host, format_summary_table
 from .fusion import build_fusion_plan
 from .graph_config import ComputationGraphConfiguration
 from .vertices import LayerVertex
 
 
+_CARRY = ("h", "c")
+
+
 def _nz(value, default):
     """None-aware default (0.0 is a real value — e.g. a frozen lr)."""
     return default if value is None else value
+
+
+def _strip_rnn_carry(states):
+    """States without the transient recurrent (h, c): each minibatch, and
+    every inference call but ``rnn_time_step``, starts from zeros."""
+    return {name: {k: v for k, v in s.items() if k not in _CARRY}
+            for name, s in states.items()}
+
+
+def _carries(states):
+    """The recurrent vertices' (h, c), detached."""
+    return {name: {k: v.detach() for k, v in s.items() if k in _CARRY}
+            for name, s in states.items() if any(k in s for k in _CARRY)}
 
 
 class ComputationGraph:
@@ -63,6 +94,8 @@ class ComputationGraph:
         self.iteration = 0
         self.epoch = 0
         self.score_value = float("nan")
+        self.listeners: List = []
+        self._rnn_state: Optional[Dict[str, Dict]] = None
         self._initialized = False
         self._fusion = None
 
@@ -150,7 +183,8 @@ class ComputationGraph:
     def _forward(self, params, state, inputs: Dict[str, torch.Tensor], *,
                  train: bool = False, rng: Optional[int] = None,
                  input_masks: Optional[Dict] = None,
-                 output_preout: bool = False, skip_preoutput=()):
+                 output_preout: bool = False, skip_preoutput=(),
+                 initial_rnn: Optional[Dict] = None):
         """Walk the topological order. Returns (activations, new_state,
         reg, masks, last_inputs, preouts). ``rng`` is the step's dropout
         seed: a vertex that draws dropout gets a generator seeded with
@@ -160,7 +194,9 @@ class ComputationGraph:
         scores); those in ``skip_preoutput`` are projected inside the loss
         (fused CE), so their [.., n_out] pre-activation is never built. In
         training the fusion plan's tails run fused at their activation
-        vertex and their BN and add vertices are skipped."""
+        vertex and their BN and add vertices are skipped. ``initial_rnn``:
+        per-vertex (h, c) carries (truncated BPTT, ``rnn_time_step``); a
+        non-empty entry replaces that vertex's state."""
         acts: Dict[str, torch.Tensor] = dict(inputs)
         masks: Dict[str, Optional[torch.Tensor]] = dict(input_masks or {})
         new_state: Dict[str, Dict] = {}
@@ -179,6 +215,9 @@ class ComputationGraph:
                                     masks, new_state)
                 continue
             v = self.conf.vertices[name]
+            vstate = state[name]
+            if initial_rnn and initial_rnn.get(name):
+                vstate = initial_rnn[name]
             in_names = self.conf.vertex_inputs[name]
             xs = [acts[i] for i in in_names]
             ms = [masks.get(i) for i in in_names]
@@ -199,14 +238,14 @@ class ComputationGraph:
                 x = layer.maybe_dropout(x, train=train, gen=gen)
                 last_inputs[name] = x
                 masks[name] = m
-                new_state[name] = state[name]
+                new_state[name] = vstate
                 if name in skip_preoutput:
                     continue            # projection fused into the loss
                 preouts[name] = layer.preoutput(params[name], x)
                 acts[name] = layer.activation_fn()(preouts[name])
             else:
                 acts[name], new_state[name] = v.forward(
-                    params[name], state[name], xs, train=train, gen=gen,
+                    params[name], vstate, xs, train=train, gen=gen,
                     masks=ms)
                 masks[name] = ms[0] if ms else None
         return acts, new_state, reg, masks, last_inputs, preouts
@@ -239,8 +278,7 @@ class ComputationGraph:
     def _inference_state(self):
         """Per-vertex state for inference: batch norm's running statistics
         stay, a recurrent carry (h, c) is dropped."""
-        return {name: {k: v for k, v in st.items() if k not in ("h", "c")}
-                for name, st in self.state.items()}
+        return _strip_rnn_carry(self.state)
 
     def _cast_params(self, params):
         """Mixed precision: a compute-dtype copy of the f32 master
@@ -253,16 +291,22 @@ class ComputationGraph:
                 for v, p in params.items()}
 
     @torch.no_grad()
+    def _output_tensors(self, features) -> List[torch.Tensor]:
+        """The inference forward: every network output as a device
+        tensor (float32 where the compute dtype is bf16)."""
+        self._ensure_init()
+        acts, *_ = self._forward(self._cast_params(self.params),
+                                 self._inference_state(),
+                                 self._inputs_dict(features))
+        out = [acts[o] for o in self.conf.network_outputs]
+        return [o.float() if o.dtype == torch.bfloat16 else o for o in out]
+
     def output(self, *features) -> List[np.ndarray]:
         """Forward pass → list of output activations as float32 numpy
         arrays (one per network output)."""
-        self._ensure_init()
-        inputs = self._inputs_dict(features[0] if len(features) == 1
-                                   else list(features))
-        acts, *_ = self._forward(self._cast_params(self.params),
-                                 self._inference_state(), inputs)
-        return [acts[o].float().cpu().numpy()
-                for o in self.conf.network_outputs]
+        outs = self._output_tensors(features[0] if len(features) == 1
+                                    else list(features))
+        return [o.float().cpu().numpy() for o in outs]
 
     def num_params(self) -> int:
         self._ensure_init()
@@ -295,7 +339,8 @@ class ComputationGraph:
         return eligible
 
     def _loss(self, params, state, inputs, labels: Dict, rng,
-              label_masks: Optional[Dict] = None, input_masks=None):
+              label_masks: Optional[Dict] = None, input_masks=None,
+              initial_rnn=None):
         """(score, new_state): the summed output losses plus the l1/l2
         penalty, on the compute-dtype cast of ``params``."""
         params = self._cast_params(params)
@@ -303,7 +348,7 @@ class ComputationGraph:
         _, new_state, reg, masks, last_in, preouts = self._forward(
             params, state, inputs, train=True, rng=rng,
             input_masks=input_masks, output_preout=True,
-            skip_preoutput=fused_outs)
+            skip_preoutput=fused_outs, initial_rnn=initial_rnn)
         score = reg
         for out_name in self.conf.network_outputs:
             v = self.conf.vertices[out_name]
@@ -337,10 +382,18 @@ class ComputationGraph:
         return score, new_state
 
     def _masks_of(self, ds):
-        """(input_masks, label_masks) dicts from a DataSet, in the compute
-        dtype on the device."""
-        conv = lambda m: \
+        """(input_masks, label_masks) dicts from a DataSet or MultiDataSet,
+        in the compute dtype on the device."""
+        conv = lambda m: None if m is None else \
             torch.as_tensor(np.asarray(m)).to(self.device, self.compute_dtype)
+        if isinstance(ds, MultiDataSet):
+            imasks = None if not ds.features_masks else \
+                {n: conv(m) for n, m in zip(self.conf.network_inputs,
+                                            ds.features_masks)}
+            lmasks = None if not ds.labels_masks else \
+                {n: conv(m) for n, m in zip(self.conf.network_outputs,
+                                            ds.labels_masks)}
+            return imasks, lmasks
         imasks = None if ds.features_mask is None else \
             {self.conf.network_inputs[0]: conv(ds.features_mask)}
         lmasks = None if ds.labels_mask is None else \
@@ -348,21 +401,29 @@ class ComputationGraph:
         return imasks, lmasks
 
     def _batch(self, ds):
+        """(inputs, labels, input masks, label masks) of a DataSet or a
+        MultiDataSet (whose lists follow the network's inputs and
+        outputs)."""
         imasks, lmasks = self._masks_of(ds)
-        return (self._inputs_dict(ds.features), self._labels_dict(ds.labels),
+        features, labels = ds.features, ds.labels
+        if isinstance(ds, MultiDataSet):
+            features, labels = list(features), list(labels)
+        return (self._inputs_dict(features), self._labels_dict(labels),
                 imasks, lmasks)
 
-    def _value_and_grad(self, state, inputs, labels, rng, lmasks, imasks):
+    def _value_and_grad(self, state, inputs, labels, rng, lmasks, imasks,
+                        initial_rnn=None):
         """(score, new_state, {vertex: {param: gradient}}) of the loss over
-        the f32 masters. The autograd leaves share the masters' storage,
-        so an update may write the masters in place once this returns."""
+        the f32 masters, the new state detached. The autograd leaves share
+        the masters' storage, so an update may write the masters in place
+        once this returns."""
         leaves = {name: {k: p.detach().requires_grad_(True)
                          for k, p in ps.items()}
                   for name, ps in self.params.items()}
         flat = [(name, k) for name, ps in leaves.items() for k in ps]
         with torch.enable_grad():
             score, new_state = self._loss(leaves, state, inputs, labels,
-                                          rng, lmasks, imasks)
+                                          rng, lmasks, imasks, initial_rnn)
             grads = torch.autograd.grad(
                 score, [leaves[n][k] for n, k in flat],
                 materialize_grads=True) if flat else ()
@@ -370,16 +431,19 @@ class ComputationGraph:
             name: {} for name in self.params}
         for (name, k), g in zip(flat, grads):
             by_vertex[name][k] = g
+        new_state = {name: {k: v.detach() if torch.is_tensor(v) else v
+                            for k, v in st.items()}
+                     for name, st in new_state.items()}
         return score.detach(), new_state, by_vertex
 
-    def _train_step(self, inputs, labels, imasks, lmasks):
-        """One update of every parameter in place; returns the score (a
-        0-d device tensor)."""
+    def _train_step(self, inputs, labels, imasks, lmasks, initial_rnn=None):
+        """One update of every parameter in place; returns (the score as a
+        0-d device tensor, the new state with its recurrent carry)."""
         conf = self.conf
         rng = rngmod.for_iteration(rngmod.for_purpose(conf.seed, "dropout"),
                                    self.iteration)
         score, new_state, by_vertex = self._value_and_grad(
-            self.state, inputs, labels, rng, lmasks, imasks)
+            self.state, inputs, labels, rng, lmasks, imasks, initial_rnn)
         with torch.no_grad():
             for name, g in by_vertex.items():
                 if not g:
@@ -404,23 +468,71 @@ class ComputationGraph:
                         float(self.iteration))
                     self.params[name][pname].sub_(step)
                     self.updater_state[name][pname] = ustate
-        self.state = new_state
-        return score
+        return score, new_state
+
+    def _after_step(self, score, new_state):
+        self.state = _strip_rnn_carry(new_state)
+        self.score_value = score        # a device tensor until read
+        self.iteration += 1
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration)
 
     def fit_batch(self, ds):
-        """One train step on a DataSet. ``score_value`` becomes the step's
-        loss as a device tensor (no host sync)."""
+        """One train step on a DataSet or MultiDataSet (truncated BPTT
+        where the configuration asks for it and an input is 3-D).
+        ``score_value`` becomes the step's loss as a device tensor (no
+        host sync)."""
         self._ensure_init()
-        if self.conf.backprop_type == "truncated_bptt":
-            raise NotImplementedError("truncated BPTT is not ported")
-        self.score_value = self._train_step(*self._batch(ds))
-        self.iteration += 1
+        self.last_input_batch = ds
+        inputs, labels, imasks, lmasks = self._batch(ds)
+        if self.conf.backprop_type == "truncated_bptt" and \
+                (self.conf.tbptt_fwd_length or 0) > 0 and \
+                any(v.dim() == 3 for v in inputs.values()):
+            self._fit_tbptt(inputs, labels, imasks, lmasks)
+            return
+        self._after_step(*self._train_step(inputs, labels, imasks, lmasks))
+
+    @staticmethod
+    def _slice_time(d: Optional[Dict], start: int, end: int,
+                    min_ndim: int = 3) -> Optional[Dict]:
+        """Every time-distributed tensor of a name → tensor dict cut to
+        [start, end) along axis 1: masks are [N, T] (``min_ndim`` 2),
+        features and labels [N, T, C]."""
+        if d is None:
+            return None
+        return {k: (v if v is None or v.dim() < min_ndim else
+                    v[:, start:end])
+                for k, v in d.items()}
+
+    def _fit_tbptt(self, inputs, labels, imasks, lmasks):
+        """Truncated BPTT: one update per window of ``tbptt_fwd_length``
+        steps, only the recurrent vertices' (h, c) carried (detached) from
+        each window into the next."""
+        t_total = max(v.shape[1] for v in inputs.values() if v.dim() == 3)
+        window = self.conf.tbptt_fwd_length
+        carry: Dict[str, Dict] = {}
+        for start in range(0, t_total, window):
+            end = min(start + window, t_total)
+            # [N, T] integer class ids are time-distributed too; an [N, 1]
+            # column on a feedforward head passes whole
+            sliced = {k: (v if v is None else v[:, start:end]
+                          if v.dim() >= 3 or (
+                              v.dim() == 2 and
+                              not v.dtype.is_floating_point and
+                              v.shape[1] == t_total) else v)
+                      for k, v in labels.items()}
+            score, new_state = self._train_step(
+                self._slice_time(inputs, start, end), sliced,
+                self._slice_time(imasks, start, end, min_ndim=2),
+                self._slice_time(lmasks, start, end, min_ndim=2), carry)
+            carry = _carries(new_state)
+            self._after_step(score, new_state)
 
     def fit(self, data, num_epochs: int = 1):
-        """Train on a DataSet, or a list or iterator of them (an iterator
-        with ``reset`` is reset after each epoch)."""
+        """Train on a DataSet or MultiDataSet, or a list or iterator of
+        them (an iterator with ``reset`` is reset after each epoch)."""
         self._ensure_init()
-        if isinstance(data, DataSet):
+        if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]
         elif not isinstance(data, (list, tuple)) and \
                 not hasattr(data, "reset"):
@@ -450,3 +562,169 @@ class ComputationGraph:
         score, _, grads = self._value_and_grad(
             self._inference_state(), inputs, labels, None, lmasks, imasks)
         return grads, float(score)
+
+    # ------------------------------------------------------ rnn / stateful
+    @torch.no_grad()
+    def rnn_time_step(self, *features) -> List[np.ndarray]:
+        """Stateful streaming inference: each input is [N, nIn] (one step)
+        or [N, T, nIn]; every recurrent vertex continues from the (h, c)
+        the previous call left, until :meth:`rnn_clear_previous_state`.
+        Runs on the f32 masters, as the JAX graph does. Returns one numpy
+        array per network output, time-squeezed when a recurrent input was
+        a single step; one readback an output (tag
+        ``graph.rnn_time_step``)."""
+        self._ensure_init()
+        inputs = self._inputs_dict(features[0] if len(features) == 1
+                                   else list(features))
+        # only recurrent inputs get the [N, nIn] -> [N, 1, nIn] expansion;
+        # a genuinely 2-D static input stays 2-D
+        rec_names = set(self.conf.network_inputs)
+        if self.conf.input_types is not None:
+            rec_names = {n for n, t in zip(self.conf.network_inputs,
+                                           self.conf.input_types)
+                         if getattr(t, "kind", None) == "rnn"}
+        squeeze = any(v.dim() == 2 for k, v in inputs.items()
+                      if k in rec_names)
+        inputs = {k: (v[:, None, :] if v.dim() == 2 and k in rec_names
+                      else v) for k, v in inputs.items()}
+        if self._rnn_state is None:
+            self._rnn_state = {}
+        acts, new_state, *_ = self._forward(
+            self.params, self._inference_state(), inputs,
+            initial_rnn=self._rnn_state)
+        self._rnn_state.update(_carries(new_state))
+        outs = []
+        for o in self.conf.network_outputs:
+            a = acts[o]
+            out = device_fetch(a.float() if a.dtype == torch.bfloat16
+                               else a, "graph.rnn_time_step")
+            outs.append(out[:, 0] if squeeze and out.ndim == 3 else out)
+        return outs
+
+    def rnn_clear_previous_state(self):
+        """Forget the streaming (h, c): the next :meth:`rnn_time_step`
+        starts from zeros."""
+        self._rnn_state = None
+
+    # ------------------------------------------------------------ evaluation
+    def _eval_batch_parts(self, ds):
+        """(labels list, label-mask list) aligned with network_outputs, as
+        host numpy arrays, from a DataSet or MultiDataSet."""
+        n_out = len(self.conf.network_outputs)
+        if isinstance(ds, MultiDataSet):
+            labels = list(ds.labels)
+            lmasks = list(ds.labels_masks) if ds.labels_masks \
+                else [None] * n_out
+        else:
+            labels = [ds.labels]
+            lmasks = [ds.labels_mask]
+        labels += [None] * (n_out - len(labels))
+        lmasks += [None] * (n_out - len(lmasks))
+        return [_host(l) for l in labels], [_host(m) for m in lmasks]
+
+    def do_evaluation(self, data, evaluations: Dict):
+        """Accumulate per-output evaluations (Evaluation /
+        RegressionEvaluation / ROC family), ``{output name: evaluation}``,
+        over a DataSet, MultiDataSet, list or iterator: one inference
+        forward a batch feeds every output's evaluation, and each output
+        head comes to the host once a batch (tag ``graph.eval``)."""
+        self._ensure_init()
+        out_names = self.conf.network_outputs
+        for ds in as_iterator(data):
+            features = list(ds.features) if isinstance(ds, MultiDataSet) \
+                else ds.features
+            outs = [device_fetch(o, tag="graph.eval")
+                    for o in self._output_tensors(features)]
+            labels, lmasks = self._eval_batch_parts(ds)
+            for i, name in enumerate(out_names):
+                ev = evaluations.get(name)
+                if ev is None or labels[i] is None:
+                    continue
+                ev.eval(labels[i], outs[i], mask=lmasks[i])
+        return evaluations
+
+    def evaluate_outputs(self, data) -> Dict[str, Evaluation]:
+        """Classification evaluation of every output head → {output name:
+        Evaluation}."""
+        evs = {name: Evaluation() for name in self.conf.network_outputs}
+        return self.do_evaluation(data, evs)
+
+    def evaluate(self, data, labels_list=None, top_n: int = 1):
+        """Classification evaluation of the first output head against the
+        first labels array (every head: :meth:`evaluate_outputs`)."""
+        first = self.conf.network_outputs[0]
+        return self.do_evaluation(
+            data, {first: Evaluation(labels=labels_list,
+                                     top_n=top_n)})[first]
+
+    def evaluate_regression(self, data):
+        """Regression evaluation of the first output head."""
+        first = self.conf.network_outputs[0]
+        return self.do_evaluation(
+            data, {first: RegressionEvaluation()})[first]
+
+    def evaluate_roc(self, data, threshold_steps: int = 0):
+        """Binary ROC of the first output head."""
+        first = self.conf.network_outputs[0]
+        return self.do_evaluation(data, {first: ROC(threshold_steps)})[first]
+
+    def evaluate_roc_multi_class(self, data, threshold_steps: int = 0):
+        """One-vs-all ROC per class of the first output head."""
+        first = self.conf.network_outputs[0]
+        return self.do_evaluation(
+            data, {first: ROCMultiClass(threshold_steps)})[first]
+
+    # ----------------------------------------------------------- param utils
+    def summary(self) -> str:
+        """A printable table of the vertices and their parameter counts."""
+        self._ensure_init()
+        rows = [("vertex", "type", "inputs", "params")]
+        total = 0
+        for name in self.conf.topological_order:
+            v = self.conf.vertices[name]
+            n = sum(int(a.numel()) for a in self.params[name].values())
+            total += n
+            vtype = type(v.layer).__name__ if isinstance(v, LayerVertex) \
+                else type(v).__name__
+            rows.append((name, vtype,
+                         ",".join(self.conf.vertex_inputs[name]), f"{n:,}"))
+        return format_summary_table(rows, total)
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def params_flat(self) -> np.ndarray:
+        """Every parameter in one vector, vertices in topological order,
+        then names ascending (the JAX graph's order)."""
+        self._ensure_init()
+        parts = [a.detach().float().cpu().numpy().reshape(-1)
+                 for name in self.conf.topological_order
+                 for _, a in sorted(self.params[name].items())]
+        return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+    def set_params_flat(self, flat: np.ndarray):
+        """Write :meth:`params_flat`'s vector back into the parameters."""
+        self._ensure_init()
+        offset = 0
+        with torch.no_grad():
+            for name in self.conf.topological_order:
+                p = self.params[name]
+                for k in sorted(p):
+                    size = p[k].numel()
+                    part = np.asarray(flat[offset:offset + size])
+                    p[k].copy_(torch.from_numpy(part).reshape(p[k].shape))
+                    offset += size
+
+    def clone(self) -> "ComputationGraph":
+        """An independent copy: the configuration, parameters, layer and
+        updater state and iteration, in new tensors on the same device."""
+        self._ensure_init()
+        net = ComputationGraph(copy.deepcopy(self.conf), self.compute_dtype,
+                               self.device).init()
+        net.params = _clone_tree(self.params)
+        net.state = _clone_tree(self.state)
+        net.updater_state = _clone_tree(self.updater_state)
+        net.iteration = self.iteration
+        return net
+

@@ -126,9 +126,9 @@ def infer_graph_shapes(vertices: Dict[str, GraphVertexConf],
 
 
 class GraphBuilder:
-    """``NeuralNetConfiguration.Builder().graph_builder()``. The graph's
-    truncated BPTT and pretraining are not ported, so their settings keep
-    the configuration's defaults."""
+    """``NeuralNetConfiguration.Builder().graph_builder()``, with the
+    graph's truncated-BPTT settings. Pretraining is not ported, so its
+    setting keeps the configuration's default."""
 
     def __init__(self, parent):
         self._parent = parent
@@ -137,6 +137,9 @@ class GraphBuilder:
         self._network_inputs: List[str] = []
         self._network_outputs: List[str] = []
         self._input_types: Optional[List[InputType]] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def add_inputs(self, *names: str):
         self._network_inputs.extend(names)
@@ -158,6 +161,19 @@ class GraphBuilder:
 
     def set_input_types(self, *types: InputType):
         self._input_types = list(types)
+        return self
+
+    def backprop_type(self, t):
+        self._backprop_type = str(t).lower()
+        return self
+
+    def tbptt_fwd_length(self, n):
+        self._tbptt_fwd = int(n)
+        self._backprop_type = "truncated_bptt"
+        return self
+
+    def tbptt_back_length(self, n):
+        self._tbptt_back = int(n)
         return self
 
     def build(self) -> ComputationGraphConfiguration:
@@ -187,6 +203,9 @@ class GraphBuilder:
             optimization_algo=p._opt,
             iterations=p._iterations,
             minibatch=p._minibatch,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
             lr_policy=p._lr_policy,
             lr_policy_decay_rate=p._lr_decay,
             lr_policy_steps=p._lr_steps,

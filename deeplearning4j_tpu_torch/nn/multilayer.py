@@ -21,21 +21,29 @@ Inference (``output``, ``feed_forward``, ``rnn_time_step``) runs on the
 f32 masters, as the JAX package does (a bf16 input promotes to f32
 there). ``rnn_time_step`` keeps each recurrent layer's (h, c) between
 calls until :meth:`rnn_clear_previous_state`, and reads its result back
-once per call. Not ported: ``pretrain``, evaluation, ``score_examples``,
-center-loss heads and the asynchronous prefetching iterator."""
+once per call. Evaluation (:meth:`do_evaluation` and the ``evaluate*``
+methods) brings the output to the host once a batch through
+``ops/transfer.py::device_fetch`` (tag ``multilayer.eval``). Not ported:
+``pretrain``, center-loss heads and the asynchronous prefetching
+iterator."""
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..datasets.iterators import as_iterator
+from ..eval.evaluation import Evaluation
+from ..eval.regression import RegressionEvaluation
+from ..eval.roc import ROC, ROCMultiClass
 from ..kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_score,
                                 sparse_labels_eligible, sparse_shaped)
 from ..ops import rng as rngmod
 from ..ops.dataset import DataSet
+from ..ops.losses import get_loss
 from ..ops.platform import resolve_device, state_on
 from ..ops.transfer import device_fetch
 from ..ops.updaters import make_updater, normalize_gradient, schedule_lr
@@ -202,13 +210,18 @@ class MultiLayerNetwork:
                  for k, a in p.items()} for p in params]
 
     @torch.no_grad()
-    def output(self, x, train: bool = False) -> np.ndarray:
-        """The full forward pass as a numpy array (float32 for a bf16
+    def _output_tensor(self, x) -> torch.Tensor:
+        """The inference forward on the device (float32 for a bf16
         result, which numpy cannot hold)."""
         self._ensure_init()
         y, _, _ = self._forward(self.params, self._inference_state(),
                                 self._as_tensor(x), train=False, rng=None)
-        return _to_numpy(y)
+        return y.float() if y.dtype == torch.bfloat16 else y
+
+    def output(self, x, train: bool = False) -> np.ndarray:
+        """The full forward pass as a numpy array (float32 for a bf16
+        result, which numpy cannot hold)."""
+        return _to_numpy(self._output_tensor(x))
 
     @torch.no_grad()
     def feed_forward(self, x, train: bool = False) -> List[np.ndarray]:
@@ -397,6 +410,55 @@ class MultiLayerNetwork:
                                                *self._batch(ds), None)
         return grads, float(score)
 
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, data, batch_size: int = 0):
+        """Classification evaluation over a DataSet, list or iterator."""
+        return self.do_evaluation(data, Evaluation())
+
+    def do_evaluation(self, data, evaluation):
+        """Accumulate any evaluation (Evaluation / RegressionEvaluation /
+        ROC family) over the data: one inference forward a batch, its
+        output brought to the host once (tag ``multilayer.eval``)."""
+        for ds in as_iterator(data):
+            out = device_fetch(self._output_tensor(ds.features),
+                               "multilayer.eval")
+            evaluation.eval(_host(ds.labels), out,
+                            mask=_host(ds.labels_mask))
+        return evaluation
+
+    def evaluate_regression(self, data):
+        return self.do_evaluation(data, RegressionEvaluation())
+
+    def evaluate_roc(self, data, threshold_steps: int = 0):
+        """Binary ROC on a 2-class or 1-unit output."""
+        return self.do_evaluation(data, ROC(threshold_steps))
+
+    def evaluate_roc_multi_class(self, data, threshold_steps: int = 0):
+        """One-vs-all ROC per class."""
+        return self.do_evaluation(data, ROCMultiClass(threshold_steps))
+
+    @torch.no_grad()
+    def score_examples(self, ds: DataSet,
+                       add_regularization: bool = False) -> np.ndarray:
+        """Per-example loss [N] (f64), the score each example contributes,
+        with the l1 / l2 penalty added when ``add_regularization``; the
+        inference forward on the compute-dtype cast of the masters."""
+        self._ensure_init()
+        feats, labels, fmask, lmask = self._batch(ds)
+        out_layer = self._output_layer()
+        pre, _, reg, _, out_mask = self._forward(
+            self._cast_params(self.params), self._inference_state(), feats,
+            train=False, rng=None, fmask=fmask, last_preoutput=True)
+        mask = lmask if lmask is not None else \
+            (out_mask if pre.dim() == 3 else None)
+        per = get_loss(out_layer.loss)(labels, pre,
+                                       out_layer.activation or "identity",
+                                       mask)
+        per = _to_numpy(per).astype(np.float64)
+        if add_regularization:
+            per = per + float(reg)
+        return per
+
     # ------------------------------------------------------ rnn / stateful
     @torch.no_grad()
     def rnn_time_step(self, x) -> np.ndarray:
@@ -465,6 +527,18 @@ class MultiLayerNetwork:
                     p[k].copy_(torch.from_numpy(part).reshape(p[k].shape))
                     offset += size
 
+    def clone(self) -> "MultiLayerNetwork":
+        """An independent copy: the configuration, parameters, layer and
+        updater state and iteration, in new tensors on the same device."""
+        self._ensure_init()
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), self.compute_dtype,
+                                self.device).init()
+        net.params = [_clone_tree(p) for p in self.params]
+        net.state = [_clone_tree(s) for s in self.state]
+        net.updater_state = [_clone_tree(u) for u in self.updater_state]
+        net.iteration = self.iteration
+        return net
+
     def summary(self) -> str:
         """A printable table of the layers and their parameter counts."""
         self._ensure_init()
@@ -477,6 +551,26 @@ class MultiLayerNetwork:
                          str(getattr(layer, "n_in", "") or ""),
                          str(getattr(layer, "n_out", "") or ""), f"{n:,}"))
         return format_summary_table(rows, total)
+
+
+def _clone_tree(x):
+    """A copy of parameters or state (tensors, dicts, lists, tuples,
+    scalars) in new tensors."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone_tree(v) for v in x)
+    return copy.deepcopy(x)
+
+
+def _host(a) -> Optional[np.ndarray]:
+    """Labels or a mask as a host array (a tensor given as input data is
+    copied over; None stays None)."""
+    if a is None:
+        return None
+    return _to_numpy(a) if torch.is_tensor(a) else np.asarray(a)
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:

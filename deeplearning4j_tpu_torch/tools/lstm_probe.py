@@ -6,14 +6,18 @@ Usage, from the repository root on a machine with one Hopper GPU and nvcc::
     python3 -m deeplearning4j_tpu_torch.tools.lstm_probe \\
         [--parent DIR] [--variant NAME=FLAGS ...]
 
-It times B6 (``csrc/lstm.cu``, bf16) at the char-RNN's shape (T 128, N 64,
-H 512, peepholes) and at N 200 (CUDA events, the median of 20 samples of
-10 back-to-back launches), in turns within the call, for:
+It times B6 (``csrc/lstm.cu``, peepholes) at the char-RNN's training shape
+(T 128, N 64, H 512, bf16: the cluster route), at N 200, and at its
+sampling shape (T 1, N 1, H 512, f32: the cooperative route, one launch a
+layer a character) (CUDA events, the median of 20 samples of 10
+back-to-back launches), in turns within the call, for:
 
 - ``current``: the library as the port builds it;
 - ``parent``: ``lstm.cu`` of another tree's ``csrc/`` directory
-  (``--parent DIR``, a tree whose ``lstm_recurrence_fwd`` takes the route
-  pointer), built with the same nvcc flags into ``build/probe/lstm/parent``;
+  (``--parent DIR``, a tree whose C entry takes the route pointer: either
+  ``lstm_recurrence_fwd_act`` or, from before the activation codes,
+  ``lstm_recurrence_fwd``), built with the same nvcc flags into
+  ``build/probe/lstm/parent``;
 - each ``--variant NAME=FLAGS``: the same source built with extra nvcc
   flags (``-D`` defines, e.g. ``-DDL4J_LSTM_CLUSTER=0`` for bf16 on the
   cooperative route) into ``build/probe/lstm/NAME``.
@@ -56,8 +60,15 @@ PHASES = ["wait", "products", "gates", "exchange", "prologue"]
 PROBE_DIR = cuda_lib.BUILD_DIR.parent / "probe" / "lstm"
 #: the headers lstm.cu includes, copied beside the stamped source
 HEADERS = ("attention_common.cuh", "hopper_common.cuh")
-#: (T, N, H) of the timed cases
-SHAPES = [(128, 64, 512), (128, 200, 512)]
+#: (T, N, H, dtype) of the timed cases
+SHAPES = [(128, 64, 512, torch.bfloat16), (128, 200, 512, torch.bfloat16),
+          (1, 1, 512, torch.float32)]
+#: the kernel's dtype codes
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+#: the C entry of a tree from before the activation codes (no gate / cell)
+LEGACY_FWD = ("lstm_recurrence_fwd", [ctypes.c_void_p] * 11 +
+              [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4 +
+              [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 STAMPS = r"""
 __device__ unsigned long long g_probe[NPHASES];
@@ -112,7 +123,10 @@ def _nvcc(out: Path, src: Path, flags=()):
 
 
 def _declare(lib):
-    for entry, argtypes in cuda_lib.ENTRIES["lstm"].items():
+    entries = cuda_lib.ENTRIES["lstm"]
+    if not hasattr(lib, "lstm_recurrence_fwd_act"):
+        entries = dict([LEGACY_FWD])
+    for entry, argtypes in entries.items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -154,21 +168,21 @@ def build(parent, variants):
     return stamped, {"current": cuda_lib.load("lstm"), **libs}
 
 
-def _case(t, n, h, seed):
-    """bf16 (xw_t, R, h0, c0, peepholes) on the card, scaled as
+def _case(t, n, h, dtype, seed):
+    """(xw_t, R, h0, c0, peepholes) in ``dtype`` on the card, scaled as
     chip_smoke.py's LSTM checks are."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
     xw, r = rnd(t, n, 4 * h), rnd(h, 4 * h) / h ** 0.5
     h0, c0 = rnd(n, h) * 0.5, rnd(n, h) * 0.5
     peep = tuple(rnd(h) * 0.1 for _ in range(3))
-    cast = lambda x: x.to(torch.bfloat16)
+    cast = lambda x: x.to(dtype)
     return cast(xw), cast(r), cast(h0), cast(c0), tuple(map(cast, peep))
 
 
 def _launch(lib, case):
-    """One launch of ``lib``'s lstm_recurrence_fwd on ``case``; returns
-    ((y_t, hT, cT), route name)."""
+    """One launch of ``lib``'s recurrence entry on ``case`` (sigmoid gates,
+    a tanh cell); returns ((y_t, hT, cT), route name)."""
     xw, r, h0, c0, (pi, pf, po) = case
     t, n, h4 = xw.shape
     h = h4 // 4
@@ -176,14 +190,18 @@ def _launch(lib, case):
     y_t = y.transpose(0, 1)
     ht, ct = torch.empty_like(h0), torch.empty_like(c0)
     route = ctypes.c_int(-1)
-    rc = lib.lstm_recurrence_fwd(
-        xw.data_ptr(), r.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        pi.data_ptr(), pf.data_ptr(), po.data_ptr(), None, y.data_ptr(),
-        ht.data_ptr(), ct.data_ptr(), xw.stride(0), xw.stride(1),
-        y_t.stride(0), y_t.stride(1), t, n, h, 2,
-        torch.cuda.current_stream().cuda_stream, ctypes.byref(route))
+    args = [xw.data_ptr(), r.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            pi.data_ptr(), pf.data_ptr(), po.data_ptr(), None, y.data_ptr(),
+            ht.data_ptr(), ct.data_ptr(), xw.stride(0), xw.stride(1),
+            y_t.stride(0), y_t.stride(1), t, n, h, DTYPE_CODE[xw.dtype]]
+    tail = [torch.cuda.current_stream().cuda_stream, ctypes.byref(route)]
+    if hasattr(lib, "lstm_recurrence_fwd_act"):
+        rc = lib.lstm_recurrence_fwd_act(
+            *args, lk.act_code("sigmoid"), lk.act_code("tanh"), *tail)
+    else:
+        rc = lib.lstm_recurrence_fwd(*args, *tail)
     if rc:
-        raise RuntimeError(f"lstm_recurrence_fwd failed: CUDA error {rc}")
+        raise RuntimeError(f"LSTM recurrence launch failed: CUDA error {rc}")
     return (y_t, ht, ct), lk.ROUTES[route.value]
 
 
@@ -227,12 +245,12 @@ def main(argv=None):
     print(f"card: {card}")
     stamped, libs = build(args.parent, args.variant)
     order = list(libs) + list(libs)[::-1]
-    for t, n, h in SHAPES:
-        case = _case(t, n, h, 1)
+    for t, n, h, dtype in SHAPES:
+        case = _case(t, n, h, dtype, 1)
         want = lk.lstm_recurrence_plain(*case[:4], case[4])
-        row = {"shape": f"T {t}, N {n}, H {h}, bf16, peepholes",
+        row = {"shape": f"T {t}, N {n}, H {h}, {str(dtype)[6:]}, peepholes",
                "card": card, "order": order, "ms": {}, "route": {},
-               "max_abs": {}, "plan": lk.lstm_plan(n, h, torch.bfloat16)}
+               "max_abs": {}, "plan": lk.lstm_plan(n, h, dtype)}
         for name, lib in libs.items():
             got, row["route"][name] = _launch(lib, case)
             torch.cuda.synchronize()
@@ -243,8 +261,9 @@ def main(argv=None):
             row["ms"].setdefault(name, []).append(
                 _time_ms(lambda: _launch(libs[name], case)))
         print(json.dumps(row))
-        print(json.dumps({"shape": row["shape"],
-                          "warp_cycle_split": split(stamped, case)}))
+        if row["plan"]["route"] == "cluster":   # the stamped kernel
+            print(json.dumps({"shape": row["shape"],
+                              "warp_cycle_split": split(stamped, case)}))
 
 
 if __name__ == "__main__":

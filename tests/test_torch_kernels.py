@@ -305,3 +305,57 @@ def test_router_output_carries_gradients(t):
     for x, y in zip(got, want):
         assert x.abs().sum() > 0
         np.testing.assert_allclose(x.numpy(), y.numpy(), **TOL)
+
+
+def _unfold(x3, b, h):
+    bh, t, d = x3.shape
+    return x3.numpy().reshape(b, h, t, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("d", [4, 12, 36])
+def test_padded_head_dims_match_jax(d):
+    """C4: a head dim that is not a multiple of 8 reaches the kernels
+    zero-padded to the next multiple, with the true D's 1/√D, and comes
+    back sliced (``padded_fwd`` / ``padded_bwd``). That pad-and-slice
+    function with the plain versions in the kernels' place equals JAX's
+    Pallas flash attention (interpret mode), forward and backward, causal
+    with a ragged key mask, at 1e-5."""
+    b, t, h = 2, 64, 2
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, b, t, h, d)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    km = _mask(b, t, [64, 23])
+    o_j, vjp = jax.vjp(lambda a, bb, c: pallas_flash_attention(
+        a, bb, c, causal=True, q_block=16, k_block=16, interpret=True,
+        key_mask=km), q, k, v)
+    want = vjp(do)
+    q3, k3, v3, do3 = (torch.from_numpy(_fold(x)) for x in (q, k, v, do))
+    km3 = torch.from_numpy(km)
+    widths = []
+
+    def fwd(qp, kp, vp, m, hh, causal, scale):
+        widths.append(qp.shape[-1])
+        return ss.attention_fwd_plain(qp, kp, vp, m, hh, causal, scale)
+
+    def bwd(qp, kp, vp, m, hh, causal, lse, dop, delta, scale):
+        widths.append(dop.shape[-1])
+        return ss.attention_bwd_plain(qp, kp, vp, m, hh, causal, None, lse,
+                                      dop, delta, scale)
+
+    o3, lse = ss.padded_fwd(fwd, q3, k3, v3, km3, h, True)
+    grads = ss.padded_bwd(bwd, q3, k3, v3, km3, h, True, lse, do3,
+                          ss.row_delta(do3, o3))
+    assert widths == [-(-d // 8) * 8] * 2
+    assert o3.shape == q3.shape
+    np.testing.assert_allclose(_unfold(o3, b, h), np.asarray(o_j), **TOL)
+    for g, w in zip(grads, want):
+        assert g.shape == q3.shape
+        np.testing.assert_allclose(_unfold(g, b, h), np.asarray(w), **TOL)
+
+
+def test_head_dim_above_the_kernels_raises():
+    """D above 256 has no kernel: the pad helper raises before anything
+    launches (C4's rest)."""
+    with pytest.raises(ValueError, match="head dim 264 > 256"):
+        ss.head_dim_padded(264)
+    assert ss.head_dim_padded(256) == 256 and ss.head_dim_padded(129) == 136

@@ -11,7 +11,14 @@ batch-norm kernels (plain, with the BN layer's ReLU folded in, and the
 ReLU tail; f32 / bf16, M 3-20000, C 8-2048) against their plain version,
 their bitwise reproducibility, one cooperative launch a direction with
 no cast of bf16 gamma, their refusals (a refused launch raises), and a
-small ResNet training through them. Every test here
+small ResNet training through them. The shapes the card used to refuse
+(fault C4) against their plain versions: batch norms of any C, f16 and
+wide C on the general route; LSTMs with every elementwise activation
+pair, f16 and H 2048 on the streamed route (and their gradients);
+attention at head dims that are not a multiple of 8 (zero-padded) and up
+to 256 (the wide instance); each with one kernel launch a wrapper call
+(three for the general batch-norm route) and no plain-path operator.
+Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
 ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest``.
@@ -107,7 +114,7 @@ def test_short_and_flash_forwards_agree_on_card(cuda_device, t, causal):
 
 
 def test_kernel_rejects_unsupported_shapes(cuda_device):
-    bad_d = torch.zeros(2, 16, 12, device=cuda_device)
+    bad_d = torch.zeros(2, 16, 264, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         ff.flash_forward(bad_d, bad_d, bad_d)
     ints = torch.zeros(2, 16, 8, dtype=torch.int32, device=cuda_device)
@@ -349,8 +356,9 @@ def test_lstm_kernel_reads_strided_xw(cuda_device):
 def test_lstm_kernel_rejects_unsupported_inputs(cuda_device):
     xw, r, h0, c0, _, _ = _lstm_case(3, 2, 16, torch.float32, False, False,
                                      cuda_device)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        lk.lstm_recurrence_fwd(xw.half(), r.half(), h0.half(), c0.half())
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
+        lk.lstm_recurrence_fwd(xw.double(), r.double(), h0.double(),
+                               c0.double())
     with pytest.raises(ValueError, match="R must be"):
         lk.lstm_recurrence_fwd(xw, r[:, :32].contiguous(), h0, c0)
     with pytest.raises(ValueError, match="h0 must be"):
@@ -359,15 +367,12 @@ def test_lstm_kernel_rejects_unsupported_inputs(cuda_device):
         strided = torch.zeros(3 * 2 * 128, device=cuda_device).as_strided(
             (3, 2, 64), (256, 128, 2))
         lk.lstm_recurrence_fwd(strided, r, h0, c0)
-    # a hidden width whose f32 R slices fit no co-resident grid: at most
-    # ~227 KB of shared memory per SM holds H * 4H / 132 f32 weights
-    big = 2048
-    with pytest.raises(ValueError, match="no co-resident"):
-        lk.lstm_recurrence_fwd(
-            torch.zeros(1, 1, 4 * big, device=cuda_device),
-            torch.zeros(big, 4 * big, device=cuda_device),
-            torch.zeros(1, big, device=cuda_device),
-            torch.zeros(1, big, device=cuda_device))
+    # softmax is row-wise: no activation code, so it raises before any
+    # launch
+    before = lk.lstm_recurrence_fwd.launches
+    with pytest.raises(NotImplementedError, match="row-wise"):
+        lk.lstm_recurrence_fwd(xw, r, h0, c0, None, None, "softmax", "tanh")
+    assert lk.lstm_recurrence_fwd.launches == before
 
 
 @pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
@@ -426,18 +431,21 @@ def test_lstm_plan_picks_the_route(cuda_device):
 
 
 def test_lstm_refused_shape_raises(cuda_device):
-    """A bf16 width neither route takes (R slices of H 2048 fit neither a
-    cluster's nor a co-resident grid's shared memory) raises from the plan
-    and from the wrapper, which launches nothing."""
+    """What no route takes raises from the plan and from the wrapper, which
+    launches nothing: a row-wise activation (logsoftmax). H 2048, whose R
+    slices fit neither a cluster's nor a co-resident grid's shared memory,
+    is taken by the streamed route."""
     big = 2048
-    with pytest.raises(ValueError, match="no LSTM launch plan"):
-        lk.lstm_plan(1, big, torch.bfloat16)
+    assert lk.lstm_plan(1, big, torch.bfloat16)["route"] == "streamed"
+    with pytest.raises(NotImplementedError, match="row-wise"):
+        lk.lstm_plan(1, 64, torch.bfloat16, "sigmoid", "logsoftmax")
     before = lk.lstm_recurrence_fwd.launches
     z = lambda *shape: torch.zeros(*shape, device=cuda_device,
                                    dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="no co-resident"):
-        lk.lstm_recurrence_fwd(z(1, 1, 4 * big), z(big, 4 * big),
-                               z(1, big), z(1, big))
+    with pytest.raises(NotImplementedError, match="row-wise"):
+        lk.lstm_recurrence_fwd(z(1, 1, 256), z(64, 256), z(1, 64),
+                               z(1, 64), None, None, "sigmoid",
+                               "logsoftmax")
     assert lk.lstm_recurrence_fwd.launches == before
 
 
@@ -476,7 +484,7 @@ def test_lstm_gradients_on_card_match_cpu(cuda_device, peephole, masked):
 #: per-channel scale one rounding apart (the statistics summed in another
 #: order) moves an output by one bf16 step; f32 differs by summation order
 #: only. mean / var / dgamma / dbeta are f32 sums of the same terms.
-BN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+BN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 BN_STAT_TOL = 1e-5
 #: (M, C): single rows, ragged M, every channel-tile shape (C / vector
 #: lanes below, at and above the 32-lane warp, and not a power of two)
@@ -670,28 +678,40 @@ def test_batchnorm_refused_cooperative_launch_raises(cuda_device):
 
 
 def test_batchnorm_kernel_refuses_wide_rows_and_f16_parameters(cuda_device):
-    """C above 512 vectors (4096 bf16, 2048 f32) and gamma in f16 raise
-    before any launch."""
+    """C above 512 vectors (4104 bf16, 2052 f32) and gamma in f16, which
+    the fused route does not take, run on the general route (one launch
+    counted a wrapper call) and agree with the plain version."""
     from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
-    before = bnk.bn_train_fwd.launches
     for dtype, c, pdtype in ((torch.bfloat16, 4104, torch.float32),
                              (torch.float32, 2052, torch.float32),
                              (torch.bfloat16, 64, torch.float16)):
-        x = torch.zeros(8, c, device=cuda_device, dtype=dtype)
-        ones = torch.ones(c, device=cuda_device)
-        with pytest.raises(ValueError):
-            bnk.bn_train_fwd(x, ones.to(pdtype), ones.to(pdtype), ones, 1e-5)
-    assert bnk.bn_train_fwd.launches == before
+        x, _, dy, gamma, beta, shift = _bn_inputs(40, c, dtype, cuda_device,
+                                                  c)
+        gamma, beta = gamma.to(pdtype), beta.to(pdtype)
+        assert bnk.route(x, gamma) == "general"
+        before = dict(bnk.bn_train_fwd.routes)
+        y, mean, var, rstd = bnk.bn_train_fwd(x, gamma, beta, shift, 1e-5)
+        dx, dg, db = bnk.bn_train_bwd(dy, x, gamma, mean, rstd)
+        assert bnk.bn_train_fwd.routes["general"] == before["general"] + 1
+        y_p, mean_p, _, _ = bnk.bn_fwd_plain(x, gamma, beta, shift, 1e-5)
+        dx_p, dg_p, _, _ = bnk.bn_bwd_plain(dy, x, gamma, mean, rstd)
+        assert dg.dtype == pdtype
+        assert _rel_l2(y, y_p) <= BN_TOL[dtype]
+        assert _rel_l2(dx, dx_p) <= BN_TOL[dtype]
+        assert _rel_l2(mean, mean_p) <= BN_STAT_TOL
+        assert _rel_l2(dg.float(), dg_p.float()) <= \
+            (BN_STAT_TOL if pdtype == torch.float32 else 2 ** -8)
 
 
 def test_batchnorm_kernel_refuses_what_it_does_not_take(cuda_device):
-    """f16, C not a multiple of the 16-byte vector and a non-contiguous x
-    raise, and nothing launches."""
+    """What is not a batch norm the kernels take raises and nothing
+    launches: a non-contiguous x, an x that is not [M, C], f64; f16 and C
+    not a multiple of the 16-byte vector take the general route."""
     from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
     ones = torch.ones(16, device=cuda_device)
     before = bnk.bn_train_fwd.launches
-    for bad in (torch.zeros(8, 16, device=cuda_device, dtype=torch.float16),
-                torch.zeros(8, 12, device=cuda_device, dtype=torch.bfloat16),
+    for bad in (torch.zeros(8, 16, device=cuda_device, dtype=torch.float64),
+                torch.zeros(2, 8, 8, device=cuda_device),
                 torch.zeros(16, 8, device=cuda_device).t()):
         with pytest.raises(ValueError):
             bnk.bn_train_fwd(bad, ones[:bad.shape[1]], ones[:bad.shape[1]],
@@ -700,16 +720,28 @@ def test_batchnorm_kernel_refuses_what_it_does_not_take(cuda_device):
 
 
 def test_batchnorm_layer_on_card_raises_for_f16(cuda_device):
-    """A BN layer in training on a CUDA tensor the kernel cannot take
-    raises instead of running the plain path."""
+    """A BN layer in training on f16 CUDA tensors (f16 parameters, C 3)
+    runs the general route's kernels and agrees with the layer's plain
+    path on the CPU; nothing raises any more."""
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
     from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
-    bn = BatchNormalization(n_out=16)
-    state = {k: v.to(cuda_device) for k, v in bn.init_state().items()}
+    bn = BatchNormalization(n_out=3, activation="relu")
+    state = bn.init_state()
     params = {k: v.half() for k, v in bn.init_params(
-        torch.Generator(device=cuda_device)).items()}
-    x = torch.randn(4, 4, 4, 16, device=cuda_device).half()
-    with pytest.raises(ValueError):
-        bn.forward(params, state, x, train=True)
+        torch.Generator()).items()}
+    x = torch.randn(4, 9, 9, 3, generator=torch.Generator().manual_seed(1))
+    before = bnk.bn_train_fwd.routes["general"]
+    y, st = bn.forward({k: v.to(cuda_device) for k, v in params.items()},
+                       {k: v.to(cuda_device) for k, v in state.items()},
+                       x.half().to(cuda_device), train=True)
+    y_p, st_p = bn.forward({k: v.float() for k, v in params.items()},
+                           state, x, train=True)
+    torch.cuda.synchronize()
+    assert bnk.bn_train_fwd.routes["general"] == before + 1
+    assert y.dtype == torch.float16
+    assert _rel_l2(y.float().cpu(), y_p) <= 2e-3
+    for k in ("mean", "var"):
+        assert _rel_l2(st[k].cpu(), st_p[k]) <= 1e-3
 
 
 def test_resnet_tiny_trains_through_the_batchnorm_kernels(cuda_device):
@@ -749,3 +781,201 @@ def test_resnet_tiny_trains_through_the_batchnorm_kernels(cuda_device):
             assert _rel_l2(net.params[v][k].cpu(), cpu.params[v][k]) <= 1e-3
         for k in cpu.state[v]:
             assert _rel_l2(net.state[v][k].cpu(), cpu.state[v][k]) <= 1e-4
+
+
+# ------------------------------------------- C4: the shapes the card refused
+#: batch norms the fused route does not take: an RGB input's C 3, LeNet's
+#: 20 and 50 channels (bf16, f16; f32 at 50), C above 512 vectors
+C4_BN = [(m, c, dt) for m, c in ((4000, 3), (3000, 20), (2000, 50))
+         for dt in (torch.bfloat16, torch.float16, torch.float32)
+         if not (dt == torch.float32 and c == 20)] + \
+    [(300, 8192, torch.bfloat16), (300, 4096, torch.float32)]
+
+
+@pytest.mark.parametrize("kind", ["train", "relu", "add_act"])
+@pytest.mark.parametrize("m,c,dtype", C4_BN,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_batchnorm_general_route_matches_plain_on_card(cuda_device, m, c,
+                                                       dtype, kind):
+    """The general route's three variants against the plain version, with
+    bitwise repeats and one launch counted a wrapper call."""
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    case = _bn_inputs(m, c, dtype, cuda_device, m + c)
+    x, res, dy, gamma, beta, shift = case
+    assert bnk.route(x, gamma) == "general"
+    counter = bnk.bn_add_act_fwd if kind == "add_act" else bnk.bn_train_fwd
+    before = counter.launches
+    fwd, grads = _bn_run(kind, True, *case)
+    assert counter.launches == before + 1
+    again = _bn_run(kind, True, *case)
+    relu = kind != "train"
+    y, mean, var, rstd = fwd
+    y_p, mean_p, var_p, _ = bnk.bn_fwd_plain(
+        x, gamma, beta, shift, 1e-5, res if kind == "add_act" else None,
+        relu)
+    grads_p = bnk.bn_bwd_plain(dy, x, gamma, mean, rstd,
+                               y if kind == "add_act" else None, relu, beta)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd + tuple(grads), again[0] + tuple(again[1])):
+        assert torch.equal(a, b)
+    assert _rel_l2(y, y_p) <= BN_TOL[dtype]
+    assert _rel_l2(grads[0], grads_p[0]) <= BN_TOL[dtype]
+    for got, want in ((mean, mean_p), (var, var_p), (grads[1], grads_p[1]),
+                      (grads[2], grads_p[2])):
+        assert _rel_l2(got, want) <= BN_STAT_TOL
+
+
+def test_batchnorm_general_route_launches_its_kernels_only(cuda_device):
+    """A general-route wrapper call launches its three kernels (statistics,
+    finalize, elementwise) a direction and nothing else."""
+    case = _bn_inputs(3000, 20, torch.bfloat16, cuda_device, 5)
+    _bn_run("relu", True, *case)
+    names = _profiled_kernels(lambda: _bn_run("relu", True, *case))
+    assert len(names) == 6 and all("bn_gen" in n for n in names), names
+
+
+#: every elementwise activation, as the gates' (with a tanh cell) and as
+#: the cell's (with sigmoid gates)
+LSTM_ACTS = sorted(set(lk.ACT_CODES) - {"linear"})
+
+
+@pytest.mark.parametrize("where", ["gate", "cell"])
+@pytest.mark.parametrize("act", LSTM_ACTS)
+def test_lstm_activations_match_plain_on_card(cuda_device, act, where):
+    """B6 with each elementwise activation against the plain loop (f32,
+    peepholes and a mask; inputs scaled down so unbounded activations
+    stay in range), on the cooperative route unless sigmoid / tanh."""
+    from deeplearning4j_tpu_torch.ops.activations import get_activation
+    acts = (act, "tanh") if where == "gate" else ("sigmoid", act)
+    xw, r, h0, c0, peep, mask = _lstm_case(9, 5, 48, torch.float32, True,
+                                           True, cuda_device, seed=7)
+    args = (xw * 0.3, r * 0.3, h0, c0, peep, mask)
+    got = lk.lstm_recurrence_fwd(*args, *acts)
+    want = lk.lstm_recurrence_plain(*args, *(get_activation(a)
+                                             for a in acts))
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= LSTM_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype,h,route", [
+    (torch.float16, 512, "cooperative"), (torch.float16, 100, "cooperative"),
+    (torch.float32, 2048, "streamed"), (torch.bfloat16, 2048, "streamed"),
+    (torch.float32, 1400, "streamed")])
+def test_lstm_f16_and_streamed_route_match_plain_on_card(cuda_device, dtype,
+                                                         h, route):
+    """f16 on the cooperative route and widths whose R slices do not fit
+    shared memory on the streamed route, against the plain loop; the plan
+    names the route and the launch takes it."""
+    args = _lstm_case(6, 4, h, dtype, True, True, cuda_device, seed=h)
+    plan = lk.lstm_plan(4, h, dtype)
+    assert plan["route"] == route
+    if route == "streamed":
+        assert 0 < plan["resident_rows"] < h
+    before = dict(lk.lstm_recurrence_fwd.routes)
+    got = lk.lstm_recurrence_fwd(*args)
+    want = lk.lstm_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.routes[route] == before[route] + 1
+    tol = LSTM_TOL.get(dtype, LSTM_TOL[torch.bfloat16])
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("acts", [("hardsigmoid", "softsign"),
+                                  ("relu", "identity")])
+def test_lstm_activation_gradients_on_card_match_cpu(cuda_device, acts):
+    """LSTMRecurrence with the layer's activations (kernel forward, plain
+    recompute backward) against autograd of the plain loop on the CPU."""
+    from deeplearning4j_tpu_torch.ops.activations import get_activation
+    cpu = _lstm_case(8, 3, 32, torch.float32, True, False, "cpu")
+    g = torch.Generator().manual_seed(5)
+    dy = torch.randn(8, 3, 32, generator=g)
+
+    def grads(device):
+        xw, r, h0, c0, peep, _ = (
+            None if a is None else
+            tuple(p.to(device) for p in a) if isinstance(a, tuple) else
+            a.to(device) for a in cpu)
+        leaves = [x.detach().requires_grad_(True)
+                  for x in [xw * 0.3, r * 0.3, h0, c0] + list(peep)]
+        y, ht, ct = lk.lstm_recurrence(*leaves[:4], tuple(leaves[4:]), None,
+                                       *acts)
+        loss = (y * dy.to(device)).sum() + ht.sum() + 0.5 * ct.sum()
+        return torch.autograd.grad(loss, leaves)
+
+    before = lk.lstm_recurrence_fwd.launches
+    card = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.launches == before + 1
+    for got, want in zip(card, grads("cpu")):
+        assert got.norm() > 0
+        assert _rel_l2(got.cpu(), want) <= 1e-4
+
+
+def test_lstm_c4_launches_one_kernel(cuda_device):
+    """A streamed or non-default-activation wrapper call launches one
+    kernel and no plain-path operator (no GEMM)."""
+    for h, acts in ((2048, ("sigmoid", "tanh")), (64, ("hardsigmoid",
+                                                      "softsign"))):
+        args = _lstm_case(4, 2, h, torch.float32, False, False, cuda_device)
+        lk.lstm_recurrence_fwd(*args, *acts)
+        names = _profiled_kernels(lambda: lk.lstm_recurrence_fwd(*args,
+                                                                 *acts))
+        assert len(names) == 1 and "lstm_fwd_kernel" in names[0], names
+
+
+#: head dims no kernel took before: not a multiple of 8 (zero-padded),
+#: and above 128 (the wide instance)
+C4_D = [4, 12, 36, 136, 200, 256]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("d", C4_D)
+@pytest.mark.parametrize("kernel,t", [("short", 65), ("short", 512),
+                                      ("flash", 577)])
+def test_attention_head_dims_match_plain_on_card(cuda_device, kernel, t, d,
+                                                 dtype):
+    """Forward (o, lse) and backward (dq, dk, dv) at a C4 head dim against
+    the plain versions, causal, with a holey key mask."""
+    fwd = ss.short_attention_fwd if kernel == "short" else ff.flash_forward
+    b, h = 3, 2
+    g = torch.Generator(device=cuda_device).manual_seed(t + d)
+    q3, k3, v3, do = (torch.randn(b * h, t, d, generator=g,
+                                  device=cuda_device).to(dtype)
+                      for _ in range(4))
+    km = _holey_mask(t, [t, max(t // 2, 1), 0], cuda_device)
+    live = torch.tensor([True, True, False], device=cuda_device) \
+        .repeat_interleave(h)
+    o_k, lse_k = fwd(q3, k3, v3, km, h, True)
+    o_p, lse_p = ss.attention_fwd_plain(q3, k3, v3, km, h, True)
+    torch.cuda.synchronize()
+    assert o_k.shape == q3.shape and torch.isfinite(o_k).all()
+    assert (o_k[live].float() - o_p[live].float()).abs().max() <= \
+        FWD_TOL[dtype]
+    assert (lse_k[live] - lse_p[live]).abs().max() <= 1e-2
+    delta = ss.row_delta(do, o_p)
+    grads = _run_bwd(kernel, q3, k3, v3, km, h, True, o_p, lse_p, do,
+                     delta)[0]
+    want = ss.attention_bwd_plain(q3, k3, v3, km, h, True, o_p, lse_p, do,
+                                  delta)
+    for x, y in zip(grads, want):
+        assert x.shape == q3.shape
+        assert _rel_l2(x[live], y[live], do[live]) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [36, 256])
+def test_attention_c4_launches_one_kernel(cuda_device, d):
+    """A padded (D 36) or wide (D 256) forward wrapper call launches one
+    attention kernel, beside the pad and slice copies, and no plain-path
+    operator (no GEMM, no softmax)."""
+    q3 = torch.randn(4, 128, d, device=cuda_device, dtype=torch.bfloat16)
+    ss.short_attention_fwd(q3, q3, q3, None, 2, True)
+    names = _profiled_kernels(
+        lambda: ss.short_attention_fwd(q3, q3, q3, None, 2, True))
+    attn = [n for n in names if "attention" in n or "shortseq" in n]
+    assert len(attn) == 1, names
+    assert not any("gemm" in n.lower() or "softmax" in n.lower()
+                   for n in names), names

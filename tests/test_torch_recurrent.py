@@ -151,6 +151,46 @@ def test_lstm_recurrence_function_gradients_with_mask():
         np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
 
 
+@pytest.mark.parametrize("acts", [("hardsigmoid", "softsign"),
+                                  ("relu", "identity")])
+def test_lstm_recurrence_function_gradients_with_other_activations(acts):
+    """LSTMRecurrence with a layer's own activation pair (the pair now
+    reaches its backward, which recomputes the plain loop with it) against
+    jax.vjp of ``_lstm_recurrence`` with the same pair, masked, for every
+    input."""
+    case = _case(6, 3, 8, True, True, seed=12)
+    xw, r, h0, c0, peep, mask = case
+    xw, r = xw * np.float32(0.3), r * np.float32(0.3)
+    dy = np.random.default_rng(13).normal(size=(6, 3, 8)).astype(np.float32)
+    jfn = [jact.get_activation(a) for a in acts]
+
+    def ref(xw_, r_, h0_, c0_, pi, pf, po):
+        y, _, _ = _lstm_recurrence(xw_, r_, (pi, pf, po), h0_, c0_,
+                                   jnp.asarray(mask)[..., None], *jfn)
+        return y
+    _, vjp = jax.vjp(ref, *[jnp.asarray(a) for a in (xw, r, h0, c0, *peep)])
+    want = vjp(jnp.asarray(dy))
+    leaves = [_t(a).requires_grad_(True) for a in (xw, r, h0, c0, *peep)]
+    y, _, _ = lk.LSTMRecurrence.apply(*leaves, _t(mask), *acts)
+    got = torch.autograd.grad(y, leaves, _t(dy))
+    for g, w in zip(got, want):
+        assert np.abs(_np(g)).max() > 0
+        np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+
+
+def test_lstm_act_codes_cover_every_elementwise_activation():
+    """Every activation of ops/activations.py has a kernel code except the
+    two row-wise ones, which raise with their own message."""
+    for name in tact.activation_names():
+        if name in lk.ROW_WISE:
+            with pytest.raises(NotImplementedError, match="row-wise"):
+                lk.act_code(name)
+        else:
+            assert 0 <= lk.act_code(name) < 19
+    with pytest.raises(ValueError, match="Unknown activation"):
+        lk.act_code("nonesuch")
+
+
 def test_recurrence_wrapper_takes_plain_path_on_cpu():
     """On CPU tensors neither the wrapper nor the layer launches (or
     counts) a kernel."""
@@ -248,28 +288,52 @@ def test_helper_registry_routes_lstm_to_the_kernel():
     assert helpers._HELPERS[("lstm", "cuda", (9, 0))] is lk.cuda_lstm
 
 
-@pytest.mark.parametrize("gate,cell", [("hardsigmoid", "tanh"),
-                                       ("sigmoid", "softsign")])
-def test_cuda_route_raises_for_other_activation_pairs(monkeypatch, gate,
-                                                      cell):
-    """On a card (the helper forced here, as ``get_helper`` returns it for
-    a CUDA tensor), an LSTM whose activations the kernel does not compute
-    raises and names the pair; sigmoid / tanh goes through the kernel's
-    wrapper."""
+def _force_card_helper(monkeypatch):
+    """The LSTM helper forced on, as ``get_helper`` returns it for a CUDA
+    tensor; returns a GravesLSTM's parameters and an input."""
     monkeypatch.setattr(trecurrent, "get_helper",
                         lambda kind, device: lk.cuda_lstm)
     params = {k: _t(v) for k, v in _jax_layer_params(
         JaxGravesLSTM(n_in=5, n_out=6), 15).items()}
     x = torch.randn(2, 4, 5, generator=torch.Generator().manual_seed(0))
-    bad = GravesLSTM(n_in=5, n_out=6, gate_activation=gate, activation=cell)
-    with pytest.raises(NotImplementedError, match=f"{gate}.*{cell}"):
-        bad.forward(params, {}, x)
+    return params, x
+
+
+@pytest.mark.parametrize("gate,cell", [("hardsigmoid", "tanh"),
+                                       ("sigmoid", "softsign")])
+def test_cuda_route_raises_for_other_activation_pairs(monkeypatch, gate,
+                                                      cell):
+    """On a card, an LSTM whose gate or cell activation the kernel does not
+    compute (a row-wise one: softmax, logsoftmax) raises and says why,
+    whatever the other activation of the pair."""
+    params, x = _force_card_helper(monkeypatch)
+    for rowwise in (dict(gate_activation="softmax", activation=cell),
+                    dict(gate_activation=gate, activation="logsoftmax")):
+        with pytest.raises(NotImplementedError, match="row-wise"):
+            GravesLSTM(n_in=5, n_out=6, **rowwise).forward(params, {}, x)
+
+
+@pytest.mark.parametrize("gate,cell", [("hardsigmoid", "tanh"),
+                                       ("sigmoid", "softsign")])
+def test_cuda_route_computes_elementwise_activation_pairs(monkeypatch, gate,
+                                                          cell):
+    """On a card, an LSTM with an elementwise activation pair goes through
+    the kernel's wrapper with that pair and gives the plain loop's
+    output."""
+    params, x = _force_card_helper(monkeypatch)
     calls = []
     monkeypatch.setattr(lk, "lstm_recurrence",
-                        lambda *a: calls.append(a) or
-                        lk.lstm_recurrence_plain(*a))
-    GravesLSTM(n_in=5, n_out=6, activation="tanh").forward(params, {}, x)
-    assert len(calls) == 1
+                        lambda *a: calls.append(a[-2:]) or
+                        lk.lstm_recurrence_plain(
+                            *a[:-2], tact.get_activation(a[-2]),
+                            tact.get_activation(a[-1])))
+    conf = GravesLSTM(n_in=5, n_out=6, gate_activation=gate,
+                      activation=cell)
+    got, _ = conf.forward(params, {}, x)
+    monkeypatch.setattr(trecurrent, "get_helper", lambda kind, device: None)
+    want, _ = conf.forward(params, {}, x)
+    assert calls == [(gate, cell)]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # -------------------------------------------------------------- activations

@@ -117,6 +117,61 @@ def test_resnet_tiny_output_and_three_steps_match_jax():
     assert net.iteration == jnet.iteration == 3
 
 
+def _relative_gaps(got, want):
+    """{name: relative L2 of got against want} over flattened trees, and
+    the same over everything concatenated (key "all")."""
+    got, want = _flat(got), _flat(want)
+    rel = lambda a, b: float(np.linalg.norm(a - b) /
+                             max(np.linalg.norm(b), 1e-30))
+    as64 = lambda t: _np(t).astype(np.float64)
+    out = {k: rel(as64(got[k]), as64(want[k])) for k in want}
+    cat = lambda tree: np.concatenate([as64(tree[k]).ravel()
+                                       for k in sorted(want)])
+    out["all"] = rel(cat(got), cat(want))
+    return out
+
+
+def test_resnet_tiny_bf16_gradients_match_jax_bf16():
+    """C6: one set of weights in resnet_tiny in bf16 (plain helpers, no
+    kernel) in both packages. The port's bf16 gradients and running
+    statistics after one step sit closer to the JAX package's bf16 ones
+    than JAX's bf16 sits to its own f32 (every parameter, the stem's conv
+    included, and all of them together): the gap to f32 is bf16 rounding
+    in both packages, by design. Prints both gaps."""
+    tiny = dict(TINY, height=16, width=16)
+    j32 = JaxGraph(jax_resnet_tiny(**tiny)).init()
+    arrays = _graph_arrays(j32)
+    j16 = JaxGraph(jax_resnet_tiny(**tiny), compute_dtype=jnp.bfloat16)
+    j16.init()
+    j16.params = {v: {k: jnp.asarray(a) for k, a in p.items()}
+                  for v, p in arrays.items()}
+    net = graph_from_numpy(resnet_tiny_conf(**tiny), arrays, device="cpu",
+                           compute_dtype=torch.bfloat16)
+    x, y = _batch((8, 16, 16, 3), 4, 0)
+    g32, s32 = j32.compute_gradient_and_score(JaxDataSet(x, y))
+    g16, s16 = j16.compute_gradient_and_score(JaxDataSet(x, y))
+    got, score = net.compute_gradient_and_score(DataSet(x, y))
+    port = _relative_gaps(got, g16)
+    own = _relative_gaps(g16, g32)
+    for jnet in (j32, j16):
+        jnet.fit_batch(JaxDataSet(x, y))
+    net.fit_batch(DataSet(x, y))
+    port_state = _relative_gaps(net.state, j16.state)
+    own_state = _relative_gaps(j16.state, j32.state)
+    print(f"C6 gradients rel-L2, port bf16 vs JAX bf16: all "
+          f"{port['all']:.4g}, stem_conv.W {port['/stem_conv/W']:.4g}, "
+          f"max {max(port.values()):.4g}; JAX bf16 vs JAX f32: all "
+          f"{own['all']:.4g}, stem_conv.W {own['/stem_conv/W']:.4g}, max "
+          f"{max(own.values()):.4g}; running statistics max: port "
+          f"{max(port_state.values()):.4g}, JAX {max(own_state.values()):.4g}"
+          f"; loss {score:.6f} / {s16:.6f} / {s32:.6f}")
+    assert abs(score - s16) <= 2 ** -8 * abs(s16)
+    assert port["all"] <= own["all"]
+    assert port["/stem_conv/W"] <= own["/stem_conv/W"]
+    assert max(port.values()) <= max(own.values())
+    assert max(port_state.values()) <= max(own_state.values())
+
+
 def test_resnet_tiny_l2_applies_to_conv_weights_only():
     """The l2 penalty is ½ · l2 · Σ W² over the conv and head W only
     (batch norm's gamma and beta are not regularizable), as in the JAX

@@ -284,7 +284,7 @@ cudaError_t launch_bwd(Kern kern, dim3 grid, size_t smem, const BwdArgs& a,
 }
 
 inline bool bwd_shape_ok(int bh, int h, int t, int d) {
-  return t >= 1 && d >= 8 && d <= kMaxD && d % 8 == 0 && bh >= 1 &&
+  return t >= 1 && d >= 8 && d % 8 == 0 && bh >= 1 &&
          bh <= 65535 && h >= 1;
 }
 

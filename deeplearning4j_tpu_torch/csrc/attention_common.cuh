@@ -42,7 +42,8 @@ constexpr float kMinL = 1e-20f;   // softmax denominator clamp
 
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
 
-// The widest head dim a kernel takes: 128 < D <= kMaxD runs the DMAX = 256
+// The widest head dim a whole-row kernel takes (wider heads split the
+// output's columns: attention_wide.cuh): 128 < D <= kMaxD runs the DMAX = 256
 // instance of the CUDA-core kernels on kWideRows-row tiles (64 rows of
 // 256 columns would not fit the shared memory of the backward, nor the
 // shortseq forward's score block at T 512, nor the dk / dv accumulators

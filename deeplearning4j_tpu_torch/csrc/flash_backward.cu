@@ -41,6 +41,7 @@
 // products, which is its largest phase (PERF.md).
 
 #include "attention_bwd_core.cuh"
+#include "attention_wide.cuh"
 
 namespace dl4j {
 namespace {
@@ -96,6 +97,7 @@ cudaError_t run_dkv(const BwdArgs& a, int bh, cudaStream_t s) {
 
 template <typename T>
 cudaError_t run(bool dq, const BwdArgs& a, int bh, cudaStream_t s) {
+  if (a.d > kMaxD) return launch_wide_bwd<T>(dq, a, bh, s);
   return dq ? run_dq<T>(a, bh, s) : run_dkv<T>(a, bh, s);
 }
 
@@ -130,8 +132,8 @@ int entry(bool dq, const void* q, const void* k, const void* v,
 // 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or null;
 // lse, delta: [bh, t] f32. dq (or dk and dv): [bh, t, d] in `dtype`; the
 // outputs an entry does not write may be null. Requires t >= 1,
-// d % 8 == 0, d <= 256 (above 128 the CUDA-core kernels' DMAX = 256
-// instance). Return cudaGetLastError().
+// d % 8 == 0 (128 < d <= 256: the CUDA-core kernels' DMAX = 256 instance;
+// above: attention_wide.cuh). Return cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* kmask,
                                       const void* dout, const void* lse,

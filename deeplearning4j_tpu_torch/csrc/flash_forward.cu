@@ -27,9 +27,11 @@
 // products (PERF.md). f32 inputs keep the CUDA-core algorithm below
 // (the tensor cores would round them to TF32), with m and l in shared
 // memory and the accumulator in registers; so do head dims 128 < D <= 256
-// in every dtype (its DMAX = 256 instance on 32-row tiles).
+// in every dtype (its DMAX = 256 instance on 32-row tiles). Wider heads
+// split the output's columns over the grid (attention_wide.cuh).
 
 #include "attention_fwd_core.cuh"
+#include "attention_wide.cuh"
 
 namespace dl4j {
 namespace {
@@ -151,6 +153,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      int t, int d, int causal, float scale,
                      cudaStream_t stream) {
 #define DL4J_ARGS q, k, v, kmask, o, lse, bh, h, t, d, causal, scale, stream
+  if (d > kMaxD)   // every dtype: the output's columns split over the grid
+    return launch_wide_fwd<T>(DL4J_ARGS);
   if (d > 128)   // every dtype
     return launch(flash_fwd_f32_kernel<T, kMaxD, kWideRows>,
                   f32_smem(d, kWideRows), kWideRows, DL4J_ARGS);
@@ -177,15 +181,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q, k, v, o: [bh, t, d] row-major in `dtype` (0 f32, 1 f16, 2 bf16),
 // 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or null;
-// lse: [bh, t] f32. Requires t >= 1, d % 8 == 0, d <= 256 (above 128 the
-// CUDA-core kernel's DMAX = 256 instance). Returns cudaGetLastError().
+// lse: [bh, t] f32. Requires t >= 1, d % 8 == 0 (128 < d <= 256: the
+// CUDA-core kernel's DMAX = 256 instance; above: attention_wide.cuh).
+// Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* kmask, void* o,
                                    void* lse, int bh, int h, int t, int d,
                                    int causal, int dtype, float scale,
                                    void* stream) {
   using namespace dl4j;
-  if (t < 1 || d < 8 || d > kMaxD || d % 8 != 0 || bh < 1 || bh > 65535 ||
+  if (t < 1 || d < 8 || d % 8 != 0 || bh < 1 || bh > 65535 ||
       h < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -59,12 +59,21 @@
 //   staging and c) and reads the rest from global memory (L2) at every
 //   step. lstm_plan reports the resident rows.
 //
-// Activations: the gates and the cell take any elementwise activation of
+// Activations: the gates and the cell take any activation of
 // ops/activations.py by code (act() below, the same code uniformly across
 // the grid); the cluster route takes sigmoid / tanh only, and the
 // cooperative and streamed routes compile that pair in (an instance of
 // their own, STD) so the char-RNN's launches run no switch. softmax and
-// logsoftmax are row-wise and have no code (the wrapper raises).
+// logsoftmax are row-wise: each normalises over the layer's H units of a
+// batch row, separately for i, f, g, o and act(c) (the JAX package's
+// nn/conf/layers/recurrent.py:53-60), and those units are spread over the
+// grid. A launch with a row-wise code runs an instance of its own (ROW) on
+// the cooperative or streamed route: each step writes the
+// pre-activations to a global scratch, and takes two grid-wide row
+// reductions, each a (max, sum of exp) partial per CTA and row in global
+// memory, combined by every CTA in CTA order (a fixed order) after a
+// grid.sync(): one for i, f and g, then one for o and act(c) (o depends
+// on the new c when peepholes are on).
 //
 // What bounds it on H100: at the char-RNN shape (T 128, N 64, H 512, bf16)
 // the recurrent products are 2*T*N*H*4H = 17.2 GFLOP (17 us at the 989
@@ -117,6 +126,7 @@ struct Args {
   int t_len, n, h, units;
   int gate_act, cell_act;   // activation codes (act() below)
   int kres;                 // R rows resident in shared memory (streamed)
+  float* scratch;           // ROW: [N, 4H] pre-activations, then partials
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -204,8 +214,13 @@ __device__ __forceinline__ float sigmoid(float x) {
 enum Act {
   kIdentity = 0, kSigmoid, kTanh, kRelu, kLeakyRelu, kElu, kSelu, kSoftplus,
   kSoftsign, kHardSigmoid, kHardTanh, kCube, kRationalTanh, kRectifiedTanh,
-  kSwish, kGelu, kMish, kThresholdedRelu, kRRelu, kNumActs
+  kSwish, kGelu, kMish, kThresholdedRelu, kRRelu, kSoftmax, kLogSoftmax,
+  kNumActs
 };
+
+__host__ __device__ inline bool row_wise(int code) {
+  return code == kSoftmax || code == kLogSoftmax;
+}
 
 __device__ __forceinline__ float softplus(float x) {
   return x > 20.f ? x : log1pf(expf(x));   // F.softplus's threshold 20
@@ -242,6 +257,15 @@ __device__ __forceinline__ float act(int code, float x) {
     case kRRelu: return x >= 0.f ? x : (0.125f + 1.f / 3.f) * 0.5f * x;
     default: return x;
   }
+}
+
+// Activation `code` of x, for a row-wise code from its row's max m and sum
+// s of exp(x - m).
+__device__ __forceinline__ float act_row(int code, float x, float m,
+                                         float s) {
+  if (code == kSoftmax) return expf(x - m) / s;
+  if (code == kLogSoftmax) return x - m - logf(s);
+  return act(code, x);
 }
 
 // The gate and cell activations of a launch: sigmoid / tanh compiled in
@@ -319,7 +343,43 @@ __device__ __forceinline__ void stage_h(const T* hp, long long hp_sn, int H,
   }
 }
 
-template <typename T, int VEC, bool STREAM, bool STD>
+// ROW: a (max, sum of exp) partial of this CTA's units for each of the
+// batch's rows and nq quantities, quantity q read from slot slots[q] of
+// the scratch's [N, 4H] pre-activations.
+__device__ __forceinline__ void row_partials(const Args& a, int nq,
+                                             const int* slots, float2* part) {
+  const int H = a.h, unit0 = blockIdx.x * a.units;
+  const int uend = min(a.units, H - unit0);
+  for (int idx = threadIdx.x; idx < a.n * nq; idx += kThreads) {
+    const int n = idx / nq, q = idx % nq;
+    const float* x = a.scratch + (size_t)n * 4 * H + slots[q] * H + unit0;
+    float m = -INFINITY, sum = 0.f;
+    for (int j = 0; j < uend; ++j) m = fmaxf(m, x[j]);
+    for (int j = 0; j < uend; ++j) sum += expf(x[j] - m);
+    part[((size_t)blockIdx.x * a.n + n) * nq + q] = make_float2(m, sum);
+  }
+}
+
+// ROW: the row statistics (max, sum of exp) of rows [r0, r0 + nrows) for
+// nq quantities, combined over the grid's partials in CTA order, into
+// st[(row - r0) * nq + q].
+__device__ __forceinline__ void row_stats(const Args& a, int nq,
+                                          const float2* part, int r0,
+                                          int nrows, float2* st) {
+  for (int idx = threadIdx.x; idx < nrows * nq; idx += kThreads) {
+    const int n = r0 + idx / nq, q = idx % nq;
+    float m = -INFINITY, sum = 0.f;
+    for (int c = 0; c < gridDim.x; ++c)
+      m = fmaxf(m, __ldcg(&part[((size_t)c * a.n + n) * nq + q].x));
+    for (int c = 0; c < gridDim.x; ++c) {
+      const float2 pc = __ldcg(&part[((size_t)c * a.n + n) * nq + q]);
+      sum += pc.y * expf(pc.x - m);
+    }
+    st[idx] = make_float2(m, sum);
+  }
+}
+
+template <typename T, int VEC, bool STREAM, bool STD, bool ROW>
 __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = a.h, N = a.n, u = a.units;
@@ -441,6 +501,18 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
         }
         __syncthreads();
       }
+      if constexpr (ROW) {
+        // the pre-activations, for the row reductions below
+        if (active) {
+          const float c_prev = c_s[n * u + j];
+          float* pre = a.scratch + (size_t)n * 4 * H + unit;
+          pre[0] = acc.x + x_i + (peep ? c_prev * wpi : 0.f);
+          pre[H] = acc.y + x_f + (peep ? c_prev * wpf : 0.f);
+          pre[2 * H] = acc.z + x_g;
+          pre[3 * H] = acc.w + x_o;
+        }
+        continue;
+      }
       if (active) {
         const float c_prev = c_s[n * u + j];
         float pre_i = acc.x + x_i;
@@ -470,6 +542,66 @@ __global__ void __launch_bounds__(kThreads) lstm_fwd_kernel(Args a) {
           static_cast<T*>(a.ht)[(size_t)n * H + unit] = h_out;
           static_cast<T*>(a.ct)[(size_t)n * H + unit] = c_out;
         }
+      }
+    }
+    if constexpr (ROW) {
+      // reduction 1: i, f and g; the new c and pre_o (peepholes) replace
+      // g and o in the scratch
+      float2* part1 = reinterpret_cast<float2*>(a.scratch +
+                                                (size_t)N * 4 * H);
+      float2* part2 = part1 + (size_t)gridDim.x * N * 3;
+      float2* st = reinterpret_cast<float2*>(h_s);
+      const int slots1[3] = {0, 1, 2}, slots2[2] = {3, 2};
+      __syncthreads();
+      row_partials(a, 3, slots1, part1);
+      grid.sync();
+      for (int r0 = 0; r0 < N; r0 += rows) {
+        const int nrows = min(rows, N - r0);
+        const int n = r0 + lrow;
+        row_stats(a, 3, part1, r0, nrows, st);
+        __syncthreads();
+        if (lrow < nrows && unit < H) {
+          float* pre = a.scratch + (size_t)n * 4 * H + unit;
+          const float2* sr = st + lrow * 3;
+          const float ig = act_row(a.gate_act, pre[0], sr[0].x, sr[0].y);
+          const float fg = act_row(a.gate_act, pre[H], sr[1].x, sr[1].y);
+          const float gg = act_row(a.cell_act, pre[2 * H], sr[2].x, sr[2].y);
+          const float c = fg * c_s[n * u + j] + ig * gg;
+          pre[2 * H] = c;
+          if (peep) pre[3 * H] += c * wpo;
+        }
+        __syncthreads();
+      }
+      // reduction 2: o and act(c)
+      row_partials(a, 2, slots2, part2);
+      grid.sync();
+      for (int r0 = 0; r0 < N; r0 += rows) {
+        const int nrows = min(rows, N - r0);
+        const int n = r0 + lrow;
+        row_stats(a, 2, part2, r0, nrows, st);
+        __syncthreads();
+        if (lrow < nrows && unit < H) {
+          const float* pre = a.scratch + (size_t)n * 4 * H + unit;
+          const float2* sr = st + lrow * 2;
+          const float c_prev = c_s[n * u + j];
+          float c = pre[2 * H];
+          float hv = act_row(a.gate_act, pre[3 * H], sr[0].x, sr[0].y) *
+                     act_row(a.cell_act, c, sr[1].x, sr[1].y);
+          if (a.mask != nullptr) {
+            const float m = a.mask[(size_t)t * N + n];
+            hv = m * hv + (1.f - m) * ld_cg(hp + (size_t)n * hp_sn + unit);
+            c = m * c + (1.f - m) * c_prev;
+          }
+          const T h_out = from_f<T>(hv);
+          const T c_out = from_f<T>(c);
+          yt[(size_t)n * a.y_sn + unit] = h_out;
+          c_s[n * u + j] = to_f(c_out);
+          if (t == a.t_len - 1) {
+            static_cast<T*>(a.ht)[(size_t)n * H + unit] = h_out;
+            static_cast<T*>(a.ct)[(size_t)n * H + unit] = c_out;
+          }
+        }
+        __syncthreads();
       }
     }
     if (t + 1 < a.t_len) grid.sync();
@@ -912,15 +1044,30 @@ cudaError_t device_limits(int* sms, int* max_smem) {
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// The cooperative kernel of a launch: streamed or resident R, the compiled
-// sigmoid / tanh pair or the activation codes.
+// The activations of a launch: the compiled sigmoid / tanh pair, the
+// elementwise codes, or codes of which one is row-wise.
+enum ActMode { kStd = 0, kCodes = 1, kRow = 2 };
+
+int act_mode(int gate, int cell) {
+  if (gate == kSigmoid && cell == kTanh) return kStd;
+  return row_wise(gate) || row_wise(cell) ? kRow : kCodes;
+}
+
+// The cooperative kernel of a launch: streamed or resident R, and the
+// activation mode.
 template <typename T, int VEC>
-const void* cooperative_kernel(bool stream, bool std_acts) {
+const void* cooperative_kernel(bool stream, int mode) {
   if (stream)
-    return std_acts ? (const void*)lstm_fwd_kernel<T, VEC, true, true>
-                    : (const void*)lstm_fwd_kernel<T, VEC, true, false>;
-  return std_acts ? (const void*)lstm_fwd_kernel<T, VEC, false, true>
-                  : (const void*)lstm_fwd_kernel<T, VEC, false, false>;
+    return mode == kStd ? (const void*)lstm_fwd_kernel<T, VEC, true, true,
+                                                       false>
+           : mode == kRow
+               ? (const void*)lstm_fwd_kernel<T, VEC, true, false, true>
+               : (const void*)lstm_fwd_kernel<T, VEC, true, false, false>;
+  return mode == kStd ? (const void*)lstm_fwd_kernel<T, VEC, false, true,
+                                                     false>
+         : mode == kRow
+             ? (const void*)lstm_fwd_kernel<T, VEC, false, false, true>
+             : (const void*)lstm_fwd_kernel<T, VEC, false, false, false>;
 }
 
 // The smallest power-of-two units per CTA that gives at most one CTA per
@@ -930,7 +1077,7 @@ const void* cooperative_kernel(bool stream, bool std_acts) {
 // search keeps the largest multiple of 4 rows of each slice that fits
 // beside the h staging and c.
 template <typename T, int VEC>
-cudaError_t cooperative_plan(int n, int h, bool std_acts, Plan* p) {
+cudaError_t cooperative_plan(int n, int h, int mode, Plan* p) {
   int dev = 0, sms = 0, max_smem = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (e = device_limits(&sms, &max_smem)) != cudaSuccess ||
@@ -942,14 +1089,14 @@ cudaError_t cooperative_plan(int n, int h, bool std_acts, Plan* p) {
   // shape's cached plan launches with
   for (int stream = 0; stream < 2; ++stream)
     if ((e = cudaFuncSetAttribute(
-             cooperative_kernel<T, VEC>(stream, std_acts),
+             cooperative_kernel<T, VEC>(stream, mode),
              cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem)) !=
         cudaSuccess)
       return e;
   int first = 1;
   while (first < kMaxUnits && (h + first - 1) / first > sms) first *= 2;
   for (int stream = 0; stream < 2; ++stream) {
-    const void* kern = cooperative_kernel<T, VEC>(stream, std_acts);
+    const void* kern = cooperative_kernel<T, VEC>(stream, mode);
     for (int units = first; units <= kMaxUnits; units *= 2) {
       int kres = padded_h(h);
       if (stream) {
@@ -1061,28 +1208,28 @@ template <typename T>
 constexpr int kVec = 16 / sizeof(T);
 
 // The route and plan of an [N, H] launch in T, from scratch: bf16 with
-// sigmoid gates and a tanh cell (`std_acts`) takes the cluster route where
+// sigmoid gates and a tanh cell (`mode` kStd) takes the cluster route where
 // it takes the shape (R and h0 16-byte aligned), every other launch the
 // cooperative one (or the streamed one where whole R slices do not fit),
 // with 16-byte staging loads when every row of h0 and y starts 16-byte
 // aligned (`vec`).
 template <typename T>
-cudaError_t make_plan(int n, int h, bool aligned, bool vec, bool std_acts,
+cudaError_t make_plan(int n, int h, bool aligned, bool vec, int mode,
                       Plan* p) {
-  if (std::is_same<T, __nv_bfloat16>::value && aligned && std_acts &&
+  if (std::is_same<T, __nv_bfloat16>::value && aligned && mode == kStd &&
       DL4J_LSTM_CLUSTER) {
     const cudaError_t e = cluster_plan(n, h, p);
     if (e != cudaErrorNotSupported) return e;
   }
-  return vec ? cooperative_plan<T, kVec<T>>(n, h, std_acts, p)
-             : cooperative_plan<T, 1>(n, h, std_acts, p);
+  return vec ? cooperative_plan<T, kVec<T>>(n, h, mode, p)
+             : cooperative_plan<T, 1>(n, h, mode, p);
 }
 
 // Planning is a handful of CUDA attribute and occupancy queries;
 // rnn_time_step launches at one shape many times, so the last plan per
 // element type is kept.
 template <typename T>
-cudaError_t cached_plan(int n, int h, bool aligned, bool vec, bool std_acts,
+cudaError_t cached_plan(int n, int h, bool aligned, bool vec, int mode,
                         Plan* p) {
   static std::mutex mu;
   static int last_dev = -1, last_n = 0, last_h = 0, last_flags = 0;
@@ -1090,10 +1237,10 @@ cudaError_t cached_plan(int n, int h, bool aligned, bool vec, bool std_acts,
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const int flags = (int)aligned | (int)vec << 1 | (int)std_acts << 2;
+  const int flags = (int)aligned | (int)vec << 1 | mode << 2;
   std::lock_guard<std::mutex> lock(mu);
   if (dev != last_dev || n != last_n || h != last_h || flags != last_flags) {
-    if ((e = make_plan<T>(n, h, aligned, vec, std_acts, &last)) !=
+    if ((e = make_plan<T>(n, h, aligned, vec, mode, &last)) !=
         cudaSuccess)
       return e;
     last_dev = dev;
@@ -1125,7 +1272,7 @@ cudaError_t launch_cooperative(Args a, const Plan& p, cudaStream_t s) {
   a.kres = p.kres;
   void* params[] = {&a};
   const void* kern = cooperative_kernel<T, VEC>(
-      p.route == kStreamed, a.gate_act == kSigmoid && a.cell_act == kTanh);
+      p.route == kStreamed, act_mode(a.gate_act, a.cell_act));
   cudaError_t e = cudaLaunchCooperativeKernel(
       kern, dim3(p.ctas), dim3(kThreads), params, p.smem, s);
   if (e != cudaSuccess) {
@@ -1143,11 +1290,13 @@ cudaError_t run(const Args& a, cudaStream_t s, int* route) {
   const bool vec = a.h % v == 0 && a.y_st % v == 0 && a.y_sn % v == 0 &&
                    reinterpret_cast<uintptr_t>(a.h0) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.y) % 16 == 0;
-  const bool std_acts = a.gate_act == kSigmoid && a.cell_act == kTanh;
+  const int mode = act_mode(a.gate_act, a.cell_act);
   Plan p;
-  cudaError_t e = cached_plan<T>(a.n, a.h, aligned, vec, std_acts, &p);
+  cudaError_t e = cached_plan<T>(a.n, a.h, aligned, vec, mode, &p);
   if (e != cudaSuccess) return e;
   if (route != nullptr) *route = p.route;
+  // a row-wise launch needs the caller's scratch (row_scratch_floats)
+  if ((mode == kRow) != (a.scratch != nullptr)) return cudaErrorInvalidValue;
   if (p.route == kCluster) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       if (p.nb == 8) return launch_cluster<8>(a, p, s);
@@ -1178,19 +1327,19 @@ extern "C" int lstm_plan_act(int n, int h, int dtype, int gate, int cell,
   if (n < 1 || h < 1 || gate < 0 || gate >= kNumActs || cell < 0 ||
       cell >= kNumActs)
     return (int)cudaErrorInvalidValue;
-  const bool std_acts = gate == kSigmoid && cell == kTanh;
+  const int mode = act_mode(gate, cell);
   Plan p;
   cudaError_t e;
   switch (dtype) {
     case kF32:
-      e = make_plan<float>(n, h, true, h % kVec<float> == 0, std_acts, &p);
+      e = make_plan<float>(n, h, true, h % kVec<float> == 0, mode, &p);
       break;
     case kF16:
-      e = make_plan<__half>(n, h, true, h % kVec<__half> == 0, std_acts, &p);
+      e = make_plan<__half>(n, h, true, h % kVec<__half> == 0, mode, &p);
       break;
     case kBF16:
       e = make_plan<__nv_bfloat16>(n, h, true,
-                                   h % kVec<__nv_bfloat16> == 0, std_acts,
+                                   h % kVec<__nv_bfloat16> == 0, mode,
                                    &p);
       break;
     default:
@@ -1204,11 +1353,19 @@ extern "C" int lstm_plan_act(int n, int h, int dtype, int gate, int cell,
   return 0;
 }
 
+// The entry points' interface version: 2 since lstm_recurrence_fwd_act
+// takes the row-wise scratch (tools/lstm_probe.py calls older builds too).
+extern "C" int lstm_abi_version() { return 2; }
+
 // xw: [T, N, 4H] at element strides (xw_st, xw_sn, 1); r: [H, 4H]
 // contiguous; h0, c0: [N, H] contiguous; pi, pf, po: [H] or all null;
 // mask: [T, N] f32 contiguous or null; y: [T, N, H] at strides (y_st,
 // y_sn, 1); ht, ct: [N, H] contiguous. All tensors but the mask in `dtype`
-// (0 f32, 1 f16, 2 bf16); gate / cell activation codes (Act). One launch
+// (0 f32, 1 f16, 2 bf16); gate / cell activation codes (Act); scratch:
+// when a code is row-wise, N * 4H + H * N * 10 f32 (the row-wise
+// instance's [N, 4H] pre-activations, then its two reductions' partials,
+// [ctas, N, 3] and [ctas, N, 2] float2, for at most H CTAs), else null.
+// One launch
 // on `stream`, no synchronisation; *route (if not null) is set to the
 // route launched (0 cooperative, 1 cluster, 2 streamed). Returns
 // cudaGetLastError() (or the planning / launch error).
@@ -1217,7 +1374,7 @@ extern "C" int lstm_recurrence_fwd_act(
     const void* pi, const void* pf, const void* po, const void* mask, void* y,
     void* ht, void* ct, long long xw_st, long long xw_sn, long long y_st,
     long long y_sn, int t, int n, int h, int dtype, int gate, int cell,
-    void* stream, int* route) {
+    void* scratch, void* stream, int* route) {
   using namespace dl4j_lstm;
   if (t < 1 || n < 1 || h < 1 || (pi == nullptr) != (pf == nullptr) ||
       (pi == nullptr) != (po == nullptr) || gate < 0 || gate >= kNumActs ||
@@ -1225,7 +1382,8 @@ extern "C" int lstm_recurrence_fwd_act(
     return (int)cudaErrorInvalidValue;
   const Args a{xw,    r,     h0,   c0,   pi,   pf, po,
                static_cast<const float*>(mask), y, ht, ct, xw_st, xw_sn, y_st,
-               y_sn,  t,     n,    h,    0,    gate, cell, 0};
+               y_sn,  t,     n,    h,    0,    gate, cell, 0,
+               static_cast<float*>(scratch)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:

@@ -29,6 +29,7 @@
 // (DMAX 256, 32-row query tiles so the score block fits at T 512).
 
 #include "attention_fwd_core.cuh"
+#include "attention_wide.cuh"
 
 namespace dl4j {
 namespace {
@@ -136,6 +137,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      int t, int d, int causal, float scale,
                      cudaStream_t stream) {
 #define DL4J_ARGS q, k, v, kmask, o, lse, bh, h, t, d, causal, scale, stream
+  if (d > kMaxD)   // every dtype: the output's columns split over the grid
+    return launch_wide_fwd<T>(DL4J_ARGS);
   if (d > 128)   // every dtype
     return launch(shortseq_fwd_f32_kernel<T, kMaxD, kWideRows>,
                   f32_smem<kMaxD>(t, d, kWideRows), kWideRows, DL4J_ARGS);
@@ -161,9 +164,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q, k, v, o: [bh, t, d] row-major in `dtype` (0 f32, 1 f16, 2 bf16),
 // 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or null;
-// lse: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0, d <= 256 (above
-// 128 the CUDA-core kernel's DMAX = 256 instance). `scale` multiplies the
-// logits (1 / sqrt of the true head dim where the caller zero-padded it).
+// lse: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0 (128 < d <= 256:
+// the CUDA-core kernel's DMAX = 256 instance; above: attention_wide.cuh).
+// `scale` multiplies the logits (1 / sqrt of the true head dim where the
+// caller zero-padded it).
 // Returns cudaGetLastError().
 extern "C" int shortseq_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* kmask,
@@ -171,7 +175,7 @@ extern "C" int shortseq_attention_fwd(const void* q, const void* k,
                                       int d, int causal, int dtype,
                                       float scale, void* stream) {
   using namespace dl4j;
-  if (t < 1 || t > 512 || d < 8 || d > kMaxD || d % 8 != 0 || bh < 1 ||
+  if (t < 1 || t > 512 || d < 8 || d % 8 != 0 || bh < 1 ||
       bh > 65535 || h < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -33,6 +33,7 @@
 // DMAX = 256 instance on 32-row tiles, inputs staged as f32).
 
 #include "attention_bwd_core.cuh"
+#include "attention_wide.cuh"
 
 namespace dl4j {
 namespace {
@@ -53,6 +54,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 cudaError_t run(const BwdArgs& a, int bh, cudaStream_t s) {
+  if (a.d > kMaxD) {   // every dtype: both roles, columns split
+    const cudaError_t err = launch_wide_bwd<T>(false, a, bh, s);
+    return err != cudaSuccess ? err : launch_wide_bwd<T>(true, a, bh, s);
+  }
   if constexpr (!std::is_same<T, float>::value) {
     if (a.d <= 128) return dispatch_bwd_core<T, kRolesBoth>(a, bh, s);
   }
@@ -80,8 +85,9 @@ cudaError_t run(const BwdArgs& a, int bh, cudaStream_t s) {
 
 // q, k, v, dout, dq, dk, dv: [bh, t, d] row-major in `dtype` (0 f32, 1 f16,
 // 2 bf16), 16-byte aligned; kmask: [bh / h, t] f32 (1 real / 0 masked) or
-// null; lse, delta: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0,
-// d <= 256 (above 128 the CUDA-core kernel's DMAX = 256 instance).
+// null; lse, delta: [bh, t] f32. Requires 1 <= t <= 512, d % 8 == 0
+// (128 < d <= 256: the CUDA-core kernel's DMAX = 256 instance; above:
+// attention_wide.cuh's two roles, one launch each).
 // Returns cudaGetLastError().
 extern "C" int shortseq_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* kmask,

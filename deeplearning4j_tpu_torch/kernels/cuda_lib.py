@@ -43,11 +43,11 @@ ENTRIES = {
     "flash_backward": {"flash_attention_bwd_dq": _BWD_ARGTYPES,
                        "flash_attention_bwd_dkv": _BWD_ARGTYPES},
     # (xw, r, h0, c0, pi, pf, po, mask, y, hT, cT, xw_st, xw_sn, y_st,
-    # y_sn, t, n, h, dtype, gate, cell, stream, route*) and (n, h, dtype,
-    # gate, cell, out[9])
+    # y_sn, t, n, h, dtype, gate, cell, scratch, stream, route*) and (n,
+    # h, dtype, gate, cell, out[9])
     "lstm": {"lstm_recurrence_fwd_act": [ctypes.c_void_p] * 11 +
              [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 +
-             [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+             [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)],
              "lstm_plan_act": [ctypes.c_int] * 5 +
              [ctypes.POINTER(ctypes.c_longlong)]},
     # (x, res, gamma, beta, shift, y, stats, scratch, plan, m, c, dtype,
@@ -75,9 +75,6 @@ ENTRIES = {
                   [ctypes.c_void_p]},
 }
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-#: the widest head dim an attention kernel takes (above 128: the CUDA-core
-#: kernels' DMAX = 256 instance)
-MAX_HEAD_DIM = 256
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -167,8 +164,8 @@ def load(name: str) -> ctypes.CDLL:
 def check_attention_args(q3, k3, v3, key_mask, h: int, max_t=None) -> None:
     """Raise on anything the attention kernels do not take: q/k/v must be
     contiguous [BH, T, D] CUDA tensors of one float dtype on one device,
-    D a multiple of 8 and at most 256 (the wrappers zero-pad any other D up
-    to 256 first: ``shortseq_attention.padded_fwd``); the key mask a
+    D a positive multiple of 8 (the wrappers zero-pad any other D first:
+    ``shortseq_attention.padded_fwd``); the key mask a
     contiguous f32 [BH / h, T] on the same device."""
     if q3.device.type != "cuda":
         raise ValueError(f"kernel inputs must be CUDA tensors, got "
@@ -183,9 +180,8 @@ def check_attention_args(q3, k3, v3, key_mask, h: int, max_t=None) -> None:
     if q3.dim() != 3:
         raise ValueError(f"expected [BH, T, D] inputs, got {tuple(q3.shape)}")
     bh, t, d = q3.shape
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} must be a multiple of 8 in "
-                         f"[8, {MAX_HEAD_DIM}]")
+    if d % 8 or d < 8:
+        raise ValueError(f"head dim {d} must be a positive multiple of 8")
     if max_t is not None and t > max_t:
         raise ValueError(f"T={t} > {max_t}")
     if h < 1 or bh % h or bh > 65535:

@@ -12,16 +12,19 @@
   512 and sigmoid / tanh: thread-block clusters over slices of the batch,
   R resident in bf16, products on the tensor cores, h exchanged through
   distributed shared memory), ``"cooperative"`` (f32, f16, other bf16
-  shapes and every other activation pair: one cooperative grid, R slices
+  shapes and every other activation pair, row-wise ones included: one
+  cooperative grid, R slices
   resident in f32, f32 products on the CUDA cores) or ``"streamed"`` (the
   same grid where whole R slices do not fit shared memory, such as H
   2048: part of each slice resident, the rest read from global memory
   every step).
-- Gate and cell activations: every elementwise activation of
-  ``ops/activations.py`` has a code the kernel switches on
-  (:data:`ACT_CODES`; ``rrelu`` at its test-mode slope, as the plain
-  version computes it without a generator). ``softmax`` and
-  ``logsoftmax`` are row-wise, not elementwise, and raise.
+- Gate and cell activations: every activation of ``ops/activations.py``
+  has a code the kernel switches on (:data:`ACT_CODES`; ``rrelu`` at its
+  test-mode slope, as the plain version computes it without a generator).
+  ``softmax`` and ``logsoftmax`` are row-wise (over the layer's H units of
+  a batch row, for each of i, f, g, o and act(c)): a launch with one of
+  them runs the cooperative or streamed route's row-wise instance, which
+  takes two grid-wide row reductions a step (:data:`ROW_WISE`).
 - :func:`lstm_recurrence_plain` is the plain PyTorch version of the same
   function (a loop over T with the gate math of the JAX package's
   ``_lstm_recurrence``, ``nn/conf/layers/recurrent.py:33``, mask
@@ -65,22 +68,18 @@ ACT_CODES = {name: i for i, name in enumerate((
     "identity", "sigmoid", "tanh", "relu", "leakyrelu", "elu", "selu",
     "softplus", "softsign", "hardsigmoid", "hardtanh", "cube",
     "rationaltanh", "rectifiedtanh", "swish", "gelu", "mish",
-    "thresholdedrelu", "rrelu"))}
+    "thresholdedrelu", "rrelu", "softmax", "logsoftmax"))}
 ACT_CODES["linear"] = ACT_CODES["identity"]
-#: activations that are not elementwise: no kernel computes them per unit
+#: activations that normalise over a row's H units (never the cluster
+#: route: the kernel's row-wise instance reduces them over the grid)
 ROW_WISE = ("softmax", "logsoftmax")
 DEFAULT_ACTS = ("sigmoid", "tanh")
 
 
 def act_code(name: str) -> int:
-    """The kernel's code of activation ``name``; raises for the row-wise
-    ones and for names ``ops/activations.py`` does not know."""
+    """The kernel's code of activation ``name``; raises for names
+    ``ops/activations.py`` does not know."""
     key = str(name).lower()
-    if key in ROW_WISE:
-        raise NotImplementedError(
-            f"{key!r} is row-wise (it normalizes over the 4 gates' units), "
-            "not elementwise: the LSTM kernel has no code for it as a gate "
-            "or cell activation; run such a layer on the CPU")
     if key not in ACT_CODES:
         get_activation(key)              # raises, naming the known ones
         raise ValueError(f"activation {key!r} has no LSTM kernel code")
@@ -208,6 +207,11 @@ def lstm_recurrence_fwd(xw_t, R, h0, c0, peep=None, mask_t=None,
         mask_t.to(torch.float32).contiguous()
     pi, pf, po = (None, None, None) if peep is None else peep
     ptr = lambda x: None if x is None else x.data_ptr()
+    # a row-wise launch's f32 scratch (csrc/lstm.cu): [N, 4H]
+    # pre-activations, then two reductions' partials for at most H CTAs
+    scratch = torch.empty(n * 4 * h + h * n * 10, dtype=torch.float32,
+                          device=xw_t.device) \
+        if gate in ROW_WISE or cell in ROW_WISE else None
     route = ctypes.c_int(-1)
     with torch.cuda.device(xw_t.device):
         rc = cuda_lib.load("lstm").lstm_recurrence_fwd_act(
@@ -215,7 +219,7 @@ def lstm_recurrence_fwd(xw_t, R, h0, c0, peep=None, mask_t=None,
             ptr(pi), ptr(pf), ptr(po), ptr(mask), y.data_ptr(),
             ht.data_ptr(), ct.data_ptr(), xw_t.stride(0), xw_t.stride(1),
             y_t.stride(0), y_t.stride(1), t, n, h, _DTYPE_CODE[xw_t.dtype],
-            *codes, torch.cuda.current_stream().cuda_stream,
+            *codes, ptr(scratch), torch.cuda.current_stream().cuda_stream,
             ctypes.byref(route))
     if rc == _NO_COOPERATIVE_GRID:
         raise ValueError(f"no co-resident LSTM grid for N={n}, H={h}, "
@@ -290,8 +294,8 @@ def lstm_recurrence(xw_t, R, h0, c0, peep=None, mask_t=None,
 def cuda_lstm(conf, xw_t, R, h0, c0, peep=None, mask_t=None):
     """The helper registry's ``lstm`` entry on Hopper: the recurrence of
     layer ``conf`` through kernel B6 with the layer's gate and cell
-    activations. A row-wise activation (softmax, logsoftmax) raises,
-    naming it: the card has no plain-loop fallback."""
+    activations (an unknown name raises: the card has no plain-loop
+    fallback)."""
     gate, cell = conf.activation_names()
     act_code(gate), act_code(cell)
     return lstm_recurrence(xw_t, R, h0, c0, peep, mask_t, gate, cell)

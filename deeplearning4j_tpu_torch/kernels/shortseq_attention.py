@@ -20,13 +20,14 @@ yields a finite uniform average. lse and δ are [B·H, T] f32 (the TPU's
 p = exp(s − lse) from the saved lse and takes δ = rowsum(dO·O):
 dv = pᵀ·dO, ds = p·(dO·vᵀ − δ)·scale, dq = ds·k, dk = dsᵀ·q.
 
-Head dims: the kernels take D a multiple of 8 up to 256 (above 128, in
-every dtype, the DMAX = 256 instance of the CUDA-core kernels on 32-row
-tiles). Every wrapper runs
+Head dims: the kernels take any D that is a multiple of 8 (129–256, in
+every dtype: the DMAX = 256 instance of the CUDA-core kernels on 32-row
+tiles; above 256: ``csrc/attention_wide.cuh``, which splits the output's
+columns over the grid). Every wrapper runs
 through :func:`padded_fwd` / :func:`padded_bwd`, which zero-pad q, k, v
 and dO along D to the next multiple of 8, pass the true D's 1/√D as the
 scale and slice o and the gradients back: zero columns add nothing to the
-scores, so the result is exact. D above 256 raises."""
+scores, so the result is exact."""
 
 from __future__ import annotations
 
@@ -35,9 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .cuda_lib import (MAX_HEAD_DIM, check_attention_args,
-                       check_attention_bwd_args, launch_attention,
-                       launch_attention_bwd)
+from .cuda_lib import (check_attention_args, check_attention_bwd_args,
+                       launch_attention, launch_attention_bwd)
 
 MAX_T = 512
 NEG = -1e30
@@ -99,10 +99,7 @@ def attention_bwd_plain(q3, k3, v3, key_mask, h: int, causal: bool, o, lse,
 
 
 def head_dim_padded(d: int) -> int:
-    """D rounded up to the kernels' multiple of 8; raises above 256."""
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}: no attention "
-                         "kernel takes it on the card (run it on the CPU)")
+    """D rounded up to the kernels' multiple of 8."""
     return -(-d // 8) * 8
 
 

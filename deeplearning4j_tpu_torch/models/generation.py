@@ -31,7 +31,15 @@ scheduling and resilience tier).
   ``cancel()``, EDF order, headroom shedding, chunked prefill and adaptive
   K. The resilience tier: the numerics sentinel and the prefix-page
   verifier (``integrity=``), fault injection, and the hooks
-  ``parallel.failures.EngineSupervisor`` restarts through.
+  ``parallel.failures.EngineSupervisor`` restarts through. The host
+  tier around it: registry-backed ``stats()`` (``observability/
+  metrics.py``), a :class:`~..observability.tracing.Trace` per request
+  (submit → queued → prefill → decode blocks, a ``takeover`` span per
+  restart), the SLO tracker's per-request record, flight-recorder events
+  (admissions, block retires, sheds, preemptions, numerics faults), the
+  phase profiler's per-block account, and the durable request journal
+  (``journal=``; ``streaming/journal.py``). None of them adds a readback:
+  each block still costs one ``engine.decode`` readback.
 
 A JAX ``scan`` becomes a Python loop of device launches that never waits
 for the device; ``jit`` has no counterpart here. Caches and pools are
@@ -40,14 +48,16 @@ temperature is <= 0, else Gumbel-max sampling from bf16-ROUNDED logits
 with a generator seeded per ABSOLUTE step (a Philox generator on the
 card), so a fixed seed gives the same tokens for every block size K.
 
-Not in this slice: disaggregated handoff, the journal, tracing, metrics
-and the flight recorder, and mesh sharding."""
+Not in this slice: the disaggregated handoff (``adopt`` / ``phase``) and
+mesh sharding."""
 
 from __future__ import annotations
 
 import collections
 import itertools
 import threading
+import uuid
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,9 +66,16 @@ import torch
 from ..nn.conf.layers import SelfAttentionLayer, TokenAndPositionEmbedding
 from ..nn.graph.vertices import LayerVertex
 from ..observability.clock import interval_now
-from ..observability.integrity import (NumericalFault, PageVerifier,
+from ..observability.flightrec import default_flight_recorder
+from ..observability.integrity import (KV_CORRUPTION_COUNTER,
+                                       NUMERICAL_FAULT_COUNTER,
+                                       NumericalFault, PageVerifier,
                                        as_integrity, logits_fault,
                                        page_content_checksum)
+from ..observability.metrics import default_registry
+from ..observability.profiler import default_profiler
+from ..observability.slo import default_slo_tracker
+from ..observability.tracing import Trace, default_trace_ring
 from ..ops import rng as rngmod
 from ..ops.transfer import device_fetch, start_fetch, to_device
 from ..parallel.faults import (NULL_INJECTOR, Cancelled, DeadlineExceeded,
@@ -76,18 +93,87 @@ CHUNK_SALT = 1 << 22
 #: by the request across requeues
 _REQ_SEQ = itertools.count()
 
-#: the engine's counters, the keys of stats() besides the two gauges
-#: (queue_depth, active_slots), under the JAX package's names
-_ENGINE_COUNTERS = ("emitted_tokens", "completed", "decode_steps",
-                    "decode_blocks", "host_readbacks", "prefills",
-                    "prefill_batches", "prefill_chunks", "rejected",
-                    "headroom_shed", "deadline_exceeded", "cancelled",
-                    "requeued", "failed", "page_preempted",
-                    "prefix_cache_hits", "prefix_cache_misses",
-                    "prefix_cache_hit_tokens", "spec_blocks",
-                    "spec_drafted", "spec_accepted_tokens",
-                    "spec_emitted_tokens", "spec_fallbacks",
-                    "numerical_faults", "kv_page_corruptions")
+#: the engine's counters: stats() key → (metric family, help), the JAX
+#: package's families. Each engine instance owns one labeled child of
+#: each in its registry; stats() and the counter attributes are views.
+_ENGINE_COUNTERS = {
+    key: (f"generation_{key}_total", desc) for key, desc in (
+        ("emitted_tokens", "tokens emitted to requests"),
+        ("completed", "requests completed"),
+        ("decode_steps", "decode steps executed (K per fused block)"),
+        ("decode_blocks", "decode device programs dispatched"),
+        ("host_readbacks", "deliberate device→host syncs in the serve "
+                           "loop"),
+        ("prefills", "requests admitted (prefilled into a cache slot)"),
+        ("prefill_batches", "coalesced batched-admission prefill calls"),
+        ("prefill_chunks", "chunked-prefill device dispatches (long "
+                           "prompts)"),
+        ("rejected", "admission-control sheds (queue bound or projected "
+                     "deadline miss)"),
+        ("headroom_shed", "admission sheds on projected deadline miss "
+                          "(headroom policy; subset of rejected)"),
+        ("deadline_exceeded", "requests failed by per-request deadline"),
+        ("cancelled", "requests cancelled by their caller"),
+        ("requeued", "requests recovered into this engine after a "
+                     "takeover"),
+        ("failed", "requests failed by engine crash/shutdown"),
+        ("page_preempted", "requests preempted mid-decode on KV page-pool "
+                           "pressure (re-queued at the head; exactly-once "
+                           "preserved — re-admission re-prefills)"),
+        ("spec_blocks", "speculative verify blocks dispatched"),
+        ("spec_drafted", "candidate tokens drafted for speculative "
+                         "verification"),
+        ("spec_accepted_tokens", "drafted tokens accepted by the verify "
+                                 "forward (the per-length account is "
+                                 "generation_spec_accepted_total{len=})"),
+        ("spec_emitted_tokens", "tokens emitted by speculative verify "
+                                "blocks"),
+        ("spec_fallbacks", "decode blocks dispatched by the "
+                           "low-acceptance adaptive fallback while "
+                           "speculation is enabled"))}
+_ENGINE_COUNTERS.update({
+    "prefix_cache_hits": ("prefix_cache_hit_total",
+                          "requests admitted with >= 1 shared prefix page "
+                          "mapped"),
+    "prefix_cache_misses": ("prefix_cache_miss_total",
+                            "requests admitted with no resident prefix "
+                            "page"),
+    "prefix_cache_hit_tokens": ("prefix_cache_hit_tokens_total",
+                                "prompt tokens served from shared prefix "
+                                "pages (prefill compute skipped)"),
+    "numerical_faults": NUMERICAL_FAULT_COUNTER[:2],
+    "kv_page_corruptions": KV_CORRUPTION_COUNTER[:2]})
+_COUNTER_LABELS = {"numerical_faults": NUMERICAL_FAULT_COUNTER[2],
+                   "kv_page_corruptions": KV_CORRUPTION_COUNTER[2]}
+#: unique per-engine metric label values (e0, e1, ...)
+_ENGINE_SEQ = itertools.count()
+
+
+class _CounterView:
+    """The engine's counters as a mapping over its registry children:
+    ``view[key]`` reads a child's value and ``view[key] += n`` increments
+    it, so the registry is the one place the numbers live."""
+
+    def __init__(self, registry, engine_id: str):
+        self._children = {
+            key: registry.counter(name, desc,
+                                  _COUNTER_LABELS.get(key, ("engine",)))
+            .labels(engine_id)
+            for key, (name, desc) in _ENGINE_COUNTERS.items()}
+
+    def __getitem__(self, key: str) -> int:
+        return int(self._children[key].value)
+
+    def __setitem__(self, key: str, value: int) -> None:
+        child = self._children[key]
+        delta = int(value) - int(child.value)
+        if delta < 0:
+            raise ValueError(f"counter {key} cannot decrease")
+        if delta:
+            child.inc(delta)
+
+    def snapshot(self) -> Dict[str, int]:
+        return {key: int(c.value) for key, c in self._children.items()}
 
 
 def _round_up_pow2(n: int, floor: int = 16) -> int:
@@ -165,6 +251,17 @@ class TransformerDecoder:
         #: weight casts made so far: engines rebuilt around this decoder
         #: (a supervisor restart) reuse the cast weights and add none
         self.param_casts = 0
+        #: serving program name → [its first dispatch's shape (rows b,
+        #: query tokens a row q, cells read a row ctx), memoized cost]:
+        #: what ``observability.devstats.impl_cost_analysis`` reads
+        self._cost_seam: Dict[str, List] = {}
+
+    def _note_program(self, name: str, b: int, q: int, ctx: int) -> None:
+        """Record a serving program's first dispatch (one dict lookup a
+        call after that)."""
+        if name not in self._cost_seam:
+            self._cost_seam[name] = [{"b": int(b), "q": int(q),
+                                      "ctx": int(ctx)}, None]
 
     # ------------------------------------------------------------- params
     def _device_params(self):
@@ -386,6 +483,10 @@ class TransformerDecoder:
         return self._with_verdict(sel, logits), logits, caches
 
     def _prefill(self, caches, tokens, lengths, slots, temps, seed):
+        m, tp = np.shape(tokens)
+        # causal: a query reads (tp + 1) / 2 cells on average
+        self._note_program("prefill" if slots is None else "prefill_slots",
+                           m, tp, (tp + 1) // 2)
         host_t, temps_d = self._temps(temps, np.shape(tokens)[0])
         slots_d = None if slots is None else self._to_dev(slots, torch.long)
         logits = self._walk_prefill(
@@ -464,6 +565,9 @@ class TransformerDecoder:
         steps (a lane frozen at a step is exempt at that step)."""
         b = np.shape(ids)[0]
         k = int(block_size)
+        # the cost table's row is one step, attending the whole cache row
+        self._note_program(("paged_" if ptables is not None else "") +
+                           f"decode_block{k}", b, 1, self.t_max)
         host_t, temps_d = self._temps(temps, b)
         sample = bool((host_t > 0).any())
         eos, stop, ids, pos, ptab = self._carry_in(b, ids, positions,
@@ -517,6 +621,9 @@ class TransformerDecoder:
         :meth:`prefill_slots` (the JAX package's returns (ids, pools)). A
         sentinel decoder returns [M, 2] (id, verdict) ids, the verdict
         ORed into ``fault_in`` [M] (a chunked tail's earlier windows)."""
+        # a tail attends the mapped pages of its whole row
+        self._note_program("paged_prefill", np.shape(tokens)[0],
+                           np.shape(tokens)[1], self.t_max)
         host_t, temps_d = self._temps(temps, np.shape(tokens)[0])
         valid_d = self._to_dev(valid, torch.long)
         logits = self._walk_window(
@@ -620,6 +727,8 @@ class TransformerDecoder:
         b = np.shape(ids)[0]
         draft_d = self._to_dev(np.asarray(draft), torch.long)
         kd = draft_d.shape[1]
+        self._note_program(("paged_" if ptables is not None else "") +
+                           f"verify_block{kd}", b, kd + 1, self.t_max)
         host_t, temps_d = self._temps(temps, b)
         eos, stop, ids, pos, ptab = self._carry_in(b, ids, positions,
                                                    eos_ids, stopped,
@@ -812,20 +921,70 @@ class GenerationRequest:
         self._engine = None            # set at submit; woken on cancel
         self._cb_lock = threading.Lock()
         self._callbacks: List = []
+        # one Trace for the request's whole life: it rides the request
+        # through quarantine / requeue, so a recovered request keeps its
+        # timeline (plus a takeover span per restart)
+        self.trace: Optional[Trace] = None
+        self._submit_t = interval_now()
+        # SLO clocks, anchored at the ORIGINAL submission and written
+        # once: requeue resets _submit_t (the queued span's clock) but
+        # never these, so queue wait, TTFT and headroom span takeovers
+        self._created_t = self._submit_t
+        self._admitted_t: Optional[float] = None
+        self._first_token_t: Optional[float] = None
+        self._slo = None                   # SLOTracker, armed at submit
+        self._slo_done = False             # an observe_request happened
+        self._slo_labels: Dict = {}
+        # the id the request journals under (None: not journaled),
+        # stable across requeues; the latch keeps the terminal-state
+        # journal callback to one
+        self.journal_id: Optional[str] = None
+        self._journal_hooked = False
 
     def _complete(self):
         self._result = np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int64)]).astype(
                 np.int32)
         self._running = False
+        if self.trace is not None:
+            self.trace.finish("ok", tokens=len(self.generated))
         self._done.set()
+        self._notify_slo("ok")
         self._fire_callbacks()
 
     def _fail(self, exc: BaseException):
         self._error = exc
         self._running = False
+        if self.trace is not None:
+            self.trace.finish(f"failed:{type(exc).__name__}",
+                              tokens=len(self.generated))
         self._done.set()
+        self._notify_slo(self._slo_status(exc))
         self._fire_callbacks()
+
+    @staticmethod
+    def _slo_status(exc: BaseException) -> str:
+        """A terminal exception's SLO outcome class."""
+        if isinstance(exc, DeadlineExceeded):
+            return "deadline"
+        if isinstance(exc, Cancelled):
+            return "cancelled"
+        if isinstance(exc, RejectedError):
+            return "shed"
+        return "failed"
+
+    def _notify_slo(self, status: str) -> None:
+        # exactly once per request, racing completion paths included: the
+        # first notifier takes the tracker handle under _cb_lock
+        with self._cb_lock:
+            slo, self._slo = self._slo, None
+        if slo is None:
+            return
+        self._slo_done = True
+        try:
+            slo.observe_request(self, status)
+        except Exception:   # noqa: BLE001 — accounting must not strand
+            pass            # the engine thread that completed us
 
     def _fire_callbacks(self):
         # drained under the lock, fired outside it: each registered
@@ -973,7 +1132,11 @@ class SlotGenerationEngine:
                  num_pages: Optional[int] = None, prefix_cache: bool = True,
                  integrity=None, speculative: bool = False,
                  spec_k: Optional[int] = None, spec_ngram: int = 3,
-                 spec_threshold: float = 0.35, spec_probe_every: int = 16):
+                 spec_threshold: float = 0.35, spec_probe_every: int = 16,
+                 registry=None, trace_store=None, tracing: bool = True,
+                 slo=None, slo_label=None, flight_recorder=None,
+                 journal=None, profiler=None,
+                 profiling: Optional[bool] = None):
         if decoder is not None and t_max is not None and \
                 decoder.t_max != t_max:
             raise ValueError(f"shared decoder has t_max {decoder.t_max}, "
@@ -1115,19 +1278,134 @@ class SlotGenerationEngine:
         self._first_step_done = False
         self._on_crash = None       # callable(engine, exc)
         self._beat = None           # callable(), once a loop iteration
-        self._stats = dict.fromkeys(_ENGINE_COUNTERS, 0)
+        self._init_observability(registry, trace_store, tracing, slo,
+                                 slo_label, flight_recorder, journal,
+                                 profiler, profiling)
+
+    def _init_observability(self, registry, trace_store, tracing, slo,
+                            slo_label, flight_recorder, journal, profiler,
+                            profiling) -> None:
+        """The host tier's sinks, each the process default unless
+        injected: the metrics registry (one labeled child of every
+        counter family per engine; ``stats()`` is a view), the trace ring
+        (``tracing`` opens a Trace per request), the SLO tracker (one
+        record per request at its completion; ``slo_label`` is the stable
+        replica label a supervisor passes to the engine it rebuilds), the
+        flight recorder, the phase profiler (``profiling`` defaults to
+        ``tracing``; its channel is keyed by ``slo_label``, so a rebuilt
+        engine continues it) and the request journal (appends happen
+        outside the engine lock, batched per block)."""
+        self._journal = journal
+        self._registry = registry if registry is not None \
+            else default_registry()
+        self._trace_store = trace_store if trace_store is not None \
+            else default_trace_ring()
+        self._tracing = bool(tracing)
+        self.engine_id = f"e{next(_ENGINE_SEQ)}"
+        self._slo = slo if slo is not None else default_slo_tracker()
+        self.slo_label = str(slo_label) if slo_label is not None \
+            else self.engine_id
+        self._flightrec = flight_recorder if flight_recorder is not None \
+            else default_flight_recorder()
+        self._profiling = self._tracing if profiling is None \
+            else bool(profiling)
+        self._profiler = profiler if profiler is not None \
+            else default_profiler()
+        self._prof = self._profiler.channel(
+            self.slo_label, num_slots=self.num_slots,
+            decoder=self.decoder) if self._profiling else None
+        reg = self._registry
+        self._stats = _CounterView(reg, self.engine_id)
+        self._h_block = reg.histogram(
+            "generation_decode_block_seconds",
+            "host wall time per decode block, dispatch to retire",
+            ("engine",)).labels(self.engine_id)
+        self._m_k = reg.counter(
+            "generation_adaptive_k_total",
+            "decode blocks dispatched, by adaptively chosen K",
+            ("engine", "k"))
+        self._m_spec_len = reg.counter(
+            "generation_spec_accepted_total",
+            "speculative verify lanes retired, by accepted draft "
+            "length (0..K)", ("engine", "len"))
+        self._h_spec_draft = reg.histogram(
+            "generation_spec_draft_seconds",
+            "host wall time drafting candidates per speculative block",
+            ("engine",)).labels(self.engine_id)
+        # gauges read at collection time through a WEAK reference: the
+        # process-default registry must never keep a dead engine (and its
+        # device caches) alive
+        wself = weakref.ref(self)
+        reg.gauge("generation_queue_depth", "pending requests queued "
+                  "(incl. adopted handoffs awaiting a slot)",
+                  ("engine",)).labels(self.engine_id).set_function(
+            lambda: (lambda e: 0 if e is None else
+                     len(e._pending))(wself()))
+        reg.gauge("generation_active_slots",
+                  "cache slots decoding or chunk-prefilling",
+                  ("engine",)).labels(self.engine_id).set_function(
+            lambda: (lambda e: 0 if e is None else
+                     sum(r is not None for r in e._slots) +
+                     len(e._chunking))(wself()))
+        if self._pager is not None:
+            pg = reg.gauge("generation_kv_pages",
+                           "KV page pool, pages by state",
+                           ("engine", "state"))
+            for st in ("free", "used", "cached", "shared"):
+                pg.labels(self.engine_id, st).set_function(
+                    lambda _st=st: (lambda e: 0 if e is None else
+                                    e._pager.stats()[_st])(wself()))
+            reg.gauge("generation_kv_pool_bytes",
+                      "paged KV pool bytes allocated (global, all "
+                      "layers)", ("engine",)).labels(
+                self.engine_id).set_function(
+                lambda: (lambda e: 0 if e is None else
+                         e._pool_bytes())(wself()))
+            reg.gauge("generation_kv_page_fragmentation",
+                      "allocated-but-unwritten fraction of mapped "
+                      "pages (internal fragmentation)",
+                      ("engine",)).labels(self.engine_id).set_function(
+                lambda: (lambda e: 0.0 if e is None else
+                         (e.kv_page_stats() or {}).get(
+                             "fragmentation", 0.0))(wself()))
+
+    def _prof_impl(self, kind: str, k: Optional[int] = None) -> str:
+        """The serving program's name under which the profiler records
+        its measured time, the key of ``devstats.impl_cost_analysis``'s
+        analytic cost."""
+        paged = "paged_" if self._pager is not None else ""
+        if kind == "block":
+            return f"{paged}decode_block{int(k)}"
+        if kind == "verify":
+            return f"{paged}verify_block{int(k)}"
+        return "paged_prefill" if paged else "prefill_slots"
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
                eos_id: Optional[int] = None,
-               deadline: Optional[float] = None) -> GenerationRequest:
+               deadline: Optional[float] = None,
+               route: Optional[str] = None,
+               journal_id: Optional[str] = None) -> GenerationRequest:
         """Queue a request. ``deadline`` is seconds from now; a stopped,
         dead or draining engine, an invalid request, a full queue and
         (with ``shed_headroom``) a projected deadline miss fail the
-        returned handle at once."""
+        returned handle at once. ``route`` labels its SLO record;
+        ``journal_id`` pins the id it journals under (a journaled engine
+        mints one otherwise), and the ``sub`` record lands before this
+        returns."""
         req = GenerationRequest(prompt, max_new_tokens, temperature, eos_id,
                                 deadline=deadline)
         req._engine = self
+        if journal_id is not None:
+            req.journal_id = str(journal_id)
+        elif self._journal is not None:
+            req.journal_id = uuid.uuid4().hex[:16]
+        if self._tracing:
+            req.trace = Trace(store=self._trace_store)
+            req.trace.event("submit", engine=self.engine_id,
+                            prompt_len=len(req.prompt))
+        req._slo_labels = {"replica": self.slo_label, "route": route}
+        req._slo = self._slo
         with self._lock:
             dead = self._dead
             stopped = self._shutdown or dead is not None
@@ -1150,6 +1428,7 @@ class SlotGenerationEngine:
         if self.shed_headroom and req._deadline_t is not None:
             headroom_exc = self._headroom_check(req)
         shed = None
+        shed_event = None
         with self._lock:
             # re-checked in the append's critical section: a dying loop
             # marks itself dead under this lock before it drains the
@@ -1160,10 +1439,14 @@ class SlotGenerationEngine:
                 self._stats["rejected"] += 1
                 shed = RejectedError("engine draining for preemption — "
                                      "request shed")
+                shed_event = {"reason": "draining"}
             elif queued and headroom_exc is not None:
                 self._stats["rejected"] += 1
                 self._stats["headroom_shed"] += 1
                 shed = headroom_exc
+                shed_event = {"reason": "headroom",
+                              "projected_miss_s": round(
+                                  headroom_exc.projected_miss_s, 4)}
             elif queued:
                 depth = len(self._pending)
                 if depth >= self.max_pending:
@@ -1172,21 +1455,40 @@ class SlotGenerationEngine:
                         f"pending queue full ({depth} queued, max_pending="
                         f"{self.max_pending}) — request shed",
                         queue_depth=depth)
+                    shed_event = {"queue_depth": depth}
                 else:
                     self._pending.append(req)
         if shed is not None:
+            self._flightrec.record("shed", engine=self.engine_id,
+                                   **shed_event)
             req._fail(shed)
-        elif not queued:
+            return req
+        if not queued:
             req._fail(dead or RuntimeError("SlotGenerationEngine shut down"))
-        else:
-            self._work.set()
+            return req
+        jr = self._journal
+        if jr is not None and req.journal_id is not None:
+            # write-ahead: the sub record lands before the caller can
+            # observe acceptance; a SIGKILL from here on recovers it
+            jr.submitted(req, route=route)
+            self._hook_journal(req)
+        self._work.set()
         return req
 
     def requeue(self, req: GenerationRequest) -> None:
         """Queue a recovered request (the supervisor's takeover): it
         re-prefills prompt + tokens so far and decodes on, token for token
         with an uninterrupted greedy run. Recovery bypasses admission
-        control."""
+        control. Its trace gains a ``takeover`` event and its SLO record
+        is re-armed on this engine's tracker, with its clocks untouched."""
+        if req.trace is not None:
+            req.trace.event("takeover", engine=self.engine_id,
+                            generated=len(req.generated))
+        if not req._slo_done:
+            req._slo = self._slo
+        req._slo_labels = dict(req._slo_labels or {},
+                               replica=self.slo_label)
+        req._submit_t = interval_now()
         with self._lock:
             dead = self._dead
             alive = not (self._shutdown or dead is not None)
@@ -1198,7 +1500,38 @@ class SlotGenerationEngine:
         if not alive:
             req._fail(dead or RuntimeError("SlotGenerationEngine shut down"))
             return
+        jr = self._journal
+        if jr is not None and req.journal_id is not None:
+            # replay-inert resume marker: the forensic timeline shows
+            # where each resumption happened
+            jr.requeued(req)
+            self._hook_journal(req)
         self._work.set()
+
+    def _hook_journal(self, req: GenerationRequest) -> None:
+        """Attach the terminal-state journal callback once per request
+        (the latch rides the request, so takeovers never double-attach);
+        it fires outside every engine lock."""
+        with req._cb_lock:
+            hooked, req._journal_hooked = req._journal_hooked, True
+        if hooked:
+            return
+        jr = self._journal
+
+        def _fin(r, _jr=jr):
+            rid = r.journal_id
+            if rid is None:
+                return
+            err = r._error
+            if err is None:
+                _jr.finished(rid, "done")
+            elif isinstance(err, Cancelled):
+                _jr.finished(rid, "cancelled")
+            else:
+                _jr.finished(rid, "failed",
+                             error=f"{type(err).__name__}: {err}")
+
+        req.add_done_callback(_fin)
 
     # --------------------------------------------------------- scheduling
     def _headroom_check(self, req: GenerationRequest,
@@ -1317,6 +1650,12 @@ class SlotGenerationEngine:
         engine lock. Their poisoned tokens were dropped; ``generated``
         holds only clean ones."""
         for req in faulted:
+            if req.trace is not None:
+                req.trace.event("numerical_fault", engine=self.engine_id,
+                                where=where, generated=len(req.generated))
+            self._flightrec.record(
+                "numerical_fault", engine=self.engine_id, where=where,
+                generated=len(req.generated))
             req._fail(NumericalFault(
                 f"numerics sentinel tripped ({where}): non-finite or "
                 f"out-of-bound logits after {len(req.generated)} clean "
@@ -1439,6 +1778,8 @@ class SlotGenerationEngine:
             self._carry = None
             req._running = True
             self._stats["prefills"] += 1
+        if req.trace is not None:
+            req.trace.add_span("queued", req._submit_t, interval_now())
         return True
 
     def _admit(self):
@@ -1506,6 +1847,8 @@ class SlotGenerationEngine:
             finishers: List[GenerationRequest] = []
             faulted: List[GenerationRequest] = []
             scrub_slots: List[int] = []
+            jlog: List[Tuple] = []       # journal appends, written
+            #                              outside the engine lock below
             with self._lock:
                 if self._shutdown:
                     return      # a drain harvested the batch meanwhile
@@ -1524,8 +1867,9 @@ class SlotGenerationEngine:
                         continue
                     tok = int(toks[i])
                     req._running = True
-                    req.generated.append(tok)
-                    self._stats["emitted_tokens"] += 1
+                    self._book_first_token(req, tok, t0, t1, jlog,
+                                           batch=m, bucket=mb, tp=tp,
+                                           ctx=len(ctx))
                     if self._req_finished(req, tok):
                         self._stats["completed"] += 1
                         finishers.append(req)
@@ -1533,12 +1877,59 @@ class SlotGenerationEngine:
                         self._occupy_locked(s, req, tok, len(ctx))
                 # slot contents changed: the next block resyncs from host
                 self._carry = None
+            t_host, t_journal = self._after_admission(m, mb, tp, t0, t1,
+                                                      jlog)
             self._scrub_slots(scrub_slots)
             self._fail_faulted(faulted, "prefill")
             for req in finishers:
                 req._complete()
+            self._record_admission(m, t0, t1, t_host, t_journal)
             if drained:
                 return
+
+    def _book_first_token(self, req: GenerationRequest, tok: int,
+                          t0: float, t1: float, jlog: List[Tuple],
+                          **span) -> None:
+        """An admitted request's first token (caller holds the engine
+        lock): appended, queued for the journal, the SLO clocks stamped
+        once (a request re-admitted after a takeover keeps its first
+        queue wait and TTFT), the queued and prefill spans."""
+        if self._journal is not None and req.journal_id is not None:
+            jlog.append((req.journal_id, len(req.generated), (tok,)))
+        req.generated.append(tok)
+        if req._admitted_t is None:
+            req._admitted_t = t0
+        if req._first_token_t is None:
+            req._first_token_t = t1
+        self._stats["emitted_tokens"] += 1
+        if req.trace is not None:
+            req.trace.add_span("queued", req._submit_t, t0)
+            req.trace.add_span("prefill", t0, t1, **span)
+
+    def _after_admission(self, m: int, mb: int, tp: int, t0: float,
+                         t1: float, jlog: List[Tuple]) -> Tuple[float,
+                                                                float]:
+        """Out-of-lock tail of an admission wave: its flight-recorder
+        event, then the first tokens journaled (before any finisher
+        completes, so a ``fin`` never precedes its tokens). Returns the
+        profiler's host and journal stamps."""
+        if self._tracing:
+            self._flightrec.record(
+                "admission", engine=self.engine_id, batch=m, bucket=mb,
+                tp=tp, wait_ms=round((t1 - t0) * 1e3, 3))
+        t_host = interval_now() if self._prof is not None else t1
+        if jlog:
+            self._journal.retired(jlog)
+        t_journal = interval_now() if self._prof is not None else t_host
+        return t_host, t_journal
+
+    def _record_admission(self, m: int, t0: float, t1: float,
+                          t_host: float, t_journal: float) -> None:
+        if self._prof is not None:
+            self._prof.record_admission(
+                impl=self._prof_impl("prefill"), count=m, t_dispatch=t0,
+                t_fetched=t1, t_host=t_host, t_journal=t_journal,
+                t_publish=interval_now())
 
     # -------------------------------------------------------------- pages
     def _map_slot_pages(self, s: int, pages: List[int]) -> None:
@@ -1650,6 +2041,9 @@ class SlotGenerationEngine:
                     if start:
                         self._stats["prefix_cache_hits"] += 1
                         self._stats["prefix_cache_hit_tokens"] += start
+                        if req.trace is not None:
+                            req.trace.event("prefix_hit", tokens=start,
+                                            pages=len(shared))
                     else:
                         self._stats["prefix_cache_misses"] += 1
                 if chunked:
@@ -1698,6 +2092,7 @@ class SlotGenerationEngine:
             scrub: List[int] = []
             to_sum: List[Tuple[np.ndarray, int]] = []
             registered_ctx: Optional[np.ndarray] = None
+            jlog: List[Tuple] = []
             with self._lock:
                 if self._shutdown:
                     return
@@ -1716,8 +2111,9 @@ class SlotGenerationEngine:
                         continue
                     tok = int(toks[i])
                     req._running = True
-                    req.generated.append(tok)
-                    self._stats["emitted_tokens"] += 1
+                    self._book_first_token(req, tok, t0, t1, jlog,
+                                           batch=m, bucket=mb, tp=c,
+                                           ctx=len(ctx), prefix=start)
                     # full context pages are never written again (decode
                     # writes land past the context end): publish them
                     self._pager.register_chain(
@@ -1733,11 +2129,14 @@ class SlotGenerationEngine:
                     else:
                         self._occupy_locked(s, req, tok, len(ctx))
                 self._carry = None
+            t_host, t_journal = self._after_admission(m, mb, c, t0, t1,
+                                                      jlog)
             self._scrub_pages(scrub)
             self._fail_faulted(faulted, "paged_prefill")
             self._after_register(to_sum, registered_ctx)
             for req in finishers:
                 req._complete()
+            self._record_admission(m, t0, t1, t_host, t_journal)
             if drained or blocked:
                 return
 
@@ -1846,11 +2245,22 @@ class SlotGenerationEngine:
             else:
                 tok = int(arr[0])
         t1 = interval_now()
+        if self._tracing:
+            self._flightrec.record(
+                "prefill_chunk", engine=self.engine_id, slot=s,
+                pos0=pos0, valid=valid, final=final,
+                ms=round((t1 - t0) * 1e3, 3))
+        if self._prof is not None:
+            # non-final windows never sync (t1 is dispatch return): only
+            # the device phase is attributable, but the window still
+            # anchors the bubble account
+            self._prof.record_chunk(t_dispatch=t0, t_done=t1, final=final)
         finish = None
         faulted: List[GenerationRequest] = []
         scrub: List[int] = []
         scrub_slots: List[int] = []
         registered = False
+        jlog: List[Tuple] = []
         with self._lock:
             if self._shutdown:
                 return      # the takeover harvest owns the request
@@ -1875,7 +2285,12 @@ class SlotGenerationEngine:
             else:
                 del self._chunking[s]
                 self._stats["host_readbacks"] += 1
+                if self._journal is not None and req.journal_id is not None:
+                    jlog.append((req.journal_id, len(req.generated),
+                                 (tok,)))
                 req.generated.append(tok)
+                if req._first_token_t is None:
+                    req._first_token_t = t1
                 self._stats["emitted_tokens"] += 1
                 if self._pager is not None:
                     self._pager.register_chain(
@@ -1889,6 +2304,12 @@ class SlotGenerationEngine:
                 else:
                     self._occupy_locked(s, req, tok, len(ctx))
                     self._carry = None
+        if req.trace is not None:
+            req.trace.add_span("prefill_chunk", t0, t1, pos0=pos0,
+                               valid=valid, final=final)
+        if jlog:
+            # the first token journaled before the finisher completes
+            self._journal.retired(jlog)
         self._scrub_pages(scrub)
         self._scrub_slots(scrub_slots)
         self._fail_faulted(faulted, "prefill_chunk")
@@ -1899,7 +2320,8 @@ class SlotGenerationEngine:
         if finish is not None:
             finish._complete()
 
-    def _ensure_decode_pages_locked(self, k: int) -> None:
+    def _ensure_decode_pages_locked(self, k: int
+                                    ) -> List[GenerationRequest]:
         """Grow each active lane's table to cover this dispatch's furthest
         write (position + in-flight lead + k - 1, clamped to the context
         edge); caller holds the engine lock. With a block in flight the
@@ -1907,8 +2329,9 @@ class SlotGenerationEngine:
         the lead. A lane the pool cannot serve, even after evicting
         cache-only prefix pages, is preempted: unmapped and requeued at
         the head. Highest slots go first, so their pages serve the lower
-        lanes."""
+        lanes. Returns the preempted requests."""
         ps = self.page_size
+        preempted: List[GenerationRequest] = []
         lead = self._inflight[2] if self._inflight is not None else 0
         for s in reversed(range(self.num_slots)):
             req = self._slots[s]
@@ -1931,6 +2354,8 @@ class SlotGenerationEngine:
             self._pending.appendleft(req)
             self._stats["page_preempted"] += 1
             self._carry = None
+            preempted.append(req)
+        return preempted
 
     def _pool_bytes(self) -> int:
         if self._pager is None:
@@ -2045,6 +2470,9 @@ class SlotGenerationEngine:
         self._scrub_pages(shared[bad:])
         with self._lock:
             self._stats["kv_page_corruptions"] += 1
+        self._flightrec.record(
+            "kv_corruption", engine=self.engine_id, page=int(shared[bad]),
+            detector="prefix_hit")
         self._preempt_corrupt_holders(set(shared[bad:]))
         return bad
 
@@ -2053,6 +2481,7 @@ class SlotGenerationEngine:
         private pages, computed over the corrupt ones, are scrubbed too):
         the evicted chain cannot be re-mapped, so it re-prefills clean."""
         scrub: List[int] = []
+        victims: List[GenerationRequest] = []
         with self._lock:
             for s in range(self.num_slots):
                 if not pids.intersection(self._slot_pages[s]):
@@ -2069,8 +2498,25 @@ class SlotGenerationEngine:
                     req._running = False
                     self._pending.appendleft(req)
                     self._stats["page_preempted"] += 1
+                    victims.append(req)
                 self._carry = None
         self._scrub_pages(scrub)
+        for req in victims:
+            if req.trace is not None:
+                req.trace.event("kv_corruption_preempt",
+                                engine=self.engine_id,
+                                generated=len(req.generated))
+        self._note_preempted(victims, reason="kv_corruption")
+
+    def _note_preempted(self, victims: List[GenerationRequest],
+                        **attrs) -> None:
+        """Out-of-lock bookkeeping of preempted lanes: a flight-recorder
+        event each and a journal resume marker."""
+        for req in victims:
+            self._flightrec.record("page_preempt", engine=self.engine_id,
+                                   generated=len(req.generated), **attrs)
+            if self._journal is not None and req.journal_id is not None:
+                self._journal.requeued(req)
 
     def _faulted_pages_locked(self, s: int) -> List[int]:
         """A sentinel-faulted paged lane (caller holds the lock): every
@@ -2153,9 +2599,10 @@ class SlotGenerationEngine:
         k = self._choose_block_size() if self.adaptive_block \
             else self.block_size
         self._enforce_slots()
+        preempted: List[GenerationRequest] = []
         with self._lock:
             if self._pager is not None and not self._shutdown:
-                self._ensure_decode_pages_locked(k)
+                preempted = self._ensure_decode_pages_locked(k)
             stale = self._inflight if self._carry is None else None
             if stale is not None:
                 self._inflight = None
@@ -2178,9 +2625,16 @@ class SlotGenerationEngine:
                              np.asarray([r is None for r in self._slots]))
                 ptab = None if self._pager is None else self._ptables.copy()
                 dispatch = (carry, self._step_no - k, self._temps.copy(),
-                            self._eos_ids.copy(), ptab)
+                            self._eos_ids.copy(), ptab, len(self._pending))
+        for req in preempted:
+            if req.trace is not None:
+                req.trace.event("page_preempt", engine=self.engine_id,
+                                generated=len(req.generated))
+        self._note_preempted(preempted)
         if dispatch is not None:
-            (ids, pos, stop), step0, temps, eos, ptab = dispatch
+            (ids, pos, stop), step0, temps, eos, ptab, qdepth = dispatch
+            if self.adaptive_block:
+                self._m_k.labels(self.engine_id, str(k)).inc()
             plan = self._faults.corruption("device.corrupt_logits")
             if plan is not None:
                 self._inject_corrupt_logits(plan["mode"], snapshot[0][0])
@@ -2194,7 +2648,8 @@ class SlotGenerationEngine:
             with self._lock:
                 if not self._shutdown:
                     self._carry = (ids_d, pos_d, stop_d)
-                    self._inflight = (start_fetch(toks), snapshot, k, t_disp)
+                    self._inflight = (start_fetch(toks), snapshot, k, t_disp,
+                                      qdepth)
         if prev is not None and dispatch is not None:
             self._retire_block(prev)
 
@@ -2204,16 +2659,22 @@ class SlotGenerationEngine:
         appends until a stop, slot frees, completions. A tripped lane
         drops the whole block's tokens, frees (and scrubs) its slot and
         fails typed."""
-        copy, snapshot, k, t_disp = block
+        copy, snapshot, k, t_disp, qdepth = block
         host = device_fetch(copy, tag="engine.decode")
         t_ret = interval_now()
         fault_col = None
         if self._sentinel_on:
             fault_col, host = host[:, k], host[:, :k]
+        if self._tracing:
+            self._h_block.observe(t_ret - t_disp)
+            self._flightrec.record("block_retire", engine=self.engine_id,
+                                   k=k, lanes=len(snapshot),
+                                   ms=round((t_ret - t_disp) * 1e3, 3))
         finished: List[GenerationRequest] = []
         faulted: List[GenerationRequest] = []
         scrub: List[int] = []
         scrub_slots: List[int] = []
+        jlog: List[Tuple] = []
         with self._lock:
             self._ewma_locked("_est_step", (t_ret - t_disp) / max(1, k))
             if self._shutdown:
@@ -2233,6 +2694,7 @@ class SlotGenerationEngine:
                     faulted.append(req)
                     continue
                 closed = False
+                base = len(req.generated)
                 for c in range(k):
                     tok = int(host[s, c])
                     req.generated.append(tok)
@@ -2244,6 +2706,14 @@ class SlotGenerationEngine:
                         finished.append(req)
                         closed = True
                         break
+                took = len(req.generated) - base
+                if self._journal is not None and \
+                        req.journal_id is not None and took:
+                    jlog.append((req.journal_id, base,
+                                 req.generated[base:]))
+                if req.trace is not None:
+                    req.trace.add_span("decode_block", t_disp, t_ret,
+                                       k=k, tokens=took)
                 if not closed:
                     self._positions[s] += k
                     self._last_ids[s] = int(host[s, k - 1])
@@ -2251,11 +2721,25 @@ class SlotGenerationEngine:
             if finished or faulted:
                 # freed lanes must not keep decoding from the device carry
                 self._carry = None
+        # phase stamps, outside the engine lock: dispatch → fetched →
+        # host → journal → publish telescope to the block's wall time
+        prof = self._prof
+        t_host = interval_now() if prof is not None else t_ret
+        if jlog:
+            # one journal write (and at most one fsync, per the journal's
+            # policy) a block, outside the engine lock
+            self._journal.retired(jlog)
+        t_journal = interval_now() if prof is not None else t_host
         self._scrub_pages(scrub)
         self._scrub_slots(scrub_slots)
         self._fail_faulted(faulted, f"decode_block{k}")
         for req in finished:
             req._complete()
+        if prof is not None:
+            prof.record_block(
+                impl=self._prof_impl("block", k), k=k, lanes=len(snapshot),
+                queued=qdepth, t_dispatch=t_disp, t_fetched=t_ret,
+                t_host=t_host, t_journal=t_journal, t_publish=interval_now())
 
     # ------------------------------------------------ speculative decoding
     def _draft_locked(self, snapshot) -> np.ndarray:
@@ -2298,17 +2782,26 @@ class SlotGenerationEngine:
             self._carry = None
         if stale is not None:
             self._retire_block(stale)
+        preempted: List[GenerationRequest] = []
+        with self._lock:
+            if not self._shutdown and self._pager is not None:
+                # the window's furthest write is position + kd; nothing
+                # is in flight, so there is no lead
+                preempted = self._ensure_decode_pages_locked(kd + 1)
+        for req in preempted:
+            if req.trace is not None:
+                req.trace.event("page_preempt", engine=self.engine_id,
+                                generated=len(req.generated))
+        self._note_preempted(preempted)
+        t_draft = interval_now()
         with self._lock:
             if self._shutdown:
                 return
-            if self._pager is not None:
-                # the window's furthest write is position + kd; nothing
-                # is in flight, so there is no lead
-                self._ensure_decode_pages_locked(kd + 1)
             snapshot = [(s, self._slots[s]) for s in range(self.num_slots)
                         if self._slots[s] is not None]
             if not snapshot:
                 return
+            qdepth = len(self._pending)
             draft = self._draft_locked(snapshot)
             self._step_no += kd + 1
             self._stats["decode_steps"] += kd + 1
@@ -2329,9 +2822,10 @@ class SlotGenerationEngine:
             self._caches, ids, pos, draft, temps, seed=self.seed,
             eos_ids=eos, stopped=stop, step0=step0,
             key_salt=ENGINE_KEY_SALT, ptables=ptab)
-        self._retire_spec(toks, snapshot, kd, t_disp)
+        self._retire_spec(toks, snapshot, kd, t_disp, t_draft, qdepth)
 
-    def _retire_spec(self, toks, snapshot, kd: int, t_disp: float) -> None:
+    def _retire_spec(self, toks, snapshot, kd: int, t_disp: float,
+                     t_draft: float, qdepth: int) -> None:
         """Read one verify block's [S, K+1 tokens | emit (| verdict)] (ONE
         readback) and append each lane's accepted prefix; open lanes
         advance by what they emitted (the slab's rewind) and paged lanes
@@ -2341,10 +2835,16 @@ class SlotGenerationEngine:
         host = device_fetch(toks, tag="engine.decode")
         t_ret = interval_now()
         fault_col = host[:, kd + 2] if self._sentinel_on else None
+        if self._tracing:
+            self._h_block.observe(t_ret - t_disp)
+            self._flightrec.record("block_retire", engine=self.engine_id,
+                                   k=kd, lanes=len(snapshot), spec=True,
+                                   ms=round((t_ret - t_disp) * 1e3, 3))
         finished: List[GenerationRequest] = []
         faulted: List[GenerationRequest] = []
         scrub: List[int] = []
         scrub_slots: List[int] = []
+        jlog: List[Tuple] = []
         drafted = accepted = emitted = 0
         with self._lock:
             if self._shutdown:
@@ -2364,8 +2864,11 @@ class SlotGenerationEngine:
                     continue
                 take = int(host[s, kd + 1])
                 drafted += kd
-                accepted += max(0, take - 1)
+                acc = max(0, take - 1)
+                accepted += acc
+                self._m_spec_len.labels(self.engine_id, str(acc)).inc()
                 took = 0
+                base = len(req.generated)
                 for c in range(take):
                     tok = int(host[s, c])
                     req.generated.append(tok)
@@ -2377,6 +2880,13 @@ class SlotGenerationEngine:
                         finished.append(req)
                         break
                 emitted += took
+                if self._journal is not None and \
+                        req.journal_id is not None and took:
+                    jlog.append((req.journal_id, base,
+                                 req.generated[base:]))
+                if req.trace is not None:
+                    req.trace.add_span("verify_block", t_disp, t_ret,
+                                       k=kd, tokens=took)
                 if self._slots[s] is req and took:
                     self._positions[s] += took
                     self._last_ids[s] = int(host[s, took - 1])
@@ -2394,11 +2904,26 @@ class SlotGenerationEngine:
                     self._spec_cool = self.spec_probe_every
             # seconds per emitted token: the divisor grows with acceptance
             self._ewma_locked("_est_step", (t_ret - t_disp) / max(1, emitted))
+        t_rewind = interval_now()
+        prof = self._prof
+        t_host = interval_now() if prof is not None else t_rewind
+        if jlog:
+            self._journal.retired(jlog)
+        t_journal = interval_now() if prof is not None else t_host
         self._scrub_pages(scrub)
         self._scrub_slots(scrub_slots)
         self._fail_faulted(faulted, f"verify_block{kd}")
         for req in finished:
             req._complete()
+        if self._tracing:
+            self._h_spec_draft.observe(max(0.0, t_disp - t_draft))
+        if prof is not None:
+            prof.record_spec(
+                impl=self._prof_impl("verify", kd), k=kd,
+                lanes=len(snapshot), queued=qdepth, accepted=accepted,
+                drafted=drafted, t_draft=t_draft, t_dispatch=t_disp,
+                t_fetched=t_ret, t_rewind=t_rewind, t_host=t_host,
+                t_journal=t_journal, t_publish=interval_now())
 
     # ---------------------------------------------------- drain, takeover
     def begin_drain(self) -> None:
@@ -2471,10 +2996,11 @@ class SlotGenerationEngine:
         return taken
 
     def stats(self) -> Dict[str, int]:
-        """Serving counters plus the live queue depth and active slots
-        (decoding or chunk-prefilling)."""
+        """Serving counters — a view over this engine's registry
+        children — plus the live queue depth and active slots (decoding
+        or chunk-prefilling)."""
+        out = self._stats.snapshot()
         with self._lock:
-            out = dict(self._stats)
             out["queue_depth"] = len(self._pending)
             out["active_slots"] = sum(r is not None for r in self._slots) + \
                 len(self._chunking)
@@ -2560,3 +3086,13 @@ class SlotGenerationEngine:
             self._worker.join(timeout=5)
         self._fail_outstanding(self._dead or RuntimeError(
             "SlotGenerationEngine shut down"))
+
+
+# the counters as read-only attributes (``eng.emitted_tokens``, ...), views
+# over the engine's registry children
+for _counter_name in _ENGINE_COUNTERS:
+    setattr(SlotGenerationEngine, _counter_name,
+            property(lambda self, _k=_counter_name: self._stats[_k],
+                     doc=f"registry view: {_ENGINE_COUNTERS[_counter_name][0]}"
+                         "{engine=<id>}"))
+del _counter_name

@@ -28,6 +28,22 @@ import numpy as np
 import torch
 
 
+#: the numerics and page-corruption counters' metric families (the JAX
+#: package's ``observability/integrity.py``): one definition for every
+#: registration site
+NUMERICAL_FAULT_COUNTER = (
+    "numerical_fault_total",
+    "requests failed by the on-device numerics sentinel (non-finite or "
+    "out-of-bound logits — the block's tokens were dropped, never "
+    "served)", ("engine",))
+KV_CORRUPTION_COUNTER = (
+    "kv_page_corruption_total",
+    "KV pages whose content failed checksum verification (prefix-cache "
+    "hit, adopt intake, or wire decode) — chain evicted / handoff "
+    "re-prefilled, corrupt bytes never attended by a new stream",
+    ("component",))
+
+
 class NumericalFault(RuntimeError):
     """The numerics sentinel tripped: a request's logits went non-finite
     or past the configured bound. The engine dropped the poisoned block's

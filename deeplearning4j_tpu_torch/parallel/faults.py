@@ -12,8 +12,9 @@ package's ``parallel/faults.py``).
   fire on the host only, between device launches. Components default to
   :data:`NULL_INJECTOR`, whose ``fire`` is a constant ``False``.
 
-The JAX injector also feeds a metrics registry and a flight recorder;
-those sinks are not ported, the hit and fire counters are."""
+A fired fault also counts on the metrics registry
+(``fault_injections_total{point=}``) and lands on the flight recorder's
+timeline, so a post-mortem shows it right before the crash it caused."""
 
 from __future__ import annotations
 
@@ -77,11 +78,20 @@ class FaultInjector:
     site, each site with its own hit counter. ``hits`` / ``fired`` make a
     schedule auditable after a run."""
 
-    def __init__(self):
+    def __init__(self, registry=None, flight_recorder=None):
         self._lock = threading.Lock()
         self._plans: Dict[str, List[dict]] = defaultdict(list)
         self._hits: Dict[str, int] = defaultdict(int)
         self._fired: Dict[str, int] = defaultdict(int)
+        from ..observability.flightrec import default_flight_recorder
+        from ..observability.metrics import default_registry
+        reg = registry if registry is not None else default_registry()
+        self._m_fired = reg.counter(
+            "fault_injections_total",
+            "injected faults that actually fired, by injection point",
+            ("point",))
+        self._flightrec = flight_recorder if flight_recorder is not None \
+            else default_flight_recorder()
 
     # ------------------------------------------------------------- arming
     def raise_once(self, point: str, exc, at: int = 1) -> "FaultInjector":
@@ -154,6 +164,7 @@ class FaultInjector:
         plan's payload ``{"mode": "nan" | "flip"}`` or None. Never raises
         or sleeps."""
         key = self._ckey(point, where)
+        due = None
         with self._lock:
             self._hits[key] += 1
             hit = self._hits[key]
@@ -163,8 +174,13 @@ class FaultInjector:
                     continue
                 plan["remaining"] -= 1
                 self._fired[key] += 1
-                return {"mode": plan["mode"]}
-        return None
+                due = {"mode": plan["mode"]}
+                break
+        if due is not None:
+            self._m_fired.labels(key).inc()
+            self._flightrec.record("fault", point=key, hit=hit,
+                                   mode=f"corrupt:{due['mode']}")
+        return due
 
     def fire(self, point: str) -> bool:
         """Run the point's due plans: True iff the caller should drop the
@@ -172,6 +188,7 @@ class FaultInjector:
         hang_s = 0.0
         drop = False
         raise_exc = None
+        fired = 0
         with self._lock:
             self._hits[point] += 1
             hit = self._hits[point]
@@ -181,12 +198,19 @@ class FaultInjector:
                     continue
                 plan["remaining"] -= 1
                 self._fired[point] += 1
+                fired += 1
                 if plan["kind"] == "hang":
                     hang_s += plan["seconds"]
                 elif plan["kind"] == "drop":
                     drop = True
                 elif raise_exc is None:
                     raise_exc = plan["exc"]
+        if fired:
+            self._m_fired.labels(point).inc(fired)
+            self._flightrec.record("fault", point=point, hit=hit,
+                                   mode="drop" if drop else
+                                   ("raise" if raise_exc is not None
+                                    else "hang"))
         if hang_s > 0.0:
             time.sleep(hang_s)        # outside the lock: arming and the
         if raise_exc is not None:     # counters stay live while hung

@@ -122,10 +122,20 @@ def _nvcc(out: Path, src: Path, flags=()):
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+def _scratch_arg(lib) -> bool:
+    """Whether the library's act entry takes the row-wise scratch pointer
+    (interface version 2)."""
+    return hasattr(lib, "lstm_abi_version")
+
+
 def _declare(lib):
-    entries = cuda_lib.ENTRIES["lstm"]
+    entries = dict(cuda_lib.ENTRIES["lstm"])
     if not hasattr(lib, "lstm_recurrence_fwd_act"):
         entries = dict([LEGACY_FWD])
+    elif not _scratch_arg(lib):
+        entries["lstm_recurrence_fwd_act"] = \
+            entries["lstm_recurrence_fwd_act"][:21] + \
+            entries["lstm_recurrence_fwd_act"][22:]
     for entry, argtypes in entries.items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
@@ -196,8 +206,10 @@ def _launch(lib, case):
             y_t.stride(0), y_t.stride(1), t, n, h, DTYPE_CODE[xw.dtype]]
     tail = [torch.cuda.current_stream().cuda_stream, ctypes.byref(route)]
     if hasattr(lib, "lstm_recurrence_fwd_act"):
+        scratch = [None] if _scratch_arg(lib) else []
         rc = lib.lstm_recurrence_fwd_act(
-            *args, lk.act_code("sigmoid"), lk.act_code("tanh"), *tail)
+            *args, lk.act_code("sigmoid"), lk.act_code("tanh"), *scratch,
+            *tail)
     else:
         rc = lib.lstm_recurrence_fwd(*args, *tail)
     if rc:

@@ -9,6 +9,9 @@ averages such a row uniformly, but over different key sets (the TPU flash
 kernel and the Hopper kernels skip causal-future tiles, the plain version
 averages every key), so their values legitimately differ."""
 
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -353,9 +356,105 @@ def test_padded_head_dims_match_jax(d):
         np.testing.assert_allclose(_unfold(g, b, h), np.asarray(w), **TOL)
 
 
+def _wide_tile():
+    """kWRows (keys a softmax tile), kWChunk (D columns a product pass)
+    and kWSlice (output columns a CTA owns) as the kernels above D 256
+    define them in ``csrc/attention_wide.cuh``."""
+    src = (Path(ss.__file__).parents[1] / "csrc" /
+           "attention_wide.cuh").read_text()
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src)[1])
+                 for k in ("kWRows", "kWChunk", "kWSlice"))
+
+
+def _column_slices(d):
+    """The [start, end) column slices of a D > 256 launch's output."""
+    width = _wide_tile()[2]
+    return [(s, min(s + width, d)) for s in range(0, d, width)]
+
+
 def test_head_dim_above_the_kernels_raises():
-    """D above 256 has no kernel: the pad helper raises before anything
-    launches (C4's rest)."""
-    with pytest.raises(ValueError, match="head dim 264 > 256"):
-        ss.head_dim_padded(264)
+    """D above 256 no longer raises (C4 closed): the pad helper keeps a
+    multiple of 8 as it is, and the kernels split its output columns into
+    128-wide slices, the last one ragged."""
+    assert ss.head_dim_padded(264) == 264 and ss.head_dim_padded(258) == 264
     assert ss.head_dim_padded(256) == 256 and ss.head_dim_padded(129) == 136
+    assert _wide_tile() == (32, 64, 128)
+    assert _column_slices(264) == [(0, 128), (128, 256), (256, 264)]
+    assert _column_slices(320) == [(0, 128), (128, 256), (256, 320)]
+    assert _column_slices(512) == [(0, 128), (128, 256), (256, 384),
+                                   (384, 512)]
+
+
+def _split_plan(q3, k3, v3, km3, h, causal, do3):
+    """The wide kernels' D-split plan in plain PyTorch, f32: every slice of
+    the output's columns recomputes the full-D scores (q . k^T and
+    dO . v^T) in 64-column chunks, the streaming softmax runs over 32-key
+    tiles, o / dq / dk / dv are written slice by slice and lse by slice 0."""
+    bh, t, d = q3.shape
+    scale = d ** -0.5
+    keep = torch.ones(bh, t, t, dtype=torch.bool)
+    if km3 is not None:
+        keep &= (km3.repeat_interleave(h, 0) > 0)[:, None, :]
+    if causal:
+        keep &= torch.ones(t, t, dtype=torch.bool).tril()
+
+    rows, chunk, _ = _wide_tile()
+
+    def chunked(a, b):
+        return sum(a[..., c:c + chunk] @ b[..., c:c + chunk].transpose(1, 2)
+                   for c in range(0, d, chunk))
+
+    o, dq, dk, dv = (torch.zeros_like(q3) for _ in range(4))
+    for s0, s1 in _column_slices(d):
+        s = torch.where(keep, chunked(q3, k3) * scale, torch.tensor(-1e30))
+        m = torch.full((bh, t, 1), -torch.inf)
+        l = torch.zeros(bh, t, 1)
+        acc = torch.zeros(bh, t, s1 - s0)
+        for j0 in range(0, t, rows):
+            blk = s[..., j0:j0 + rows]
+            mn = torch.maximum(m, blk.amax(-1, keepdim=True))
+            p = torch.exp(blk - mn)
+            alpha = torch.exp(m - mn)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ v3[:, j0:j0 + rows, s0:s1]
+            m = mn
+        l = l.clamp_min(1e-20)
+        o[..., s0:s1] = acc / l
+        if s0 == 0:
+            lse = (m + torch.log(l))[..., 0]
+    delta = ss.row_delta(do3, o)
+    for s0, s1 in _column_slices(d):
+        s = torch.where(keep, chunked(q3, k3) * scale, torch.tensor(-1e30))
+        p = torch.exp(s - lse[..., None])
+        ds = p * (chunked(do3, v3) - delta[..., None]) * scale
+        dq[..., s0:s1] = ds @ k3[..., s0:s1]
+        dk[..., s0:s1] = ds.transpose(1, 2) @ q3[..., s0:s1]
+        dv[..., s0:s1] = p.transpose(1, 2) @ do3[..., s0:s1]
+    return o, lse, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("d", [264, 320])
+def test_head_dim_split_plan_matches_jax(d):
+    """C4: the plan of the kernels above D 256 (output columns split into
+    128-wide slices, each recomputing the full-D scores) is exact against
+    JAX's Pallas flash attention (interpret mode), forward and backward,
+    causal with a ragged key mask, at 1e-5."""
+    b, t, h = 1, 64, 2
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, b, t, h, d)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    km = _mask(b, t, [41])
+    o_j, vjp = jax.vjp(lambda a, bb, c: pallas_flash_attention(
+        a, bb, c, causal=True, q_block=16, k_block=16, interpret=True,
+        key_mask=km), q, k, v)
+    want = vjp(do)
+    q3, k3, v3, do3 = (torch.from_numpy(_fold(x)) for x in (q, k, v, do))
+    o3, lse, grads = _split_plan(q3, k3, v3, torch.from_numpy(km), h, True,
+                                 do3)
+    assert ss.head_dim_padded(d) == d
+    np.testing.assert_allclose(_unfold(o3, b, h), np.asarray(o_j), **TOL)
+    _, lse_p = ss.attention_fwd_plain(q3, k3, v3, torch.from_numpy(km), h,
+                                      True)
+    np.testing.assert_allclose(lse.numpy(), lse_p.numpy(), **TOL)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(_unfold(g, b, h), np.asarray(w), **TOL)

@@ -13,10 +13,11 @@ their bitwise reproducibility, one cooperative launch a direction with
 no cast of bf16 gamma, their refusals (a refused launch raises), and a
 small ResNet training through them. The shapes the card used to refuse
 (fault C4) against their plain versions: batch norms of any C, f16 and
-wide C on the general route; LSTMs with every elementwise activation
-pair, f16 and H 2048 on the streamed route (and their gradients);
-attention at head dims that are not a multiple of 8 (zero-padded) and up
-to 256 (the wide instance); each with one kernel launch a wrapper call
+wide C on the general route; LSTMs with every activation, the row-wise
+softmax / logsoftmax included, f16 and H 2048 on the streamed route (and
+their gradients); attention at head dims that are not a multiple of 8
+(zero-padded), up to 256 (the wide instance) and above (the output's
+columns split over the grid); each with one kernel launch a wrapper call
 (three for the general batch-norm route) and no plain-path operator.
 Every test here
 needs a CUDA card and skips without one. The module imports no
@@ -114,9 +115,11 @@ def test_short_and_flash_forwards_agree_on_card(cuda_device, t, causal):
 
 
 def test_kernel_rejects_unsupported_shapes(cuda_device):
-    bad_d = torch.zeros(2, 16, 264, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        ff.flash_forward(bad_d, bad_d, bad_d)
+    # every head dim is attention now (C4); B*H past the grid's y limit is
+    # what is refused
+    wide = torch.zeros(65536, 1, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="B\\*H=65536"):
+        ff.flash_forward(wide, wide, wide)
     ints = torch.zeros(2, 16, 8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="float"):
         ss.short_attention_fwd(ints, ints, ints)
@@ -367,12 +370,10 @@ def test_lstm_kernel_rejects_unsupported_inputs(cuda_device):
         strided = torch.zeros(3 * 2 * 128, device=cuda_device).as_strided(
             (3, 2, 64), (256, 128, 2))
         lk.lstm_recurrence_fwd(strided, r, h0, c0)
-    # softmax is row-wise: no activation code, so it raises before any
-    # launch
+    # softmax is row-wise and has a code now: it launches (C4 closed)
     before = lk.lstm_recurrence_fwd.launches
-    with pytest.raises(NotImplementedError, match="row-wise"):
-        lk.lstm_recurrence_fwd(xw, r, h0, c0, None, None, "softmax", "tanh")
-    assert lk.lstm_recurrence_fwd.launches == before
+    lk.lstm_recurrence_fwd(xw, r, h0, c0, None, None, "softmax", "tanh")
+    assert lk.lstm_recurrence_fwd.launches == before + 1
 
 
 @pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
@@ -431,22 +432,27 @@ def test_lstm_plan_picks_the_route(cuda_device):
 
 
 def test_lstm_refused_shape_raises(cuda_device):
-    """What no route takes raises from the plan and from the wrapper, which
-    launches nothing: a row-wise activation (logsoftmax). H 2048, whose R
-    slices fit neither a cluster's nor a co-resident grid's shared memory,
-    is taken by the streamed route."""
+    """No activation is refused any more (C4 closed): a row-wise one
+    (logsoftmax) in bf16 is planned on the cooperative route, never the
+    cluster route, and its launch computes the plain loop's values. H 2048,
+    whose R slices fit neither a cluster's nor a co-resident grid's shared
+    memory, is taken by the streamed route."""
     big = 2048
     assert lk.lstm_plan(1, big, torch.bfloat16)["route"] == "streamed"
-    with pytest.raises(NotImplementedError, match="row-wise"):
-        lk.lstm_plan(1, 64, torch.bfloat16, "sigmoid", "logsoftmax")
-    before = lk.lstm_recurrence_fwd.launches
-    z = lambda *shape: torch.zeros(*shape, device=cuda_device,
-                                   dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="row-wise"):
-        lk.lstm_recurrence_fwd(z(1, 1, 256), z(64, 256), z(1, 64),
-                               z(1, 64), None, None, "sigmoid",
-                               "logsoftmax")
-    assert lk.lstm_recurrence_fwd.launches == before
+    assert lk.lstm_plan(1, 64, torch.bfloat16, "sigmoid",
+                        "logsoftmax")["route"] == "cooperative"
+    from deeplearning4j_tpu_torch.ops.activations import get_activation
+    args = _lstm_case(3, 1, 64, torch.bfloat16, False, False, cuda_device)
+    before = dict(lk.lstm_recurrence_fwd.routes)
+    got = lk.lstm_recurrence_fwd(*args, "sigmoid", "logsoftmax")
+    want = lk.lstm_recurrence_plain(*args, torch.sigmoid,
+                                    get_activation("logsoftmax"))
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.routes["cooperative"] == \
+        before["cooperative"] + 1
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= \
+            LSTM_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("peephole,masked", [(False, False), (True, True)])
@@ -835,8 +841,10 @@ def test_batchnorm_general_route_launches_its_kernels_only(cuda_device):
 
 
 #: every elementwise activation, as the gates' (with a tanh cell) and as
-#: the cell's (with sigmoid gates)
-LSTM_ACTS = sorted(set(lk.ACT_CODES) - {"linear"})
+#: the cell's (with sigmoid gates); the row-wise ones have their own test
+#: (a logsoftmax gate, whose values are about -log H, grows c
+#: geometrically until it overflows, in the plain loop as well)
+LSTM_ACTS = sorted(set(lk.ACT_CODES) - {"linear"} - set(lk.ROW_WISE))
 
 
 @pytest.mark.parametrize("where", ["gate", "cell"])
@@ -914,11 +922,82 @@ def test_lstm_activation_gradients_on_card_match_cpu(cuda_device, acts):
         assert _rel_l2(got.cpu(), want) <= 1e-4
 
 
+#: the row-wise pairs: a softmax gate with a tanh cell, sigmoid gates with
+#: a logsoftmax cell
+ROW_PAIRS = [("softmax", "tanh"), ("sigmoid", "logsoftmax")]
+
+
+#: xw and R of a row-wise case are scaled by this where the cell is
+#: logsoftmax: h = o * logsoftmax(c) (about -6 o at H 512) feeds back
+#: through R, and at scale 1 the recurrence expands (the plain f32 loop
+#: ends 1e11 off its f64 result at T 32, H 512); at 0.05 it contracts
+LOGSOFTMAX_SCALE = 0.05
+
+
+def _row_wise_reference(args, acts, dtype):
+    """(y, hT, cT) of the plain loop in f64 on the same inputs, each with
+    the limit a kernel output is held to: ``LSTM_TOL[dtype]`` times the
+    output's largest |value| (a logsoftmax cell's h and c run to tens).
+    The plain loop in ``dtype`` must meet the same limits, so an
+    ill-conditioned case fails here rather than loosen the check."""
+    from deeplearning4j_tpu_torch.ops.activations import get_activation
+    fns = [get_activation(a) for a in acts]
+    as64 = lambda x: None if x is None else \
+        tuple(p.double() for p in x) if isinstance(x, tuple) else x.double()
+    ref = lk.lstm_recurrence_plain(*(as64(a) for a in args), *fns)
+    plain = lk.lstm_recurrence_plain(*args, *fns)
+    out = []
+    for r, p in zip(ref, plain):
+        limit = LSTM_TOL[dtype] * r.abs().max().item()
+        assert (p.double() - r).abs().max().item() <= limit, \
+            "the plain loop misses its own limit: an ill-conditioned case"
+        out.append((r, limit))
+    return out
+
+
+@pytest.mark.parametrize("acts", ROW_PAIRS, ids="-".join)
+@pytest.mark.parametrize("dtype,t,n,h,route", [
+    (torch.float32, 32, 64, 512, "cooperative"),
+    (torch.bfloat16, 8, 64, 512, "cooperative"),
+    (torch.float32, 5, 3, 2048, "streamed"),
+    (torch.float32, 7, 200, 48, "cooperative")])
+@pytest.mark.parametrize("peephole,masked", [(False, False), (True, True)],
+                         ids=["plain", "peep-masked"])
+def test_lstm_row_wise_activations_match_plain_on_card(
+        cuda_device, acts, dtype, t, n, h, route, peephole, masked):
+    """B6 with a row-wise gate or cell activation (two grid-wide row
+    reductions a step) against the plain loop, on the route the plan
+    names; N 200 takes several passes of rows a step. bf16 runs at T 8:
+    its c is rounded to bf16 each step, and with peepholes a logsoftmax
+    cell drives c to -200 by T 32, where a bf16 step rounds by 0.5."""
+    args = _lstm_case(t, n, h, dtype, peephole, masked, cuda_device,
+                      seed=h + n)
+    if acts[1] == "logsoftmax":
+        args = (args[0] * LOGSOFTMAX_SCALE, args[1] * LOGSOFTMAX_SCALE) + \
+            args[2:]
+    assert lk.lstm_plan(n, h, dtype, *acts)["route"] == route
+    before = dict(lk.lstm_recurrence_fwd.routes)
+    got = lk.lstm_recurrence_fwd(*args, *acts)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.routes[route] == before[route] + 1
+    for a, (want, limit) in zip(got, _row_wise_reference(args, acts, dtype)):
+        assert torch.isfinite(a).all()
+        assert (a.double() - want).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("acts", ROW_PAIRS, ids="-".join)
+def test_lstm_row_wise_gradients_on_card_match_cpu(cuda_device, acts):
+    """LSTMRecurrence with a row-wise pair (kernel forward, plain recompute
+    backward) against autograd of the plain loop on the CPU."""
+    test_lstm_activation_gradients_on_card_match_cpu(cuda_device, acts)
+
+
 def test_lstm_c4_launches_one_kernel(cuda_device):
     """A streamed or non-default-activation wrapper call launches one
     kernel and no plain-path operator (no GEMM)."""
-    for h, acts in ((2048, ("sigmoid", "tanh")), (64, ("hardsigmoid",
-                                                      "softsign"))):
+    for h, acts in ((2048, ("sigmoid", "tanh")),
+                    (64, ("hardsigmoid", "softsign")),
+                    (64, ("softmax", "logsoftmax"))):
         args = _lstm_case(4, 2, h, torch.float32, False, False, cuda_device)
         lk.lstm_recurrence_fwd(*args, *acts)
         names = _profiled_kernels(lambda: lk.lstm_recurrence_fwd(*args,
@@ -927,8 +1006,8 @@ def test_lstm_c4_launches_one_kernel(cuda_device):
 
 
 #: head dims no kernel took before: not a multiple of 8 (zero-padded),
-#: and above 128 (the wide instance)
-C4_D = [4, 12, 36, 136, 200, 256]
+#: above 128 (the wide instance) and above 256 (columns split)
+C4_D = [4, 12, 36, 136, 200, 256, 264, 320, 512]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -966,9 +1045,10 @@ def test_attention_head_dims_match_plain_on_card(cuda_device, kernel, t, d,
         assert _rel_l2(x[live], y[live], do[live]) <= BWD_TOL[dtype]
 
 
-@pytest.mark.parametrize("d", [36, 256])
+@pytest.mark.parametrize("d", [36, 256, 264])
 def test_attention_c4_launches_one_kernel(cuda_device, d):
-    """A padded (D 36) or wide (D 256) forward wrapper call launches one
+    """A padded (D 36), wide (D 256) or split (D 264) forward wrapper call
+    launches one
     attention kernel, beside the pad and slice copies, and no plain-path
     operator (no GEMM, no softmax)."""
     q3 = torch.randn(4, 128, d, device=cuda_device, dtype=torch.bfloat16)

@@ -2,8 +2,9 @@
 version against the JAX package's Pallas kernel (interpret mode) and its
 ``_lstm_recurrence`` with masks, ``LSTMRecurrence``'s gradients against
 ``jax.vjp`` of ``_fused``, GravesLSTM / LSTM / GravesBidirectionalLSTM
-forwards with their state, the helper routing on a card (a non-sigmoid
-gate raises, no plain loop hides there), and the activation registry —
+forwards with their state, the helper routing on a card (every gate /
+cell pair, row-wise ones included, goes through the kernel's wrapper: no
+plain loop hides there), and the activation registry —
 each on the same seeded inputs in both packages.
 
 Tolerances: f32 parity at 1e-5 relative (ROADMAP rule 1)."""
@@ -179,14 +180,11 @@ def test_lstm_recurrence_function_gradients_with_other_activations(acts):
 
 
 def test_lstm_act_codes_cover_every_elementwise_activation():
-    """Every activation of ops/activations.py has a kernel code except the
-    two row-wise ones, which raise with their own message."""
+    """Every activation of ops/activations.py has a kernel code, the two
+    row-wise ones (softmax, logsoftmax) the last two."""
     for name in tact.activation_names():
-        if name in lk.ROW_WISE:
-            with pytest.raises(NotImplementedError, match="row-wise"):
-                lk.act_code(name)
-        else:
-            assert 0 <= lk.act_code(name) < 19
+        assert 0 <= lk.act_code(name) < 21
+    assert [lk.act_code(n) for n in lk.ROW_WISE] == [19, 20]
     with pytest.raises(ValueError, match="Unknown activation"):
         lk.act_code("nonesuch")
 
@@ -303,14 +301,60 @@ def _force_card_helper(monkeypatch):
                                        ("sigmoid", "softsign")])
 def test_cuda_route_raises_for_other_activation_pairs(monkeypatch, gate,
                                                       cell):
-    """On a card, an LSTM whose gate or cell activation the kernel does not
-    compute (a row-wise one: softmax, logsoftmax) raises and says why,
-    whatever the other activation of the pair."""
+    """On a card, an LSTM with a row-wise gate or cell activation (softmax,
+    logsoftmax), whatever the other activation of the pair, goes through
+    the kernel's wrapper with that pair (no longer a raise) and gives the
+    plain loop's output and gradients."""
     params, x = _force_card_helper(monkeypatch)
-    for rowwise in (dict(gate_activation="softmax", activation=cell),
-                    dict(gate_activation=gate, activation="logsoftmax")):
-        with pytest.raises(NotImplementedError, match="row-wise"):
-            GravesLSTM(n_in=5, n_out=6, **rowwise).forward(params, {}, x)
+    calls = []
+    monkeypatch.setattr(lk, "lstm_recurrence",
+                        lambda *a: calls.append(a[-2:]) or
+                        lk.lstm_recurrence_plain(
+                            *a[:-2], tact.get_activation(a[-2]),
+                            tact.get_activation(a[-1])))
+    for acts in (("softmax", cell), (gate, "logsoftmax")):
+        conf = GravesLSTM(n_in=5, n_out=6, gate_activation=acts[0],
+                          activation=acts[1])
+        results = []
+        for helper in (lk.cuda_lstm, None):
+            monkeypatch.setattr(trecurrent, "get_helper",
+                                lambda kind, device, h=helper: h)
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in params.items()}
+            y, _ = conf.forward(leaves, {}, x)
+            results.append((y, torch.autograd.grad(y.square().sum(),
+                                                   list(leaves.values()))))
+        (got, got_g), (want, want_g) = results
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        for a, b in zip(got_g, want_g):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert calls == [("softmax", cell), (gate, "logsoftmax")]
+
+
+@pytest.mark.parametrize("peephole", [False, True],
+                         ids=["lstm", "graves"])
+def test_row_wise_lstm_matches_jax_layer(peephole):
+    """The port's plain recurrence with a softmax gate and a logsoftmax
+    cell (normalised over the H units of each row, for i, f, g, o and
+    act(c)) against the JAX layer, peepholes on (GravesLSTM) and off
+    (LSTM), masked, at 1e-5."""
+    jcls, tcls = (JaxGravesLSTM, GravesLSTM) if peephole else \
+        (JaxLSTM, LSTM)
+    kw = dict(n_in=5, n_out=6, gate_activation="softmax",
+              activation="logsoftmax")
+    jlayer, tlayer = jcls(**kw), tcls(**kw)
+    params = _jax_layer_params(jlayer, 21)
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(3, 7, 5)).astype(np.float32)
+    mask = (rng.random((3, 7)) > 0.3).astype(np.float32)
+    jy, jst = jlayer.forward({k: jnp.asarray(v) for k, v in params.items()},
+                             {}, jnp.asarray(x), train=False,
+                             mask=jnp.asarray(mask))
+    ty, tst = tlayer.forward({k: _t(v) for k, v in params.items()}, {},
+                             _t(x), _t(mask))
+    np.testing.assert_allclose(_np(ty), np.asarray(jy), **TOL)
+    for k in jst:
+        np.testing.assert_allclose(_np(tst[k]), np.asarray(jst[k]), **TOL)
 
 
 @pytest.mark.parametrize("gate,cell", [("hardsigmoid", "tanh"),

@@ -6,8 +6,9 @@ shedding with its depth, done callbacks, the death cause through
 queued requests too); ``EngineSupervisor`` (a crash restarted with every
 in-flight request recovered token for token, a wedge detected, the first
 step's grace, an exhausted restart budget); quarantine / requeue and the
-preemption drain. Threaded tests drive wall-clock faults with margins of a
-second or more."""
+preemption drain; and both engines' recovered tokens against their clean
+runs after two crashes, in f32 and in bf16. Threaded tests drive
+wall-clock faults with margins of a second or more."""
 
 import time
 
@@ -411,3 +412,85 @@ def test_drain_closes_admission_and_harvests(nets):
         assert not eng._worker.is_alive()
     finally:
         eng.shutdown()
+
+
+def _jax_crash_round(jnet, prompts, gens, hits, pm_dir):
+    """The JAX engine's clean run, then the same requests through crashes
+    at ``engine.step`` ``hits`` under its supervisor (every request queued
+    before the loop starts). Returns (clean tokens, recovered requests,
+    {request id: tokens it had at its first takeover})."""
+    import json
+    import os
+
+    from deeplearning4j_tpu.parallel.failures import \
+        EngineSupervisor as JaxSupervisor
+    from deeplearning4j_tpu.parallel.faults import \
+        FaultInjector as JaxInjector
+    clean = JaxEngine(jnet, num_slots=4, block_size=4)
+    want = [clean.submit(p, g) for p, g in zip(prompts, gens)]
+    clean.run_until_drained()
+    inj = JaxInjector()
+    for h in hits:
+        inj.raise_once("engine.step", RuntimeError(f"crash {h}"), at=h)
+    sup = JaxSupervisor(JaxEngine(jnet, num_slots=4, block_size=4,
+                                  fault_injector=inj),
+                        timeout=30.0, interval=0.1, max_restarts=4,
+                        postmortem_dir=pm_dir)
+    reqs = [sup.submit(p, g) for p, g in zip(prompts, gens)]
+    sup.start()
+    for r in reqs:
+        assert r._done.wait(120)
+    assert sup.stats()["restarts"] == len(hits)
+    sup.stop()
+    crash_at = {}
+    for name in sorted(os.listdir(pm_dir)):
+        with open(os.path.join(pm_dir, name), encoding="utf-8") as f:
+            extra = json.load(f)["extra"]
+        for rid, n in extra["generated_so_far"].items():
+            crash_at.setdefault(rid, n)
+    return [r.result(1) for r in want], reqs, crash_at
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recovered_tokens_against_the_clean_run_jax_and_port(dtype, tmp_path):
+    """Two crashes at ``engine.step`` under a supervisor, in the JAX engine
+    and the port's on the same weights, each against its own clean run.
+    Both deliver every request once, at full length, with the clean run's
+    tokens up to its first crash point. In f32 every token matches. In
+    bf16 the JAX engine's recovered greedy tokens part from its clean run
+    after the crash (the re-prefill of prompt + tokens so far rounds
+    otherwise than decode did): the reason the port's bf16 recovery is
+    held to the crash point only (``run_soak(exact_after_crash=False)``)."""
+    import jax.numpy as jnp
+    import torch
+
+    from deeplearning4j_tpu_torch.tools import chaos_soak
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, VOCAB, int(rng.integers(2, 6)))
+               for _ in range(8)]
+    gens, hits = [24] * 8, (3, 7)
+    jnet = _sharpened(JaxGraph(jax_lm_conf(**KW),
+                               compute_dtype=getattr(jnp, dtype)).init())
+    (tmp_path / "jax").mkdir()
+    want, reqs, crash_at = _jax_crash_round(jnet, prompts, gens, hits,
+                                            str(tmp_path / "jax"))
+    parted = 0
+    for p, w, r in zip(prompts, want, reqs):
+        got = r.result(0)
+        assert r.state == r.DONE and len(got) == len(w)
+        keep = len(p) + crash_at.get(r.trace.request_id, len(got))
+        assert np.array_equal(got[:keep], w[:keep])
+        parted += not np.array_equal(got, w)
+    assert parted == 0 if dtype == "float32" else parted >= 1
+    net = graph_from_numpy(transformer_lm_conf(**KW),
+                           {v: {k: np.asarray(a) for k, a in p.items()}
+                            for v, p in jnet.params.items()}, device="cpu",
+                           compute_dtype=getattr(torch, dtype))
+    (tmp_path / "port").mkdir()
+    s = chaos_soak.run_soak(
+        net=net, prompts=prompts, gens=gens, num_slots=4, block_size=4,
+        crashes=2, hangs=0, crash_hits=hits, supervisor_timeout=30.0,
+        overhead_ab=False, postmortem_dir=str(tmp_path / "port"),
+        steady_wave=2, exact_after_crash=dtype == "float32")
+    assert s["ok"] and s["restarts"] == 2 and s["failed"] == 0, s
+    assert s["completed"] == len(prompts) and s["mismatches"] == 0, s

@@ -98,6 +98,37 @@ Phases, each an uncaught exception on failure:
    recovery and drain times and the journal-on / -off tok/s logged. (e)
    ``ParallelInference.generate`` from 4 threads: one shared engine,
    outputs equal to phase 4's.
+4e. the in-process fleet (``phase_fleet``), on the same net, engines at
+   t_max 576 with pages of 16, 4 slots and K = 4, every router on one
+   shared decoder, 24 greedy requests (16-256 prompt tokens, 16-64 new)
+   queued before the router starts: a fresh paged admission through B1
+   against the plain window path (logits rel-L2 <= 5e-2). (a)
+   ``EngineFleetRouter`` with 3 replicas, r0 crashed at its 6th
+   ``engine.step``: every request once at full length (ledger: no
+   duplicate), r0 DEAD and its requests migrated, page audits clean,
+   decode readbacks <= decode blocks, B1 >= 12 launches an admission
+   (re-prefills included); tokens equal to the direct paged engine's on
+   the f32 twin (TF32 off), in bf16 compared and reported (a bf16
+   prefill rounds by its admission wave's shape, and a fleet's waves are
+   not the direct engine's). (b) aggregate generated tok/s of 1 against
+   3 replicas in alternating pairs (reported). (c) ``PhaseRouter`` (1
+   prefill, 2 decode workers): bf16 in process (against the direct
+   engine, reported), bf16 over the per-page serialized transport
+   (token-identical to the in-process run: the pages move bit-exactly)
+   and the f32 twin in process (token-identical to its direct engine);
+   payload bytes equal to pages x one page of every layer's pool + the
+   context tokens, 2 x 12 ``kv_handoff`` readbacks an export, B1 on the
+   prefill worker's admissions; then a decode worker killed mid-stream:
+   its streams re-prefill, nothing lost or duplicated. (d) on the f32
+   twin, a silent sign flip in r1's pool under the canary prefix: the
+   next canary round quarantines r1 CORRUPT, its streams migrate, every
+   result equals the direct engine's. (e) a ``BurnRateAutoscaler`` grows
+   a 1-replica fleet under the burst and retires back to one (its
+   decisions printed). A ``TelemetryServer`` on 127.0.0.1 over the runs'
+   registry, scraped during the first disagg run: every endpoint 200,
+   the fleet and disagg series in ``/metrics``, both routers' documents
+   in ``/snapshot``, ``/healthz`` ok. The phase prints its wall time and
+   fails past 150 s; its B1 launches join the ``kernels`` line.
 5. long prompt: the same width at 2 layers, max_length 2048,
    TransformerDecoder.generate on 4 prompts of 1536 tokens (bucket
    T = 2048 > 512): the flash kernel must launch.
@@ -249,9 +280,15 @@ from deeplearning4j_tpu_torch.observability import (FlightRecorder,
                                                     MetricsRegistry,
                                                     PhaseProfiler, SLOTracker,
                                                     TraceRing)
-from deeplearning4j_tpu_torch.streaming import (GenerationServingRoute,
+from deeplearning4j_tpu_torch.observability import TelemetryServer
+from deeplearning4j_tpu_torch.streaming import (BurnRateAutoscaler,
+                                                EngineFleetRouter,
+                                                GenerationServingRoute,
+                                                InProcessKVTransport,
                                                 NDArrayPublisher,
                                                 NDArraySubscriber,
+                                                PhaseRouter,
+                                                SerializedKVTransport,
                                                 TcpBrokerServer,
                                                 create_broker)
 from deeplearning4j_tpu_torch.tools import chaos_soak
@@ -1232,9 +1269,10 @@ def phase_paged_serving(card, net):
                 "gate)")
     check_verify_logits(net, prompts)
     launches = read_launches()
-    log(f"paged phase: kernel launches {launches} (paged admissions and "
-        "every cache seam run plain attention; the slab engines' "
-        "admissions run the short-sequence kernel)")
+    log(f"paged phase: kernel launches {launches} (paged admissions of "
+        "fresh prompts and the slab engines' admissions run the "
+        "short-sequence kernel; prefix-hit tails and every cache seam "
+        "plain attention)")
     if launches["shortseq_attention"] < 12:
         raise AssertionError("the slab engines' admissions did not launch "
                              "the short-sequence kernel")
@@ -1854,6 +1892,463 @@ def phase_serving_host(card, net):
     log(f"serving host [{card}]: ParallelInference.generate from 4 threads:"
         f" one engine, {st['prefill_batches']} admissions, token-identical")
     log(f"serving host phase: {time.perf_counter() - t_phase:.1f}s wall")
+
+
+# ---------------------------------------------------------------- phase 4e
+#: the fleet phase's shape: 3 replicas of 4 slots on one shared decoder,
+#: 24 greedy requests (16-256 prompt tokens, 16-64 new), r0 crashed at
+#: its 6th engine.step hit
+FLEET_REPLICAS = 3
+FLEET_SLOTS = 4
+FLEET_CRASH_HIT = 6
+#: the phase's wall-clock budget, s
+FLEET_PHASE_LIMIT_S = 150
+DISAGG_KW = dict(num_slots=FLEET_SLOTS, block_size=4, page_size=PAGE_SIZE,
+                 heartbeat_interval=0.05, monitor_interval=0.05,
+                 suspect_after=1.0, dead_after=5.0)
+FLEET_KW = dict(DISAGG_KW, paged=True)
+
+
+def _fleet_requests():
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 32000, int(n))
+               for n in rng.integers(16, 257, 24)]
+    gens = [int(g) for g in rng.integers(16, 65, 24)]
+    return prompts, gens
+
+
+def _direct_paged(net, dec, prompts, gens):
+    """The direct paged engine's outputs: the fleet phase's reference."""
+    eng = SlotGenerationEngine(net, decoder=dec, num_slots=FLEET_SLOTS,
+                               block_size=4, paged=True,
+                               page_size=PAGE_SIZE)
+    reqs = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    eng.run_until_drained()
+    _audit(eng, "direct paged engine")
+    return [r.result(timeout=0) for r in reqs]
+
+
+def _migration_point(fr):
+    """Tokens a request held when it first migrated (its trace's first
+    ``migrate`` event), or None."""
+    if fr.trace is None:
+        return None
+    for span in fr.trace._spans:
+        if span.name == "migrate":
+            return int(span.attrs.get("generated", 0))
+    return None
+
+
+def _hold_fleet(frs, prompts, gens, ref, exact, what):
+    """Every request once, DONE, at full length. ``exact``: tokens equal
+    to ``ref``. Otherwise (bf16) they are compared and reported, not
+    held: a bf16 prefill rounds by its admission wave's shape (its rows
+    and padded length choose the products' tiling), and a fleet's waves
+    are not the direct engine's. Returns {"identical", "migrated",
+    "parted": [(request, first differing new token, tokens at its
+    migration or None)]}."""
+    out = {"identical": 0, "migrated": 0, "parted": []}
+    for fr, p, g, want in zip(frs, prompts, gens, ref):
+        got = fr.result(timeout=0)
+        if len(got) != len(p) + g:
+            raise AssertionError(f"{what}: {fr.request_id} returned "
+                                 f"{len(got)} tokens, expected {len(p) + g}")
+        n = _migration_point(fr)
+        out["migrated"] += n is not None
+        if np.array_equal(got, want):
+            out["identical"] += 1
+            continue
+        first = int(np.flatnonzero(got != want)[0]) - len(p)
+        out["parted"].append((fr.request_id, first, n))
+        if exact:
+            raise AssertionError(f"{what}: {fr.request_id} (migrated at "
+                                 f"{n}) parts from the reference at new "
+                                 f"token {first}")
+    return out
+
+
+def _fleet_audits(router, what):
+    bad = chaos_soak._page_audit(router)
+    if bad:
+        raise AssertionError(f"{what}: page audit failed: {bad[:4]}")
+
+
+def _crash_fleet(card, net, dec, prompts, gens, ref, exact, label, sinks):
+    """The 24 requests on 3 replicas, r0 crashed mid-stream; the bars of
+    phase 4e (a). Returns the B1 launches and the fleet's admissions."""
+    injs = [FaultInjector() for _ in range(FLEET_REPLICAS)]
+    injs[0].raise_once("engine.step", RuntimeError(
+        f"fleet phase: r0 crash at step hit {FLEET_CRASH_HIT}"),
+        at=FLEET_CRASH_HIT)
+    router = EngineFleetRouter(net, num_replicas=FLEET_REPLICAS, decoder=dec,
+                               replica_injectors=injs, **sinks, **FLEET_KW)
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    torch.cuda.synchronize()
+    reset_launches()
+    fetched0 = fetch_counts("engine.decode")["engine.decode"]
+    t0 = time.perf_counter()
+    router.start()
+    try:
+        for fr in frs:
+            fr.result(timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()["shortseq_attention"]
+        fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
+        st = router.stats()
+        states = {rid: router.replica_state(rid)
+                  for rid in router.replica_ids()}
+        _fleet_audits(router, f"fleet ({label})")
+    finally:
+        router.shutdown()
+    ledger = router.ledger.to_dict()
+    held = _hold_fleet(frs, prompts, gens, ref, exact, f"fleet ({label})")
+    migrated = held["migrated"]
+    log(f"fleet [{card}] ({label}): {len(frs)} requests on "
+        f"{FLEET_REPLICAS} x {FLEET_SLOTS} slots, r0 crashed at step hit "
+        f"{FLEET_CRASH_HIT}: states {states}; ledger {ledger}; migrated "
+        f"{migrated}; identical to the direct paged engine "
+        f"{held['identical']} of {len(frs)}, parted (request, first new "
+        f"token, migration point) {held['parted']}; "
+        f"admissions {st['prefill_batches']}, B1 launches {launches}; "
+        f"decode readbacks {fetched} / blocks {st['decode_blocks']}; "
+        f"{sum(gens) / wall:.1f} generated tok/s ({wall:.2f}s)")
+    if ledger["duplicates"] or ledger["completed"] != len(frs) or \
+            states["r0"] != "DEAD" or not migrated:
+        raise AssertionError(f"fleet ({label}): ledger {ledger}, states "
+                             f"{states}, migrated {migrated}")
+    if fetched > st["decode_blocks"]:
+        raise AssertionError(f"fleet ({label}): {fetched} readbacks for "
+                             f"{st['decode_blocks']} decode blocks")
+    if launches < len(dec.attn_names) * st["prefill_batches"]:
+        raise AssertionError(f"fleet ({label}): B1 launched {launches} "
+                             f"times for {st['prefill_batches']} admissions")
+    return launches
+
+
+def check_paged_fresh_prefill(net, dec, prompts):
+    """A paged admission of fresh prompts through the attention helper (B1
+    on the card) against the same admission on the plain window path:
+    the last-position logits within the attention tolerance."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import attention as attn
+    tokens, lengths = _padded(prompts[:4], 256)
+    ptab = np.zeros((4, PAGED_T_MAX // PAGE_SIZE), np.int64)
+    for i in range(4):
+        ptab[i] = 1 + i * ptab.shape[1] + np.arange(ptab.shape[1])
+    outs = []
+    for plain in (False, True):
+        pools = dec.init_paged_pool(1 + 4 * ptab.shape[1], PAGE_SIZE)
+        saved = attn.get_helper
+        if plain:
+            attn.get_helper = lambda kind, device: None
+        try:
+            _, logits, _ = dec.paged_prefill(pools, tokens,
+                                             np.zeros(4, np.int64), lengths,
+                                             ptab)
+        finally:
+            attn.get_helper = saved
+        outs.append(logits.float().cpu())
+    err = _rel_l2_rows(outs[0], outs[1])
+    log(f"fleet: fresh paged prefill through B1 vs the plain window path "
+        f"(4 prompts, bucket 256): logits rel-L2 {err:.3e} (tol "
+        f"{LOGIT_REL_TOL})")
+    if not err <= LOGIT_REL_TOL:
+        raise AssertionError("the fresh paged prefill's kernel route "
+                             "disagrees with the plain window path")
+
+
+def _disagg_round(card, net, dec, prompts, gens, ref, exact, transport,
+                  sinks, label, server=None):
+    """The 24 requests through a PhaseRouter (1 prefill, 2 decode
+    workers), queued before it starts, so the prefill worker's admission
+    waves are the same in every such run: tokens against ``ref`` (held
+    with ``exact``), every export 2 x layers ``kv_handoff`` readbacks,
+    the transfer bytes against the formula. Returns (B1 launches,
+    outputs). With ``server``
+    (a TelemetryServer over ``sinks``' registry), the router's fleet and
+    disagg documents become its sources and every endpoint is scraped
+    while the router is up."""
+    router = PhaseRouter(net, prefill_replicas=1, decode_replicas=2,
+                         decoder=dec, transport=transport, **sinks,
+                         **DISAGG_KW)
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    torch.cuda.synchronize()
+    reset_launches()
+    kv0 = fetch_counts("kv_handoff")["kv_handoff"]
+    t0 = time.perf_counter()
+    router.start()
+    try:
+        for fr in frs:
+            fr.result(timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()["shortseq_attention"]
+        kv = fetch_counts("kv_handoff")["kv_handoff"] - kv0
+        stats = router.disagg_stats()
+        pre = router._replicas["p0"].engine.stats()
+        _fleet_audits(router, f"disagg ({label})")
+        if server is not None:
+            server.add_source("fleet", router.fleet_stats)
+            server.add_source("disagg", router.disagg_stats)
+            _scrape_telemetry(card, server)
+    finally:
+        router.shutdown()
+    ledger = router.ledger.to_dict()
+    held = _hold_fleet(frs, prompts, gens, ref, exact, f"disagg ({label})")
+    h = stats["handoffs"]
+    # payload: pages x 2 (k, v) x layers x heads x page x Dh x itemsize
+    # (one page of every layer's pool) plus the int32 context tokens
+    layers = len(dec.attn_names)
+    page_bytes = sum(t.numel() * t.element_size() for kv in
+                     dec.init_paged_pool(1, PAGE_SIZE).values()
+                     for t in kv.values())
+    ctx_tokens = sum(len(p) for p in prompts)
+    payload = h["pages"] * page_bytes + 4 * ctx_tokens
+    secs = stats["transfer_seconds"]
+    wire = transport.stats().get("wire_bytes")
+    log(f"disagg [{card}] ({label}): {len(frs)} requests, 1 prefill + 2 "
+        f"decode workers: identical to the reference {held['identical']} "
+        f"of {len(frs)} (parted {held['parted']}); handoffs "
+        f"{h['completed']} (fenced {h['fenced']}, failed "
+        f"{h['failed']}), pages {h['pages']}, payload bytes {h['bytes']} "
+        f"(formula: pages x {page_bytes} + 4 x {ctx_tokens} = {payload}), "
+        f"wire bytes {wire}; kv_transfer_seconds "
+        f"{secs['sum'] / max(1, secs['count']) * 1e3:.3f} ms a handoff "
+        f"(p50 {secs.get('p50')}, p99 {secs.get('p99')}); kv_handoff "
+        f"readbacks {kv} ({kv / max(1, pre['handoffs']):.1f} an export); "
+        f"prefill admissions {pre['prefill_batches']}, B1 launches "
+        f"{launches}; ledger {ledger}; {sum(gens) / wall:.1f} generated "
+        f"tok/s ({wall:.2f}s)")
+    if h["completed"] != len(frs) or h["bytes"] != payload or \
+            kv != 2 * layers * pre["handoffs"] or ledger["duplicates"] or \
+            ledger["completed"] != len(frs):
+        raise AssertionError(f"disagg ({label}): handoffs {h}, "
+                             f"readbacks {kv}, ledger {ledger}")
+    if launches < len(dec.attn_names) * pre["prefill_batches"]:
+        raise AssertionError(f"disagg ({label}): B1 launched "
+                             f"{launches} times for "
+                             f"{pre['prefill_batches']} admissions")
+    return launches, [fr.result(timeout=0) for fr in frs]
+
+
+def _disagg_kill(card, net, dec, prompts, gens, ref, sinks):
+    """A decode worker killed mid-stream: its streams re-prefill on the
+    prefill pool, nothing lost or duplicated."""
+    router = PhaseRouter(net, prefill_replicas=1, decode_replicas=2,
+                         decoder=dec, transport=InProcessKVTransport(),
+                         **sinks, **DISAGG_KW)
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    router.start()
+    try:
+        deadline = time.monotonic() + 120
+        while router.disagg_stats()["handoffs"]["completed"] < 6 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        router.kill_replica("d0")
+        for fr in frs:
+            fr.result(timeout=300)
+        _fleet_audits(router, "disagg decode kill")
+        handoffs = router.disagg_stats()["handoffs"]
+    finally:
+        router.shutdown()
+    ledger = router.ledger.to_dict()
+    held = _hold_fleet(frs, prompts, gens, ref, False, "disagg decode kill")
+    migrated = held["migrated"]
+    log(f"disagg [{card}]: decode worker d0 killed after "
+        f"{handoffs['completed']} handoffs: {len(frs)} completed, lost 0, "
+        f"duplicated {ledger['duplicates']}, re-prefilled {migrated}; "
+        f"identical to the direct paged engine {held['identical']} "
+        f"(parted {held['parted']}); ledger {ledger}")
+    if ledger["duplicates"] or ledger["completed"] != len(frs) or \
+            not migrated:
+        raise AssertionError(f"disagg decode kill: ledger {ledger}, "
+                             f"migrated {migrated}")
+
+
+def _corruption_round(card, twin, prompts, gens):
+    """On the f32 twin (TF32 off, where a re-prefill decodes as the first
+    pass did): a silent sign flip at rest in r1's pool under the canary's
+    cached prefix; the next canary round quarantines r1 CORRUPT, its
+    streams migrate, and no result differs from the direct engine's."""
+    cfg = IntegrityConfig(kv_verify=False, fault_threshold=1,
+                          canary_tokens=8, canary_prompt=tuple(
+                              int(t) for t in np.arange(20) * 37 + 11))
+    dec = TransformerDecoder(twin, t_max=PAGED_T_MAX, sentinel=True,
+                             logit_bound=cfg.logit_bound)
+    ref_dec = TransformerDecoder(twin, t_max=PAGED_T_MAX, sentinel=True,
+                                 logit_bound=cfg.logit_bound)
+    eng = SlotGenerationEngine(twin, decoder=ref_dec, num_slots=FLEET_SLOTS,
+                               block_size=4, paged=True,
+                               page_size=PAGE_SIZE, integrity=cfg)
+    reqs = [eng.submit(p, g) for p, g in zip(prompts[:8], gens[:8])]
+    eng.run_until_drained()
+    ref = [r.result(timeout=0) for r in reqs]
+    injs = [FaultInjector() for _ in range(FLEET_REPLICAS)]
+    router = EngineFleetRouter(twin, num_replicas=FLEET_REPLICAS,
+                               decoder=dec, integrity=cfg,
+                               replica_injectors=injs, **FLEET_KW).start()
+    try:
+        round1 = router.canary_round()
+        injs[1].corrupt("device.corrupt_page", mode="flip", at=1,
+                        where="registered")
+        router.submit(list(cfg.canary_prompt) + [1, 1], 2,
+                      replica_id="r1").result(timeout=120)
+        frs = [router.submit(p, g, replica_id="r1")
+               for p, g in zip(prompts[:8], gens[:8])]
+        round2 = router.canary_round()
+        for fr in frs:
+            fr.result(timeout=300)
+        states = {rid: router.replica_state(rid)
+                  for rid in router.replica_ids()}
+        _fleet_audits(router, "corruption")
+    finally:
+        router.shutdown()
+    migrated = _hold_fleet(frs, prompts[:8], gens[:8], ref, True,
+                           "corruption")["migrated"]
+    ledger = router.ledger.to_dict()
+    log(f"corruption [{card}] (f32 twin): canary round 1 {round1}, after "
+        f"the flip in r1's pool {round2}; states {states}; corrupt "
+        f"quarantines {int(router.corrupt_quarantines)}; r1's streams "
+        f"migrated {migrated} of 8, corrupted results served 0; ledger "
+        f"{ledger}")
+    if round2.get("r1") != "mismatch" or states.get("r1") != "CORRUPT" or \
+            int(router.corrupt_quarantines) != 1 or ledger["duplicates"] or \
+            any(v != "ok" for r, v in round2.items() if r != "r1"):
+        raise AssertionError(f"corruption: round 2 {round2}, states "
+                             f"{states}")
+
+
+def _autoscale_round(card, net, dec, prompts, gens, ref, sinks):
+    """A burst grows a 1-replica fleet to at most 3; the quiet after it
+    retires the grown replicas through the drain. Prints the decisions."""
+    router = EngineFleetRouter(net, num_replicas=1, decoder=dec,
+                               max_pending=64, **sinks,
+                               **FLEET_KW).start()
+    scaler = BurnRateAutoscaler(
+        router, min_replicas=1, max_replicas=FLEET_REPLICAS,
+        saturation_high=1.5, saturation_low=0.5, scale_up_burn=1e9,
+        scale_down_burn=1e9, up_consecutive=1, down_consecutive=4,
+        cooldown_s=0.3, interval=0.05, drain_budget=20.0).start()
+    try:
+        frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+        grown = 1
+        deadline = time.monotonic() + 300
+        while not all(fr.done() for fr in frs) and \
+                time.monotonic() < deadline:
+            grown = max(grown, len(router.replica_ids()))
+            time.sleep(0.02)
+        deadline = time.monotonic() + 60
+        while len(router.replica_ids()) > 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        scaler.stop()
+        final = router.replica_ids()
+        _fleet_audits(router, "autoscale")
+    finally:
+        scaler.stop()
+        router.shutdown()
+    for fr in frs:
+        fr.result(timeout=0)
+    held = _hold_fleet(frs, prompts, gens, ref, False, "autoscale")
+    ledger = router.ledger.to_dict()
+    decisions = [(e["action"], e.get("replica"),
+                  round(e["signals"]["utilization"], 3))
+                 for e in scaler.history]
+    log(f"autoscale [{card}]: decisions (action, replica, utilization) "
+        f"{decisions}; grown to {grown}, back to {final}; descale moved "
+        f"{held['migrated']}; identical to the direct paged engine "
+        f"{held['identical']} of {len(frs)}; ledger {ledger}")
+    if grown < 2 or final != ["r0"] or ledger["duplicates"] or \
+            ledger["completed"] != len(frs):
+        raise AssertionError(f"autoscale: grown {grown}, final {final}, "
+                             f"ledger {ledger}")
+
+
+def _scrape_telemetry(card, server):
+    import urllib.request
+    bodies = {}
+    for ep in ("/metrics", "/snapshot", "/slo", "/profile",
+               "/traces/recent", "/healthz"):
+        with urllib.request.urlopen(server.url + ep, timeout=30) as r:
+            if r.status != 200:
+                raise AssertionError(f"telemetry {ep}: HTTP {r.status}")
+            bodies[ep] = r.read().decode()
+    metrics = bodies["/metrics"]
+    want = ("fleet_migrations_total", "fleet_replicas",
+            "fleet_kv_handoffs_total", "kv_transfer_bytes_total",
+            "kv_transfer_seconds", "generation_engine_role")
+    missing = [m for m in want if m not in metrics]
+    healthz = json.loads(bodies["/healthz"])
+    snap = json.loads(bodies["/snapshot"])
+    log(f"telemetry [{card}]: {server.url} every endpoint 200 "
+        f"({', '.join(f'{k} {len(v)} B' for k, v in bodies.items())}); "
+        f"/healthz {healthz}; /snapshot sources "
+        f"{sorted(snap.get('sources', {}))}")
+    if missing or not healthz.get("ok") or \
+            not {"fleet", "disagg"} <= set(snap.get("sources", {})):
+        raise AssertionError(f"telemetry: /metrics lacks {missing}, "
+                             f"/healthz {healthz}")
+
+
+def phase_fleet(card, net):
+    """Phase 4e: the in-process fleet on the flagship (module docstring).
+    Returns the B1 launches of the fleet's and the disaggregated tier's
+    admissions."""
+    t_phase = time.perf_counter()
+    prompts, gens = _fleet_requests()
+    dec = TransformerDecoder(net, t_max=PAGED_T_MAX)
+    check_paged_fresh_prefill(net, dec, prompts)
+    ref = _direct_paged(net, dec, prompts, gens)
+    reg, ring = MetricsRegistry(), TraceRing()
+    sinks = {"registry": reg, "trace_store": ring,
+             "slo_tracker": SLOTracker(registry=reg),
+             "flight_recorder": FlightRecorder(registry=reg)}
+    server = TelemetryServer(registry=reg, trace_store=ring,
+                             slo_tracker=sinks["slo_tracker"],
+                             flight_recorder=sinks["flight_recorder"],
+                             host="127.0.0.1", port=0).start()
+    try:
+        # (a) a crash mid-stream: bf16, then the f32 twin
+        b1 = _crash_fleet(card, net, dec, prompts, gens, ref, False,
+                          "bf16 flagship", sinks)
+        twin = _f32_twin(net)
+        dec32 = TransformerDecoder(twin, t_max=PAGED_T_MAX)
+        ref32 = _direct_paged(twin, dec32, prompts, gens)
+        _crash_fleet(card, twin, dec32, prompts, gens, ref32, True,
+                     "f32 twin", sinks)
+        # (b) 1 against 3 replicas, alternating pairs (reported)
+        scale = chaos_soak._fleet_scale_ab(
+            FLEET_REPLICAS, net=net, prompts=prompts, gens=gens, pairs=2,
+            warm=False, num_slots=FLEET_SLOTS, block_size=4, paged=True,
+            page_size=PAGE_SIZE, t_max=PAGED_T_MAX)
+        log(f"fleet [{card}]: aggregate generated tok/s, 1 replica "
+            f"{scale['tok_s_1']} against {FLEET_REPLICAS} "
+            f"{scale['tok_s_n']} (alternating pairs, 24 requests, "
+            f"{FLEET_SLOTS} slots a replica): {scale['speedup']}x")
+        # (c) the disaggregated tier, both transports, then a decode kill
+        # in bf16 against the direct engine (reported), the wire against
+        # the in-process handoff (held: the pages move bit-exactly), and
+        # on the f32 twin against its direct engine (held)
+        n, inproc = _disagg_round(card, net, dec, prompts, gens, ref, False,
+                                  InProcessKVTransport(), sinks,
+                                  "bf16, in process", server)
+        b1 += n
+        n, _ = _disagg_round(card, net, dec, prompts, gens, inproc, True,
+                             SerializedKVTransport(per_page=True), sinks,
+                             "bf16, page frames vs in process")
+        b1 += n
+        _disagg_round(card, twin, dec32, prompts, gens, ref32, True,
+                      InProcessKVTransport(), sinks, "f32 twin, in process")
+        _disagg_kill(card, net, dec, prompts, gens, ref, sinks)
+        # (d) silent corruption, (e) autoscale
+        _corruption_round(card, twin, prompts, gens)
+        _autoscale_round(card, net, dec, prompts, gens, ref, sinks)
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t_phase
+    log(f"fleet phase: {wall:.1f}s wall (limit {FLEET_PHASE_LIMIT_S} s)")
+    if wall > FLEET_PHASE_LIMIT_S:
+        raise AssertionError(f"the fleet phase took {wall:.1f}s")
+    return b1
 
 
 def phase_long_prompt():
@@ -3211,8 +3706,9 @@ def main():
     phase_paged_serving(card, flagship)
     phase_tier(card, flagship)
     phase_serving_host(card, flagship)
+    fleet_launches = phase_fleet(card, flagship)
     del flagship
-    launches = {"shortseq_attention": serving_launches,
+    launches = {"shortseq_attention": serving_launches + fleet_launches,
                 "flash_forward": phase_long_prompt()}
     train = phase_train_flagship(card)
     long = phase_train_long(card)

@@ -40,6 +40,14 @@ scheduling and resilience tier).
   phase profiler's per-block account, and the durable request journal
   (``journal=``; ``streaming/journal.py``). None of them adds a readback:
   each block still costs one ``engine.decode`` readback.
+- Phase specialization for the disaggregated tier
+  (``streaming/disagg.py``): ``phase="prefill"`` engines prefill into
+  pages and hand each request, with its exported pages (a
+  :class:`~.paging.PageFrameSet`, 2 x layers ``kv_handoff`` readbacks),
+  to the ``handoff`` sink instead of decoding it; ``phase="decode"``
+  engines refuse fresh prompts and take requests through :meth:`adopt`,
+  which imports the frames (one host→device copy) and resumes decode at
+  the next position with no prefill.
 
 A JAX ``scan`` becomes a Python loop of device launches that never waits
 for the device; ``jit`` has no counterpart here. Caches and pools are
@@ -48,12 +56,13 @@ temperature is <= 0, else Gumbel-max sampling from bf16-ROUNDED logits
 with a generator seeded per ABSOLUTE step (a Philox generator on the
 card), so a fixed seed gives the same tokens for every block size K.
 
-Not in this slice: the disaggregated handoff (``adopt`` / ``phase``) and
-mesh sharding."""
+Mesh sharding (``mesh=``) is ROADMAP queue A9; the handoff across
+processes (the remote fleet's wire) is queue A8c."""
 
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import threading
 import uuid
@@ -120,6 +129,11 @@ _ENGINE_COUNTERS = {
         ("page_preempted", "requests preempted mid-decode on KV page-pool "
                            "pressure (re-queued at the head; exactly-once "
                            "preserved — re-admission re-prefills)"),
+        ("handoffs", "prefilled requests handed off to the disagg tier "
+                     "(prefill-only engines: KV pages exported, request "
+                     "leaves through the handoff sink)"),
+        ("adopted", "requests adopted with imported KV state (decode-only "
+                    "engines: the disaggregated handoff receive path)"),
         ("spec_blocks", "speculative verify blocks dispatched"),
         ("spec_drafted", "candidate tokens drafted for speculative "
                          "verification"),
@@ -176,6 +190,20 @@ class _CounterView:
         return {key: int(c.value) for key, c in self._children.items()}
 
 
+def _dispatching(fn):
+    """A decoder method that enqueues device work, run under the decoder's
+    dispatch lock: engines sharing one decoder (a fleet's replicas on one
+    card) enqueue one call at a time. Each waiting serve thread sleeps on
+    the lock instead of taking the interpreter lock back from the
+    dispatching one at every operator (each torch operator releases it and
+    takes it back)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._dispatch_lock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
 def _round_up_pow2(n: int, floor: int = 16) -> int:
     p = floor
     while p < n:
@@ -200,6 +228,7 @@ class TransformerDecoder:
     def __init__(self, net, t_max: Optional[int] = None,
                  sentinel: bool = False,
                  logit_bound: Optional[float] = 1e4):
+        self._dispatch_lock = threading.RLock()
         self.sentinel = bool(sentinel)
         self.logit_bound = None if logit_bound is None \
             else float(logit_bound)
@@ -362,14 +391,15 @@ class TransformerDecoder:
         return logits.float()
 
     def _walk_window(self, params, state, caches, tokens, pos0, valid,
-                     ptables=None, last=False):
+                     ptables=None, last=False, fresh=False):
         """One window pass: tokens [B, C] at absolute start positions
         ``pos0`` [B], ``valid`` [B] real tokens a row, written through
         the slab (``chunk_forward``'s per-cell path) or, with ``ptables``,
         through the page tables (``paged_prefill_forward``). Returns the
         logits [B, C, V] f32 at every window position (a verify window),
         or with ``last`` only at each row's last valid position [B, V] (a
-        prefill tail)."""
+        prefill tail). ``fresh``: every row starts at position 0 (see
+        ``SelfAttentionLayer.paged_prefill_forward``)."""
         conf = self.net.conf
         acts = {self.input_name: tokens}
         logits = None
@@ -387,7 +417,7 @@ class TransformerDecoder:
                 else:
                     acts[name], _ = v.layer.paged_prefill_forward(
                         params[name], xs[0], caches[name], ptables, pos0,
-                        valid)
+                        valid, fresh=fresh)
             elif name == self.output_name:
                 h = xs[0]
                 if last:
@@ -464,6 +494,7 @@ class TransformerDecoder:
 
     # ----------------------------------------------------------- programs
     @torch.no_grad()
+    @_dispatching
     def prefill(self, caches, tokens, lengths, temps=None, seed: int = 0):
         """Fill ``caches`` from padded prompts [B, Tp] (+ true lengths [B])
         and return (first selected ids [B], last-position logits [B, V]
@@ -472,6 +503,7 @@ class TransformerDecoder:
         return self._prefill(caches, tokens, lengths, None, temps, seed)
 
     @torch.no_grad()
+    @_dispatching
     def prefill_slots(self, caches, tokens, lengths, slots, temps=None,
                       seed: int = 0):
         """Batched admission: one forward over [M, Tp] writes row i's k/v
@@ -498,6 +530,7 @@ class TransformerDecoder:
                 logits, caches)
 
     @torch.no_grad()
+    @_dispatching
     def prefill_chunk(self, caches, tokens, pos0: int, valid: int,
                       slot: int, temps=None, seed: int = 0, fault_in=None):
         """One slot's prompt window into the slab: tokens [1, C] at
@@ -522,6 +555,7 @@ class TransformerDecoder:
         return self._with_verdict(sel, logits, fault_in), logits, caches
 
     @torch.no_grad()
+    @_dispatching
     def recompute_logits(self, tokens, lengths, temps=None, seed: int = 0):
         """The no-cache baseline step: one full forward over padded
         contexts [B, Tp] (true lengths [B]) and decode_step's selection.
@@ -535,6 +569,7 @@ class TransformerDecoder:
                 logits)
 
     @torch.no_grad()
+    @_dispatching
     def decode_step(self, caches, ids, positions, temps=None, seed: int = 0):
         """One decode step; returns (next ids [B], logits [B, V] f32,
         caches)."""
@@ -547,6 +582,7 @@ class TransformerDecoder:
                 logits, caches)
 
     @torch.no_grad()
+    @_dispatching
     def decode_block(self, caches, ids, positions, temps=None, seed: int = 0,
                      *, block_size: int, eos_ids=None, stopped=None,
                      step0: int = 0, key_salt: int = 0, ptables=None):
@@ -611,6 +647,7 @@ class TransformerDecoder:
 
     # ------------------------------------------------------------- paged
     @torch.no_grad()
+    @_dispatching
     def paged_prefill(self, caches, tokens, pos0, valid, ptables,
                       temps=None, seed: int = 0, fault_in=None):
         """Batched tail prefill into page pools: tokens [M, C] are each
@@ -620,7 +657,10 @@ class TransformerDecoder:
         last-position logits [M, V] f32, caches), like
         :meth:`prefill_slots` (the JAX package's returns (ids, pools)). A
         sentinel decoder returns [M, 2] (id, verdict) ids, the verdict
-        ORed into ``fault_in`` [M] (a chunked tail's earlier windows)."""
+        ORed into ``fault_in`` [M] (a chunked tail's earlier windows).
+        When every row starts at 0 the tails are whole prompts, and their
+        attention takes the helper seam (B1, or B3 past 512 tokens, on the
+        card), as the slab's prefill does."""
         # a tail attends the mapped pages of its whole row
         self._note_program("paged_prefill", np.shape(tokens)[0],
                            np.shape(tokens)[1], self.t_max)
@@ -629,10 +669,12 @@ class TransformerDecoder:
         logits = self._walk_window(
             self._device_params(), self.net._inference_state(), caches,
             self._to_dev(tokens, torch.long), self._to_dev(pos0, torch.long),
-            valid_d, self._to_dev(ptables, torch.long), last=True)
+            valid_d, self._to_dev(ptables, torch.long), last=True,
+            fresh=not np.asarray(pos0).any())
         sel = self._select(logits, temps_d, seed, bool((host_t > 0).any()))
         return self._with_verdict(sel, logits, fault_in), logits, caches
 
+    @_dispatching
     def paged_decode_block(self, caches, ptables, ids, positions,
                            temps=None, seed: int = 0, *, block_size: int,
                            eos_ids=None, stopped=None, step0: int = 0,
@@ -647,6 +689,7 @@ class TransformerDecoder:
                                  key_salt=key_salt, ptables=ptables)
 
     @torch.no_grad()
+    @_dispatching
     def kv_export(self, caches, pids) -> Dict[str, Dict[str, torch.Tensor]]:
         """Gather pages ``pids`` out of every layer's pool: {layer:
         {"k", "v" [n, H, page_size, Dh]}} on the device (see
@@ -656,6 +699,7 @@ class TransformerDecoder:
                 for n in self.attn_names}
 
     @torch.no_grad()
+    @_dispatching
     def kv_import(self, caches, pids, frames):
         """Scatter page frames ({layer: {"k", "v" [n, H, page_size, Dh]}})
         into the pools at ``pids`` in place; returns the pools."""
@@ -667,6 +711,7 @@ class TransformerDecoder:
         return caches
 
     @torch.no_grad()
+    @_dispatching
     def scrub_slot(self, caches, slots):
         """Zero whole slab rows ``slots`` in place (after a sentinel
         fault: a chunk-admitted successor writes only its windows, and
@@ -679,12 +724,14 @@ class TransformerDecoder:
         return caches
 
     @torch.no_grad()
+    @_dispatching
     def scrub_pages(self, caches, pids):
         """Zero pool pages ``pids`` in place before they are reused (the
         same 0 × NaN hazard as :meth:`scrub_slot`). Returns the pools."""
         return self.scrub_slot(caches, pids)
 
     @torch.no_grad()
+    @_dispatching
     def corrupt_page(self, caches, pid: int, mode: str = "nan"):
         """Chaos only: poison pool page ``pid`` in place: NaN fill
         (``"nan"``, trips the sentinel) or sign flip (``"flip"``,
@@ -697,6 +744,7 @@ class TransformerDecoder:
         return caches
 
     @torch.no_grad()
+    @_dispatching
     def corrupt_cache(self, caches, slot: int, pos: int,
                       mode: str = "nan"):
         """Chaos only: poison slab cell (``slot``, ``pos``) in place, as
@@ -710,6 +758,7 @@ class TransformerDecoder:
 
     # ------------------------------------------------------- speculation
     @torch.no_grad()
+    @_dispatching
     def verify_block(self, caches, ids, positions, draft, temps=None,
                      seed: int = 0, *, eos_ids=None, stopped=None,
                      step0: int = 0, key_salt: int = 0, ptables=None):
@@ -743,6 +792,7 @@ class TransformerDecoder:
             key_salt, bool((host_t > 0).any()))
         return out, ids, pos, stop, caches
 
+    @_dispatching
     def paged_verify_block(self, caches, ptables, ids, positions, draft,
                            temps=None, seed: int = 0, *, eos_ids=None,
                            stopped=None, step0: int = 0, key_salt: int = 0):
@@ -1136,7 +1186,8 @@ class SlotGenerationEngine:
                  registry=None, trace_store=None, tracing: bool = True,
                  slo=None, slo_label=None, flight_recorder=None,
                  journal=None, profiler=None,
-                 profiling: Optional[bool] = None):
+                 profiling: Optional[bool] = None, phase: str = "both",
+                 handoff=None):
         if decoder is not None and t_max is not None and \
                 decoder.t_max != t_max:
             raise ValueError(f"shared decoder has t_max {decoder.t_max}, "
@@ -1231,6 +1282,24 @@ class SlotGenerationEngine:
             self._caches = self.decoder.init_cache(self.num_slots)
         self.num_pages = None if self._pager is None \
             else self._pager.num_pages
+        # phase specialization (the disaggregated tier): "prefill" fills
+        # pages and hands every unfinished request to ``handoff`` instead
+        # of decoding it; "decode" refuses fresh prompts and takes
+        # requests through adopt(). Pages are the transfer unit, so both
+        # need the paged cache. Recovery (requeue) stays open on decode
+        # engines: role purity is a routing contract.
+        if phase not in ("both", "prefill", "decode"):
+            raise ValueError(f"phase must be 'both', 'prefill' or "
+                             f"'decode', got {phase!r}")
+        if phase != "both" and self._pager is None:
+            raise ValueError("phase-specialized engines need paged=True: "
+                             "KV pages are the handoff transfer unit")
+        self.phase = phase
+        self._handoff = handoff
+        # (request, PageFrameSet) pairs received by adopt(), admitted by
+        # the serve loop ahead of the prefill queue
+        self._adopted: collections.deque = collections.deque()
+        self._adopt_ctr = 0
         # prefix-page checksums (paged engines with verification on)
         self._kv_verifier: Optional[PageVerifier] = None
         if self._integrity is not None and self._integrity.kv_verify \
@@ -1340,7 +1409,15 @@ class SlotGenerationEngine:
                   "(incl. adopted handoffs awaiting a slot)",
                   ("engine",)).labels(self.engine_id).set_function(
             lambda: (lambda e: 0 if e is None else
-                     len(e._pending))(wself()))
+                     len(e._pending) + len(e._adopted))(wself()))
+        if self.phase != "both":
+            # the role marker the fleet scrape reads each replica's
+            # prefill / decode column from
+            reg.gauge("generation_engine_role",
+                      "phase-specialized engine role (1 = this engine "
+                      "serves the labeled role)",
+                      ("engine", "role")).labels(
+                self.engine_id, self.phase).set(1)
         reg.gauge("generation_active_slots",
                   "cache slots decoding or chunk-prefilling",
                   ("engine",)).labels(self.engine_id).set_function(
@@ -1385,33 +1462,49 @@ class SlotGenerationEngine:
                eos_id: Optional[int] = None,
                deadline: Optional[float] = None,
                route: Optional[str] = None,
-               journal_id: Optional[str] = None) -> GenerationRequest:
+               journal_id: Optional[str] = None,
+               _slo_sync_fail: bool = True,
+               _canary: bool = False) -> GenerationRequest:
         """Queue a request. ``deadline`` is seconds from now; a stopped,
         dead or draining engine, an invalid request, a full queue and
         (with ``shed_headroom``) a projected deadline miss fail the
         returned handle at once. ``route`` labels its SLO record;
         ``journal_id`` pins the id it journals under (a journaled engine
         mints one otherwise), and the ``sub`` record lands before this
-        returns."""
+        returns. ``_slo_sync_fail=False`` (the fleet router) arms the SLO
+        record only once the request is queued, since the router spills
+        past a synchronous fast-fail to another replica; ``_canary=True``
+        (the golden-canary probe) is never journaled or SLO-accounted. A
+        decode-only engine refuses every fresh prompt."""
         req = GenerationRequest(prompt, max_new_tokens, temperature, eos_id,
                                 deadline=deadline)
         req._engine = self
         if journal_id is not None:
             req.journal_id = str(journal_id)
-        elif self._journal is not None:
+        elif self._journal is not None and not _canary:
             req.journal_id = uuid.uuid4().hex[:16]
         if self._tracing:
             req.trace = Trace(store=self._trace_store)
             req.trace.event("submit", engine=self.engine_id,
                             prompt_len=len(req.prompt))
         req._slo_labels = {"replica": self.slo_label, "route": route}
-        req._slo = self._slo
+        if _canary:
+            req._slo_done = True      # never armed anywhere
+        elif _slo_sync_fail:
+            req._slo = self._slo
         with self._lock:
             dead = self._dead
             stopped = self._shutdown or dead is not None
         if stopped:
             # the caller learns the engine is gone even for no-op requests
             req._fail(dead or RuntimeError("SlotGenerationEngine shut down"))
+            return req
+        if self.phase == "decode":
+            # the disagg router sends fresh prompts to prefill workers
+            # only; requeue() and adopt() are this role's intakes
+            req._fail(RuntimeError(
+                "decode-only engine: fresh prompts belong on a prefill "
+                "worker (handoff receives arrive via adopt())"))
             return req
         if len(req.prompt) < 1:
             req._fail(ValueError("empty prompt"))
@@ -1457,6 +1550,10 @@ class SlotGenerationEngine:
                         queue_depth=depth)
                     shed_event = {"queue_depth": depth}
                 else:
+                    # armed before the append: the loop may complete the
+                    # request the instant it is queued
+                    if not _canary:
+                        req._slo = self._slo
                     self._pending.append(req)
         if shed is not None:
             self._flightrec.record("shed", engine=self.engine_id,
@@ -1683,6 +1780,21 @@ class SlotGenerationEngine:
                     else:
                         keep.append(req)
                 self._pending = keep
+            if self._adopted:
+                keep_a: collections.deque = collections.deque()
+                for req, kv in self._adopted:
+                    if req._cancel_requested:
+                        self._stats["cancelled"] += 1
+                        doomed.append((req, Cancelled(
+                            "cancelled while awaiting adoption")))
+                    elif req._expired(now):
+                        self._stats["deadline_exceeded"] += 1
+                        doomed.append((req, DeadlineExceeded(
+                            f"deadline of {req.deadline}s passed while "
+                            "awaiting adoption")))
+                    else:
+                        keep_a.append((req, kv))
+                self._adopted = keep_a
         for req, exc in doomed:
             req._fail(exc)
 
@@ -1787,8 +1899,10 @@ class SlotGenerationEngine:
         free slot joins ONE bucketed prefill_slots call with a single
         readback; a context longer than ``prefill_chunk`` enters chunked
         prefill instead. A recovered request re-prefills prompt + tokens
-        so far."""
+        so far. Adopted handoffs (decode role) admit first: their callers
+        are already consuming tokens."""
         if self._pager is not None:
+            self._admit_adopted()
             return self._admit_paged()
         while True:
             with self._lock:
@@ -2090,6 +2204,7 @@ class SlotGenerationEngine:
             finishers: List[GenerationRequest] = []
             faulted: List[GenerationRequest] = []
             scrub: List[int] = []
+            handoffs: List[Tuple[GenerationRequest, int, np.ndarray]] = []
             to_sum: List[Tuple[np.ndarray, int]] = []
             registered_ctx: Optional[np.ndarray] = None
             jlog: List[Tuple] = []
@@ -2126,6 +2241,10 @@ class SlotGenerationEngine:
                         self._stats["completed"] += 1
                         finishers.append(req)
                         self._release_slot_pages(s)
+                    elif self.phase == "prefill":
+                        # never decodes here: the pages stay mapped until
+                        # the export below ships them
+                        handoffs.append((req, s, ctx))
                     else:
                         self._occupy_locked(s, req, tok, len(ctx))
                 self._carry = None
@@ -2137,6 +2256,10 @@ class SlotGenerationEngine:
             for req in finishers:
                 req._complete()
             self._record_admission(m, t0, t1, t_host, t_journal)
+            # after the wave's bookkeeping, on this thread: each export
+            # releases its slot's pages before the next wave can map it
+            for req, s, ctx in handoffs:
+                self._handoff_one(req, s, ctx)
             if drained or blocked:
                 return
 
@@ -2225,6 +2348,8 @@ class SlotGenerationEngine:
             self._stats["prefill_chunks"] += 1
             chunk_no = self._stats["prefill_chunks"]
         t0 = interval_now()
+        if req._admitted_t is None:
+            req._admitted_t = t0    # the queue wait ends at the first window
         self._faults.fire("engine.prefill")
         seed = rngmod.fold_in(self.seed, CHUNK_SALT | chunk_no)
         temp = np.asarray([req.temperature], np.float32)
@@ -2260,6 +2385,7 @@ class SlotGenerationEngine:
         scrub: List[int] = []
         scrub_slots: List[int] = []
         registered = False
+        handoff_entry = None
         jlog: List[Tuple] = []
         with self._lock:
             if self._shutdown:
@@ -2301,6 +2427,10 @@ class SlotGenerationEngine:
                     self._stats["completed"] += 1
                     finish = req
                     self._release_slot_pages(s)
+                elif self.phase == "prefill":
+                    # the final window's token is the handoff point: the
+                    # pages stay mapped for the export below
+                    handoff_entry = (req, s, ctx)
                 else:
                     self._occupy_locked(s, req, tok, len(ctx))
                     self._carry = None
@@ -2319,6 +2449,8 @@ class SlotGenerationEngine:
                 if self._kv_verifier is not None else [], ctx)
         if finish is not None:
             finish._complete()
+        if handoff_entry is not None:
+            self._handoff_one(*handoff_entry)
 
     def _ensure_decode_pages_locked(self, k: int
                                     ) -> List[GenerationRequest]:
@@ -2388,20 +2520,327 @@ class SlotGenerationEngine:
             max(0.0, 1.0 - written / span), 4)
         return st
 
+    # ------------------------------------------------ disagg handoff
+    def _pool_dtype_name(self) -> str:
+        """The page pool's dtype as a PageFrameSet names it."""
+        pool = next(iter(self._caches.values()))["k"]
+        return str(pool.dtype).replace("torch.", "")
+
+    def _export_pages(self, pids: List[int],
+                      tag: str = "kv_handoff") -> Dict:
+        """Pool pages ``pids`` as host frames {layer: {"k", "v" [n, H,
+        page_size, Dh]}} (bfloat16 as raw uint16 words): one gather a
+        layer, every copy started behind it before any is waited for,
+        then 2 x layers readbacks under ``tag`` (``kv_handoff`` for a
+        disagg export, ``integrity.verify`` for checksums), none of them
+        a decode block's. Each waits on its own copy's event only."""
+        frames = self.decoder.kv_export(self._caches, pids)
+        started = {}
+        for n, kv in frames.items():
+            started[n] = {}
+            for kk, t in kv.items():
+                if t.dtype == torch.bfloat16:   # numpy has no bfloat16
+                    t = t.view(torch.int16)
+                started[n][kk] = start_fetch(t)
+        host = {}
+        for n, kv in started.items():
+            host[n] = {}
+            for kk, hc in kv.items():
+                a = device_fetch(hc, tag=tag)
+                host[n][kk] = a.view(np.uint16) if a.dtype == np.int16 \
+                    else a
+        return host
+
+    def _import_pages(self, pids: List[int], frames: Dict) -> None:
+        """Scatter host frames ({layer: {"k", "v"}}, raw words for
+        bfloat16) into this pool at ``pids``: every frame packed into one
+        host buffer and moved in ONE host→device copy from pinned memory
+        (``ops/transfer.to_device``), then split on the device. Serve-loop
+        thread only."""
+        names = sorted(frames)
+        host = np.stack([np.asarray(frames[n][kk]) for n in names
+                         for kk in ("k", "v")])
+        if host.dtype == np.uint16:
+            host = host.view(np.int16)
+        dev = to_device(host, self.device)
+        if self._pool_dtype_name() == "bfloat16":
+            dev = dev.view(torch.bfloat16)
+        parts = {n: {kk: dev[2 * i + j] for j, kk in enumerate(("k", "v"))}
+                 for i, n in enumerate(names)}
+        self._caches = self.decoder.kv_import(self._caches, pids, parts)
+
+    def _handoff_one(self, req: GenerationRequest, s: int,
+                     ctx: np.ndarray) -> None:
+        """Export slot ``s``'s pages and pass the request, which holds its
+        first token, to the handoff sink (prefill-only engines,
+        serve-loop thread). The frames cover context cells [0, len(ctx))
+        the receiver's decode attends. A quarantine or shutdown racing the
+        export owns the request (and released the pages): nothing
+        ships."""
+        from .paging import PageFrameSet
+        ps = self.page_size
+        n_xfer = (len(ctx) - 1) // ps + 1
+        with self._lock:
+            if self._shutdown:
+                return
+            pages = list(self._slot_pages[s][:n_xfer])
+        t0 = interval_now()
+        layers = self._export_pages(pages)
+        t1 = interval_now()
+        # content checksums only when verification is armed: the
+        # integrity-off handoff stays CRC-only
+        state = PageFrameSet(
+            ps, ctx, layers, dtype=self._pool_dtype_name(),
+            checksums=None if self._kv_verifier is not None else False)
+        # chaos (device.corrupt_page at "handoff"): flip the host frames
+        # after their checksums were stamped, so every CRC downstream
+        # passes and only content verification can catch it
+        plan = self._faults.corruption("device.corrupt_page",
+                                       where="handoff")
+        if plan is not None:
+            from ..observability.integrity import corrupt_host_frames
+            corrupt_host_frames(state, plan["mode"])
+            self._flightrec.record(
+                "corruption_injected", engine=self.engine_id,
+                point="device.corrupt_page", where="handoff",
+                mode=plan["mode"])
+        cancelled = req._cancel_requested
+        with self._lock:
+            if self._shutdown:
+                return          # the drain released the mapping already
+            self._release_slot_pages(s)
+            self._stats["cancelled" if cancelled else "handoffs"] += 1
+        if cancelled:
+            req._fail(Cancelled("cancelled at prefill handoff"))
+            return
+        if req.trace is not None:
+            req.trace.add_span("kv_export", t0, t1, pages=len(pages),
+                               bytes=state.nbytes)
+        if self._tracing:
+            self._flightrec.record(
+                "kv_handoff", engine=self.engine_id, stage="export",
+                pages=len(pages), bytes=state.nbytes,
+                ms=round((t1 - t0) * 1e3, 3))
+        sink = self._handoff
+        if sink is None:
+            req._fail(RuntimeError(
+                "prefill-only engine has no handoff sink"))
+            return
+        try:
+            sink(req, state)
+        except Exception as exc:   # noqa: BLE001 — a broken sink must
+            req._fail(exc)         # not kill the serve loop
+
+    def adopt(self, req: GenerationRequest, kv) -> None:
+        """Take a prefilled request WITH its exported KV state (a
+        :class:`~.paging.PageFrameSet`: ``page_size``, ``tokens``,
+        ``layers``, ``dtype``) — the decode side of the disaggregated
+        handoff. The geometry is checked here (ValueError: the router
+        re-prefills instead); the import runs on the serve loop, which
+        maps pages from this pool (resident same-content chains reused
+        read-only), scatters the frames and resumes decode at position
+        ``len(kv.tokens)``. Like ``requeue``, it bypasses admission
+        control; pool pressure still applies."""
+        if self._pager is None:
+            raise ValueError("adopt() needs a paged engine (pages are "
+                             "the handoff transfer unit)")
+        if int(kv.page_size) != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: frames carry {kv.page_size}, this "
+                f"pool uses {self.page_size} — disaggregated roles must "
+                "share one page geometry")
+        want_dtype = self._pool_dtype_name()
+        if str(getattr(kv, "dtype", "")) != want_dtype:
+            raise ValueError(f"frame dtype {getattr(kv, 'dtype', None)} "
+                             f"!= pool dtype {want_dtype}")
+        for n, pool in self._caches.items():
+            lf = kv.layers.get(n)
+            if lf is None:
+                raise ValueError(f"page frames missing attention vertex "
+                                 f"{n!r}")
+            for kk in ("k", "v"):
+                want = tuple(int(x) for x in pool[kk].shape[1:])
+                got = tuple(int(x) for x in np.shape(lf[kk])[1:])
+                if got != want:
+                    raise ValueError(
+                        f"frame shape {tuple(np.shape(lf[kk]))} does not "
+                        f"match pool page geometry {want} at {n!r}")
+        expect = len(req.prompt) + len(req.generated) - 1
+        if len(kv.tokens) != expect:
+            raise ValueError(
+                f"frame set covers {len(kv.tokens)} context tokens; the "
+                f"request resumes at {expect}")
+        # sampled content verification at intake: a flip anywhere between
+        # export and here fails before a corrupt byte reaches this pool
+        # (a serialized transport's wire decode already verified them)
+        if self._kv_verifier is not None and hasattr(kv, "verify") and \
+                not getattr(kv, "_verified", False):
+            with self._lock:
+                self._adopt_ctr += 1
+                due = self._adopt_ctr % self._integrity.verify_every == 0
+            if due:
+                bad = kv.verify()
+                if bad:
+                    from .paging import PageCorruptionError
+                    with self._lock:
+                        self._stats["kv_page_corruptions"] += 1
+                    self._flightrec.record(
+                        "kv_corruption", engine=self.engine_id,
+                        detector="adopt", pages=len(bad))
+                    raise PageCorruptionError(
+                        f"adopt intake: page content checksum mismatch "
+                        f"on page(s) {bad} — corrupt frames refused")
+        if req.trace is not None:
+            req.trace.event("adopt", engine=self.engine_id,
+                            ctx=len(kv.tokens))
+        # SLO continuity as in requeue: the sink and replica label move,
+        # the created / admitted / first-token clocks do not
+        if not req._slo_done:
+            req._slo = self._slo
+        req._slo_labels = dict(req._slo_labels or {},
+                               replica=self.slo_label)
+        req._submit_t = interval_now()
+        with self._lock:
+            dead = self._dead
+            alive = not (self._shutdown or dead is not None)
+            if alive:
+                req._running = False
+                req._engine = self
+                self._adopted.append((req, kv))
+                self._stats["adopted"] += 1
+        if not alive:
+            req._fail(dead or RuntimeError("SlotGenerationEngine shut down"))
+            return
+        jr = self._journal
+        if jr is not None and req.journal_id is not None:
+            # a replay-inert hop marker, like a takeover's
+            jr.requeued(req)
+            self._hook_journal(req)
+        self._work.set()
+
+    def _admit_adopted(self):
+        """Admit adopted handoffs (serve-loop thread): map and import each
+        request's pages into this pool and install its decode state — no
+        prefill; the shipped pages are the prefill. Resident same-content
+        chains are mapped read-only and only the other frames scatter
+        in."""
+        ps = self.page_size
+        while True:
+            entry = None
+            with self._lock:
+                if self._adopted and not self._shutdown:
+                    free = [s for s in range(self.num_slots)
+                            if self._slots[s] is None and
+                            s not in self._chunking and
+                            not self._slot_pages[s]]
+                    if free:
+                        req, kv = self._adopted.popleft()
+                        self._admitting.append(req)
+                        entry = (free[0], req, kv)
+            if entry is None:
+                return
+            s, req, kv = entry
+            exc = None
+            if req._cancel_requested:
+                exc = Cancelled("cancelled before adoption")
+            elif req._expired():
+                exc = DeadlineExceeded(
+                    f"deadline of {req.deadline}s passed in handoff")
+            if exc is not None:
+                with self._lock:
+                    if not self._unpark(req):
+                        return
+                    self._stats["cancelled" if isinstance(exc, Cancelled)
+                                else "deadline_exceeded"] += 1
+                req._fail(exc)
+                continue
+            tokens = np.asarray(kv.tokens, np.int64).reshape(-1)
+            n_ctx = len(tokens)
+            total = n_ctx // ps + 1     # with the next write's cell
+            shared, start = self._pager.match_and_ref(tokens,
+                                                      max_tokens=n_ctx)
+            fresh = self._pager.alloc(total - len(shared))
+            if fresh is None:
+                for pid in shared:
+                    self._pager.unref(pid)
+                # with work in flight wait at the head (completions free
+                # pages); with none this pool can never hold it: shed
+                requeued = False
+                with self._lock:
+                    if not self._unpark(req):
+                        return
+                    if self._any_active():
+                        self._adopted.appendleft((req, kv))
+                        requeued = True
+                    else:
+                        self._stats["rejected"] += 1
+                if requeued:
+                    return
+                self._flightrec.record(
+                    "shed", engine=self.engine_id, reason="kv_pool_adopt",
+                    pages_needed=total - len(shared))
+                req._fail(RejectedError(
+                    f"KV page pool exhausted on handoff receive: "
+                    f"{total - len(shared)} pages needed, none free "
+                    "after eviction and nothing in flight to free one"))
+                continue
+            pages = shared + fresh
+            n_xfer = min((n_ctx - 1) // ps + 1, int(kv.n_pages))
+            import_idx = list(range(len(shared), n_xfer))
+            t0 = interval_now()
+            if import_idx:
+                self._import_pages(
+                    [pages[j] for j in import_idx],
+                    {n: {kk: np.asarray(lf[kk])[import_idx]
+                         for kk in ("k", "v")}
+                     for n, lf in kv.layers.items()})
+            t1 = interval_now()
+            finish = None
+            with self._lock:
+                if self._shutdown or not self._unpark(req):
+                    # the drain owns the request; these refs go back so
+                    # its harvest audits balanced
+                    for pid in pages:
+                        self._pager.unref(pid)
+                    return
+                self._map_slot_pages(s, pages)
+                # the imported context's full pages become shareable here
+                self._pager.register_chain(tokens, pages[:n_ctx // ps])
+                if req._admitted_t is None:
+                    req._admitted_t = t0
+                tok = int(req.generated[-1])
+                if len(req.prompt) + len(req.generated) >= self.t_max \
+                        or len(req.generated) >= req.max_new_tokens:
+                    # a sender completes its finishers itself
+                    self._stats["completed"] += 1
+                    finish = req
+                    self._release_slot_pages(s)
+                else:
+                    req._running = True
+                    self._occupy_locked(s, req, tok, n_ctx)
+                    self._carry = None    # the pipeline resyncs
+            if req.trace is not None:
+                req.trace.add_span("queued", req._submit_t, t0)
+                req.trace.add_span("kv_import", t0, t1,
+                                   pages=len(import_idx),
+                                   shared_pages=len(shared),
+                                   shared_tokens=start)
+            if self._tracing:
+                self._flightrec.record(
+                    "kv_handoff", engine=self.engine_id, stage="import",
+                    pages=len(import_idx), shared=len(shared),
+                    ms=round((t1 - t0) * 1e3, 3))
+            if self._kv_verifier is not None:
+                self._record_page_sums([(tokens, n_ctx // ps)])
+            if finish is not None:
+                finish._complete()
+
     # ------------------------------------------- KV content integrity
     def _page_sums(self, pids: List[int]) -> List[bytes]:
         """Content checksums of pool pages ``pids``: each layer's k then v
-        bytes in sorted-layer order (PageFrameSet's recipe). One readback
-        a layer and kind, tagged ``integrity.verify``: none is a decode
-        block's."""
-        frames = self.decoder.kv_export(self._caches, pids)
-        host = {}
-        for n, kv in frames.items():
-            host[n] = {}
-            for kk, t in kv.items():
-                if t.dtype == torch.bfloat16:   # numpy has no bfloat16:
-                    t = t.view(torch.int16)     # hash the same bytes
-                host[n][kk] = device_fetch(t, tag="integrity.verify")
+        bytes in sorted-layer order (PageFrameSet's recipe), from one
+        export under the ``integrity.verify`` tag."""
+        host = self._export_pages(pids, tag="integrity.verify")
         names = sorted(host)
         return [page_content_checksum(
                     [host[n][kk][j] for n in names for kk in ("k", "v")])
@@ -2577,7 +3016,7 @@ class SlotGenerationEngine:
         cooldown, with it)."""
         if self._chunking:
             self._advance_chunks()
-        if self.speculative:
+        if self.speculative and self.phase != "prefill":
             with self._lock:
                 cooling = self._spec_cool > 0
                 if cooling:
@@ -2975,12 +3414,16 @@ class SlotGenerationEngine:
         return [r for r in harvested if not r.done()], cause
 
     def _harvest_locked(self) -> List[GenerationRequest]:
-        """Take every request the engine holds (mid-admit, mid-chunk, in
-        a slot, queued, in that order) and reset the slots, the pipeline
+        """Take every request the engine holds (mid-admit, adopted,
+        mid-chunk, in a slot, queued, in that order) and reset the slots, the pipeline
         (in-flight tokens are never read: a resumed request regenerates
         them) and the page mappings; caller holds the engine lock."""
         taken = list(self._admitting)
         self._admitting = []
+        # adoptions not yet in a slot: recovery re-prefills them (their
+        # frames are dropped; a re-prefill regenerates the KV)
+        taken.extend(r for r, _ in self._adopted)
+        self._adopted.clear()
         for s in sorted(self._chunking):
             taken.append(self._chunking[s][0])
         self._chunking = {}
@@ -3001,7 +3444,9 @@ class SlotGenerationEngine:
         or chunk-prefilling)."""
         out = self._stats.snapshot()
         with self._lock:
-            out["queue_depth"] = len(self._pending)
+            # adoptions awaiting a slot are queued work: the disagg
+            # router's least-loaded decode dispatch reads this
+            out["queue_depth"] = len(self._pending) + len(self._adopted)
             out["active_slots"] = sum(r is not None for r in self._slots) + \
                 len(self._chunking)
         return out
@@ -3016,7 +3461,7 @@ class SlotGenerationEngine:
             self._sweep_pending()
             self._admit()
             if not self._any_active():
-                if not self._pending:
+                if not self._pending and not self._adopted:
                     return
                 continue                      # wave finished at token 1
             while self._any_active():

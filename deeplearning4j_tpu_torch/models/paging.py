@@ -539,12 +539,17 @@ class PageFrameSet:
         return name, dt, n_pages, n_ctx, layer_shapes
 
     def _checked(self) -> "PageFrameSet":
+        """Content verification after a decode: raises
+        :class:`PageCorruptionError` naming the corrupt pages; a clean set
+        is marked ``_verified``, so an engine's adopt intake does not
+        sweep the same frames again."""
         bad = self.verify()
         if bad:
             raise PageCorruptionError(
                 f"page content checksum mismatch on page(s) {bad} — "
                 "silent corruption between export and intake (every CRC "
                 "passed)")
+        self._verified = True
         return self
 
     # ------------------------------------------------------ bulk encoding

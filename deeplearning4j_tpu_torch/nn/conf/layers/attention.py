@@ -286,13 +286,22 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         ``valid`` [B] (default the whole window) or past the table's
         reach go to the null page. Returns (out [B, C, n_out], pool)."""
         q, k, v = self._project_qkv(params, x)          # [B, C, H, Dh]
+        w = self._paged_write(pool, ptable, k, v, pos0, valid)
+        out = self._window_attend(q, self._paged_gather(pool["k"], ptable),
+                                  self._paged_gather(pool["v"], ptable), w)
+        return self._project_out(params, out.to(x.dtype)), pool
+
+    def _paged_write(self, pool: Dict, ptable, k, v, pos0, valid):
+        """Write a window's k / v [B, C, H, Dh] through the page tables at
+        absolute positions pos0 + i (cells at or past ``valid`` or past
+        the table's reach go to the null page). Returns the positions
+        [B, C]."""
         pk, pv = pool["k"], pool["v"]
-        c = x.shape[1]
+        c = k.shape[1]
         ps = pk.shape[2]
         n_pages = ptable.shape[1]
-        p0 = pos0.reshape(-1)
-        cols = torch.arange(c, device=x.device)[None, :]
-        w = p0[:, None] + cols                           # [B, C]
+        cols = torch.arange(c, device=k.device)[None, :]
+        w = pos0.reshape(-1)[:, None] + cols             # [B, C]
         keep = w < n_pages * ps
         if valid is not None:
             keep = keep & (cols < valid.reshape(-1)[:, None])
@@ -301,20 +310,33 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         offs = torch.where(keep, w % ps, 0)
         pk[pids, :, offs] = k.to(pk.dtype)
         pv[pids, :, offs] = v.to(pv.dtype)
-        out = self._window_attend(q, self._paged_gather(pk, ptable),
-                                  self._paged_gather(pv, ptable), w)
-        return self._project_out(params, out.to(x.dtype)), pool
+        return w
 
     def paged_prefill_forward(self, params, x, pool: Dict, ptable,
-                              pos0=None, valid=None):
+                              pos0=None, valid=None, fresh: bool = False):
         """Prompt prefill into pages: one window starting at each row's
         ``pos0`` (0 for a fresh prompt, the shared-prefix length after a
-        prefix-cache hit), i.e. :meth:`paged_chunk_forward`."""
+        prefix-cache hit), i.e. :meth:`paged_chunk_forward`. ``fresh``
+        (every row starts at 0, known on the host): the window's queries
+        attend only the window's own keys, so the attention is causal
+        self-attention under the key mask ``valid`` and, where the device
+        has an attention helper (a card), goes through it as the slab's
+        prefill does; the k / v are written through the tables all the
+        same."""
         if pos0 is None:
             pos0 = torch.zeros(x.shape[0], dtype=torch.long,
                                device=x.device)
-        return self.paged_chunk_forward(params, x, pool, ptable, pos0,
-                                        valid)
+        helper = get_helper("attention", x.device) if fresh else None
+        if helper is None:
+            return self.paged_chunk_forward(params, x, pool, ptable, pos0,
+                                            valid)
+        q, k, v = self._project_qkv(params, x)
+        self._paged_write(pool, ptable, k, v, pos0, valid)
+        mask = None
+        if valid is not None:
+            mask = (torch.arange(x.shape[1], device=x.device)[None, :] <
+                    valid.reshape(-1)[:, None]).float()
+        return self._project_out(params, helper(self, q, k, v, mask)), pool
 
 
 @register_config

@@ -15,8 +15,11 @@
   and the roofline join.
 - :mod:`.devstats` — device memory, exact KV-cache bytes and analytic
   per-program costs.
-- :mod:`.integrity` — the numerics sentinel's config and the page
-  verifier.
+- :mod:`.integrity` — the numerics sentinel's config, the page
+  verifier and the fleet's golden canary.
+- :mod:`.telemetry` — :class:`TelemetryServer`: ``/metrics``,
+  ``/snapshot``, ``/slo``, ``/profile``, ``/traces/recent`` and
+  ``/healthz`` over HTTP.
 
 Every duration derives from ONE interval clock, :func:`interval_now`
 (``observability/clock.py``)."""
@@ -25,14 +28,15 @@ from .clock import interval_now
 from .devstats import (DeviceStats, device_memory_snapshot,
                        impl_cost_analysis, kv_cache_stats)
 from .flightrec import FlightRecorder, default_flight_recorder
-from .integrity import (IntegrityConfig, NumericalFault, PageVerifier,
-                        as_integrity, corrupt_host_frames, logits_fault,
-                        page_content_checksum)
+from .integrity import (GoldenCanary, IntegrityConfig, NumericalFault,
+                        PageVerifier, as_integrity, corrupt_host_frames,
+                        logits_fault, page_content_checksum)
 from .metrics import (Counter, DEFAULT_LATENCY_BUCKETS, Gauge, Histogram,
                       MetricsRegistry, default_registry, percentiles)
 from .profiler import (EngineChannel, PhaseProfiler, PhaseTimeline,
                        default_profiler)
 from .slo import SLORecord, SLOTracker, default_slo_tracker
+from .telemetry import TelemetryServer
 from .tracing import Span, Trace, TraceRing, default_trace_ring
 
 __all__ = [
@@ -45,5 +49,6 @@ __all__ = [
     "kv_cache_stats",
     "FlightRecorder", "default_flight_recorder",
     "IntegrityConfig", "NumericalFault", "PageVerifier", "as_integrity",
+    "GoldenCanary", "TelemetryServer",
     "corrupt_host_frames", "logits_fault", "page_content_checksum",
 ]

@@ -13,9 +13,11 @@
   recorded when a page is registered and compared when a later request
   maps it; a mismatch evicts the chain.
 - :func:`corrupt_host_frames` is the chaos payload for host page frames.
-
-The fleet's golden canary and corrupt-replica quarantine belong to the
-serving host tier and are not ported."""
+- :class:`GoldenCanary`: a fixed prompt whose greedy tokens are recorded
+  on the first clean probe and compared on every later one, run through
+  a replica's real serving path. A divergence, or a NumericalFault burn
+  past ``fault_threshold``, makes the fleet router
+  (``streaming/fleet.py``) quarantine the replica as CORRUPT."""
 
 from __future__ import annotations
 
@@ -58,15 +60,29 @@ class IntegrityConfig:
       serving logits, plus ``|logit| <= logit_bound`` when the bound is
       set (None: finite only).
     - ``kv_verify`` / ``kv_verify_rate``: checksum prefix-cache pages at
-      registration, and verify every ``1 / kv_verify_rate``-th hit.
-
-    The JAX config's fleet fields (the golden canary, the corrupt-replica
-    threshold) come with the fleet tier."""
+      registration, and verify every ``1 / kv_verify_rate``-th hit and
+      adopted handoff.
+    - ``canary_period`` (fleet): seconds between golden-canary rounds
+      (None: no prober); ``canary_tokens`` greedy tokens a probe (a
+      prefill-only worker probes with 1), ``canary_prompt`` (None: a
+      fixed prompt inside the vocabulary), ``canary_deadline``.
+    - ``fault_threshold`` / ``fault_window``: NumericalFaults from one
+      replica within the window before the router quarantines it as
+      CORRUPT.
+    - ``replace_corrupt``: the router grows a replacement replica after a
+      corrupt quarantine, when it can build engines."""
 
     sentinel: bool = True
     logit_bound: Optional[float] = 1e4
     kv_verify: bool = True
     kv_verify_rate: float = 0.25
+    canary_period: Optional[float] = None
+    canary_tokens: int = 4
+    canary_prompt: Optional[Tuple[int, ...]] = None
+    canary_deadline: float = 30.0
+    fault_threshold: int = 1
+    fault_window: float = 60.0
+    replace_corrupt: bool = True
 
     @property
     def verify_every(self) -> int:
@@ -192,3 +208,44 @@ def corrupt_host_frames(state, mode: str = "nan", page: int = 0) -> None:
                 arr[j] = np.asarray(float("nan"), arr.dtype)
             else:
                 arr[j] = -arr[j]
+
+
+class GoldenCanary:
+    """Fixed prompt → recorded greedy token sequence, compared probe after
+    probe. The sequence is recorded from the first clean probe of each
+    token budget (every replica shares one decoder, so one recording
+    serves the fleet); a later divergence on any replica is a corruption
+    verdict: weights and programs never change under serving, so only a
+    broken device or cache path can move a greedy output."""
+
+    def __init__(self, prompt: Sequence[int]):
+        self.prompt = tuple(int(t) for t in prompt)
+        if not self.prompt:
+            raise ValueError("canary prompt must be non-empty")
+        self._lock = threading.Lock()
+        self._golden: Dict[int, Tuple[int, ...]] = {}
+
+    @staticmethod
+    def default_prompt(vocab_size: int,
+                       length: int = 6) -> Tuple[int, ...]:
+        """A fixed low-id prompt inside any vocabulary, spread over the
+        first min(vocab, 64) ids."""
+        lim = max(2, min(int(vocab_size), 64))
+        return tuple((7 * i + 3) % lim for i in range(max(1, length)))
+
+    def golden(self, n_tokens: int) -> Optional[Tuple[int, ...]]:
+        with self._lock:
+            return self._golden.get(int(n_tokens))
+
+    def observe(self, n_tokens: int, output: Sequence[int]
+                ) -> Optional[bool]:
+        """Compare one probe's output (prompt + generated) with the
+        recorded run: True match, False mismatch (corruption), None the
+        first clean probe (recorded)."""
+        got = tuple(int(t) for t in output)
+        with self._lock:
+            want = self._golden.get(int(n_tokens))
+            if want is None:
+                self._golden[int(n_tokens)] = got
+                return None
+            return got == want

@@ -307,7 +307,9 @@ class EngineSupervisor(HeartbeatMonitor):
             integrity=old._integrity, speculative=old.speculative,
             spec_k=old.spec_k, spec_ngram=old.spec_ngram,
             spec_threshold=old.spec_threshold,
-            spec_probe_every=old.spec_probe_every)
+            spec_probe_every=old.spec_probe_every,
+            # a disagg worker keeps its role and its handoff sink
+            phase=old.phase, handoff=old._handoff)
         for req in recoverable:      # harvest order: admitting, slots,
             new.requeue(req)         # queue — deterministic resumption
         self.recovered_requests += len(recoverable)
@@ -324,6 +326,15 @@ class EngineSupervisor(HeartbeatMonitor):
         with self._sup_lock:
             eng = self._current_engine()
             return eng.submit(*args, **kwargs)
+
+    def adopt(self, req, kv) -> None:
+        """Adopt a KV handoff through the CURRENT engine (the disagg
+        decode role's intake), serialized against takeovers like
+        ``submit``: imported state never lands in an engine a restart is
+        about to replace."""
+        with self._sup_lock:
+            eng = self._current_engine()
+            eng.adopt(req, kv)
 
     def requeue(self, req) -> None:
         """Re-queue a recovered request through the CURRENT engine — the

@@ -85,6 +85,7 @@ class ParallelInference:
         self.generation_registry = generation_registry
         self.generation_trace_store = generation_trace_store
         self.generation_tracing = bool(generation_tracing)
+        self._telemetry = None
         # durable request journal: a directory turns on the
         # write-ahead log; on the first generate() after a restart the
         # facade recovers every unfinished journaled request (prompt +
@@ -299,8 +300,30 @@ class ParallelInference:
             target = self._gen_supervisor or self._gen_engine
             return None if target is None else target.stats()
 
+    def start_telemetry(self, port: int = 0, host: str = "127.0.0.1",
+                        audit_compiles: bool = False):
+        """Start (or return) this facade's telemetry endpoint
+        (``observability/telemetry.py``): ``/metrics``, ``/snapshot``
+        with the generation stats as a source, ``/traces/recent`` and the
+        rest, over the registry and trace store the generation engine
+        publishes to; ``shutdown()`` stops it. Loopback by default (the
+        endpoint is unauthenticated)."""
+        if self._telemetry is None:
+            from ..observability.telemetry import TelemetryServer
+            self._telemetry = TelemetryServer(
+                registry=self.generation_registry,
+                trace_store=self.generation_trace_store,
+                host=host, port=port,
+                audit_compiles=audit_compiles).add_source(
+                "generation", lambda: self.generation_stats() or {})
+            self._telemetry.start()
+        return self._telemetry
+
     def shutdown(self):
         self._shutdown = True
+        if self._telemetry is not None:
+            self._telemetry.stop()
+            self._telemetry = None
         # detach under the lock, stop OUTSIDE it: stop/shutdown
         # join the serve loop, and a generate() caller blocked on
         # _gen_lock would otherwise wait out the join too. _shutdown is

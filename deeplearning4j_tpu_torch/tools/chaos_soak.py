@@ -1,4 +1,4 @@
-"""Chaos soak of the port's serving host tier: the single-engine rounds of
+"""Chaos soak of the port's serving host tier: the in-process rounds of
 the JAX package's ``scripts/chaos_soak.py``.
 
 - :func:`run_soak` — the supervised crash / wedge round: a seeded fault
@@ -19,10 +19,25 @@ the JAX package's ``scripts/chaos_soak.py``.
   completion. Bars: zero lost, zero duplicated (``FleetLedger`` over the
   result stream), token-identical to the parent's uninterrupted run, SLO
   queue-wait clocks continuous across both outages.
-- :func:`run_spec_soak` — phase A of the JAX soak's ``--spec`` round: a
-  cyclic-trained LM (so nearly every dispatch is a verify block) under a
-  supervisor, a crash injected mid-verify; bars as in :func:`run_soak`.
-  Its phases B and C need the fleet router (ROADMAP queue A8b).
+- :func:`run_spec_soak` — the ``--spec`` round: a cyclic-trained LM (so
+  nearly every dispatch is a verify block); a supervised crash
+  mid-verify, a fleet replica crash mid-verify, a NaN in a verify
+  forward quarantining its replica.
+- :func:`run_fleet_soak` (``--replicas N``) — N replicas behind an
+  ``EngineFleetRouter``, one crash-killed and one zombied mid-stream:
+  migration exactly once (``FleetLedger``), tokens identical.
+- :func:`run_autoscale_soak` (``--autoscale``) — the
+  ``BurnRateAutoscaler`` grows a 1-replica fleet under a burst and
+  drain-shrinks it back.
+- :func:`run_disagg_soak` (``--disagg``) — a ``PhaseRouter`` over the
+  per-page wire, a mid-handoff transport failure and one worker of each
+  role killed; the transfer byte account exact.
+- :func:`run_corruption_soak` (``--corruption``) — logits NaN, an at-rest
+  page flip, a canary-caught flip, a mid-handoff flip and a degraded
+  journal: every corruption caught before a client sees it.
+
+The process-per-replica rounds (``--remote``, ``--remote-scale``) are
+ROADMAP queue A8c.
 
 By default every round builds a tiny LM on the CUDA card (``device=``,
 or ``--device cpu``, runs it on the CPU); ``net=`` (a ComputationGraph on
@@ -34,6 +49,10 @@ repository root::
     python -m deeplearning4j_tpu_torch.tools.chaos_soak --device cpu
     python -m deeplearning4j_tpu_torch.tools.chaos_soak --process-kill
     python -m deeplearning4j_tpu_torch.tools.chaos_soak --spec
+    python -m deeplearning4j_tpu_torch.tools.chaos_soak --replicas 3
+    python -m deeplearning4j_tpu_torch.tools.chaos_soak --autoscale
+    python -m deeplearning4j_tpu_torch.tools.chaos_soak --disagg
+    python -m deeplearning4j_tpu_torch.tools.chaos_soak --corruption
 """
 
 from __future__ import annotations
@@ -293,14 +312,18 @@ def _profile_round_check(prof, tl0, tl_mid, after_key):
 
 
 def _verify_postmortems(paths, known_trace_ids, expected: int,
-                        id_key: str) -> tuple:
+                        id_key: str, known_harvest_ids=None,
+                        exact: bool = True) -> tuple:
     """Load each post-mortem artifact and check it against the round: the
     embedded traces' request ids equal the ids the recovery harvested
-    (``extra[id_key]``) and belong to this round's requests, the event
-    timeline shows the injected fault, the registry snapshot is there.
-    Returns (archive rows, ok)."""
+    (``extra[id_key]``; ``exact=False`` for the fleet's artifacts, whose
+    harvest lists carry fleet ids, ``known_harvest_ids``) and belong to
+    this round's requests, the event timeline shows the injected fault,
+    the registry snapshot is there. Returns (archive rows, ok)."""
     archive = []
     ok = len(paths) >= expected
+    if known_harvest_ids is None:
+        known_harvest_ids = known_trace_ids
     for path in paths:
         row = {"path": path}
         try:
@@ -317,8 +340,9 @@ def _verify_postmortems(paths, known_trace_ids, expected: int,
                 "harvested": sorted(harvested),
                 "generated_so_far": extra.get("generated_so_far"),
                 "fault_on_timeline": "fault" in kinds,
-                "trace_match": trace_ids == harvested and
-                trace_ids <= known_trace_ids,
+                "trace_match": (trace_ids == harvested or not exact) and
+                trace_ids <= known_trace_ids and
+                harvested <= set(known_harvest_ids),
             })
             row["ok"] = bool(row["trace_match"] and
                              row["fault_on_timeline"] and
@@ -748,20 +772,25 @@ def _process_kill_child(workdir: str, incarnation: int,
 def run_spec_soak(seed: int = 0, n_requests: int = 16, num_slots: int = 2,
                   vocab: int = 12, wait_s: float = 120.0,
                   train_steps: int = 150, device=None) -> dict:
-    """Phase A of the JAX soak's speculative round: a cyclic-trained LM
-    (greedy continuation IS the cycle, so the prompt-lookup drafter
-    predicts nearly every token and nearly every dispatch is a verify
-    block), a paged, sentinel-armed speculative engine under a
-    supervisor, one crash injected at ``engine.step``. Bars: zero
-    stranded, token-identical to the non-speculative reference, >= 1
-    restart, verify blocks flowed, the page audit clean, and no kernel
-    build or weight cast on a post-restart wave."""
+    """The JAX soak's speculative round: a cyclic-trained LM (greedy
+    continuation IS the cycle, so the prompt-lookup drafter predicts
+    nearly every token and nearly every dispatch is a verify block),
+    paged, sentinel-armed speculative engines, three phases. A: one
+    engine under a supervisor, a crash injected at ``engine.step``. B: a
+    3-replica fleet, r0 crashed mid-verify, its streams migrated. C: a
+    NaN in r0's verify forward trips the sentinel and quarantines r0 as
+    CORRUPT. Bars: zero stranded or failed, token-identical to the
+    non-speculative reference, verify blocks flowed, page audits clean,
+    exactly once (B, C), a restart (A) or a migration (B), and no kernel
+    build or weight cast on a post-fault wave."""
     from ..models import lm_batch
     from ..models.generation import SlotGenerationEngine, TransformerDecoder
     from ..observability.integrity import IntegrityConfig
     from ..ops.dataset import DataSet
     from ..parallel.failures import EngineSupervisor
     from ..parallel.faults import FaultInjector
+    from ..streaming.fleet import (REPLICA_ALIVE, REPLICA_CORRUPT,
+                                   EngineFleetRouter)
 
     rng = np.random.default_rng(seed)
     net = _tiny_lm(vocab, max_length=64, device=device)
@@ -824,11 +853,798 @@ def run_spec_soak(seed: int = 0, n_requests: int = 16, num_slots: int = 2,
                "spec_blocks": spec_blocks,
                "steady_new_builds": (b[0] - builds0[0]) + (b[1] - builds0[1]),
                "page_audit": audit}
-    ok = (not stranded and not mismatch and not failed and
-          stats["restarts"] >= 1 and spec_blocks > 0 and
-          phase_a["steady_new_builds"] == 0 and not audit)
+    a_ok = (not stranded and not mismatch and not failed and
+            stats["restarts"] >= 1 and spec_blocks > 0 and
+            phase_a["steady_new_builds"] == 0 and not audit)
+
+    # ---- B: a fleet replica crashes mid-verify; its streams migrate
+    injs = [FaultInjector() for _ in range(3)]
+    injs[0].raise_once("engine.step", RuntimeError(
+        "spec soak: replica kill"), at=3)
+    router = EngineFleetRouter(
+        net, num_replicas=3, decoder=dec, num_slots=num_slots,
+        speculative=True, spec_k=sk, replica_injectors=injs,
+        heartbeat_interval=0.03, monitor_interval=0.03,
+        suspect_after=0.25, dead_after=1.0, **spec_kw).start()
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    b_stranded = _wait_all(frs, wait_s)
+    _, b_failed, b_mismatch, _ = _score(frs, expected)
+    for i2 in injs:
+        i2.clear()
+    states = {rid: router.replica_state(rid)
+              for rid in router.replica_ids()}
+    survivors = [rid for rid, st in states.items() if st == REPLICA_ALIVE]
+    builds0 = _builds(dec)
+    wave = [router.submit(prompts[i % n_requests], gens[i % n_requests],
+                          replica_id=rid)
+            for rid in survivors for i in range(2)]
+    b_stranded += _wait_all(wave, 60.0)
+    b = _builds(dec)
+    b_spec_blocks = _spec_blocks(router)
+    b_audit = _page_audit(router)
+    b_migrations = int(router.migrations)
+    router.shutdown()
+    ledger_b = router.ledger.to_dict()
+    phase_b = {"stranded": len(b_stranded), "mismatches": b_mismatch,
+               "failed": b_failed, "states": states,
+               "migrations": b_migrations, "survivors": survivors,
+               "spec_blocks": b_spec_blocks, "ledger": ledger_b,
+               "steady_new_builds": (b[0] - builds0[0]) +
+                                    (b[1] - builds0[1]),
+               "page_audit": b_audit}
+    b_ok = (not b_stranded and not b_mismatch and not b_failed and
+            b_migrations >= 1 and len(survivors) >= 2 and
+            b_spec_blocks > 0 and ledger_b["duplicates"] == 0 and
+            phase_b["steady_new_builds"] == 0 and not b_audit)
+
+    # ---- C: the sentinel trips on a NaN in the verify forward
+    injs_c = [FaultInjector() for _ in range(3)]
+    injs_c[0].corrupt("device.corrupt_logits", mode="nan", at=2)
+    router_c = EngineFleetRouter(
+        net, num_replicas=3, decoder=dec, num_slots=num_slots,
+        speculative=True, spec_k=sk, replica_injectors=injs_c,
+        heartbeat_interval=0.03, monitor_interval=0.03,
+        suspect_after=0.25, dead_after=1.0, **spec_kw).start()
+    frs_c = [router_c.submit(p, g) for p, g in zip(prompts, gens)]
+    c_stranded = len(_wait_all(frs_c, wait_s))
+    _, c_failed, c_mismatch, _ = _score(frs_c, expected)
+    states_c = {rid: router_c.replica_state(rid)
+                for rid in router_c.replica_ids()}
+    c_quarantines = int(router_c.corrupt_quarantines)
+    c_spec_blocks = _spec_blocks(router_c)
+    c_audit = _page_audit(router_c)
+    router_c.shutdown()
+    ledger_c = router_c.ledger.to_dict()
+    phase_c = {"stranded": c_stranded, "mismatches": c_mismatch,
+               "failed": c_failed, "states": states_c,
+               "corrupt_quarantines": c_quarantines,
+               "spec_blocks": c_spec_blocks, "ledger": ledger_c,
+               "page_audit": c_audit}
+    c_ok = (not c_stranded and not c_mismatch and not c_failed and
+            REPLICA_CORRUPT in states_c.values() and c_quarantines >= 1
+            and c_spec_blocks > 0 and ledger_c["duplicates"] == 0 and
+            not c_audit)
     return {"seed": seed, "requests": n_requests, "phase_a": phase_a,
-            "ok": bool(ok)}
+            "phase_b": phase_b, "phase_c": phase_c,
+            "phase_ok": {"a": a_ok, "b": b_ok, "c": c_ok},
+            "ok": bool(a_ok and b_ok and c_ok)}
+
+
+# ------------------------------------------------------------------ fleet
+def _wait_all(handles, wait_s: float) -> list:
+    """Wait for every handle up to one shared deadline; the stranded."""
+    deadline = time.monotonic() + wait_s
+    for h in handles:
+        h._done.wait(max(0.0, deadline - time.monotonic()))
+    return [h for h in handles if not h.done()]
+
+
+def _score(handles, expected) -> tuple:
+    """(completed, failed, mismatches, failure causes) against the clean
+    run's outputs."""
+    completed = failed = mismatches = 0
+    causes = []
+    for h, want in zip(handles, expected):
+        if h.state == h.DONE:
+            completed += 1
+            if not np.array_equal(h.result(0), want):
+                mismatches += 1
+        else:
+            failed += 1
+            causes.append(f"{getattr(h, 'request_id', '?')}: "
+                          f"{type(h._error).__name__}: {h._error}"[:200])
+    return completed, failed, mismatches, causes
+
+
+def _inner_engines(router):
+    for rid, rep in sorted(router._replicas.items()):
+        yield rid, (rep.engine.engine if rep.supervised else rep.engine)
+
+
+def _page_audit(router) -> list:
+    """Every replica's allocator audit (survivors and harvested corpses)."""
+    bad = []
+    for rid, eng in _inner_engines(router):
+        if getattr(eng, "_pager", None) is not None:
+            bad += [f"{rid}: {p}" for p in eng._pager.audit(eng._slot_pages)]
+    return bad
+
+
+def _spec_blocks(router) -> int:
+    return sum(int(eng.stats()["spec_blocks"])
+               for _, eng in _inner_engines(router))
+
+
+def run_fleet_soak(seed: int = 0, replicas: int = 3, n_requests: int = 24,
+                   num_slots: int = 2, max_new: int = 6, vocab: int = 12,
+                   wait_s: float = 120.0, steady_wave: int = 2,
+                   fleet_scale: bool = True,
+                   postmortem_dir: Optional[str] = None,
+                   paged: bool = False, profile: bool = False,
+                   device=None) -> dict:
+    """The fleet round of the JAX soak (``--replicas N``): N replicas
+    behind an ``EngineFleetRouter`` under load, r0 crash-killed
+    mid-stream and (N >= 3) r1 zombied (its steps crawl while its
+    heartbeat goes silent, so the monitor declares it DEAD and migration
+    re-dispatches clones, whose zombie twins' late completions must be
+    fenced). Bars: zero stranded or failed, tokens identical to a clean
+    single engine, at least one migration, the ledger's completions
+    exactly the requests, no kernel build or weight cast on a wave
+    pinned to each survivor, and (``paged``) every allocator audit
+    clean. ``fleet_scale`` adds the 1 → N aggregate tok/s A/B
+    (:func:`_fleet_scale_ab`), reported, not a bar."""
+    from ..models.generation import SlotGenerationEngine, TransformerDecoder
+    from ..observability.flightrec import FlightRecorder
+    from ..observability.metrics import default_registry
+    from ..parallel.faults import FaultInjector
+    from ..streaming.fleet import REPLICA_ALIVE, EngineFleetRouter
+
+    rng = np.random.default_rng(seed)
+    net = _tiny_lm(vocab, device=device)
+    dec = TransformerDecoder(net)
+    prompts = [rng.integers(0, vocab, int(rng.integers(2, 5)))
+               for _ in range(n_requests)]
+    gens = [int(rng.integers(2, max_new + 1)) for _ in range(n_requests)]
+    summary = {"seed": seed, "replicas": replicas, "requests": n_requests,
+               "paged": bool(paged)}
+    eng_kw = {"paged": True, "page_size": 8} if paged else {}
+    prof = tl0 = tl_mid = None
+    if profile:
+        from ..observability.profiler import default_profiler
+        prof = default_profiler()
+        tl0 = prof.timeline.total_added
+
+    clean = SlotGenerationEngine(net, num_slots=num_slots, decoder=dec)
+    clean_reqs = [clean.submit(p, g) for p, g in zip(prompts, gens)]
+    clean.run_until_drained()
+    expected = [r.result(1) for r in clean_reqs]
+
+    # one injector per replica: replicas never share a hit counter, so a
+    # seed reproduces the same deaths
+    per_rep = max(1, (sum(gens) // max(1, num_slots)) // replicas)
+    crash_hit = int(rng.integers(2, max(3, per_rep)))
+    flightrec = FlightRecorder() if postmortem_dir else None
+    injs = [FaultInjector(flight_recorder=flightrec)
+            for _ in range(replicas)]
+    injs[0].raise_once("engine.step", RuntimeError(
+        f"fleet soak: r0 crash at step hit {crash_hit}"), at=crash_hit)
+    zombie = replicas >= 3
+    if zombie:
+        injs[1].hang_for("engine.step", seconds=0.15, at=1,
+                         times=8 * max(1, per_rep))
+        injs[1].drop("fleet.heartbeat", n=1_000_000, at=2)
+    summary["crash_hit"] = crash_hit
+    summary["zombie"] = "r1" if zombie else None
+
+    router = EngineFleetRouter(
+        net, num_replicas=replicas, decoder=dec, num_slots=num_slots,
+        replica_injectors=injs, heartbeat_interval=0.03,
+        monitor_interval=0.03, suspect_after=0.15, dead_after=0.4,
+        recover_beats=3, flight_recorder=flightrec,
+        postmortem_dir=postmortem_dir, **eng_kw).start()
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    stranded = _wait_all(frs, wait_s)
+    if prof is not None:
+        tl_mid = prof.timeline.total_added
+
+    # a wave pinned to each survivor: nothing built, nothing cast
+    for inj in injs:
+        inj.clear()
+    survivors = [rid for rid in router.replica_ids()
+                 if router.replica_state(rid) == REPLICA_ALIVE]
+    builds0 = _builds(dec)
+    wave = [router.submit(prompts[i % n_requests], gens[i % n_requests],
+                          replica_id=rid)
+            for rid in survivors for i in range(steady_wave)]
+    stranded += _wait_all(wave, 60.0)
+    builds1 = _builds(dec)
+    fleet_table = router.fleet_stats()
+    if paged:
+        summary["page_audit"] = _page_audit(router)
+    router.shutdown()       # the zombie's leftovers land in the ledger
+    ledger = router.ledger.to_dict()
+    ledger_consistent = ledger["completed"] == \
+        n_requests + len(wave) - int(router.shed)
+
+    completed, failed, mismatches, causes = _score(frs, expected)
+    summary.update({
+        "stranded": len(stranded), "mismatches": mismatches,
+        "completed": completed, "failed": failed, "failure_causes": causes,
+        "shed": int(router.shed), "migrations": int(router.migrations),
+        "migrated_requests": sum(fr.migrations > 0 for fr in frs),
+        "survivors": survivors,
+        "dead": [rid for rid in router.replica_ids()
+                 if rid not in survivors],
+        "ledger": ledger, "ledger_consistent": ledger_consistent,
+        "steady_new_builds": (builds1[0] - builds0[0]) +
+                             (builds1[1] - builds0[1]),
+        "injector": {f"r{i}": inj.counters() for i, inj in enumerate(injs)},
+        "fleet": fleet_table,
+        "metrics": default_registry().snapshot(),
+    })
+    ok = (not stranded and not mismatches and not failed and
+          summary["migrations"] > 0 and ledger_consistent and
+          ledger["duplicates"] == 0 and summary["steady_new_builds"] == 0
+          and not summary.get("page_audit"))
+    if prof is not None:
+        doc, prof_ok = _profile_round_check(prof, tl0, tl_mid,
+                                            "recorded_after_migration")
+        doc["engines_profiled"] = len(prof.channels())
+        summary["profile"] = doc
+        summary["profile_ok"] = prof_ok
+        ok = ok and prof_ok
+    if postmortem_dir:
+        # one artifact per replica death, written before its re-dispatch:
+        # every migrated request is in some artifact's harvest list
+        known = {fr.trace.request_id
+                 for fr in list(frs) + list(wave) + list(clean_reqs)
+                 if fr.trace is not None}
+        archive, pm_ok = _verify_postmortems(
+            flightrec.dumps, known, expected=len(summary["dead"]),
+            id_key="fleet_request_ids",
+            known_harvest_ids={fr.request_id for fr in frs + wave},
+            exact=False)
+        harvested = set()
+        for row in archive:
+            harvested |= set(row.get("harvested", ()))
+        migrated_ids = {fr.request_id for fr in frs if fr.migrations > 0}
+        summary["postmortems"] = archive
+        summary["postmortem_ok"] = bool(
+            pm_ok and len(flightrec.dumps) >= len(summary["dead"]) and
+            migrated_ids <= harvested)
+        ok = ok and summary["postmortem_ok"]
+    if fleet_scale:
+        summary["fleet_scale"] = _fleet_scale_ab(replicas, device=device)
+    summary["ok"] = bool(ok)
+    return summary
+
+
+def _fleet_scale_ab(replicas: int, n_requests: int = 24,
+                    prompt_len: int = 8, gen: int = 16, num_slots: int = 8,
+                    net=None, prompts: Optional[Sequence] = None,
+                    gens: Optional[Sequence[int]] = None, pairs: int = 1,
+                    warm: bool = True, device=None, **router_kw) -> dict:
+    """Aggregate generated tok/s of 1 replica against ``replicas``, no
+    faults, in ``pairs`` alternating pairs (1, N, N, 1, ...), after one
+    warm run each with ``warm`` (a caller whose decoder already served
+    these shapes skips them): every router shares ONE decoder, so the
+    N-replica fleet builds nothing the 1-replica fleet did not. ``net`` /
+    ``prompts`` / ``gens`` default to a d512 4-layer LM (4096 tokens of
+    vocabulary) on ``device`` and seeded 8-token prompts of 16 tokens
+    each. Reported, not a bar: on one card every replica's serve thread
+    launches onto the same device."""
+    from ..models import transformer_lm_conf
+    from ..models.generation import TransformerDecoder
+    from ..nn.graph import ComputationGraph
+    from ..streaming.fleet import EngineFleetRouter
+
+    if net is None:
+        vocab = 4096
+        net = ComputationGraph(transformer_lm_conf(
+            vocab, d_model=512, num_heads=8, num_layers=4, max_length=64,
+            learning_rate=1e-2, seed=5), device=device).init()
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, vocab, prompt_len)
+                   for _ in range(n_requests)]
+    if gens is None:
+        gens = [gen] * len(prompts)
+    dec = TransformerDecoder(net, t_max=router_kw.get("t_max"))
+    import torch
+    sync = torch.cuda.synchronize if net.device.type == "cuda" \
+        else (lambda: None)
+
+    def drain(n: int) -> float:
+        router = EngineFleetRouter(net, num_replicas=n, decoder=dec,
+                                   num_slots=num_slots, tracing=False,
+                                   **router_kw).start()
+        try:
+            sync()
+            t0 = time.perf_counter()
+            frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+            toks = sum(len(fr.result(600)) - len(p)
+                       for fr, p in zip(frs, prompts))
+            sync()
+            return toks / (time.perf_counter() - t0)
+        finally:
+            router.shutdown()
+
+    if warm:
+        drain(1)
+        drain(replicas)
+    one, n_way = [], []
+    for i in range(max(1, int(pairs))):
+        for n in ((1, replicas) if i % 2 == 0 else (replicas, 1)):
+            (one if n == 1 else n_way).append(drain(n))
+    m1, mn = float(np.median(one)), float(np.median(n_way))
+    return {"replicas": replicas, "tok_s_1": [round(x, 1) for x in one],
+            "tok_s_n": [round(x, 1) for x in n_way],
+            "speedup": round(mn / m1, 3) if m1 else None}
+
+
+def run_autoscale_soak(seed: int = 0, max_replicas: int = 3,
+                       num_slots: int = 2, waves: int = 3,
+                       wave_size: int = 8, max_new: int = 6,
+                       vocab: int = 12, wait_s: float = 120.0,
+                       shrink_wait_s: float = 45.0,
+                       prefill_chunk: int = 8,
+                       drain_budget: float = 8.0, device=None) -> dict:
+    """The autoscale round of the JAX soak (``--autoscale``): a 1-replica
+    fleet under EDF, chunked prefill and adaptive K takes a burst of
+    mixed short / long prompts; the :class:`BurnRateAutoscaler` must
+    grow the fleet, then, under a slow trickle, shrink it back to one
+    replica through ``retire_replica``'s preemption drain. Bars: at
+    least one scale-up and one drain-backed scale-down, the fleet back at
+    one replica, nothing lost, failed, shed or duplicated, tokens
+    identical to a clean engine, and a post-shrink wave that builds
+    nothing."""
+    from ..models.generation import SlotGenerationEngine, TransformerDecoder
+    from ..observability.metrics import default_registry
+    from ..streaming.autoscale import BurnRateAutoscaler
+    from ..streaming.fleet import REPLICA_DEAD, EngineFleetRouter
+
+    rng = np.random.default_rng(seed)
+    net = _tiny_lm(vocab, max_length=64, device=device)
+    dec = TransformerDecoder(net)
+    sched = dict(scheduling="edf", prefill_chunk=prefill_chunk,
+                 adaptive_block=True, block_ladder=(1, 2, 4))
+    n_requests = waves * wave_size
+    # half short prompts, half long ones that must chunk; prompt +
+    # generated stays inside t_max 64
+    prompts = [rng.integers(0, vocab, int(rng.integers(2, 6))) if i % 2 == 0
+               else rng.integers(0, vocab, int(rng.integers(18, 31)))
+               for i in range(n_requests)]
+    gens = [int(rng.integers(2, max_new + 1)) for _ in range(n_requests)]
+    summary = {"seed": seed, "requests": n_requests,
+               "max_replicas": max_replicas}
+    clean = SlotGenerationEngine(net, num_slots=num_slots, decoder=dec,
+                                 **sched)
+    clean_reqs = [clean.submit(p, g) for p, g in zip(prompts, gens)]
+    clean.run_until_drained()
+    expected = [r.result(1) for r in clean_reqs]
+
+    router = EngineFleetRouter(
+        net, num_replicas=1, decoder=dec, num_slots=num_slots,
+        max_pending=max(64, n_requests), heartbeat_interval=0.03,
+        monitor_interval=0.03, suspect_after=0.3, dead_after=1.0,
+        **sched).start()
+    scaler = BurnRateAutoscaler(
+        router, min_replicas=1, max_replicas=max_replicas,
+        saturation_high=1.5, saturation_low=0.5, scale_up_burn=3.0,
+        scale_down_burn=0.9, up_consecutive=1, down_consecutive=8,
+        cooldown_s=0.5, interval=0.05, drain_budget=drain_budget).start()
+
+    # the burst: the queue builds behind the slots, utilization crosses
+    # the threshold, and one saturated tick grows the fleet
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    grown_to = len(router.replica_ids())
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        grown_to = max(grown_to, len(router.replica_ids()))
+        if all(fr.done() for fr in frs):
+            break
+        time.sleep(0.05)
+    stranded = [fr for fr in frs if not fr.done()]
+
+    # a trickle keeps some work live for the descale drain to hand off
+    # while utilization sits under the scale-down threshold
+    trickle = []
+    t_end = time.monotonic() + shrink_wait_s
+    while time.monotonic() < t_end:
+        live = sum(1 for rid in router.replica_ids()
+                   if router.replica_state(rid) != REPLICA_DEAD)
+        if live <= 1 and router.stats()["scale_downs"] >= 1:
+            break
+        if len(trickle) < 40:
+            j = len(trickle) % n_requests
+            trickle.append(router.submit(prompts[j], gens[j]))
+        time.sleep(0.3)
+    stranded += _wait_all(trickle, wait_s)
+
+    # the scaler stops first: the wave's own load must not regrow it
+    scaler.stop()
+    builds0 = _builds(dec)
+    wave = [router.submit(prompts[i], gens[i])
+            for i in range(min(n_requests, 2 * wave_size))]
+    stranded += _wait_all(wave, wait_s)
+    builds1 = _builds(dec)
+    final_live = len(router.replica_ids())
+    stats = router.stats()
+    router.shutdown()
+    ledger = router.ledger.to_dict()
+
+    handles = list(frs) + list(trickle) + list(wave)
+    refs = list(expected) + [expected[j % n_requests]
+                             for j in range(len(trickle))] + \
+        [expected[i] for i in range(len(wave))]
+    completed, failed, mismatches, causes = _score(handles, refs)
+    summary.update({
+        "completed": completed, "failed": failed, "total": len(handles),
+        "failure_causes": causes, "stranded": len(stranded),
+        "mismatches": mismatches, "grown_to": grown_to,
+        "final_live": final_live, "scale_ups": int(stats["scale_ups"]),
+        "scale_downs": int(stats["scale_downs"]),
+        "descale_moved": int(stats["migrations"]),
+        "trickle": len(trickle), "shed": int(stats["shed"]),
+        "ledger": ledger,
+        "ledger_consistent": ledger["completed"] == len(handles),
+        "steady_new_builds": (builds1[0] - builds0[0]) +
+                             (builds1[1] - builds0[1]),
+        "timeline": [{k: v for k, v in e.items() if k != "signals"}
+                     for e in scaler.history],
+        "scaler": scaler.stats(),
+        "metrics": default_registry().snapshot(),
+    })
+    summary["ok"] = bool(
+        not stranded and not mismatches and not failed and
+        summary["scale_ups"] >= 1 and summary["scale_downs"] >= 1 and
+        grown_to >= 2 and final_live == 1 and summary["shed"] == 0 and
+        ledger["duplicates"] == 0 and summary["ledger_consistent"] and
+        summary["steady_new_builds"] == 0)
+    return summary
+
+
+def run_disagg_soak(seed: int = 0, prefill_workers: int = 2,
+                    decode_workers: int = 2, n_requests: int = 24,
+                    num_slots: int = 2, max_new: int = 8, vocab: int = 12,
+                    wait_s: float = 120.0, steady_wave: int = 2,
+                    prefill_chunk: int = 8, device=None) -> dict:
+    """The disaggregated round of the JAX soak (``--disagg``): a
+    phase-skewed load (short-prompt decode streams with long-prompt
+    bursts) on a :class:`PhaseRouter` over the serialized per-page
+    transport, with three faults mid-stream: an injected transport
+    failure mid-handoff (the frames are lost), a decode worker and a
+    prefill worker crash-killed. Bars: nothing lost, failed or
+    duplicated, tokens identical to one both-phase paged engine, SLO
+    clocks ordered across every handoff, at least one completed and one
+    failed handoff, every allocator audit clean, nothing built on a
+    post-fault wave, and the transfer account exact: shipped bytes ==
+    pages x per-page pool bytes + the token payload."""
+    from ..models.generation import SlotGenerationEngine, TransformerDecoder
+    from ..observability.metrics import default_registry
+    from ..parallel.faults import FaultInjector
+    from ..streaming.disagg import PhaseRouter, SerializedKVTransport
+    from ..streaming.fleet import REPLICA_ALIVE
+
+    page_size = 8
+    rng = np.random.default_rng(seed)
+    net = _tiny_lm(vocab, max_length=64, device=device)
+    dec = TransformerDecoder(net)
+    # two thirds steady decode streams, one third prefill-heavy rows;
+    # prompt + generated stays inside t_max 64
+    prompts, gens = [], []
+    for i in range(n_requests):
+        if i % 3 == 2:
+            prompts.append(rng.integers(0, vocab, int(rng.integers(18, 31))))
+            gens.append(int(rng.integers(2, 4)))
+        else:
+            prompts.append(rng.integers(0, vocab, int(rng.integers(2, 5))))
+            gens.append(int(rng.integers(4, max_new + 1)))
+    transport = SerializedKVTransport(per_page=True, record_ships=True)
+    summary = {"seed": seed, "requests": n_requests,
+               "prefill_workers": prefill_workers,
+               "decode_workers": decode_workers}
+    clean = SlotGenerationEngine(net, num_slots=num_slots, decoder=dec,
+                                 paged=True, page_size=page_size,
+                                 prefill_chunk=prefill_chunk)
+    clean_reqs = [clean.submit(p, g) for p, g in zip(prompts, gens)]
+    clean.run_until_drained()
+    expected = [r.result(1) for r in clean_reqs]
+
+    inj = FaultInjector()
+    inj.raise_once("disagg.ship", RuntimeError(
+        "soak: injected mid-handoff transport failure"), at=3)
+    router = PhaseRouter(
+        net, prefill_replicas=prefill_workers,
+        decode_replicas=decode_workers, decoder=dec, num_slots=num_slots,
+        page_size=page_size, prefill_chunk=prefill_chunk,
+        transport=transport, fault_injector=inj,
+        max_pending=max(64, n_requests), heartbeat_interval=0.03,
+        monitor_interval=0.03, suspect_after=0.2, dead_after=0.6,
+        recover_beats=3).start()
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    # the kills land once streams are live: after the first handoffs
+    deadline = time.monotonic() + wait_s
+    while router.disagg_stats()["handoffs"]["completed"] < 2 and \
+            time.monotonic() < deadline:
+        time.sleep(0.005)
+    router.kill_replica("d0")      # live streams and queued adoptions
+    time.sleep(0.05)
+    router.kill_replica("p0")      # queued prompts
+    stranded = _wait_all(frs, wait_s)
+
+    inj.clear()
+    survivors = [rid for rid in router.replica_ids()
+                 if router.replica_state(rid) == REPLICA_ALIVE]
+    builds0 = _builds(dec)
+    wave = [router.submit(prompts[i % n_requests], gens[i % n_requests])
+            for _ in survivors for i in range(steady_wave)]
+    stranded += _wait_all(wave, 60.0)
+    builds1 = _builds(dec)
+
+    disagg = router.disagg_stats()
+    page_audit = _page_audit(router)
+    page_bytes = None
+    for _, eng in _inner_engines(router):
+        page_bytes = eng._pool_bytes() // eng.num_pages
+    # SLO clocks ordered created <= admitted <= first token although the
+    # admission ran on a prefill worker and the completion on a decode
+    # worker
+    clock_breaks = 0
+    for fr in frs:
+        inner = fr._inner
+        if inner is None or fr.state != fr.DONE:
+            continue
+        c, a, f = inner._created_t, inner._admitted_t, inner._first_token_t
+        if (a is not None and a < c) or \
+                (f is not None and a is not None and f < a):
+            clock_breaks += 1
+    router.shutdown()
+    ledger = router.ledger.to_dict()
+    ledger_consistent = ledger["completed"] == \
+        n_requests + len(wave) - int(router.shed)
+    refs = list(expected) + [expected[(j % steady_wave) % n_requests]
+                             for j in range(len(wave))]
+    completed, failed, mismatches, causes = _score(list(frs) + wave, refs)
+    ship_pages = sum(p for p, _, _ in transport.ships)
+    ship_bytes = sum(b for _, b, _ in transport.ships)
+    ship_tok_bytes = sum(t for _, _, t in transport.ships)
+    counters = disagg["handoffs"]
+    transfer_exact = (
+        page_bytes is not None and counters["bytes"] == ship_bytes and
+        counters["pages"] == ship_pages and
+        ship_bytes == ship_pages * page_bytes + ship_tok_bytes)
+    summary.update({
+        "stranded": len(stranded), "mismatches": mismatches,
+        "completed": completed, "failed": failed, "failure_causes": causes,
+        "total": n_requests + len(wave), "shed": int(router.shed),
+        "migrations": int(router.migrations), "handoffs": counters,
+        "transfer": {"pages": ship_pages, "bytes": ship_bytes,
+                     "token_bytes": ship_tok_bytes,
+                     "page_bytes": page_bytes,
+                     "wire_bytes": transport.wire_bytes,
+                     "exact": transfer_exact},
+        "clock_breaks": clock_breaks, "survivors": survivors,
+        "dead": ["d0", "p0"], "page_audit": page_audit,
+        "ledger": ledger, "ledger_consistent": ledger_consistent,
+        "steady_new_builds": (builds1[0] - builds0[0]) +
+                             (builds1[1] - builds0[1]),
+        "disagg": disagg, "injector": inj.counters(),
+        "metrics": default_registry().snapshot(),
+    })
+    summary["ok"] = bool(
+        not stranded and not mismatches and not failed and
+        clock_breaks == 0 and not page_audit and
+        counters["completed"] >= 1 and counters["failed"] >= 1 and
+        ledger["duplicates"] == 0 and ledger_consistent and
+        transfer_exact and summary["steady_new_builds"] == 0)
+    return summary
+
+
+def run_corruption_soak(seed: int = 0, n_requests: int = 12,
+                        num_slots: int = 2, max_new: int = 6,
+                        vocab: int = 12, wait_s: float = 120.0,
+                        device=None) -> dict:
+    """The silent-data-corruption round of the JAX soak
+    (``--corruption``): every scripted corruption is detected before a
+    client sees a byte of it.
+
+    A. logits NaN (``device.corrupt_logits``) on r0 of a 3-replica paged
+       sentinel fleet under load: the sentinel trips, the block's tokens
+       are dropped, r0 is quarantined CORRUPT, its streams migrate and a
+       replacement grows. Bars: nothing stranded or failed, tokens
+       identical to the clean run, exactly once, audits clean, nothing
+       built on a wave pinned to each survivor.
+    B. an at-rest page flip (``device.corrupt_page`` at ``registered``):
+       the next prefix-cache hit's verification (rate 1.0) catches it,
+       evicts the chain and re-prefills: identical tokens, the
+       corruption counted, the audit clean.
+    C. with verification off, the same flip on the canary prompt's page
+       on r0 of a 2-replica fleet: the next golden-canary round sees the
+       divergence and quarantines r0 as CORRUPT.
+    D. a mid-handoff flip (``device.corrupt_page`` at ``handoff``) on a
+       1 + 1 PhaseRouter over the per-page wire: every CRC passes, the
+       content check at decode refuses the frames, the handoff
+       re-prefills and the stream completes with identical tokens.
+    E. a ``journal.write`` OSError burst: the journal degrades and heals
+       on the next clean write, with no serving failure."""
+    from ..models.generation import SlotGenerationEngine, TransformerDecoder
+    from ..observability.integrity import GoldenCanary, IntegrityConfig
+    from ..observability.metrics import default_registry
+    from ..parallel.faults import FaultInjector
+    from ..streaming.disagg import PhaseRouter, SerializedKVTransport
+    from ..streaming.fleet import (REPLICA_ALIVE, REPLICA_CORRUPT,
+                                   EngineFleetRouter)
+    from ..streaming.journal import RequestJournal
+
+    rng = np.random.default_rng(seed)
+    net = _tiny_lm(vocab, device=device)
+    cfg = IntegrityConfig(kv_verify_rate=1.0, fault_threshold=1)
+    dec = TransformerDecoder(net, sentinel=True, logit_bound=cfg.logit_bound)
+    ps = 8
+    prompts = [rng.integers(0, vocab, int(rng.integers(2, 5)))
+               for _ in range(n_requests)]
+    gens = [int(rng.integers(2, max_new + 1)) for _ in range(n_requests)]
+    summary = {"seed": seed, "requests": n_requests}
+    paged_kw = dict(block_size=4, paged=True, page_size=ps, integrity=cfg)
+    clean = SlotGenerationEngine(net, num_slots=num_slots, decoder=dec,
+                                 **paged_kw)
+    clean_reqs = [clean.submit(p, g) for p, g in zip(prompts, gens)]
+    clean.run_until_drained()
+    expected = [r.result(1) for r in clean_reqs]
+
+    # ---- A: logits NaN → sentinel → CORRUPT quarantine and replacement
+    per_rep = max(1, (sum(gens) // max(1, num_slots)) // 3)
+    nan_hit = int(rng.integers(1, max(2, per_rep)))
+    injs = [FaultInjector() for _ in range(3)]
+    injs[0].corrupt("device.corrupt_logits", mode="nan", at=nan_hit)
+    router = EngineFleetRouter(
+        net, num_replicas=3, decoder=dec, num_slots=num_slots,
+        replica_injectors=injs, heartbeat_interval=0.03,
+        monitor_interval=0.03, suspect_after=0.25, dead_after=1.0,
+        **paged_kw).start()
+    frs = [router.submit(p, g) for p, g in zip(prompts, gens)]
+    stranded = _wait_all(frs, wait_s)
+    completed, failed, mismatches, _ = _score(frs, expected)
+    states = {rid: router.replica_state(rid)
+              for rid in router.replica_ids()}
+    for inj in injs:
+        inj.clear()
+    survivors = [rid for rid, st in states.items() if st == REPLICA_ALIVE]
+    builds0 = _builds(dec)
+    wave = [router.submit(prompts[i % n_requests], gens[i % n_requests],
+                          replica_id=rid)
+            for rid in survivors for i in range(2)]
+    stranded += _wait_all(wave, 60.0)
+    builds1 = _builds(dec)
+    page_audit = _page_audit(router)
+    router.shutdown()
+    ledger = router.ledger.to_dict()
+    steady = (builds1[0] - builds0[0]) + (builds1[1] - builds0[1])
+    summary["phase_a"] = {
+        "nan_hit": nan_hit, "stranded": len(stranded),
+        "mismatches": mismatches, "failed": failed, "states": states,
+        "corrupt_quarantines": int(router.corrupt_quarantines),
+        "migrations": int(router.migrations),
+        "replacement_grown": len(survivors) >= 3, "ledger": ledger,
+        "steady_new_builds": steady, "page_audit": page_audit}
+    a_ok = (not stranded and not mismatches and not failed and
+            REPLICA_CORRUPT in states.values() and
+            int(router.corrupt_quarantines) == 1 and len(survivors) >= 3
+            and ledger["duplicates"] == 0 and steady == 0 and
+            not page_audit)
+
+    # ---- B: an at-rest flip caught by sampled verification
+    inj_b = FaultInjector()
+    eng_b = SlotGenerationEngine(net, num_slots=num_slots, decoder=dec,
+                                 num_pages=64, fault_injector=inj_b,
+                                 **paged_kw)
+    sys_prompt = rng.integers(0, vocab, 2 * ps + 1)      # 2 full pages
+    r1 = eng_b.submit(sys_prompt, 4)
+    eng_b.run_until_drained()
+    want_b = r1.result(1)
+    # the next registration flips the cached chain's first page
+    inj_b.corrupt("device.corrupt_page", mode="flip", at=1,
+                  where="registered")
+    r2 = eng_b.submit(np.concatenate([sys_prompt, [1]]), 4)
+    eng_b.run_until_drained()
+    r2.result(1)
+    r3 = eng_b.submit(sys_prompt, 4)            # a hit on the flipped page
+    eng_b.run_until_drained()
+    out_b = r3.result(1)
+    b_detected = int(eng_b.stats()["kv_page_corruptions"])
+    b_audit = eng_b._pager.audit(eng_b._slot_pages)
+    eng_b.shutdown()
+    summary["phase_b"] = {"detected": b_detected,
+                          "token_identical": bool(np.array_equal(out_b,
+                                                                 want_b)),
+                          "page_audit": b_audit}
+    b_ok = b_detected >= 1 and np.array_equal(out_b, want_b) and \
+        not b_audit
+
+    # ---- C: the golden canary catches a silent flip (verification off:
+    # a flip changes values, not finiteness)
+    cfg_c = IntegrityConfig(kv_verify=False, fault_threshold=1,
+                            canary_tokens=4)
+    dec_c = TransformerDecoder(net, sentinel=True,
+                               logit_bound=cfg_c.logit_bound)
+    injs_c = [FaultInjector(), FaultInjector()]
+    router_c = EngineFleetRouter(
+        net, num_replicas=2, decoder=dec_c, num_slots=num_slots,
+        block_size=4, paged=True, page_size=4, integrity=cfg_c,
+        replica_injectors=injs_c, heartbeat_interval=0.03,
+        monitor_interval=0.03).start()
+    round1 = router_c.canary_round()      # golden recorded, pages cached
+    injs_c[0].corrupt("device.corrupt_page", mode="flip", at=1,
+                      where="registered")
+    # a filler extending the canary prompt shares its first cached page,
+    # which the flip lands on
+    filler = router_c.submit(list(GoldenCanary.default_prompt(vocab)) +
+                             [1, 1], 2, replica_id="r0")
+    filler.result(30)
+    round2 = router_c.canary_round()
+    states_c = {rid: router_c.replica_state(rid)
+                for rid in router_c.replica_ids()}
+    quarantines_c = int(router_c.corrupt_quarantines)
+    router_c.shutdown()
+    summary["phase_c"] = {"round1": round1, "round2": round2,
+                          "states": states_c,
+                          "corrupt_quarantines": quarantines_c}
+    c_ok = (states_c.get("r0") == REPLICA_CORRUPT and quarantines_c >= 1
+            and any(st == REPLICA_ALIVE for st in states_c.values()))
+
+    # ---- D: a mid-handoff flip over the wire
+    inj_d = [FaultInjector(), FaultInjector()]
+    inj_d[0].corrupt("device.corrupt_page", mode="flip", at=1,
+                     where="handoff")
+    router_d = PhaseRouter(
+        net, prefill_replicas=1, decode_replicas=1, decoder=dec,
+        transport=SerializedKVTransport(per_page=True),
+        num_slots=num_slots, block_size=4, page_size=ps, integrity=cfg,
+        replica_injectors=inj_d, heartbeat_interval=0.03,
+        monitor_interval=0.03).start()
+    frs_d = [router_d.submit(p, g) for p, g in zip(prompts[:6], gens[:6])]
+    d_stranded = len(_wait_all(frs_d, wait_s))
+    _, d_failed, d_mismatch, _ = _score(frs_d, expected[:6])
+    d_corrupt = int(router_d._m_kv_corrupt.value)
+    d_handoff_failed = int(router_d._m_handoff["failed"].value)
+    router_d.shutdown()
+    summary["phase_d"] = {"stranded": d_stranded, "mismatches": d_mismatch,
+                          "failed": d_failed, "kv_corruptions": d_corrupt,
+                          "handoffs_failed": d_handoff_failed}
+    d_ok = (not d_stranded and not d_mismatch and not d_failed and
+            d_corrupt >= 1 and d_handoff_failed >= 1)
+
+    # ---- E: journal.write degrades, then heals
+    inj_e = FaultInjector()
+    inj_e.raise_n("journal.write", OSError, n=4, at=3)
+    jdir = tempfile.mkdtemp(prefix="dl4j-corruption-soak-")
+    try:
+        jr = RequestJournal(jdir, fsync="always", retries=1,
+                            retry_backoff=0.001, fault_injector=inj_e)
+        eng_e = SlotGenerationEngine(net, num_slots=num_slots, decoder=dec,
+                                     journal=jr, **paged_kw)
+        reqs_e = [eng_e.submit(p, g) for p, g in zip(prompts, gens)]
+        eng_e.run_until_drained()
+        e_results_ok = all(np.array_equal(r.result(1), want)
+                           for r, want in zip(reqs_e, expected))
+        e_stats = jr.stats()
+        e_healed = not jr.degraded
+        eng_e.shutdown()
+        jr.close()
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    summary["phase_e"] = {
+        "results_ok": e_results_ok, "healed": e_healed,
+        "dropped_records": int(e_stats.get("dropped_records", 0)),
+        "io_errors": int(e_stats.get("io_errors", 0))}
+    e_ok = e_results_ok and e_healed and \
+        int(e_stats.get("io_errors", 0)) >= 1
+
+    summary["metrics"] = default_registry().snapshot()
+    summary["phase_ok"] = {"a": a_ok, "b": b_ok, "c": c_ok, "d": d_ok,
+                           "e": e_ok}
+    summary["ok"] = bool(a_ok and b_ok and c_ok and d_ok and e_ok)
+    return summary
 
 
 def main(argv=None) -> int:
@@ -850,7 +1666,23 @@ def main(argv=None) -> int:
                     help="the SIGKILL / SIGTERM round over a journaled "
                          "child process")
     ap.add_argument("--spec", action="store_true",
-                    help="phase A of the speculative round")
+                    help="the speculative round (supervised crash, fleet "
+                         "crash and NaN quarantine mid-verify)")
+    ap.add_argument("--replicas", type=int, default=None, metavar="N",
+                    help="the fleet round: N replicas behind an "
+                         "EngineFleetRouter, one crash-killed and (N >= 3) "
+                         "one zombied mid-stream")
+    ap.add_argument("--no-fleet-scale", action="store_true",
+                    help="skip the fleet round's 1 -> N tok/s A/B")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="the autoscale round: burst growth and "
+                         "drain-backed shrink")
+    ap.add_argument("--max-replicas", type=int, default=3,
+                    help="the autoscale round's fleet ceiling")
+    ap.add_argument("--disagg", action="store_true",
+                    help="the disaggregated prefill / decode round")
+    ap.add_argument("--corruption", action="store_true",
+                    help="the silent-data-corruption round")
     ap.add_argument("--drain-deadline", type=float, default=8.0)
     ap.add_argument("--device", default=None,
                     help="the tiny LM's device (default: the CUDA card; "
@@ -869,6 +1701,22 @@ def main(argv=None) -> int:
                                         device=args.device)
     elif args.spec:
         summary = run_spec_soak(seed=args.seed, device=args.device)
+    elif args.replicas:
+        summary = run_fleet_soak(seed=args.seed, replicas=args.replicas,
+                                 n_requests=args.requests,
+                                 num_slots=args.slots, max_new=args.max_new,
+                                 fleet_scale=not args.no_fleet_scale,
+                                 postmortem_dir=args.postmortem_dir,
+                                 paged=args.paged, profile=args.profile,
+                                 device=args.device)
+    elif args.autoscale:
+        summary = run_autoscale_soak(seed=args.seed,
+                                     max_replicas=args.max_replicas,
+                                     device=args.device)
+    elif args.disagg:
+        summary = run_disagg_soak(seed=args.seed, device=args.device)
+    elif args.corruption:
+        summary = run_corruption_soak(seed=args.seed, device=args.device)
     else:
         summary = run_soak(seed=args.seed, n_requests=args.requests,
                            num_slots=args.slots, max_new=args.max_new,

@@ -8,7 +8,9 @@ poisoned request with NumericalFault and streaming none of its block; the
 chunked prefill's accumulated verdict; a decoder / engine mismatch
 rejected; ``generate`` raising); and KV-page verification (a flipped
 shared-prefix page caught on the next hit, the chain evicted, the
-allocator balanced)."""
+allocator balanced); the golden canary (the same golden sequence as
+JAX's, a flipped page under a replica's canary prefix quarantining it
+CORRUPT as JAX's router does)."""
 
 import numpy as np
 import pytest
@@ -404,3 +406,70 @@ def test_shared_prefix_flip_detected_chain_evicted(nets):
     _same_outcome(reqs, jreqs)
     _same_counters(eng, jeng)
     assert len(eng._kv_verifier) > 0
+
+
+# --------------------------------------------------------- golden canary
+def test_golden_canary_records_and_compares_as_jax():
+    from deeplearning4j_tpu_torch.observability import GoldenCanary
+    for vocab in (2, 12, 32000):
+        assert GoldenCanary.default_prompt(vocab) == \
+            jintegrity.GoldenCanary.default_prompt(vocab)
+    got, want = GoldenCanary((3, 4)), jintegrity.GoldenCanary((3, 4))
+    for c in (got, want):
+        assert c.observe(2, [3, 4, 5, 6]) is None
+        assert c.observe(2, [3, 4, 5, 6]) is True
+        assert c.observe(2, [3, 4, 5, 7]) is False
+        assert c.observe(1, [3, 4, 9]) is None
+    assert got.golden(2) == want.golden(2) and got.golden(1) == want.golden(1)
+    with pytest.raises(ValueError):
+        GoldenCanary(())
+    assert IntegrityConfig().canary_period is None
+    for field in ("canary_period", "canary_tokens", "canary_prompt",
+                  "canary_deadline", "fault_threshold", "fault_window",
+                  "replace_corrupt"):
+        assert getattr(IntegrityConfig(), field) == \
+            getattr(jintegrity.IntegrityConfig(), field), field
+
+
+def _canary_flip(router_cls, inj_cls, net, cfg, sentinel_dec):
+    injs = [inj_cls(), inj_cls()]
+    router = router_cls(net, num_replicas=2, decoder=sentinel_dec,
+                        num_slots=2, block_size=4, paged=True, page_size=4,
+                        integrity=cfg, replica_injectors=injs)
+    router.start()
+    try:
+        round1 = router.canary_round()
+        golden = router._canary.golden(cfg.canary_tokens)
+        injs[0].corrupt("device.corrupt_page", mode="flip", at=1,
+                        where="registered")
+        prompt = list(router._canary.prompt) + [1, 1]
+        router.submit(prompt, 2, replica_id="r0").result(30)
+        round2 = router.canary_round()
+        states = {rid: router.replica_state(rid)
+                  for rid in router.replica_ids()}
+        return (round1, round2, states, int(router.corrupt_quarantines),
+                golden)
+    finally:
+        router.shutdown()
+
+
+def test_canary_round_quarantines_a_flipped_replica_as_jax(nets):
+    """The fleet's canary records the same golden sequence as JAX's on
+    the first round; a page flipped at rest under r0's canary prefix
+    gives the same verdict in both packages: r0 mismatches and is
+    quarantined CORRUPT, a replacement grows."""
+    from deeplearning4j_tpu.streaming.fleet import \
+        EngineFleetRouter as JaxRouter
+    from deeplearning4j_tpu_torch.streaming import EngineFleetRouter
+    cfg = IntegrityConfig(kv_verify=False, fault_threshold=1,
+                          canary_tokens=4)
+    jcfg = jintegrity.IntegrityConfig(kv_verify=False, fault_threshold=1,
+                                      canary_tokens=4)
+    want = _canary_flip(JaxRouter, JaxFaultInjector, nets["jnet"], jcfg,
+                        nets["jdec_s"])
+    got = _canary_flip(EngineFleetRouter, FaultInjector, nets["net"], cfg,
+                       nets["dec_s"])
+    assert got == want
+    assert got[0] == {"r0": "ok", "r1": "ok"}
+    assert got[1]["r0"] == "mismatch" and got[2]["r0"] == "CORRUPT"
+    assert got[3] == 1 and len(got[4]) == 6 + 4    # prompt + 4 tokens

@@ -302,8 +302,11 @@ def test_double_sigterm_drains_once(nets, tmp_path):
     jr.close()
 
 
-@pytest.mark.parametrize("argv", [[], ["--process-kill"], ["--spec"]],
-                         ids=["soak", "process-kill", "spec"])
+@pytest.mark.parametrize("argv", [[], ["--process-kill"], ["--spec"],
+                                  ["--replicas", "3"], ["--autoscale"],
+                                  ["--disagg"], ["--corruption"]],
+                         ids=["soak", "process-kill", "spec", "replicas",
+                              "autoscale", "disagg", "corruption"])
 def test_soak_entry_points_default_to_the_card(monkeypatch, argv):
     """Each soak round builds its tiny LM on the CUDA card unless asked
     for the CPU: with no card visible, the entry point raises naming

@@ -7,7 +7,9 @@ LM (2 slots): one finished trace per request with the JAX engine's span
 names in its order, trace continuity across a supervisor takeover,
 tracing off recording nothing, ``stats()`` as a view over the registry,
 exact KV-cache bytes on the slab and the pool, the phase profiler's
-telescoping phases, and the analytic program costs."""
+telescoping phases, and the analytic program costs; the telemetry
+endpoint (the same endpoints, statuses, content types, top-level JSON keys
+and 404 listing as JAX's) and ``ParallelInference.start_telemetry``."""
 
 import json
 
@@ -374,3 +376,99 @@ def test_impl_cost_analysis_is_analytic(nets):
     if weights is not None:
         assert step["flops"] == 2 * 2 * weights + attn
     assert costs["prefill_slots"]["flops"] > step["flops"]
+
+
+# ------------------------------------------------------------- telemetry
+def _scrape(url):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+ENDPOINTS = ("/metrics", "/snapshot", "/slo", "/profile", "/traces/recent",
+             "/traces/recent?n=2&status=done", "/healthz", "/profile?timeline=3",
+             "/no/such/endpoint")
+
+
+def _telemetry_docs(mods, engine_cls, net):
+    """Serve 4 requests on a fresh set of sinks, then scrape every
+    endpoint of a TelemetryServer over them: {path: (status, content
+    type, body)}."""
+    metrics, tracing_mod, flightrec, slo, profiler, telemetry = mods
+    reg = metrics.MetricsRegistry()
+    ring = tracing_mod.TraceRing()
+    tracker = slo.SLOTracker(registry=reg)
+    rec = flightrec.FlightRecorder(registry=reg)
+    prof = profiler.PhaseProfiler(reg)
+    eng = engine_cls(net, num_slots=2, registry=reg, trace_store=ring,
+                     slo=tracker, flight_recorder=rec, profiler=prof)
+    for p in _prompts(3, 4):
+        eng.submit(p, 3)
+    eng.run_until_drained()
+    srv = telemetry.TelemetryServer(
+        registry=reg, trace_store=ring, slo_tracker=tracker,
+        flight_recorder=rec, profiler=prof).add_source(
+        "generation", eng.stats).start()
+    try:
+        return {ep: _scrape(srv.url + ep) for ep in ENDPOINTS}
+    finally:
+        srv.stop()
+
+
+def test_telemetry_endpoints_match_jax(nets):
+    """The same endpoint set answers in both packages with the same status,
+    content type and top-level JSON keys, and the same 404 listing; the
+    Prometheus text carries the engine's families."""
+    from deeplearning4j_tpu.observability import profiler as jprofiler
+    from deeplearning4j_tpu.observability import telemetry as jtelemetry
+    from deeplearning4j_tpu_torch.observability import (flightrec, metrics,
+                                                        profiler, slo,
+                                                        telemetry)
+    jnet, net = nets
+    want = _telemetry_docs((jmetrics, jtracing, jflightrec, jslo, jprofiler,
+                            jtelemetry), JaxEngine, jnet)
+    got = _telemetry_docs((metrics, tracing, flightrec, slo, profiler,
+                           telemetry), SlotGenerationEngine, net)
+    for ep in ENDPOINTS:
+        (gs, gt, gb), (ws, wt, wb) = got[ep], want[ep]
+        assert (gs, gt) == (ws, wt), ep
+        if ep == "/metrics":
+            assert gs == 200
+            for fam in ("generation_completed_total",
+                        "generation_queue_depth", "slo_requests_total"):
+                assert fam in gb.decode() and fam in wb.decode(), fam
+            continue
+        g, w = json.loads(gb), json.loads(wb)
+        assert set(g) == set(w), (ep, sorted(set(g) ^ set(w)))
+        if ep == "/no/such/endpoint":
+            assert gs == 404 and g == w
+        elif ep.startswith("/traces"):
+            assert g["count"] == w["count"]
+    snap = json.loads(got["/snapshot"][2])
+    assert snap["sources"]["generation"]["completed"] == 4
+    assert snap["transfers"] == {}
+
+
+def test_parallel_inference_start_telemetry(nets):
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    _, net = nets
+    pi = ParallelInference(net, generation_slots=2,
+                           generation_registry=MetricsRegistry(),
+                           generation_trace_store=TraceRing())
+    try:
+        out = pi.generate(np.array([3, 5]), 4, timeout=30)
+        srv = pi.start_telemetry(port=0)
+        assert pi.start_telemetry() is srv
+        status, _, body = _scrape(srv.url + "/snapshot")
+        doc = json.loads(body)
+        assert status == 200 and len(out) == 6
+        assert doc["sources"]["generation"]["completed"] == 1
+        status, _, body = _scrape(srv.url + "/traces/recent")
+        assert json.loads(body)["count"] == 1
+    finally:
+        pi.shutdown()
+    assert pi._telemetry is None

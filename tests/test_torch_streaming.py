@@ -312,7 +312,9 @@ def test_port_sources_import_no_jax():
                 "streaming/journal.py", "streaming/pubsub.py",
                 "streaming/tcp_broker.py", "streaming/serving.py",
                 "streaming/fleet.py", "parallel/preemption.py",
-                "parallel/inference.py", "tools/chaos_soak.py"):
+                "parallel/inference.py", "tools/chaos_soak.py",
+                "streaming/disagg.py", "streaming/autoscale.py",
+                "observability/telemetry.py", "ui/server.py"):
         assert f"deeplearning4j_tpu_torch/{new}" in names
     bad = []
     for p in files:

@@ -129,6 +129,33 @@ Phases, each an uncaught exception on failure:
    the fleet and disagg series in ``/metrics``, both routers' documents
    in ``/snapshot``, ``/healthz`` ok. The phase prints its wall time and
    fails past 150 s; its B1 launches join the ``kernels`` line.
+4f. the process-per-replica fleet (``phase_remote``): every replica its
+   own OS process (``streaming/remote.py``, started with ``python -m
+   deeplearning4j_tpu_torch.streaming.remote``), serving on the card the
+   flagship at full width in f32 (the model dict ``REMOTE_MODEL``: each
+   worker builds the weights from its seed; pages of 16 where paged,
+   t_max 576, 4 slots, K = 4) on the first 12 of phase 4e's requests,
+   unpaced. ``tools/chaos_soak.run_remote_soak`` rounds A (w0 SIGKILLed
+   mid-stream, respawned, re-adopted at epoch 2), B (1 prefill + 2
+   decode workers, the KV pages across the wire, a decode worker
+   killed; wire bytes equal the prefill worker's count when nothing was
+   fenced), C (w0 SIGSTOPped until DEAD; after SIGCONT its late results
+   fenced, never served) and D (the router process SIGKILLed, its
+   orphans reaped, a fresh one serving the rest, exit 0, first line
+   wins; D runs beside A-C, whose endpoints boot together): nothing
+   lost or duplicated (ledger), tokens identical to the
+   parent's in-process engine built as the workers build theirs, every
+   worker on the card (its hello names ``torch.cuda.get_device_name``)
+   with the parent's weights digest, no nvcc run and no weight cast on
+   any live worker after recovery, B1 launched by the workers (their
+   reported counts join the ``kernels`` line), no worker left alive and
+   the card's free memory back within 1 GB of the phase's start. Then
+   aggregate generated tok/s on the same requests, unpaced, of 1 worker
+   process, 3 worker processes and the in-process ``EngineFleetRouter``
+   of 3 replicas on the same f32 net, in alternating pairs (reported;
+   the two endpoints boot beside the rounds and wait idle). A worker
+   that sends no hello in time fails the phase with its log.
+   The phase prints its wall time and fails past 180 s.
 5. long prompt: the same width at 2 layers, max_length 2048,
    TransformerDecoder.generate on 4 prompts of 1536 tokens (bucket
    T = 2048 > 512): the flash kernel must launch.
@@ -231,6 +258,7 @@ the flash backward's two kernels against SDPA's whole backward.
 """
 
 import copy
+import gc
 import json
 import re
 import shutil
@@ -240,6 +268,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -2351,6 +2380,157 @@ def phase_fleet(card, net):
     return b1
 
 
+# ---------------------------------------------------------------- phase 4f
+#: the remote workers' model dict: the flagship at full width, f32 weights
+#: from its seed in every process
+REMOTE_MODEL = {"vocab": 32000, "d_model": 768, "num_heads": 12,
+                "num_layers": 12, "max_length": 577, "seed": 5}
+REMOTE_ENGINE = {"num_slots": FLEET_SLOTS, "block_size": 4,
+                 "page_size": PAGE_SIZE, "t_max": PAGED_T_MAX}
+#: the first requests of phase 4e's set that the rounds serve
+REMOTE_REQUESTS = 12
+REMOTE_PHASE_LIMIT_S = 180
+#: the card's free memory after the phase, against its start
+REMOTE_MEM_SLACK = 1 << 30
+
+
+def phase_remote(card, model=None, device=None):
+    """Phase 4f: the process-per-replica fleet (module docstring).
+    ``model`` / ``device`` let the phase be rehearsed on the CPU at a
+    small width. Returns the workers' and the parent's B1 launches."""
+    t_phase = time.perf_counter()
+    model = dict(model or REMOTE_MODEL)
+    on_card = device is None
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+        held0 = torch.cuda.memory_reserved()
+    prompts, gens = _fleet_requests()
+    reqs = [{"id": f"req-{i:03d}", "prompt": [int(t) for t in p],
+             "gen": int(g)} for i, (p, g) in
+            enumerate(zip(prompts, gens))][:REMOTE_REQUESTS]
+    # the A/B's endpoints boot beside the rounds, once the rounds' own
+    # endpoints have booted, and wait for them idle
+    ab_eps = chaos_soak.remote_scale_endpoints(
+        model, REMOTE_ENGINE, workers=FLEET_REPLICAS, slow=0.0,
+        hello_deadline=90.0, device=device)
+    ab_pool = ThreadPoolExecutor(len(ab_eps))
+    ab_boot = []
+
+    def boot_ab():
+        ab_boot.extend(ab_pool.submit(ep.start) for ep in ab_eps.values())
+
+    try:
+        t_soak = time.perf_counter()
+        worker_b1, parent_b1 = _remote_rounds(card, model, device, on_card,
+                                              reqs, boot_ab)
+        # (b) 1 against 3 worker processes against 3 in-process replicas
+        t_ab = time.perf_counter()
+        for fut in ab_boot:
+            fut.result()
+        t_booted = time.perf_counter()
+        ab = chaos_soak.run_remote_scale_ab(
+            requests=reqs, model=model, engine=REMOTE_ENGINE, slow=0.0,
+            workers=FLEET_REPLICAS, pairs=2, inprocess=True,
+            hello_deadline=90.0, device=device, endpoints=ab_eps)
+        log(f"remote timeline [{card}]: rounds {t_ab - t_soak:.1f} s, then "
+            f"{t_booted - t_ab:.1f} s waiting for the A/B's boot, the A/B "
+            f"{time.perf_counter() - t_booted:.1f} s")
+    finally:
+        for ep in ab_eps.values():
+            ep.shutdown()
+            shutil.rmtree(ep.workdir, ignore_errors=True)
+        ab_pool.shutdown(wait=True)
+    n = FLEET_REPLICAS
+    log(f"remote A/B [{card}]: aggregate generated tok/s, unpaced, "
+        f"{len(reqs)} requests, {REMOTE_ENGINE['num_slots']} slots a "
+        f"replica, f32: 1 process {ab['tok_s_1p']}, {n} processes "
+        f"{ab[f'tok_s_{n}p']} ({ab['scaling_x']}x), {n} in-process "
+        f"replicas {ab[f'tok_s_{n}_inprocess']} (processes / in-process "
+        f"{ab['process_vs_inprocess_x']}x); spawn to hello s "
+        f"{ab['hello_s']}")
+    left = sorted(chaos_soak.child_pids())
+    if left:
+        raise AssertionError(f"child processes left alive: {left}")
+    if on_card:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free1 = torch.cuda.mem_get_info()[0]
+        held1 = torch.cuda.memory_reserved()
+        log(f"remote memory [{card}]: free {free0 / 2**30:.2f} GiB at the "
+            f"phase's start, {free1 / 2**30:.2f} GiB after it (this "
+            f"process's allocator holds {held0 / 2**30:.2f} and "
+            f"{held1 / 2**30:.2f} GiB)")
+        if free1 < free0 - REMOTE_MEM_SLACK:
+            raise AssertionError(f"the card's free memory fell by "
+                                 f"{(free0 - free1) / 2**30:.2f} GiB")
+    wall = time.perf_counter() - t_phase
+    log(f"remote phase: {wall:.1f}s wall (limit {REMOTE_PHASE_LIMIT_S} s)")
+    if wall > REMOTE_PHASE_LIMIT_S:
+        raise AssertionError(f"the remote phase took {wall:.1f}s")
+    return worker_b1 + parent_b1
+
+
+def _remote_rounds(card, model, device, on_card, reqs, boot_ab):
+    """Phase 4f's rounds A-D and their bars (``boot_ab`` is called once the
+    rounds' endpoints have booted). Returns the workers' and the parent's
+    B1 launches."""
+    reset_launches()
+    soak = chaos_soak.run_remote_soak(
+        seed=0, requests=reqs, model=model, engine=REMOTE_ENGINE, slow=0.0,
+        round_wait_s=120.0, hello_deadline=90.0, device=device,
+        after_boot=boot_ab)
+    parent_b1 = read_launches()["shortseq_attention"]
+    rows = {k: soak.get(f"round_{k}", {}) for k in "abcd"}
+    workers = {f"{k}:{pid}": w for k, row in rows.items()
+               for pid, w in (row.get("workers") or {}).items()}
+    worker_b1 = sum(int(row.get("b1_launches", 0)) for row in rows.values())
+    for k, row in rows.items():
+        brief = {key: row.get(key) for key in (
+            "completed", "lost", "failures", "mismatches", "ledger",
+            "respawn_epoch", "results_at_kill", "wire",
+            "shipped_wire_bytes", "transfer_exact", "held_at_pause",
+            "zombie_fenced", "migrations", "orphans_reaped",
+            "final_exit_code", "steady", "b1_launches", "error")
+            if key in row}
+        log(f"remote round {k.upper()} [{card}]: ok {row.get('ok')} "
+            f"{json.dumps(brief, default=str)}")
+    hello = sorted(round(w["hello_s"], 2) for w in workers.values()
+                   if w.get("hello_s") is not None)
+    names = sorted({str(w.get("device_name")) for w in workers.values()})
+    stages = {}
+    for w in workers.values():
+        for k, v in (w.get("boot") or {}).items():
+            stages.setdefault(k, []).append(v)
+    boot = {k: round(float(np.median(v)), 2) for k, v in stages.items()}
+    log(f"remote workers [{card}]: {len(workers)} incarnations reported, "
+        f"{soak['workers_spawned']} spawned, devices {names}, spawn to "
+        f"hello s {hello} (median seconds a stage, from the worker "
+        f"module's start, and CPU seconds to the hello: {boot}), nvcc "
+        f"runs {sorted({w.get('nvcc_runs') for w in workers.values()})}, "
+        f"B1 launches {worker_b1} (+ {parent_b1} in the parent's "
+        f"references, {soak['reference_s']:.1f} s), round s "
+        f"{soak['round_s']} (A-C in turn, D beside them; endpoints "
+        f"booted at s {soak['boot_s']}), leftover "
+        f"{soak['leftover_pids']}")
+    if not soak["ok"]:
+        for name, tail in (soak.get("worker_logs") or {}).items():
+            log(f"--- {name}:\n{tail}")
+        raise AssertionError(f"remote rounds failed: "
+                             f"{ {k: r.get('ok') for k, r in rows.items()} }")
+    want = torch.cuda.get_device_name(0) if on_card else "cpu"
+    if names != [want]:
+        raise AssertionError(f"a worker served on {names}, not {want}")
+    if any(w.get("nvcc_runs") for w in workers.values()):
+        raise AssertionError("a worker ran nvcc: the parent built every "
+                             "kernel before the workers started")
+    if on_card and worker_b1 <= 0:
+        raise AssertionError("the workers reported no B1 launch")
+    return worker_b1, parent_b1
+
+
 def phase_long_prompt():
     conf = transformer_lm_conf(vocab_size=32000, d_model=768, num_heads=12,
                                num_layers=2, max_length=2048)
@@ -3708,7 +3888,9 @@ def main():
     phase_serving_host(card, flagship)
     fleet_launches = phase_fleet(card, flagship)
     del flagship
-    launches = {"shortseq_attention": serving_launches + fleet_launches,
+    remote_launches = phase_remote(card)
+    launches = {"shortseq_attention": serving_launches + fleet_launches +
+                remote_launches,
                 "flash_forward": phase_long_prompt()}
     train = phase_train_flagship(card)
     long = phase_train_long(card)

@@ -2,9 +2,12 @@
 dl4j-streaming: Kafka + Camel routes for NDArray pub/sub and model
 serving): the in-process and TCP brokers, the serving routes, the durable
 request journal, the engine fleet (router, membership, migration,
-quarantine), the disaggregated prefill/decode tier and the burn-rate
-autoscaler. The process-per-replica fleet (``remote.py``) is ROADMAP
-queue A8c."""
+quarantine), the disaggregated prefill/decode tier, the burn-rate
+autoscaler and the process-per-replica fleet (``remote.py``: every
+replica its own OS process behind one ``FleetEndpoint``; its names load
+on first use, so ``python -m deeplearning4j_tpu_torch.streaming.remote``,
+a worker's entry point, does not find the module imported before it
+runs)."""
 
 from .autoscale import BurnRateAutoscaler
 from .disagg import (InProcessKVTransport, KVTransport, KVTransportError,
@@ -21,6 +24,13 @@ from .pubsub import (MessageBroker, NDArrayPublisher, NDArraySubscriber,
 from .serving import GenerationServingRoute, ModelServingRoute
 from .tcp_broker import TcpBrokerServer, TcpMessageBroker  # registers tcp://
 
+#: remote.py's names, resolved by __getattr__
+_REMOTE = ("RpcFrameError", "RemoteReplicaError", "encode_rpc",
+           "decode_rpc", "CoordinatorKVServer", "CoordinatorKVClient",
+           "RemoteReplicaProxy", "ReplicaProcessLauncher",
+           "RemoteFleetRouter", "FleetEndpoint")
+
+
 __all__ = ["MessageBroker", "NDArrayPublisher", "NDArraySubscriber",
            "NDArrayStreamClient", "create_broker", "register_broker_driver",
            "ModelServingRoute", "GenerationServingRoute", "TcpBrokerServer",
@@ -31,4 +41,10 @@ __all__ = ["MessageBroker", "NDArrayPublisher", "NDArraySubscriber",
            "REPLICA_SUSPECT", "REPLICA_DEAD", "REPLICA_CORRUPT",
            "BurnRateAutoscaler", "KVTransport", "KVTransportError",
            "InProcessKVTransport", "SerializedKVTransport", "PhaseRouter",
-           "PhaseAutoscaler"]
+           "PhaseAutoscaler", *_REMOTE]
+
+def __getattr__(name):
+    if name in _REMOTE:
+        from . import remote
+        return getattr(remote, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

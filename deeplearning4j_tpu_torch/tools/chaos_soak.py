@@ -65,6 +65,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -1185,20 +1186,25 @@ def run_autoscale_soak(seed: int = 0, max_replicas: int = 3,
                        num_slots: int = 2, waves: int = 3,
                        wave_size: int = 8, max_new: int = 6,
                        vocab: int = 12, wait_s: float = 120.0,
-                       shrink_wait_s: float = 45.0,
+                       shrink_wait_s: float = 120.0,
                        prefill_chunk: int = 8,
                        drain_budget: float = 8.0, device=None) -> dict:
     """The autoscale round of the JAX soak (``--autoscale``): a 1-replica
     fleet under EDF, chunked prefill and adaptive K takes a burst of
     mixed short / long prompts; the :class:`BurnRateAutoscaler` must
-    grow the fleet, then, under a slow trickle, shrink it back to one
-    replica through ``retire_replica``'s preemption drain. Bars: at
-    least one scale-up and one drain-backed scale-down, the fleet back at
-    one replica, nothing lost, failed, shed or duplicated, tokens
-    identical to a clean engine, and a post-shrink wave that builds
-    nothing."""
+    grow the fleet, then, under a trickle of one request at a time,
+    shrink it back to one replica through ``retire_replica``'s
+    preemption drain. Bars: at least one scale-up and one drain-backed
+    scale-down, the fleet back at one replica, nothing lost, failed, shed
+    or duplicated, tokens identical to a clean engine, and a post-shrink
+    wave that builds nothing. The round's router and scaler read an SLO
+    tracker and a metrics registry of their own, so requests that other
+    code in the process failed earlier cannot hold its burn rate up; each
+    wait polls for the state its bar needs, under a deadline
+    (``wait_s``, ``shrink_wait_s``) far above its usual length."""
     from ..models.generation import SlotGenerationEngine, TransformerDecoder
-    from ..observability.metrics import default_registry
+    from ..observability.metrics import MetricsRegistry
+    from ..observability.slo import SLOTracker
     from ..streaming.autoscale import BurnRateAutoscaler
     from ..streaming.fleet import REPLICA_DEAD, EngineFleetRouter
 
@@ -1222,16 +1228,19 @@ def run_autoscale_soak(seed: int = 0, max_replicas: int = 3,
     clean.run_until_drained()
     expected = [r.result(1) for r in clean_reqs]
 
+    reg = MetricsRegistry()
     router = EngineFleetRouter(
         net, num_replicas=1, decoder=dec, num_slots=num_slots,
         max_pending=max(64, n_requests), heartbeat_interval=0.03,
         monitor_interval=0.03, suspect_after=0.3, dead_after=1.0,
+        registry=reg, slo_tracker=SLOTracker(registry=reg),
         **sched).start()
     scaler = BurnRateAutoscaler(
         router, min_replicas=1, max_replicas=max_replicas,
         saturation_high=1.5, saturation_low=0.5, scale_up_burn=3.0,
         scale_down_burn=0.9, up_consecutive=1, down_consecutive=8,
-        cooldown_s=0.5, interval=0.05, drain_budget=drain_budget).start()
+        cooldown_s=0.5, interval=0.05, drain_budget=drain_budget,
+        registry=reg).start()
 
     # the burst: the queue builds behind the slots, utilization crosses
     # the threshold, and one saturated tick grows the fleet
@@ -1245,8 +1254,10 @@ def run_autoscale_soak(seed: int = 0, max_replicas: int = 3,
         time.sleep(0.05)
     stranded = [fr for fr in frs if not fr.done()]
 
-    # a trickle keeps some work live for the descale drain to hand off
-    # while utilization sits under the scale-down threshold
+    # a closed-loop trickle: the next request goes in when the last one
+    # ends, so the descale drain finds work live at any speed of the box
+    # while utilization (one request over every slot) sits under the
+    # scale-down threshold; it ends once a scale-down left one replica
     trickle = []
     t_end = time.monotonic() + shrink_wait_s
     while time.monotonic() < t_end:
@@ -1254,10 +1265,10 @@ def run_autoscale_soak(seed: int = 0, max_replicas: int = 3,
                    if router.replica_state(rid) != REPLICA_DEAD)
         if live <= 1 and router.stats()["scale_downs"] >= 1:
             break
-        if len(trickle) < 40:
+        if not trickle or trickle[-1].done():
             j = len(trickle) % n_requests
             trickle.append(router.submit(prompts[j], gens[j]))
-        time.sleep(0.3)
+        trickle[-1]._done.wait(0.05)
     stranded += _wait_all(trickle, wait_s)
 
     # the scaler stops first: the wave's own load must not regrow it
@@ -1292,7 +1303,7 @@ def run_autoscale_soak(seed: int = 0, max_replicas: int = 3,
         "timeline": [{k: v for k, v in e.items() if k != "signals"}
                      for e in scaler.history],
         "scaler": scaler.stats(),
-        "metrics": default_registry().snapshot(),
+        "metrics": reg.snapshot(),
     })
     summary["ok"] = bool(
         not stranded and not mismatches and not failed and
@@ -1646,6 +1657,880 @@ def run_corruption_soak(seed: int = 0, n_requests: int = 12,
     summary["ok"] = bool(a_ok and b_ok and c_ok and d_ok and e_ok)
     return summary
 
+# ------------------------------------------------------ remote fleet soak
+def _remote_requests(seed: int, n_requests: int, vocab: int,
+                     max_new: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"id": f"req-{i:03d}",
+             "prompt": [int(t) for t in
+                        rng.integers(0, vocab, int(rng.integers(2, 5)))],
+             "gen": int(rng.integers(2, max_new + 1))}
+            for i in range(n_requests)]
+
+
+def _tiny_model(vocab: int) -> dict:
+    """The remote rounds' model dict: the soak's tiny LM."""
+    return {"vocab": vocab, "d_model": 32, "num_heads": 2, "num_layers": 2,
+            "max_length": 32, "seed": 5}
+
+
+def _remote_net(model: dict, device=None):
+    """The f32 net a remote worker builds from ``model``, in this
+    process."""
+    from ..models import transformer_lm_conf
+    from ..nn.graph import ComputationGraph
+    return ComputationGraph(transformer_lm_conf(
+        model["vocab"], d_model=model["d_model"],
+        num_heads=model["num_heads"], num_layers=model["num_layers"],
+        max_length=model["max_length"],
+        learning_rate=model.get("learning_rate", 1e-2),
+        seed=model.get("seed", 5)), device=device).init()
+
+
+def _engine_kw(engine: dict, paged: bool) -> dict:
+    """A worker's engine arguments from its config (``RemoteWorker``)."""
+    return {"num_slots": int(engine.get("num_slots", 2)),
+            "block_size": int(engine.get("block_size", 1)),
+            "paged": paged, "page_size": int(engine.get("page_size", 16))}
+
+
+def _remote_reference(net, reqs: list, engine: dict, paged: bool) -> dict:
+    """In-process uninterrupted ground truth, id → full token array, on
+    an engine built as a worker builds its own: every remote round
+    (migrated, handed off, re-served after a router restart) must
+    reproduce it exactly under greedy decoding."""
+    from ..models.generation import SlotGenerationEngine, TransformerDecoder
+    dec = TransformerDecoder(net, t_max=engine.get("t_max"))
+    eng = SlotGenerationEngine(net, decoder=dec, **_engine_kw(engine, paged))
+    handles = [eng.submit(r["prompt"], r["gen"]) for r in reqs]
+    eng.run_until_drained()
+    return {r["id"]: h.result(1) for r, h in zip(reqs, handles)}
+
+
+def _proc_stat(pid) -> Optional[list]:
+    """The fields of ``/proc/<pid>/stat`` after the command name (state,
+    parent pid, ...), or None when the process is gone."""
+    try:
+        with open(f"/proc/{pid}/stat", encoding="ascii") as f:
+            return f.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+
+
+def _pid_alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    st = _proc_stat(int(pid))
+    return st is not None and st[0] != "Z"
+
+
+def child_pids() -> set:
+    """Pids of this process's children that are alive (not zombies)."""
+    me, out = str(os.getpid()), set()
+    for name in os.listdir("/proc"):
+        st = _proc_stat(name) if name.isdigit() else None
+        if st is not None and st[1] == me and st[0] != "Z":
+            out.add(int(name))
+    return out
+
+
+def _worker_rows(ep) -> dict:
+    """Each worker incarnation by pid: its device, weights digest and
+    seconds from spawn to hello, and its last report's build account and
+    kernel launches (a proxy that outlived its worker keeps the dead
+    incarnation's last stats push)."""
+    rows = {}
+    for p in ep.all_proxies:
+        m = p.role_meta
+        if not m:
+            continue
+        st = p.last_stats()
+        src = st if "pid" in st else m
+        rows[str(src["pid"])] = {
+            "replica": p.replica_id, "device": m.get("device"),
+            "device_name": m.get("device_name"),
+            "params_digest": m.get("params_digest"),
+            "hello_s": ep.hello_s.get(f"{p.replica_id}@{src['epoch']}"),
+            "boot": m.get("boot"),
+            **{k: src.get(k) for k in ("epoch", "nvcc_runs", "param_casts",
+                                       "kernel_launches")}}
+    return rows
+
+
+def _launch_sum(rows: dict, name: str = "shortseq_attention") -> int:
+    """A kernel's launches summed over the workers' last reports (a
+    killed incarnation's launches after its last stats push are lost)."""
+    return sum(int((r.get("kernel_launches") or {}).get(name, 0))
+               for r in rows.values())
+
+
+def run_remote_soak(seed: int = 0, n_requests: int = 10,
+                    num_slots: int = 2, max_new: int = 6,
+                    vocab: int = 12, block_size: int = 4,
+                    slow: float = 0.05, round_wait_s: float = 300.0,
+                    workdir: Optional[str] = None, rounds: str = "abcd",
+                    model: Optional[dict] = None,
+                    requests: Optional[list] = None,
+                    engine: Optional[dict] = None,
+                    hello_deadline: float = 180.0, device=None,
+                    after_boot=None) -> dict:
+    """Process-per-replica rounds of the JAX soak (``--remote``): every
+    replica is its own OS process behind a ``FleetEndpoint`` (TCP broker
+    RPC, coordinator-KV heartbeats, supervised respawn), serving on
+    ``device`` (None: the CUDA card; each worker builds the f32 weights
+    of ``model`` from its seed).
+
+    Round A — SIGKILL a worker mid-stream: the survivor absorbs the
+    migrated streams, the launcher respawns the corpse, and the new
+    incarnation is re-adopted under the same replica id.
+    Round B — a role-split fleet (1 prefill + 2 decode): the KV handoff
+    crosses the wire as CRC-framed pages; a decode worker is SIGKILLed
+    with handoffs in flight, and the router's wire bytes are held against
+    the prefill process's own transport count.
+    Round C — partition: SIGSTOP a worker (beats stop, sockets
+    black-hole, the process lives). The router ages it to DEAD and
+    clone-migrates its streams; on SIGCONT its late results are fenced.
+    Round D — router restart: the endpoint process (broker, ledger,
+    launcher) is SIGKILLed mid-serve in a child
+    (``--remote-router-child``); its orphaned workers are reaped and a
+    fresh endpoint serves whatever has no durable result line (first line
+    wins).
+
+    The endpoints of rounds A-C boot, and round D (whose router and
+    workers are processes of their own) starts, while this process
+    computes the references; rounds A-C then run in turn, D beside them.
+    ``boot_s`` gives each endpoint's seconds from the start to its last
+    hello, ``round_s`` each round's seconds from its start (A-C: waiting
+    for its boot included). ``after_boot``, if given, is called once
+    those boots and the references have ended (a caller's own boots then
+    meet less contention for the host).
+
+    Bars: nothing lost or duplicated (ledger), tokens identical to the
+    in-process engine built as the workers build theirs (slab for
+    ``both`` workers unless ``engine["paged"]``, paged for the role
+    split), every worker on ``device`` with the parent's weights digest,
+    no kernel build and no weight cast on a wave after recovery (and no
+    kernel build at all: the parent's reference run built them), the
+    wire bytes exact when nothing was fenced, and no worker process left
+    alive after the rounds. ``rounds`` picks rounds; ``model`` /
+    ``requests`` (dicts of id, prompt, gen) / ``engine`` (num_slots,
+    block_size, page_size, t_max, paged) override the tiny defaults."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..observability.metrics import MetricsRegistry
+    from ..streaming.fleet import FleetLedger
+    from ..streaming.remote import FleetEndpoint, params_digest
+
+    model = dict(model or _tiny_model(vocab))
+    reqs = list(requests) if requests is not None else \
+        _remote_requests(seed, n_requests, vocab, max_new)
+    n_requests = len(reqs)
+    eng_cfg = dict(engine or {"num_slots": num_slots,
+                              "block_size": block_size})
+    ref_net = _remote_net(model, device)
+    own_workdir = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="remote-soak-")
+    os.makedirs(workdir, exist_ok=True)
+    want_device = ref_net.device.type
+    digest = params_digest(ref_net)
+    if want_device == "cuda":
+        # the workers load the attention kernels this process builds, so
+        # none of them runs nvcc
+        from ..kernels import cuda_lib
+        cuda_lib.build(["shortseq_attention", "flash_forward"])
+    env_slow = {"DL4J_SOAK_SLOW": str(slow)}
+    if want_device == "cpu":
+        # the tiny LM gains nothing from intra-op threads, and N workers
+        # each with a thread a core only fight over the host
+        env_slow["OMP_NUM_THREADS"] = "1"
+    spawned: list = []
+
+    def endpoint(sub: str, workers: dict, fleet_id: str):
+        # a registry of its own: the router's counters (the wire bytes
+        # round B holds) are labelled by fleet id, and a second soak in
+        # this process would add to the first one's
+        ep = FleetEndpoint(os.path.join(workdir, sub), model,
+                           workers=workers, engine=eng_cfg, device=device,
+                           fleet_id=fleet_id, env=env_slow,
+                           hello_deadline=hello_deadline,
+                           registry=MetricsRegistry())
+        ep.launcher.on_spawn = lambda rid, epoch, pid: spawned.append(pid)
+        return ep
+
+    def wait_done(frs, at_least, timeout):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            n = sum(1 for fr in frs.values() if fr.done())
+            if n >= at_least:
+                return n
+            time.sleep(0.05)
+        return sum(1 for fr in frs.values() if fr.done())
+
+    def drain(frs, timeout):
+        end = time.monotonic() + timeout
+        for fr in frs.values():
+            fr._done.wait(max(0.0, end - time.monotonic()))
+        return sum(1 for fr in frs.values() if fr.done())
+
+    def check(frs, want):
+        lost = failures = mismatches = 0
+        for rid, fr in frs.items():
+            if not fr.done():
+                lost += 1
+                continue
+            try:
+                out = fr.result(timeout=0)
+            except Exception:   # noqa: BLE001 — a typed failure, counted
+                failures += 1
+                continue
+            if not np.array_equal(np.asarray(out, np.int64),
+                                  np.asarray(want[rid], np.int64)):
+                mismatches += 1
+        return {"lost": lost, "failures": failures,
+                "mismatches": mismatches,
+                "completed": sum(1 for fr in frs.values() if fr.done())}
+
+    def steady_check(ep, sample, pin=True, wait_s=120.0):
+        """Builds and casts on each ALIVE worker over a wave after a warm
+        one (a respawned process builds its decoder once; the wave after
+        it must add nothing), then each one's whole-process build count.
+        ``pin=False`` routes the waves through normal dispatch (a
+        role-split fleet, where a fresh prompt cannot be pinned onto a
+        decode-only worker)."""
+        table = ep.fleet_stats()["replicas"]
+        alive = [rid for rid, row in table.items()
+                 if row["state"] == "ALIVE"]
+        deltas, nvcc = {}, {}
+
+        def wave(*rids):
+            # one wave on each of ``rids`` at once (None: normal dispatch)
+            frs = [ep.submit(r["prompt"], r["gen"], replica_id=rid)
+                   for rid in rids for r in sample]
+            end = time.monotonic() + wait_s
+            for fr in frs:
+                fr._done.wait(max(0.0, end - time.monotonic()))
+
+        try:
+            if pin:
+                wave(*alive)
+                for rid in alive:
+                    ep.proxy(rid).audit_mark()
+                wave(*alive)
+            else:
+                wave(None)
+                wave(None)
+                for rid in alive:
+                    ep.proxy(rid).audit_mark()
+                wave(None)
+                wave(None)
+            for rid in alive:
+                deltas[rid] = ep.proxy(rid).audit_delta(timeout=30.0)
+                nvcc[rid] = ep.proxy(rid).refresh_stats(
+                    timeout=30.0).get("nvcc_runs")
+        except Exception as e:   # noqa: BLE001 — a dead / retired worker
+            deltas["error"] = f"{type(e).__name__}: {e}"
+        return {"delta": deltas, "nvcc_runs": nvcc}
+
+    def steady_ok(st):
+        d = st["delta"]
+        return bool(d) and "error" not in d and \
+            all(v == {} for v in d.values()) and \
+            all(v == 0 for v in st["nvcc_runs"].values())
+
+    def workers_ok(rows):
+        return bool(rows) and all(
+            r["device"] == want_device and r["params_digest"] == digest
+            for r in rows.values())
+
+    def finish(row, ep):
+        row["workers"] = _worker_rows(ep)
+        row["b1_launches"] = _launch_sum(row["workers"])
+        row["workers_ok"] = workers_ok(row["workers"])
+
+    # ---- round A: SIGKILL a worker mid-stream -------------------------
+    def round_a(ep, row_a):
+        frs = {r["id"]: ep.submit(r["prompt"], r["gen"]) for r in reqs}
+        row_a["results_at_kill"] = wait_done(
+            frs, max(2, n_requests // 4), round_wait_s)
+        ep.kill_worker("w0")
+        drain(frs, round_wait_s)
+        row_a.update(check(frs, expected))
+        # the respawn's hello re-adopts w0 at epoch 2: wait for it
+        # before the steady waves pin onto w0
+        end = time.monotonic() + hello_deadline
+        while time.monotonic() < end and (
+                ep.proxy("w0") is None or ep.proxy("w0").epoch < 2 or
+                ep.router.replica_state("w0") != "ALIVE"):
+            time.sleep(0.05)
+        row_a["respawn_epoch"] = ep.launcher.epoch("w0")
+        led = ep.fleet_stats()["ledger"]
+        row_a["ledger"] = led
+        row_a["steady"] = steady_check(ep, reqs[:2])
+        finish(row_a, ep)
+        return bool(
+            not row_a["lost"] and not row_a["failures"]
+            and not row_a["mismatches"] and led["duplicates"] == 0
+            and 0 < row_a["results_at_kill"] < n_requests
+            and row_a["respawn_epoch"] >= 2
+            and steady_ok(row_a["steady"]) and row_a["workers_ok"])
+
+    # ---- round B: role-split fleet, SIGKILL decode mid-handoff ---------
+    def round_b(ep, row_b):
+        frs = {r["id"]: ep.submit(r["prompt"], r["gen"]) for r in reqs}
+        end = time.monotonic() + round_wait_s
+        while time.monotonic() < end:
+            if ep.stats().get("wire_handoffs", 0) >= 2:
+                break
+            time.sleep(0.02)
+        ep.kill_worker("d0")
+        drain(frs, round_wait_s)
+        row_b.update(check(frs, expected_paged))
+        s = ep.stats()
+        row_b["wire"] = {k: s[k] for k in (
+            "wire_handoffs", "wire_handoffs_fenced",
+            "wire_handoff_reprefills", "wire_transfer_bytes",
+            "wire_transfer_wire_bytes", "wire_transfer_pages",
+            "wire_kv_corruption")}
+        # what p0's transport shipped must equal what the router received
+        # and forwarded: exactly when nothing was fenced, as an upper bound
+        # when a kill raced a handoff
+        shipped = int(ep.proxy("p0").refresh_stats(
+            timeout=15.0).get("kv_wire_bytes", -1))
+        row_b["shipped_wire_bytes"] = shipped
+        fenced = row_b["wire"]["wire_handoffs_fenced"]
+        exact = shipped == row_b["wire"]["wire_transfer_wire_bytes"]
+        row_b["transfer_exact"] = exact
+        led = ep.fleet_stats()["ledger"]
+        row_b["ledger"] = led
+        row_b["steady"] = steady_check(ep, reqs[:2], pin=False)
+        finish(row_b, ep)
+        return bool(
+            not row_b["lost"] and not row_b["failures"]
+            and not row_b["mismatches"] and led["duplicates"] == 0
+            and row_b["wire"]["wire_handoffs"] >= 2
+            and row_b["wire"]["wire_kv_corruption"] == 0
+            and (exact if fenced == 0 else
+                 row_b["wire"]["wire_transfer_wire_bytes"] <= shipped)
+            and steady_ok(row_b["steady"]) and row_b["workers_ok"])
+
+    # ---- round C: partition (SIGSTOP) → DEAD → zombie fenced -----------
+    def round_c(ep, row_c):
+        frs = {r["id"]: ep.submit(r["prompt"], r["gen"]) for r in reqs}
+        wait_done(frs, 1, round_wait_s)
+        ep.partition_worker("w0")      # a black hole, not a death
+        held = [fr for fr in frs.values()
+                if fr.replica_id == "w0" and not fr.done()]
+        row_c["held_at_pause"] = len(held)
+        drain(frs, round_wait_s)       # DEAD aging + clone migration
+        row_c.update(check(frs, expected))
+        prox = ep.proxy("w0")
+        fenced0 = (prox.counters["fenced_results"],
+                   ep.fleet_stats()["ledger"]["fenced"])
+        t_heal = time.monotonic()
+        ep.heal_worker("w0")           # the zombie returns ...
+        # ... finishes what it held and publishes it late: wait for a
+        # stats push after the heal that shows it idle, then a pong,
+        # which follows every frame it published before
+        end = t_heal + round_wait_s
+        while time.monotonic() < end:
+            st = prox.last_stats()
+            if prox._stats_t > t_heal and \
+                    not int(st.get("active_slots", 1)) and \
+                    not int(st.get("queue_depth", 1)):
+                break
+            time.sleep(0.05)
+        row_c["zombie_pong"] = prox.ping(timeout=30.0)
+        led = ep.fleet_stats()["ledger"]
+        # a partitioned replica is not quarantined (unreachable), so its
+        # late results pass the proxy and meet the ledger's fence
+        late = prox.counters["fenced_results"] - fenced0[0] + \
+            led["fenced"] - fenced0[1]
+        row_c["zombie_fenced"] = {
+            "proxy_fenced_results": prox.counters["fenced_results"],
+            "stale_epoch": prox.counters["stale_epoch"],
+            "ledger_fenced": led["fenced"], "after_heal": late}
+        row_c["ledger"] = led
+        row_c["migrations"] = ep.stats().get("migrations")
+        row_c["steady"] = steady_check(ep, reqs[:2])
+        finish(row_c, ep)
+        # what the zombie held finished after the heal, and every one of
+        # its results was fenced, not served
+        return bool(
+            not row_c["lost"] and not row_c["failures"]
+            and not row_c["mismatches"] and led["duplicates"] == 0
+            and row_c["migrations"] and row_c["zombie_pong"]
+            and (late >= 1 or not held)
+            and steady_ok(row_c["steady"]) and row_c["workers_ok"])
+
+    # ---- round D: router (endpoint process) SIGKILL + restart ---------
+    def round_d():
+        row_d = {}
+        dwd = os.path.join(workdir, "d")
+        os.makedirs(dwd, exist_ok=True)
+        with open(os.path.join(dwd, "manifest.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"model": model, "requests": reqs, "engine": eng_cfg,
+                       "device": device,
+                       "hello_deadline": hello_deadline}, f)
+        results_path = os.path.join(dwd, "results.jsonl")
+        pids_path = os.path.join(dwd, "pids.json")
+
+        def read_pids():
+            try:
+                with open(pids_path, encoding="utf-8") as f:
+                    return json.load(f)
+            except (OSError, ValueError):
+                return {"live": {}, "spawned": []}
+
+        def spawn_router(incarnation: int, paced: bool):
+            env = dict(os.environ, **env_slow)
+            env["DL4J_SOAK_SLOW"] = str(slow) if paced else "0"
+            log = open(os.path.join(dwd, f"router-{incarnation}.log"), "w")
+            try:
+                return subprocess.Popen(
+                    [sys.executable, "-m", "deeplearning4j_tpu_torch.tools."
+                     "chaos_soak", "--remote-router-child", dwd,
+                     "--incarnation", str(incarnation)],
+                    env=env, cwd=REPO_ROOT, stdout=log,
+                    stderr=subprocess.STDOUT)
+            finally:
+                log.close()
+
+        proc = None
+        try:
+            proc = spawn_router(0, paced=True)
+            end = time.monotonic() + round_wait_s
+            while time.monotonic() < end:
+                if len(_valid_result_lines(results_path)["by_id"]) >= 2:
+                    break
+                if proc.poll() is not None:
+                    break
+                time.sleep(0.05)
+            row_d["results_at_kill"] = \
+                len(_valid_result_lines(results_path)["by_id"])
+            if proc.poll() is None:
+                proc.kill()                # the whole routing tier dies
+            proc.wait(timeout=30)
+            # reap the orphaned workers the dead launcher left
+            pids0 = read_pids()
+            spawned.extend(pids0.get("spawned", []))
+            reaped = 0
+            for pid in pids0.get("live", {}).values():
+                try:
+                    os.kill(int(pid), signal.SIGKILL)
+                    reaped += 1
+                except (OSError, ValueError):
+                    pass
+            row_d["orphans_reaped"] = reaped
+            proc = spawn_router(1, paced=False)
+            try:
+                rc = proc.wait(timeout=round_wait_s)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+                rc = -9
+            spawned.extend(read_pids().get("spawned", []))
+            row_d["final_exit_code"] = rc
+            refs_done.wait()
+            if expected is None:
+                raise RuntimeError("the references failed")
+            res = _valid_result_lines(results_path)
+            by_id = res["by_id"]
+            # the first durable line per id claims the one completion;
+            # every further line must fence
+            ledger = FleetLedger()
+            for r in reqs:
+                ledger.assign(r["id"], "router")
+            duplicates = mismatches = failures = 0
+            for rid, doc in by_id.items():
+                if rid not in expected:
+                    continue
+                if ledger.try_complete(rid, "router") != "ok":
+                    duplicates += 1
+                if doc.get("failed"):
+                    failures += 1
+                elif not np.array_equal(
+                        np.asarray(doc.get("out", []), np.int64),
+                        np.asarray(expected[rid], np.int64)):
+                    mismatches += 1
+            for doc in res["extra"]:
+                if ledger.try_complete(str(doc.get("id")),
+                                       "router") != "ok":
+                    duplicates += 1
+            lost = sorted(set(expected) - set(by_id))
+            try:
+                with open(os.path.join(dwd, "report-d-1.json"),
+                          encoding="utf-8") as f:
+                    rep1 = json.load(f)
+            except (OSError, ValueError):
+                rep1 = {}
+            row_d.update({
+                "lost": len(lost), "lost_ids": lost,
+                "duplicates": duplicates, "mismatches": mismatches,
+                "failures": failures, "completed": len(by_id),
+                "steady": rep1.get("steady"),
+                "workers": rep1.get("workers") or {},
+                "ledger": ledger.to_dict()})
+            row_d["b1_launches"] = _launch_sum(row_d["workers"])
+            row_d["workers_ok"] = workers_ok(row_d["workers"])
+            row_d["ok"] = bool(
+                rc == 0 and not lost and not duplicates and not mismatches
+                and not failures and isinstance(row_d["steady"], dict)
+                and steady_ok(row_d["steady"]) and row_d["workers_ok"])
+        except Exception as e:   # noqa: BLE001
+            row_d["error"] = f"{type(e).__name__}: {e}"
+            row_d["ok"] = False
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            for pid in read_pids().get("live", {}).values():
+                try:
+                    os.kill(int(pid), signal.SIGKILL)
+                except (OSError, ValueError):
+                    pass
+        return row_d
+
+    def timed(fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        return out, time.monotonic() - t0
+
+    # every round's endpoint boots at once, and round D (a router process
+    # of its own and its workers) starts, beside the references this
+    # process computes; rounds A-C then run in turn, D beside them
+    layouts = {"a": {"w0": "both", "w1": "both"},
+               "b": {"p0": "prefill", "d0": "decode", "d1": "decode"},
+               "c": {"w0": "both", "w1": "both"}}
+    eps = {k: endpoint(k, w, f"r{k}{seed}") for k, w in layouts.items()
+           if k in rounds}
+    t_start = time.monotonic()
+
+    def boot(ep):
+        ep.start()
+        return time.monotonic() - t_start
+
+    expected = expected_paged = None
+    refs_done = threading.Event()
+    pool = ThreadPoolExecutor(len(eps) + 1)
+    booting = {k: pool.submit(boot, ep) for k, ep in eps.items()}
+    running_d = pool.submit(timed, round_d) if "d" in rounds else None
+    try:
+        t_ref = time.monotonic()
+        both_paged = bool(eng_cfg.get("paged", False))
+        expected = _remote_reference(ref_net, reqs, eng_cfg, both_paged)
+        expected_paged = _remote_reference(ref_net, reqs, eng_cfg, True) \
+            if "b" in rounds else None
+        reference_s = time.monotonic() - t_ref
+    except BaseException:
+        refs_done.set()
+        for ep in eps.values():
+            ep.shutdown()
+        pool.shutdown(wait=True)
+        raise
+    refs_done.set()
+    del ref_net
+
+    summary = {"seed": seed, "requests": n_requests, "workdir": workdir,
+               "device": want_device, "model": model, "engine": eng_cfg,
+               "reference_s": reference_s}
+    t_rounds, t_boot = {}, {}
+    try:
+        for k, play in (("a", round_a), ("b", round_b), ("c", round_c)):
+            if k not in eps:
+                continue
+            t0 = time.monotonic()
+            ep, row = eps[k], {}
+            try:
+                t_boot[k] = booting[k].result()
+                if after_boot is not None and k == min(eps):
+                    for fut in booting.values():
+                        fut.exception()
+                    after_boot()
+                row["ok"] = play(ep, row)
+            except Exception as e:   # noqa: BLE001 — a wedged round is a
+                row["error"] = f"{type(e).__name__}: {e}"   # failed row
+                row["ok"] = False
+            finally:
+                if k == "c":
+                    try:
+                        ep.heal_worker("w0")   # never leave a SIGSTOPped
+                    except Exception:   # noqa: BLE001 — orphan
+                        pass
+                ep.shutdown()
+            summary[f"round_{k}"] = row
+            t_rounds[k] = time.monotonic() - t0
+        if running_d is not None:
+            summary["round_d"], t_rounds["d"] = running_d.result()
+    finally:
+        for ep in eps.values():
+            ep.shutdown()
+        pool.shutdown(wait=True)
+
+    # every worker of every round is gone (a zombie awaiting its reaper
+    # counts as gone)
+    end = time.monotonic() + 30.0
+    left = [p for p in spawned if _pid_alive(p)]
+    while left and time.monotonic() < end:
+        time.sleep(0.1)
+        left = [p for p in left if _pid_alive(p)]
+    summary["workers_spawned"] = len(spawned)
+    summary["leftover_pids"] = left
+    summary["round_s"] = t_rounds
+    summary["boot_s"] = t_boot
+    summary["ok"] = bool(
+        all(summary[f"round_{k}"]["ok"] for k in rounds) and not left)
+    if not summary["ok"]:
+        summary["worker_logs"] = _log_tails(workdir)
+    if own_workdir:
+        shutil.rmtree(workdir, ignore_errors=True)
+        summary.pop("workdir", None)
+    return summary
+
+
+def _log_tails(workdir: str, n: int = 2000) -> dict:
+    """The tail of every worker and router log under ``workdir``."""
+    out = {}
+    for root, _, files in os.walk(workdir):
+        for name in sorted(files):
+            if name.endswith(".log") and \
+                    name.startswith(("worker-", "router-")):
+                path = os.path.join(root, name)
+                try:
+                    with open(path, encoding="utf-8",
+                              errors="replace") as f:
+                        out[os.path.relpath(path, workdir)] = f.read()[-n:]
+                except OSError:
+                    pass
+    return out
+
+
+def _remote_router_child(workdir: str, incarnation: int) -> int:
+    """The routing-tier process of round D: one FleetEndpoint serving the
+    manifest. Ids that already have a durable result line are not
+    resubmitted; the worker pids (live and every one spawned) go to
+    ``pids.json`` at every (re)spawn, so the parent can reap orphans
+    after it SIGKILLs this process."""
+    from ..streaming.remote import FleetEndpoint
+
+    with open(os.path.join(workdir, "manifest.json"),
+              encoding="utf-8") as f:
+        manifest = json.load(f)
+    results_path = os.path.join(workdir, "results.jsonl")
+    have = set(_valid_result_lines(results_path)["by_id"])
+    todo = [r for r in manifest["requests"] if r["id"] not in have]
+
+    ep = FleetEndpoint(os.path.join(workdir, f"fleet-{incarnation}"),
+                       manifest["model"],
+                       workers={"w0": "both", "w1": "both"},
+                       engine=manifest.get("engine"),
+                       device=manifest.get("device"),
+                       fleet_id=f"rd{incarnation}",
+                       env={"DL4J_SOAK_SLOW":
+                            os.environ.get("DL4J_SOAK_SLOW", "0")},
+                       hello_deadline=float(manifest.get("hello_deadline",
+                                                         180.0)))
+    pids_path = os.path.join(workdir, "pids.json")
+    spawned: list = []
+
+    def dump_pids(_rid=None, _epoch=None, pid=None):
+        if pid is not None:
+            spawned.append(int(pid))
+        tmp = pids_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"live": ep.launcher.pids(), "spawned": spawned}, f)
+        os.replace(tmp, pids_path)
+
+    ep.launcher.on_spawn = dump_pids
+    try:
+        ep.start()
+        dump_pids()
+        with open(results_path, "a", encoding="utf-8") as rf:
+            frs = {r["id"]: ep.submit(r["prompt"], r["gen"]) for r in todo}
+            pending = dict(frs)
+            while pending:
+                for rid, fr in list(pending.items()):
+                    if not fr.done():
+                        continue
+                    del pending[rid]
+                    if rid in have:
+                        continue
+                    have.add(rid)
+                    try:
+                        out = [int(t) for t in fr.result(0)]
+                        doc = {"id": rid, "inc": incarnation, "out": out}
+                    except Exception as e:   # noqa: BLE001
+                        doc = {"id": rid, "inc": incarnation,
+                               "failed": f"{type(e).__name__}: {e}"}
+                    rf.write(json.dumps(doc) + "\n")
+                    rf.flush()
+                time.sleep(0.02)
+        # the steady report: a warm wave on every worker, mark, a wave,
+        # each worker's delta
+        sample = manifest["requests"][:2]
+        rids = list(ep.workers)
+        delta, nvcc = {}, {}
+
+        def wave():
+            frs = [ep.submit(r["prompt"], r["gen"], replica_id=rid)
+                   for rid in rids for r in sample]
+            end = time.monotonic() + 60.0
+            for fr in frs:
+                fr._done.wait(max(0.0, end - time.monotonic()))
+
+        try:
+            wave()
+            for rid in rids:
+                ep.proxy(rid).audit_mark()
+            wave()
+            for rid in rids:
+                delta[rid] = ep.proxy(rid).audit_delta(timeout=30.0)
+                nvcc[rid] = ep.proxy(rid).refresh_stats(
+                    timeout=30.0).get("nvcc_runs")
+        except Exception as e:   # noqa: BLE001
+            delta["error"] = f"{type(e).__name__}: {e}"
+        with open(os.path.join(workdir, f"report-d-{incarnation}.json"),
+                  "w", encoding="utf-8") as f:
+            json.dump({"incarnation": incarnation, "served": len(todo),
+                       "steady": {"delta": delta, "nvcc_runs": nvcc},
+                       "workers": _worker_rows(ep)}, f, default=str)
+    finally:
+        ep.shutdown()
+    return 0
+
+
+def remote_scale_endpoints(model: dict, engine: dict, seed: int = 0,
+                           workers: int = 3, slow: float = 0.4,
+                           hello_deadline: float = 300.0,
+                           device=None) -> dict:
+    """The endpoints ``run_remote_scale_ab`` times, by worker count (1
+    and ``workers``), each in a temporary directory of its own, not yet
+    started: a caller may boot them (``FleetEndpoint.start``) beside
+    other work and hand them over as ``endpoints``."""
+    from ..ops.platform import resolve_device
+    from ..streaming.remote import FleetEndpoint
+
+    resolve_device(device)      # no card and no device="cpu": raise here
+    return {n: FleetEndpoint(
+        tempfile.mkdtemp(prefix=f"remote-ab{n}-"), model,
+        workers={f"w{i}": "both" for i in range(n)}, engine=engine,
+        device=device, fleet_id=f"ab{seed}x{n}",
+        env={"DL4J_SOAK_SLOW": str(slow)}, hello_deadline=hello_deadline)
+        for n in sorted({1, int(workers)})}
+
+
+def run_remote_scale_ab(seed: int = 0, n_requests: int = 48,
+                        num_slots: int = 2, max_new: int = 8,
+                        vocab: int = 12, block_size: int = 4,
+                        slow: float = 0.4, workers: int = 3,
+                        wait_s: float = 900.0, pairs: int = 1,
+                        inprocess: bool = False,
+                        model: Optional[dict] = None,
+                        requests: Optional[list] = None,
+                        engine: Optional[dict] = None,
+                        hello_deadline: float = 300.0,
+                        device=None,
+                        endpoints: Optional[dict] = None) -> dict:
+    """Aggregate generated tok/s of 1 worker process against ``workers``
+    (``--remote-scale``), and with ``inprocess`` against an in-process
+    ``EngineFleetRouter`` of ``workers`` replicas on one shared decoder,
+    on the same requests, in ``pairs`` alternating pairs (1, N, in; in,
+    N, 1; ...). Both endpoints boot once, together (or come booted as
+    ``endpoints``, from ``remote_scale_endpoints`` with the same model,
+    engine, workers and pace), and every worker serves a warm wave before
+    the first timed run; they are shut down and their directories
+    removed at the end.
+
+    ``slow`` > 0 paces every engine step (``DL4J_SOAK_SLOW``; the
+    in-process replicas take the same injected hang), the JAX soak's
+    stand-in for an accelerator-bound step on a CPU host: the ratio then
+    measures what the process tier adds, and ``ok`` is the JAX soak's
+    gate (N processes at least 2.4 x one). Unpaced (``slow`` 0, the card
+    as the device) the numbers are reported and ``ok`` holds nothing:
+    on one card without MPS the workers' CUDA contexts time-slice."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..models.generation import TransformerDecoder
+    from ..parallel.faults import FaultInjector
+    from ..streaming.fleet import EngineFleetRouter
+
+    model = dict(model or _tiny_model(vocab))
+    if requests is None:
+        # uniform streams (every request a whole number of blocks): a
+        # throughput A/B wants full block steps and an even split
+        reqs = _remote_requests(seed, n_requests, vocab, max_new)
+        for r in reqs:
+            r["gen"] = max_new
+    else:
+        reqs = list(requests)
+    eng_cfg = dict(engine or {"num_slots": num_slots,
+                              "block_size": block_size})
+    eps = endpoints if endpoints is not None else remote_scale_endpoints(
+        model, eng_cfg, seed=seed, workers=workers, slow=slow,
+        hello_deadline=hello_deadline, device=device)
+    router = None
+    try:
+        with ThreadPoolExecutor(len(eps)) as pool:
+            for fut in [pool.submit(ep.start) for ep in eps.values()]:
+                fut.result()
+        hello_s = {n: sorted(ep.hello_s.values())
+                   for n, ep in eps.items()}
+        warm = [ep.submit(r["prompt"], r["gen"], replica_id=rid)
+                for ep in eps.values() for rid in list(ep.workers)
+                for r in reqs[:2]]
+        for fr in warm:
+            fr.result(timeout=wait_s)
+        if inprocess:
+            net = _remote_net(model, device)
+            dec = TransformerDecoder(net, t_max=eng_cfg.get("t_max"))
+            injs = None
+            if slow > 0:
+                injs = [FaultInjector().hang_for(
+                    "engine.step", seconds=slow, at=1, times=1_000_000)
+                    for _ in range(workers)]
+            router = EngineFleetRouter(
+                net, num_replicas=workers, decoder=dec, tracing=False,
+                replica_injectors=injs,
+                **_engine_kw(eng_cfg, bool(eng_cfg.get("paged", False))))
+            router.start()
+            for fr in [router.submit(r["prompt"], r["gen"])
+                       for r in reqs[:2 * workers]]:
+                fr.result(timeout=wait_s)
+
+        def timed(target) -> float:
+            t0 = time.perf_counter()
+            frs = [target.submit(r["prompt"], r["gen"]) for r in reqs]
+            toks = sum(len(fr.result(timeout=wait_s)) - len(r["prompt"])
+                       for fr, r in zip(frs, reqs))
+            return toks / (time.perf_counter() - t0)
+
+        arms = [1, workers] + (["in"] if inprocess else [])
+        tps = {a: [] for a in arms}
+        for i in range(max(1, int(pairs))):
+            for a in (arms if i % 2 == 0 else arms[::-1]):
+                tps[a].append(timed(router if a == "in" else eps[a]))
+    finally:
+        if router is not None:
+            router.shutdown()
+        for ep in eps.values():
+            ep.shutdown()
+            shutil.rmtree(ep.workdir, ignore_errors=True)
+    med = {a: float(np.median(v)) for a, v in tps.items()}
+    ratio = med[workers] / med[1] if med[1] else 0.0
+    out = {"seed": seed, "requests": len(reqs),
+           "generated_tokens": sum(r["gen"] for r in reqs),
+           "pace_s": slow, "device": device or "cuda",
+           "tok_s_1p": [round(x, 2) for x in tps[1]],
+           f"tok_s_{workers}p": [round(x, 2) for x in tps[workers]],
+           "scaling_x": round(ratio, 3), "hello_s": hello_s}
+    if inprocess:
+        out[f"tok_s_{workers}_inprocess"] = [round(x, 2)
+                                             for x in tps["in"]]
+        out["process_vs_inprocess_x"] = round(med[workers] / med["in"], 3) \
+            if med["in"] else None
+    out["ok"] = bool(ratio >= 2.4) if slow > 0 else True
+    return out
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1687,7 +2572,18 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="the tiny LM's device (default: the CUDA card; "
                          "'cpu' runs the plain PyTorch path)")
+    ap.add_argument("--remote", action="store_true",
+                    help="the process-per-replica rounds: a worker "
+                         "SIGKILLed mid-stream, the role-split wire "
+                         "handoff with a decode kill, a SIGSTOP partition "
+                         "with its zombie fenced, a router-process "
+                         "SIGKILL with its orphans reaped")
+    ap.add_argument("--remote-scale", action="store_true",
+                    help="1 worker process against 3, paced: aggregate "
+                         "tok/s (gate: >= 2.4 x)")
     ap.add_argument("--process-kill-child", default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--remote-router-child", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--incarnation", type=int, default=0,
                     help=argparse.SUPPRESS)
@@ -1695,7 +2591,16 @@ def main(argv=None) -> int:
     if args.process_kill_child:
         return _process_kill_child(args.process_kill_child,
                                    args.incarnation, args.drain_deadline)
-    if args.process_kill:
+    if args.remote_router_child:
+        return _remote_router_child(args.remote_router_child,
+                                    args.incarnation)
+    if args.remote:
+        summary = run_remote_soak(seed=args.seed, n_requests=args.requests,
+                                  num_slots=args.slots,
+                                  max_new=args.max_new, device=args.device)
+    elif args.remote_scale:
+        summary = run_remote_scale_ab(seed=args.seed, device=args.device)
+    elif args.process_kill:
         summary = run_process_kill_soak(seed=args.seed,
                                         drain_deadline=args.drain_deadline,
                                         device=args.device)

@@ -596,6 +596,30 @@ def test_autoscale_soak_round_on_cpu():
         "scale_ups", "scale_downs", "ledger", "timeline")}
 
 
+def test_autoscale_soak_ignores_earlier_slo_misses():
+    """Misses that other code recorded into the process-default SLO
+    tracker within its long window (as earlier test files on the same
+    pytest worker do) must not hold the round's burn rate above the
+    scale-down threshold: the round reads its own tracker."""
+    from deeplearning4j_tpu_torch.observability.slo import \
+        default_slo_tracker
+    tracker = default_slo_tracker()
+    with tracker._lock:
+        saved = list(tracker._records)
+    try:
+        for _ in range(4):
+            tracker.record("error")
+        s = chaos_soak.run_autoscale_soak(seed=1, waves=2, wave_size=6,
+                                          device="cpu")
+    finally:
+        with tracker._lock:
+            tracker._records.clear()
+            tracker._records.extend(saved)
+    assert s["ok"], {k: s.get(k) for k in (
+        "stranded", "mismatches", "failed", "grown_to", "final_live",
+        "scale_ups", "scale_downs", "trickle", "timeline")}
+
+
 def test_spec_soak_phases_on_cpu():
     """The speculative round's three phases: a supervised crash, a fleet
     replica crash and a NaN quarantine, each mid-verify."""

@@ -304,9 +304,11 @@ def test_double_sigterm_drains_once(nets, tmp_path):
 
 @pytest.mark.parametrize("argv", [[], ["--process-kill"], ["--spec"],
                                   ["--replicas", "3"], ["--autoscale"],
-                                  ["--disagg"], ["--corruption"]],
+                                  ["--disagg"], ["--corruption"],
+                                  ["--remote"], ["--remote-scale"]],
                          ids=["soak", "process-kill", "spec", "replicas",
-                              "autoscale", "disagg", "corruption"])
+                              "autoscale", "disagg", "corruption", "remote",
+                              "remote-scale"])
 def test_soak_entry_points_default_to_the_card(monkeypatch, argv):
     """Each soak round builds its tiny LM on the CUDA card unless asked
     for the CPU: with no card visible, the entry point raises naming

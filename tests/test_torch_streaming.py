@@ -314,7 +314,8 @@ def test_port_sources_import_no_jax():
                 "streaming/fleet.py", "parallel/preemption.py",
                 "parallel/inference.py", "tools/chaos_soak.py",
                 "streaming/disagg.py", "streaming/autoscale.py",
-                "observability/telemetry.py", "ui/server.py"):
+                "observability/telemetry.py", "ui/server.py",
+                "streaming/remote.py"):
         assert f"deeplearning4j_tpu_torch/{new}" in names
     bad = []
     for p in files:

@@ -215,7 +215,31 @@ Phases, each an uncaught exception on failure:
    ``score_examples`` (f32, B 128) against its CPU f32 twin; a LeNet with
    a batch norm after each conv (C 20, 50) trained 4 steps in bf16 and
    f32 with every BN on its kernel, against its twin.
-13. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+13. the training API (``phase_training_api``, within 90 s): (a) the
+   char-RNN (2 x 512, vocab 80, B 64, T 128, bf16, TBPTT 50) trained 2
+   batches, then ``TransferLearning.Builder`` freezes layer 0 and puts a
+   new head on, and an ``EarlyStoppingTrainer`` (3 epochs at most,
+   patience 1, ``LocalFileModelSaver`` in a temporary directory) fits 4
+   batches that ``AsyncDataSetIterator`` stages in bf16 on the card,
+   scored on 2 held out: layer 0 bit-identical to the source, layer 1
+   moved, the restored best model's score equal to the recorded one, B6
+   launched 2 times a window and a scored batch, on its cluster route;
+   (b) an encoder / decoder graph (GravesLSTM 512 over a masked one-hot
+   input, ``LastTimeStepVertex``, ``DuplicateToTimeSeriesVertex``,
+   ``MergeVertex`` with the decoder input, GravesLSTM 512, softmax head;
+   bf16, B 64, T 128): logits (rel-L2 5e-2) and first-step loss (rel
+   2e-2) against the CPU f32 twin on 2 rows, 1 warm and 4 timed steps,
+   2 B6 launches a step; (c) plain torch, no kernel: 784 → AutoEncoder
+   (500) → RBM(250) → VAE(32) → Output(10) pretrained over 8 synthetic
+   batches of 128 (every layer's loss finite and falling, the
+   AutoEncoder's and RBM's first-batch losses within 1e-4 of the CPU f32
+   twin) and fitted, and 3 steps of a center-loss head (losses within
+   1e-4 of the twin, the centers moved); (d) ResNet-50 (bf16, B 128)
+   frozen below avgpool with a new 10-class head: 1 warm and 3 timed
+   steps, the frozen vertices bit-identical, 106 batch-norm kernel
+   launches a step, then ``GraphTransferLearningHelper``'s featurize and
+   3 ``fit_featurized`` epochs moving only the head.
+14. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the three batch-norm variants of ``csrc/batchnorm.cu``
 (an identity BN, a BN with its ReLU folded in, the fused BN -> add ->
@@ -290,17 +314,31 @@ from deeplearning4j_tpu_torch.models import (CharacterIterator,
                                              char_rnn_conf, lenet_conf,
                                              lm_batch_sparse, resnet50_conf,
                                              transformer_lm_conf, vgg16_conf)
+from deeplearning4j_tpu_torch.datasets import (AsyncDataSetIterator,
+                                               DataSetIterator,
+                                               ListDataSetIterator)
+from deeplearning4j_tpu_torch.earlystopping import (
+    DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
+    LocalFileModelSaver, MaxEpochsTerminationCondition,
+    ScoreImprovementEpochTerminationCondition)
 from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
-from deeplearning4j_tpu_torch.nn.conf.layers import (BatchNormalization,
-                                                     ConvolutionLayer,
-                                                     GravesLSTM)
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    RBM, AutoEncoder, BatchNormalization, CenterLossOutputLayer,
+    ConvolutionLayer, DenseLayer, GravesLSTM, OutputLayer, RnnOutputLayer,
+    VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
+                                               DuplicateToTimeSeriesVertex,
+                                               LastTimeStepVertex,
+                                               MergeVertex,
                                                infer_graph_shapes)
+from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                  GraphTransferLearningHelper,
+                                                  TransferLearning)
 from deeplearning4j_tpu_torch.nn.graph.vertices import LayerVertex
 from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
                                                     NumericalFault)
 from deeplearning4j_tpu_torch.ops.activations import get_activation
-from deeplearning4j_tpu_torch.ops.dataset import DataSet
+from deeplearning4j_tpu_torch.ops.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts
 from deeplearning4j_tpu_torch.parallel import (EngineSupervisor,
                                                FaultInjector,
@@ -3875,6 +3913,382 @@ def phase_lenet_vgg(card):
                              "reference")
 
 
+# ---------------------------------------------------------------- phase 13
+#: phase 13's wall-clock budget, s
+TRAINING_API_LIMIT_S = 90
+#: phase 13's shapes: the char-RNN (vocab, hidden, B, T, TBPTT window) of
+#: (a) and (b), the pretrain stack's batch and batch count (c), ResNet-50's
+#: batch and image side (d)
+API_SHAPES = {"vocab": 80, "hidden": 512, "b": 64, "t": 128, "window": 50,
+              "pre_b": 128, "pre_batches": 8, "resnet_b": 128,
+              "resnet_hw": 224}
+#: (c)'s first-batch pretrain losses and center-loss steps against the
+#: CPU twin, relative: f32 on both (TF32 off), summation order only
+API_TWIN_TOL = 1e-4
+#: the four batch-norm wrapper counters (forward and backward of both
+#: helpers): 53 BN layers a ResNet-50 step, one launch a direction each
+BN_COUNTERS = ("batchnorm_train", "batchnorm_train.bwd",
+               "batchnorm_add_act_train", "batchnorm_add_act_train.bwd")
+
+
+def _bn_launches(launches):
+    return sum(launches[k] for k in BN_COUNTERS)
+
+
+def _clone_params(params, names):
+    return {n: {k: a.clone() for k, a in params[n].items()} for n in names}
+
+
+def _unchanged(params, snapshot):
+    """The vertices / layers of ``snapshot`` whose parameters are not
+    bit-identical to it now."""
+    return [n for n, p in snapshot.items()
+            if any(not torch.equal(params[n][k], a) for k, a in p.items())]
+
+
+class _ScoreRecorder(DataSetIterator):
+    """Yields ``batches`` and, after each, keeps the net's ``score_value``
+    (a device tensor until the phase reads it)."""
+
+    def __init__(self, net, batches):
+        self.net, self.batches, self.scores = net, batches, []
+
+    def __iter__(self):
+        for ds in self.batches:
+            yield ds
+            self.scores.append(self.net.score_value)
+
+
+def _api_fine_tune(card):
+    """(a) the char-RNN fine-tuned under early stopping: layer 0 frozen, a
+    new head, rmsprop, batches staged in bf16 on the card by
+    AsyncDataSetIterator, LocalFileModelSaver in a temporary directory."""
+    s = API_SHAPES
+    v, b, t, w = s["vocab"], s["b"], s["t"], s["window"]
+    base = MultiLayerNetwork(
+        char_rnn_conf(v, hidden=s["hidden"], layers=2,
+                      learning_rate=CHARRNN_LR, tbptt_length=w),
+        compute_dtype=torch.bfloat16).init()
+    host = [_motif_batch(b, t, v, 90 + i) for i in range(6)]
+    card_ds = lambda x, y: DataSet(torch.from_numpy(x).cuda().bfloat16(),
+                                   torch.from_numpy(y).cuda().bfloat16())
+    base.fit([card_ds(*xy) for xy in host[:2]])
+    net = (TransferLearning.Builder(base)
+           .fine_tune_configuration(FineTuneConfiguration(
+               learning_rate=CHARRNN_LR, updater="rmsprop", seed=7))
+           .set_feature_extractor(0).remove_output_layer()
+           .add_layer(RnnOutputLayer(n_out=v, loss="mcxent",
+                                     activation="softmax")).build())
+    frozen = _clone_params(net.params, [0])
+    moving = _clone_params(net.params, [1])
+    n_held = 2
+    held = ListDataSetIterator([card_ds(*xy) for xy in host[4:4 + n_held]])
+    train = AsyncDataSetIterator(
+        ListDataSetIterator([DataSet(*xy) for xy in host[:4]]), prefetch=2,
+        stage_dtype=torch.bfloat16)
+    tmp = tempfile.mkdtemp(prefix="dl4j_es_")
+    try:
+        calc = DataSetLossCalculator(held)
+        cfg = EarlyStoppingConfiguration(
+            score_calculator=calc,
+            model_saver=LocalFileModelSaver(tmp,
+                                            compute_dtype=torch.bfloat16),
+            epoch_terminations=[
+                MaxEpochsTerminationCondition(3),
+                ScoreImprovementEpochTerminationCondition(patience=1)])
+        it0 = net.iteration
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = EarlyStoppingTrainer(cfg, net, train).fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        routes = lstm_routes()
+        restored = calc.calculate_score(result.best_model)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    windows = net.iteration - it0
+    evals = len(result.score_vs_epoch)
+    want = 2 * windows + 2 * n_held * evals
+    log(f"training API (a) char-RNN fine-tune: {result.termination_reason} "
+        f"({result.termination_details}) after {result.total_epochs} "
+        f"epochs, best epoch {result.best_model_epoch}, held-out scores "
+        f"{ {e: round(x, 5) for e, x in result.score_vs_epoch.items()} }; "
+        f"restored best {restored:.6f} vs recorded "
+        f"{result.best_model_score:.6f}; {windows} TBPTT windows and "
+        f"{evals} evaluations in {wall:.2f}s; B6 launches "
+        f"{launches['lstm_recurrence']} (expected {want}), routes {routes}")
+    if _unchanged(net.params, frozen):
+        raise AssertionError("the frozen char-RNN layer 0 changed")
+    if any(not torch.equal(net.params[0][k], base.params[0][k])
+           for k in net.params[0]):
+        raise AssertionError("layer 0 is not an exact copy of the source")
+    if not _unchanged(net.params, moving):
+        raise AssertionError("layer 1 did not move under fine-tuning")
+    if not abs(restored - result.best_model_score) <= \
+            TRAIN_LOSS_TOL * abs(result.best_model_score):
+        raise AssertionError("the restored best model's held-out score "
+                             "differs from the recorded best")
+    if windows != -(-t // w) * 4 * result.total_epochs or \
+            launches["lstm_recurrence"] != want or \
+            routes["cluster"] != want:
+        raise AssertionError(f"B6 launched {launches['lstm_recurrence']} "
+                             f"times ({routes}) for {windows} windows and "
+                             f"{evals} evaluations, expected {want} on the "
+                             "cluster route")
+    return launches["lstm_recurrence"], wall / windows * 1e3
+
+
+def _seq_graph_conf():
+    """DL4J's addition-RNN shape: a GravesLSTM encoder over a masked
+    one-hot sequence, its last present step duplicated over the decoder
+    input's time axis and merged with it, a GravesLSTM decoder and a
+    softmax head."""
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    s = API_SHAPES
+    v, h = s["vocab"], s["hidden"]
+    return (NeuralNetConfiguration.Builder().seed(12345)
+            .learning_rate(CHARRNN_LR).updater("rmsprop").rms_decay(0.95)
+            .weight_init("xavier").graph_builder()
+            .add_inputs("encoder_in", "decoder_in")
+            .add_layer("encoder", GravesLSTM(n_out=h, activation="tanh"),
+                       "encoder_in")
+            .add_vertex("last", LastTimeStepVertex(mask_input="encoder_in"),
+                        "encoder")
+            .add_vertex("dup", DuplicateToTimeSeriesVertex(
+                ts_input="decoder_in"), "last", "decoder_in")
+            .add_vertex("merge", MergeVertex(), "decoder_in", "dup")
+            .add_layer("decoder", GravesLSTM(n_out=h, activation="tanh"),
+                       "merge")
+            .add_layer("out", RnnOutputLayer(n_out=v, loss="mcxent",
+                                             activation="softmax"),
+                       "decoder")
+            .set_outputs("out")
+            .set_input_types(InputType.recurrent(v), InputType.recurrent(v))
+            .build())
+
+
+def _api_seq_graph(card):
+    """(b) the encoder / decoder graph, bf16: logits and first-step loss
+    against the CPU f32 twin on 2 rows, 1 warm and 4 timed steps."""
+    s = API_SHAPES
+    v, b, t = s["vocab"], s["b"], s["t"]
+    net = ComputationGraph(_seq_graph_conf(),
+                           compute_dtype=torch.bfloat16).init()
+    enc, _ = _motif_batch(b, t, v, 101)
+    dec, y = _motif_batch(b, t, v, 102)
+    lengths = np.random.default_rng(103).integers(t // 2, t + 1, b)
+    mask = (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
+    part = lambda a: a[:2]
+    twin_ds = MultiDataSet([part(enc), part(dec)], [part(y)],
+                           features_masks=[part(mask), None])
+    got_l = net.compute_gradient_and_score(twin_ds)[1]
+    twin = _cpu_twin(net)
+    want_l = twin.compute_gradient_and_score(twin_ds)[1]
+    logit_err = _rel_l2(torch.from_numpy(net.output(part(enc),
+                                                    part(dec))[0]),
+                        torch.from_numpy(twin.output(part(enc),
+                                                     part(dec))[0]))
+    rel_l = abs(got_l - want_l) / abs(want_l)
+    gpu = lambda a: torch.from_numpy(a).cuda()
+    ds = MultiDataSet([gpu(enc).bfloat16(), gpu(dec).bfloat16()],
+                      [gpu(y).bfloat16()],
+                      features_masks=[gpu(mask), None])
+    warm, _, _ = train_steps(net, ds, 1)
+    losses, wall, launches = train_steps(net, ds, 4)
+    step_ms = wall / 4 * 1e3
+    log(f"training API (b) sequence graph: first-step loss card bf16 "
+        f"{got_l:.6f} vs CPU f32 {want_l:.6f} (rel {rel_l:.3e}, tol "
+        f"{TRAIN_LOSS_TOL}); logits rel-L2 {logit_err:.3e} (tol "
+        f"{LOGIT_REL_TOL}); losses {[round(x, 4) for x in warm + losses]}; "
+        f"{step_ms:.2f} ms per step (B {b}, T {t}, 2 x {s['hidden']}, "
+        f"encoder masked); B6 launches in 4 steps "
+        f"{launches['lstm_recurrence']}, routes {lstm_routes()}")
+    if not (rel_l <= TRAIN_LOSS_TOL and logit_err <= LOGIT_REL_TOL):
+        raise AssertionError("the card's sequence graph disagrees with the "
+                             "CPU f32 reference")
+    if launches["lstm_recurrence"] != 2 * 4 or \
+            not np.isfinite(warm + losses).all():
+        raise AssertionError("the sequence graph did not run B6 twice a "
+                             "step with finite losses")
+    return launches["lstm_recurrence"], step_ms
+
+
+def _digit_batches(n_batches, b, seed):
+    """Binary 784-pixel "digits": each of 10 seeded prototypes (20% of
+    pixels on) with 10% of its pixels flipped, and one-hot classes."""
+    rng = np.random.default_rng(seed)
+    protos = rng.random((10, 784)) < 0.2
+    out = []
+    for _ in range(n_batches):
+        cls = rng.integers(0, 10, b)
+        x = protos[cls] ^ (rng.random((b, 784)) < 0.1)
+        out.append(DataSet(x.astype(np.float32),
+                           np.eye(10, dtype=np.float32)[cls]))
+    return out
+
+
+def _api_pretrain(card):
+    """(c) layerwise pretrain and the center-loss head, f32, plain torch
+    (no kernel of the port runs here): 784 → AutoEncoder(500) → RBM(250)
+    → VAE(32) → Output(10) pretrained one epoch over 8 batches of 128 and
+    fitted one epoch; 784 → Dense(500) → CenterLossOutputLayer(10) three
+    steps; both against the CPU twin."""
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    s = API_SHAPES
+    conf = (NeuralNetConfiguration.Builder().seed(42).learning_rate(1e-3)
+            .updater("adam").weight_init("xavier").activation("sigmoid")
+            .list()
+            .layer(AutoEncoder(n_out=500, corruption_level=0.0, loss="mse"))
+            .layer(RBM(n_out=250))
+            .layer(VariationalAutoencoder(n_out=32,
+                                          encoder_layer_sizes=[256],
+                                          decoder_layer_sizes=[256],
+                                          activation="tanh"))
+            .layer(OutputLayer(n_out=10, loss="mcxent",
+                               activation="softmax"))
+            .set_input_type(InputType.feed_forward(784)).build())
+    net = MultiLayerNetwork(conf).init()
+    twin = _cpu_twin_mln(net)
+    batches = _digit_batches(s["pre_batches"], s["pre_b"], 104)
+    rec = _ScoreRecorder(net, batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(rec)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) / len(rec.scores) * 1e3
+    scores = np.array([float(x) for x in rec.scores]).reshape(3, -1)
+    twin_rec = _ScoreRecorder(twin, batches)
+    twin.pretrain(twin_rec)
+    twin_scores = np.array([float(x) for x in twin_rec.scores]) \
+        .reshape(3, -1)
+    t0 = time.perf_counter()
+    net.fit(batches)
+    fit_loss = float(net.score_value)
+    fit_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    first_err = [abs(scores[i, 0] - twin_scores[i, 0]) /
+                 abs(twin_scores[i, 0]) for i in range(2)]
+    log(f"training API (c) pretrain: losses first → last batch "
+        f"{[(round(r[0], 5), round(r[-1], 5)) for r in scores.tolist()]} "
+        f"(AutoEncoder, RBM, VAE); first-batch AutoEncoder / RBM vs CPU f32 "
+        f"twin rel {first_err[0]:.3e} / {first_err[1]:.3e} (tol "
+        f"{API_TWIN_TOL}; the VAE's ε comes from the card's generator); "
+        f"{pre_ms:.2f} ms a pretrain step, fit {fit_ms:.2f} ms a step, "
+        f"last loss {fit_loss:.4f}")
+    if not np.isfinite(scores).all() or not np.isfinite(fit_loss):
+        raise AssertionError("a pretrain or fit loss is not finite")
+    if not (scores[:, -1] < scores[:, 0]).all():
+        raise AssertionError("a pretrained layer's loss did not fall")
+    if not max(first_err) <= API_TWIN_TOL:
+        raise AssertionError("the first-batch pretrain losses disagree with "
+                             "the CPU f32 twin")
+    cconf = (NeuralNetConfiguration.Builder().seed(43).learning_rate(0.05)
+             .updater("sgd").weight_init("xavier").activation("relu").list()
+             .layer(DenseLayer(n_out=500))
+             .layer(CenterLossOutputLayer(n_out=10, loss="mcxent",
+                                          activation="softmax", alpha=0.1,
+                                          lambda_=0.01))
+             .set_input_type(InputType.feed_forward(784)).build())
+    cnet = MultiLayerNetwork(cconf).init()
+    ctwin = _cpu_twin_mln(cnet)
+    got, want = [], []
+    for ds in batches[:3]:
+        cnet._fit_batch(ds)
+        ctwin._fit_batch(ds)
+        got.append(float(cnet.score_value))
+        want.append(float(ctwin.score_value))
+    err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    moved = float(cnet.state[1]["centers"].abs().sum())
+    log(f"training API (c) center loss: losses {[round(g, 6) for g in got]} "
+        f"vs CPU f32 twin {[round(w, 6) for w in want]} (rel {err:.3e}, tol "
+        f"{API_TWIN_TOL}); |centers| {moved:.4f}")
+    if not (err <= API_TWIN_TOL and moved > 0):
+        raise AssertionError("the center-loss head disagrees with the CPU "
+                             "twin or its centers did not move")
+    return pre_ms
+
+
+def _api_resnet_transfer(card):
+    """(d) ResNet-50 (bf16, B 128) with its trunk frozen below avgpool and
+    a new 10-class head: 1 warm and 3 timed steps with every BN on its
+    kernels, then GraphTransferLearningHelper's featurize once and
+    fit_featurized for 3 epochs."""
+    s = API_SHAPES
+    b, hw = s["resnet_b"], s["resnet_hw"]
+    base = ComputationGraph(resnet50_conf(1000, hw, hw, 3,
+                                          updater="nesterovs",
+                                          learning_rate=0.1),
+                            compute_dtype=torch.bfloat16).init()
+    net = (TransferLearning.GraphBuilder(base)
+           .fine_tune_configuration(FineTuneConfiguration(learning_rate=0.01))
+           .set_feature_extractor("avgpool")
+           .remove_vertex_and_connections("fc")
+           .add_layer("new_fc", OutputLayer(n_out=10, loss="mcxent",
+                                            activation="softmax"), "avgpool")
+           .set_outputs("new_fc").build())
+    del base
+    frozen = _clone_params(net.params, sorted(net.frozen_vertices))
+    x, y = _images(b, hw, 3, 10, 105)
+    ds = DataSet(x, y)
+    warm, _, _ = train_steps(net, ds, 1)
+    losses, wall, launches = train_steps(net, ds, 3)
+    step_ms = wall / 3 * 1e3
+    changed = _unchanged(net.params, frozen)
+    bn = _bn_launches(launches)
+    helper = GraphTransferLearningHelper(net)
+    before = _clone_params(net.params, list(net.params))
+    t0 = time.perf_counter()
+    feat = helper.featurize(ds)
+    helper.fit_featurized(feat, num_epochs=3)
+    torch.cuda.synchronize()
+    helper_s = time.perf_counter() - t0
+    moved = _unchanged(net.params, before)
+    log(f"training API (d) ResNet-50 transfer [{card}]: {step_ms:.2f} ms "
+        f"per step (B {b}, {hw} x {hw}, bf16, trunk frozen below avgpool, "
+        f"{len(frozen)} frozen vertices); losses "
+        f"{[round(v, 4) for v in warm + losses]}; batch-norm launches in 3 "
+        f"steps {bn} ({ {k: launches[k] for k in BN_COUNTERS} }); frozen "
+        f"vertices changed: {changed}; featurize + 3 fit_featurized epochs "
+        f"{helper_s:.2f}s (features {feat.features[0].shape}), vertices "
+        f"moved {moved}")
+    if changed:
+        raise AssertionError(f"frozen ResNet-50 vertices changed: {changed}")
+    if bn != 106 * 3:
+        raise AssertionError(f"{bn} batch-norm launches in 3 steps, "
+                             f"expected {106 * 3}")
+    if moved != ["new_fc"] or not np.isfinite(warm + losses).all():
+        raise AssertionError(f"fit_featurized moved {moved}, expected only "
+                             "new_fc")
+    return launches, step_ms
+
+
+def phase_training_api(card):
+    """Phase 13: the training API of queue A1 and A11 at full width,
+    (a)–(d) in turn within TRAINING_API_LIMIT_S. Returns the phase's
+    launches of B6 and of the batch-norm counters."""
+    t_phase = time.perf_counter()
+    lstm_a, window_ms = _api_fine_tune(card)
+    lstm_b, seq_ms = _api_seq_graph(card)
+    pre_ms = _api_pretrain(card)
+    resnet, resnet_ms = _api_resnet_transfer(card)
+    wall = time.perf_counter() - t_phase
+    log(f"training API [{card}]: char-RNN fine-tune {window_ms:.2f} ms a "
+        f"TBPTT window (scoring included), B6 {lstm_a}; sequence graph "
+        f"{seq_ms:.2f} ms a step, B6 {lstm_b}; pretrain {pre_ms:.2f} ms a "
+        f"step (plain torch, no kernel); ResNet-50 transfer {resnet_ms:.2f} "
+        f"ms a step, batch-norm launches {_bn_launches(resnet)}")
+    log(f"training API phase: {wall:.1f}s wall (limit "
+        f"{TRAINING_API_LIMIT_S} s)")
+    if wall > TRAINING_API_LIMIT_S:
+        raise AssertionError(f"the training API phase took {wall:.1f}s")
+    out = {"lstm_recurrence": lstm_a + lstm_b}
+    out.update({k: resnet[k] for k in BN_COUNTERS})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3902,9 +4316,12 @@ def main():
     resnet = phase_resnet(card)
     phase_lenet_vgg(card)
     phase_evaluate(card)
+    api = phase_training_api(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
-        launches[name] = resnet[name] + resnet[f"{name}.bwd"]
-    launches["lstm_recurrence"] = lstm_train["lstm_recurrence"]
+        launches[name] = resnet[name] + resnet[f"{name}.bwd"] + \
+            api[name] + api[f"{name}.bwd"]
+    launches["lstm_recurrence"] = lstm_train["lstm_recurrence"] + \
+        api["lstm_recurrence"]
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"]
     for name in ("flash_backward_dq", "flash_backward_dkv"):
         launches[name] = long[name]

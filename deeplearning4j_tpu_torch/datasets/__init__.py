@@ -1,7 +1,11 @@
-"""Synchronous DataSet iterators."""
+"""DataSet iterators: synchronous, sampled, replayed, and the
+asynchronous prefetcher that stages batches on the device."""
 
-from .iterators import (ArrayDataSetIterator, DataSetIterator,
-                        ListDataSetIterator, as_iterator)
+from .iterators import (ArrayDataSetIterator, AsyncDataSetIterator,
+                        DataSetIterator, ListDataSetIterator,
+                        MultipleEpochsIterator, SamplingDataSetIterator,
+                        as_iterator)
 
 __all__ = ["DataSetIterator", "ListDataSetIterator", "ArrayDataSetIterator",
-           "as_iterator"]
+           "AsyncDataSetIterator", "MultipleEpochsIterator",
+           "SamplingDataSetIterator", "as_iterator"]

@@ -1,9 +1,12 @@
-"""Layer configurations: dense and output heads, the activation layer,
-the convolutional family, the transformer LM's layers and the recurrent
-family."""
+"""Layer configurations: the feed-forward family (dense, output and loss
+heads, activation, dropout, embedding, autoencoder, RBM, center loss),
+the variational autoencoder, the convolutional family, the transformer
+LM's layers and the recurrent family."""
 
 from .base import LayerConf, FeedForwardLayerConf, BaseRecurrentLayerConf
-from .feedforward import (ActivationLayer, DenseLayer, OutputLayer,
+from .feedforward import (ActivationLayer, AutoEncoder,
+                          CenterLossOutputLayer, DenseLayer, DropoutLayer,
+                          EmbeddingLayer, LossLayer, OutputLayer, RBM,
                           RnnOutputLayer)
 from .convolution import (ConvolutionLayer, Convolution1DLayer,
                           SubsamplingLayer, Subsampling1DLayer,
@@ -12,10 +15,13 @@ from .convolution import (ConvolutionLayer, Convolution1DLayer,
 from .attention import (SelfAttentionLayer, LayerNormalization,
                         TransformerFeedForward, TokenAndPositionEmbedding)
 from .recurrent import GravesLSTM, LSTM, GravesBidirectionalLSTM
+from .variational import VariationalAutoencoder
 
 __all__ = [
     "LayerConf", "FeedForwardLayerConf", "BaseRecurrentLayerConf",
-    "DenseLayer", "OutputLayer", "RnnOutputLayer", "ActivationLayer",
+    "DenseLayer", "OutputLayer", "RnnOutputLayer", "LossLayer",
+    "ActivationLayer", "DropoutLayer", "EmbeddingLayer", "AutoEncoder", "RBM",
+    "CenterLossOutputLayer", "VariationalAutoencoder",
     "ConvolutionLayer", "Convolution1DLayer", "SubsamplingLayer",
     "Subsampling1DLayer", "BatchNormalization", "LocalResponseNormalization",
     "ZeroPaddingLayer", "GlobalPoolingLayer",

@@ -28,9 +28,12 @@ Truncated BPTT (:meth:`_fit_tbptt`) runs where the JAX graph runs it: a
 input; it makes one update per time window and carries only the recurrent
 vertices' (h, c), detached, into the next window. Every update calls the
 listeners' ``iteration_done``. :meth:`rnn_time_step` keeps the recurrent
-carry between calls. Evaluation (:meth:`do_evaluation` and the
-``evaluate*`` methods) brings each output head to the host once a batch
-through ``ops/transfer.py::device_fetch`` (tag ``graph.eval``)."""
+carry between calls. :meth:`pretrain` / :meth:`pretrain_layer` train the
+pretrainable layer vertices (autoencoder, RBM, VAE) on the
+inference-mode features of the vertices their input depends on.
+Evaluation (:meth:`do_evaluation` and the ``evaluate*`` methods) brings
+each output head to the host once a batch through
+``ops/transfer.py::device_fetch`` (tag ``graph.eval``)."""
 
 from __future__ import annotations
 
@@ -54,9 +57,10 @@ from ...kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_score,
 from ..conf.layers import OutputLayer
 from ..conf.layers.convolution import detached_running_update
 from ..helpers import get_helper
-from ..multilayer import _clone_tree, _host, format_summary_table
+from ..multilayer import (_clone_tree, _host, _pretrain_step, _to_numpy,
+                          format_summary_table)
 from .fusion import build_fusion_plan
-from .graph_config import ComputationGraphConfiguration
+from .graph_config import ComputationGraphConfiguration, with_ancestors
 from .vertices import LayerVertex
 
 
@@ -101,15 +105,18 @@ class ComputationGraph:
 
     # ------------------------------------------------------------------ init
     def init(self) -> "ComputationGraph":
-        """Seeded f32 initialization on the net's device: one generator
-        per vertex, folded from the configuration seed and the vertex's
-        topological index; then the updaters and their zero state."""
+        """Seeded initialization on the net's device: one generator per
+        vertex, folded from the configuration seed and the vertex's
+        topological index; then the updaters and their zero state.
+        Masters are f32 (f64 under an f64 compute dtype)."""
+        storage = torch.float64 if self.compute_dtype == torch.float64 \
+            else torch.float32
         base = rngmod.for_purpose(self.conf.seed, "init")
         self.params, self.state = {}, {}
         for idx, name in enumerate(self.conf.topological_order):
             v = self.conf.vertices[name]
             gen = rngmod.generator(rngmod.fold_in(base, idx), self.device)
-            self.params[name] = v.init_params(gen, torch.float32)
+            self.params[name] = v.init_params(gen, storage)
             self.state[name] = state_on(v.init_state(), self.device)
         self.init_updaters()
         self._initialized = True
@@ -184,7 +191,7 @@ class ComputationGraph:
                  train: bool = False, rng: Optional[int] = None,
                  input_masks: Optional[Dict] = None,
                  output_preout: bool = False, skip_preoutput=(),
-                 initial_rnn: Optional[Dict] = None):
+                 initial_rnn: Optional[Dict] = None, only=None):
         """Walk the topological order. Returns (activations, new_state,
         reg, masks, last_inputs, preouts). ``rng`` is the step's dropout
         seed: a vertex that draws dropout gets a generator seeded with
@@ -196,7 +203,8 @@ class ComputationGraph:
         training the fusion plan's tails run fused at their activation
         vertex and their BN and add vertices are skipped. ``initial_rnn``:
         per-vertex (h, c) carries (truncated BPTT, ``rnn_time_step``); a
-        non-empty entry replaces that vertex's state."""
+        non-empty entry replaces that vertex's state. ``only``: the set of
+        vertices to run (the rest are skipped)."""
         acts: Dict[str, torch.Tensor] = dict(inputs)
         masks: Dict[str, Optional[torch.Tensor]] = dict(input_masks or {})
         new_state: Dict[str, Dict] = {}
@@ -207,6 +215,8 @@ class ComputationGraph:
         fusion_plan, fusion_skip = self._get_fusion_plan() if train \
             else ({}, set())
         for idx, name in enumerate(self.conf.topological_order):
+            if only is not None and name not in only:
+                continue
             if name in fusion_skip:
                 new_state.setdefault(name, state[name])
                 continue
@@ -284,7 +294,7 @@ class ComputationGraph:
         """Mixed precision: a compute-dtype copy of the f32 master
         params (differentiable: gradients reach the masters in f32)."""
         cd = self.compute_dtype
-        if cd == torch.float32:
+        if cd in (torch.float32, torch.float64):
             return params
         return {v: {k: a.to(cd) if a.dtype == torch.float32 else a
                     for k, a in p.items()}
@@ -382,10 +392,11 @@ class ComputationGraph:
         return score, new_state
 
     def _masks_of(self, ds):
-        """(input_masks, label_masks) dicts from a DataSet or MultiDataSet,
-        in the compute dtype on the device."""
+        """(input_masks, label_masks) dicts from a DataSet or MultiDataSet
+        (host arrays or tensors), in the compute dtype on the device."""
         conv = lambda m: None if m is None else \
-            torch.as_tensor(np.asarray(m)).to(self.device, self.compute_dtype)
+            (m if torch.is_tensor(m) else torch.as_tensor(np.asarray(m))) \
+            .to(self.device, self.compute_dtype)
         if isinstance(ds, MultiDataSet):
             imasks = None if not ds.features_masks else \
                 {n: conv(m) for n, m in zip(self.conf.network_inputs,
@@ -563,6 +574,63 @@ class ComputationGraph:
             self._inference_state(), inputs, labels, None, lmasks, imasks)
         return grads, float(score)
 
+    # -------------------------------------------------------------- pretrain
+    def pretrain(self, data, num_epochs: int = 1):
+        """Greedy layerwise unsupervised pretraining of every pretrainable
+        layer vertex (AutoEncoder, RBM, VAE), in topological order."""
+        self._ensure_init()
+        for name in self.conf.topological_order:
+            v = self.conf.vertices[name]
+            if isinstance(v, LayerVertex) and \
+                    hasattr(v.layer, "pretrain_loss"):
+                self.pretrain_layer(name, data, num_epochs)
+        return self
+
+    def pretrain_layer(self, layer_name: str, data, num_epochs: int = 1):
+        """Unsupervised pretraining of one layer vertex: each batch's
+        features run in inference mode through the vertices its input
+        depends on (on the compute-dtype cast of the masters), then the
+        layer's preprocessor, and the layer takes one update of its
+        ``pretrain_loss`` on its f32 masters at its learning rate; noise is
+        drawn from a generator seeded per vertex and iteration.
+        ``score_value`` is the last batch's loss, a device tensor."""
+        self._ensure_init()
+        v = self.conf.vertices.get(layer_name)
+        if v is None:
+            raise ValueError(f"Unknown vertex '{layer_name}'")
+        if not (isinstance(v, LayerVertex) and
+                hasattr(v.layer, "pretrain_loss")):
+            raise ValueError(
+                f"Vertex '{layer_name}' is not pretrainable (needs an "
+                "AutoEncoder/RBM/VariationalAutoencoder layer)")
+        in_name = self.conf.vertex_inputs[layer_name][0]
+        needed = with_ancestors(self.conf.vertex_inputs[layer_name],
+                                self.conf.vertex_inputs,
+                                self.conf.network_inputs)
+        lr = _nz(v.layer.learning_rate, 0.1)
+        base = rngmod.for_purpose(self.conf.seed, f"pretrain-{layer_name}")
+        for _ in range(num_epochs):
+            for ds in as_iterator(data):
+                features = list(ds.features) \
+                    if isinstance(ds, MultiDataSet) else ds.features
+                with torch.no_grad():
+                    acts, *_ = self._forward(
+                        self._cast_params(self.params),
+                        self._inference_state(),
+                        self._inputs_dict(features), only=needed)
+                    act = acts[in_name]
+                    if v.preprocessor is not None:
+                        act = v.preprocessor.pre_process(act, None)
+                gen = rngmod.generator(
+                    rngmod.for_iteration(base, self.iteration), self.device)
+                self.score_value = _pretrain_step(
+                    v.layer, self.params[layer_name],
+                    self.updaters[layer_name],
+                    self.updater_state[layer_name], act, gen, lr,
+                    self.iteration)
+                self.iteration += 1
+        return self
+
     # ------------------------------------------------------ rnn / stateful
     @torch.no_grad()
     def rnn_time_step(self, *features) -> List[np.ndarray]:
@@ -698,7 +766,7 @@ class ComputationGraph:
         """Every parameter in one vector, vertices in topological order,
         then names ascending (the JAX graph's order)."""
         self._ensure_init()
-        parts = [a.detach().float().cpu().numpy().reshape(-1)
+        parts = [_to_numpy(a).reshape(-1)
                  for name in self.conf.topological_order
                  for _, a in sorted(self.params[name].items())]
         return np.concatenate(parts) if parts else np.zeros(0, np.float32)

@@ -95,6 +95,23 @@ def topological_sort(vertex_inputs: Dict[str, List[str]],
     return order
 
 
+def with_ancestors(names, vertex_inputs: Dict[str, List[str]],
+                   network_inputs: List[str], vertices=None) -> set:
+    """The named vertices and every vertex they depend on, network inputs
+    excluded; a name missing from ``vertices`` raises when it is given."""
+    found, stack = set(), list(names)
+    while stack:
+        cur = stack.pop()
+        if cur in found or cur in network_inputs:
+            continue
+        if vertices is not None and cur not in vertices:
+            raise ValueError(f"Feature-extractor vertex '{cur}' does not "
+                             "exist")
+        found.add(cur)
+        stack.extend(vertex_inputs.get(cur, []))
+    return found
+
+
 def infer_graph_shapes(vertices: Dict[str, GraphVertexConf],
                        vertex_inputs: Dict[str, List[str]],
                        network_inputs: List[str],
@@ -127,8 +144,7 @@ def infer_graph_shapes(vertices: Dict[str, GraphVertexConf],
 
 class GraphBuilder:
     """``NeuralNetConfiguration.Builder().graph_builder()``, with the
-    graph's truncated-BPTT settings. Pretraining is not ported, so its
-    setting keeps the configuration's default."""
+    graph's truncated-BPTT and pretrain settings."""
 
     def __init__(self, parent):
         self._parent = parent
@@ -140,6 +156,7 @@ class GraphBuilder:
         self._backprop_type = "standard"
         self._tbptt_fwd = 20
         self._tbptt_back = 20
+        self._pretrain = False
 
     def add_inputs(self, *names: str):
         self._network_inputs.extend(names)
@@ -176,6 +193,10 @@ class GraphBuilder:
         self._tbptt_back = int(n)
         return self
 
+    def pretrain(self, flag):
+        self._pretrain = bool(flag)
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         p = self._parent
         for out in self._network_outputs:
@@ -204,6 +225,7 @@ class GraphBuilder:
             iterations=p._iterations,
             minibatch=p._minibatch,
             backprop_type=self._backprop_type,
+            pretrain=self._pretrain,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back,
             lr_policy=p._lr_policy,

@@ -23,9 +23,14 @@ there). ``rnn_time_step`` keeps each recurrent layer's (h, c) between
 calls until :meth:`rnn_clear_previous_state`, and reads its result back
 once per call. Evaluation (:meth:`do_evaluation` and the ``evaluate*``
 methods) brings the output to the host once a batch through
-``ops/transfer.py::device_fetch`` (tag ``multilayer.eval``). Not ported:
-``pretrain``, center-loss heads and the asynchronous prefetching
-iterator."""
+``ops/transfer.py::device_fetch`` (tag ``multilayer.eval``).
+
+``fit`` pulls its batches through :class:`AsyncDataSetIterator`, which
+copies the next batch to the device on a producer thread. A
+``CenterLossOutputLayer`` head adds its center loss to the score, and its
+class centers move in the layer state, not by gradient. :meth:`pretrain`
+trains each layer that has a ``pretrain_loss`` (autoencoder, RBM, VAE)
+greedily, bottom up, on the features of the layers below it."""
 
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..datasets.iterators import as_iterator
+from ..datasets.iterators import AsyncDataSetIterator, as_iterator
 from ..eval.evaluation import Evaluation
 from ..eval.regression import RegressionEvaluation
 from ..eval.roc import ROC, ROCMultiClass
@@ -49,6 +54,7 @@ from ..ops.transfer import device_fetch
 from ..ops.updaters import make_updater, normalize_gradient, schedule_lr
 from .conf.config import MultiLayerConfiguration
 from .conf.layers.base import BaseRecurrentLayerConf
+from .conf.layers.feedforward import CenterLossOutputLayer
 
 _BIAS_PARAMS = ("b", "vb", "mub", "ob")
 _CARRY = ("h", "c")
@@ -252,7 +258,8 @@ class MultiLayerNetwork:
     def _loss_fn(self, params, state, feats, labels, fmask, lmask, rng,
                  initial_rnn=None):
         """(score, new_states) on the compute-dtype cast of ``params``: the
-        head's loss plus the l1 / l2 penalty."""
+        head's loss (plus a center-loss head's center loss, whose moved
+        centers are the head's new state) plus the l1 / l2 penalty."""
         params = self._cast_params(params)
         out_layer = self._output_layer()
         fused = sparse_labels_eligible(out_layer, labels, params[-1])
@@ -276,6 +283,11 @@ class MultiLayerNetwork:
             mask = lmask if lmask is not None else \
                 (out_mask if pre.dim() == 3 else None)
             score = out_layer.compute_score(params[-1], labels, pre, mask)
+        if isinstance(out_layer, CenterLossOutputLayer):
+            closs, centers = out_layer.center_loss_and_update(
+                state[-1], last_in, labels)
+            score = score + closs
+            new_states = new_states[:-1] + [centers]
         return score + reg, new_states
 
     def _value_and_grad(self, state, feats, labels, fmask, lmask, rng,
@@ -343,7 +355,8 @@ class MultiLayerNetwork:
     def fit(self, data, labels=None, num_epochs: int = 1):
         """Train on a DataSet, a list or iterator of them, or a features
         array with ``labels``; truncated BPTT for sequence batches when the
-        configuration asks for it."""
+        configuration asks for it. Batches come through an
+        :class:`AsyncDataSetIterator` onto the net's device."""
         self._ensure_init()
         if isinstance(labels, (int, np.integer)):
             num_epochs, labels = int(labels), None    # fit(data, epochs)
@@ -355,10 +368,13 @@ class MultiLayerNetwork:
             for lst in self.listeners:
                 if hasattr(lst, "on_epoch_start"):
                     lst.on_epoch_start(self)
-            for ds in as_iterator(data):
+            it = as_iterator(data)
+            if getattr(it, "async_supported", True):
+                it = AsyncDataSetIterator(it, device=self.device)
+            for ds in it:
                 if self.conf.pretrain:
-                    raise ValueError("conf.pretrain=True: pretraining is not "
-                                     "ported")
+                    raise ValueError("conf.pretrain=True: call "
+                                     "pretrain(data)")
                 if tbptt and ds.features.ndim == 3:
                     self._fit_tbptt(ds)
                 else:
@@ -393,6 +409,47 @@ class MultiLayerNetwork:
                      if isinstance(layer, BaseRecurrentLayerConf) else {}
                      for layer, st in zip(self.layers, new_states)]
             self._after_step(score, new_states)
+
+    # -------------------------------------------------------------- pretrain
+    @torch.no_grad()
+    def _featurize(self, upto: int, x) -> torch.Tensor:
+        """``x`` through layers [0, upto) in inference mode on the f32
+        masters, each after its preprocessor."""
+        act = self._as_tensor(x)
+        states = self._inference_state()
+        for j in range(upto):
+            pp = self.conf.preprocessor_for(j)
+            if pp is not None:
+                act = pp.pre_process(act)
+            act, _ = self.layers[j].forward(self.params[j], states[j], act)
+        return act
+
+    def pretrain(self, data, num_epochs: int = 1):
+        """Greedy layerwise unsupervised pretraining: bottom up, each layer
+        with a ``pretrain_loss`` (AutoEncoder, RBM, VAE) takes one update a
+        batch of its loss, on the f32 masters, over the inference-mode
+        features of the layers below, with its own updater at its learning
+        rate; noise is drawn from a generator seeded per layer and
+        iteration. ``score_value`` is the last batch's loss, a device
+        tensor."""
+        self._ensure_init()
+        for li, layer in enumerate(self.layers):
+            if not hasattr(layer, "pretrain_loss"):
+                continue
+            lr = _nz(layer.learning_rate, 0.1)
+            base = rngmod.for_purpose(self.conf.seed, f"pretrain{li}")
+            for _ in range(num_epochs):
+                for ds in as_iterator(data):
+                    act = self._featurize(li, ds.features)
+                    gen = rngmod.generator(
+                        rngmod.for_iteration(base, self.iteration),
+                        self.device)
+                    self.score_value = _pretrain_step(
+                        layer, self.params[li], self.updaters[li],
+                        self.updater_state[li], act, gen, lr,
+                        self.iteration)
+                    self.iteration += 1
+        return self
 
     # --------------------------------------------------------------- scoring
     def score(self, ds: DataSet, training: bool = False) -> float:
@@ -577,3 +634,21 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
     if x.dtype == torch.bfloat16:
         x = x.float()
     return x.detach().cpu().numpy()
+
+
+def _pretrain_step(layer, params, upd, upd_state, x, gen, lr,
+                   iteration) -> torch.Tensor:
+    """One update of ``params`` (in place) and ``upd_state`` by the
+    gradient of ``layer.pretrain_loss`` on ``x``; returns the loss,
+    detached."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    with torch.enable_grad():
+        loss = layer.pretrain_loss(leaves, x, gen)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    materialize_grads=True)
+    with torch.no_grad():
+        for name, g in zip(leaves, grads):
+            step, upd_state[name] = upd.update(g, upd_state[name], lr,
+                                               float(iteration))
+            params[name].sub_(step)
+    return loss.detach()

@@ -215,3 +215,15 @@ def write_model(net, path) -> None:
             "epoch": net.epoch,
             "format_version": 1,
         }))
+
+
+def restore_model(path, device=None, compute_dtype=None):
+    """Restore a checkpoint as the model type its ``meta.json`` names
+    (MultiLayerNetwork unless it says ComputationGraph)."""
+    with zipfile.ZipFile(Path(path), "r") as z:
+        meta = json.loads(z.read(META_ENTRY)) if META_ENTRY in z.namelist() \
+            else {}
+    restore = restore_computation_graph \
+        if meta.get("model_type") == "ComputationGraph" \
+        else restore_multi_layer_network
+    return restore(path, device, compute_dtype)

@@ -19,6 +19,9 @@ their gradients); attention at head dims that are not a multiple of 8
 (zero-padded), up to 256 (the wide instance) and above (the output's
 columns split over the grid); each with one kernel launch a wrapper call
 (three for the general batch-norm route) and no plain-path operator.
+The training API's paths: a frozen char-RNN layer bit-identical over
+fine-tune steps on B6, ``AsyncDataSetIterator`` staging bf16 on the card,
+and a frozen ResNet trunk whose BNs still launch their kernels at lr 0.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1072,3 +1075,114 @@ def test_attention_c4_launches_one_kernel(cuda_device, d):
     assert len(attn) == 1, names
     assert not any("gemm" in n.lower() or "softmax" in n.lower()
                    for n in names), names
+
+
+# ------------------------------------- the training API's paths on the card
+def test_frozen_char_rnn_layer_stays_bit_identical_on_b6(cuda_device):
+    """A char-RNN (2 x 64 GravesLSTM, bf16) fine-tuned after
+    ``TransferLearning.Builder.set_feature_extractor(0)``: every step
+    launches B6 for both layers, layer 0's f32 masters stay bit-identical
+    under rmsprop with l2, layer 1 moves."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                      TransferLearning)
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    net = MultiLayerNetwork(char_rnn_conf(16, hidden=64, layers=2,
+                                          learning_rate=0.01,
+                                          tbptt_length=0),
+                            compute_dtype=torch.bfloat16,
+                            device=cuda_device).init()
+    rng = np.random.default_rng(0)
+    eye = np.eye(16, dtype=np.float32)
+    toks = rng.integers(0, 16, (8, 33))
+    ds = DataSet(eye[toks[:, :-1]], eye[toks[:, 1:]])
+    net._fit_batch(ds)
+    new = (TransferLearning.Builder(net)
+           .fine_tune_configuration(FineTuneConfiguration(learning_rate=0.02))
+           .set_feature_extractor(0).remove_output_layer()
+           .add_layer(RnnOutputLayer(n_out=16, loss="mcxent",
+                                     activation="softmax")).build())
+    frozen = {k: v.clone() for k, v in new.params[0].items()}
+    moving = new.params[1]["W"].clone()
+    before = lk.lstm_recurrence_fwd.launches
+    for _ in range(3):
+        new._fit_batch(ds)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.launches - before == 2 * 3
+    for k, v in frozen.items():
+        assert torch.equal(new.params[0][k], v), k
+    assert not torch.equal(new.params[1]["W"], moving)
+    assert np.isfinite(float(new.score_value))
+
+
+def test_async_iterator_stages_bf16_on_the_card(cuda_device):
+    """``AsyncDataSetIterator(stage_dtype=bf16)`` hands the consumer bf16
+    features and labels already on the card (masks and integer ids in
+    their own dtype), bit-equal to a cast of the host arrays."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import (AsyncDataSetIterator,
+                                                   ListDataSetIterator)
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    rng = np.random.default_rng(1)
+    src = [DataSet(rng.normal(size=(64, 128, 80)).astype(np.float32),
+                   rng.integers(0, 80, (64, 128)),
+                   np.ones((64, 128), np.float32), None) for _ in range(3)]
+    got = list(AsyncDataSetIterator(ListDataSetIterator(src), prefetch=2,
+                                    stage_dtype=torch.bfloat16,
+                                    device=cuda_device))
+    assert len(got) == 3
+    for g, s in zip(got, src):
+        assert g.features.is_cuda and g.features.dtype == torch.bfloat16
+        assert g.labels.is_cuda and g.labels.dtype == torch.int64
+        assert g.features_mask.dtype == torch.float32
+        assert torch.equal(g.features.cpu(),
+                           torch.from_numpy(s.features).bfloat16())
+        assert torch.equal(g.labels.cpu(), torch.from_numpy(s.labels))
+
+
+def test_frozen_resnet_trunk_still_launches_its_bn_kernels(cuda_device):
+    """resnet_tiny with ``set_feature_extractor("avgpool")`` and a new
+    head: a step still runs every BN of the frozen trunk on its kernels
+    (7 + 2 a direction, lr 0 changes no launch), the trunk's parameters
+    stay bit-identical, its running statistics move, the head moves."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    from deeplearning4j_tpu_torch.models import resnet_tiny_conf
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    net = ComputationGraph(resnet_tiny_conf(num_classes=4, height=16,
+                                            width=16, channels=3),
+                           device=cuda_device).init()
+    new = (TransferLearning.GraphBuilder(net)
+           .set_feature_extractor("avgpool")
+           .remove_vertex_and_connections("fc")
+           .add_layer("new_fc", OutputLayer(n_out=3, loss="mcxent",
+                                            activation="softmax"), "avgpool")
+           .set_outputs("new_fc").build())
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+    trunk = {v: {k: a.clone() for k, a in new.params[v].items()}
+             for v in new.frozen_vertices}
+    stats = {v: {k: a.clone() for k, a in new.state[v].items()}
+             for v in new.frozen_vertices if new.state[v]}
+    head = new.params["new_fc"]["W"].clone()
+    counters = (bnk.bn_train_fwd, bnk.bn_train_bwd, bnk.bn_add_act_fwd,
+                bnk.bn_add_act_bwd)
+    before = [f.launches for f in counters]
+    new.fit_batch(DataSet(x, y))
+    new.fit_batch(DataSet(x, y))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [14, 14, 4, 4]
+    for v, p in trunk.items():
+        for k, a in p.items():
+            assert torch.equal(new.params[v][k], a), (v, k)
+    assert stats and all(not torch.equal(new.state[v]["mean"], s["mean"])
+                         for v, s in stats.items())
+    assert not torch.equal(new.params["new_fc"]["W"], head)

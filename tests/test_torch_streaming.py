@@ -315,7 +315,10 @@ def test_port_sources_import_no_jax():
                 "parallel/inference.py", "tools/chaos_soak.py",
                 "streaming/disagg.py", "streaming/autoscale.py",
                 "observability/telemetry.py", "ui/server.py",
-                "streaming/remote.py"):
+                "streaming/remote.py", "nn/transfer.py",
+                "nn/gradientcheck.py", "nn/conf/layers/variational.py",
+                "earlystopping/core.py", "optimize/solvers.py",
+                "datasets/iterators.py"):
         assert f"deeplearning4j_tpu_torch/{new}" in names
     bad = []
     for p in files:

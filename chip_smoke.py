@@ -156,6 +156,28 @@ Phases, each an uncaught exception on failure:
    the two endpoints boot beside the rounds and wait idle). A worker
    that sends no hello in time fails the phase with its log.
    The phase prints its wall time and fails past 180 s.
+4g. mesh-sharded serving (``phase_mesh``): the flagship (a fresh bf16 net
+   and its f32 twin) behind engines whose decoder shards over a (data,
+   tp) mesh with every coordinate on the card (``generation_mesh(data,
+   tp, devices=[cuda:0] * n)``). First B1 checked and timed against its
+   plain version at the mesh's local head counts (8 admission rows,
+   bucket 512, 6 and 3 heads). (1) f32 twin, TF32 off, phase 4's 16
+   requests x 64 tokens, 8 slots, K = 4: meshes 2x1, 1x2, 2x2 and 1x4
+   each token-identical to the unsharded engine, B1 launched exactly
+   sum(min(row bucket, data)) x tp x 12 times over the admissions (the
+   flight recorder's buckets), one readback a decode block gathering
+   data x tp shards; generated tok/s of each mesh beside the unsharded
+   engine (one card: host dispatch, not scaling); fixed-seed sampled
+   tokens (8 requests x 32, T 0.8) identical across the meshes. (2) on
+   2x2: the paged engine (pages of 16, t_max 576) and the speculative
+   one (spec_k 4, threshold 0) token-identical to their unsharded runs,
+   B1 as predicted, the pool's data copies equal outside the null page.
+   (3) bf16 on 1x2: first-prefill logits within rel-L2 5e-2 of the
+   unsharded decoder (tokens reported). (4) ``GenerationServingRoute``
+   and ``ParallelInference(generation_mesh=)`` on 2x1, 2 requests each,
+   token-identical to (1). The phase's B1 launches (the kernel checks
+   aside) join the ``kernels`` line; it prints its wall time and fails
+   past 120 s.
 5. long prompt: the same width at 2 layers, max_length 2048,
    TransformerDecoder.generate on 4 prompts of 1536 tokens (bucket
    T = 2048 > 512): the flash kernel must launch.
@@ -339,10 +361,11 @@ from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
                                                     NumericalFault)
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.ops.transfer import fetch_counts
+from deeplearning4j_tpu_torch.ops.transfer import fetch_counts, fetch_shards
 from deeplearning4j_tpu_torch.parallel import (EngineSupervisor,
                                                FaultInjector,
-                                               ParallelInference)
+                                               ParallelInference,
+                                               generation_mesh, mesh_tag)
 from deeplearning4j_tpu_torch.observability import (FlightRecorder,
                                                     MetricsRegistry,
                                                     PhaseProfiler, SLOTracker,
@@ -1006,6 +1029,13 @@ def check_logits(net, prompts, tp, what):
 SERVED = {}
 
 
+def _stats_delta(engine, stats0):
+    """The engine's counters since ``stats0`` (its ``mesh_shape`` tag and
+    other non-counters left out)."""
+    return {k: v - stats0.get(k, 0) for k, v in engine.stats().items()
+            if isinstance(v, int) and not isinstance(v, bool)}
+
+
 def phase_serving(card):
     conf = transformer_lm_conf(vocab_size=32000, d_model=768, num_heads=12,
                                num_layers=12, max_length=577)
@@ -1029,7 +1059,7 @@ def phase_serving(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats().items()}
+    stats = _stats_delta(engine, stats0)
     fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
 
     for p, r in zip(prompts, reqs):
@@ -1114,7 +1144,7 @@ def _drive(engine, prompts, new_tokens):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     engine._step = step
-    stats = {k: v - stats0.get(k, 0) for k, v in engine.stats().items()}
+    stats = _stats_delta(engine, stats0)
     fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
     for p, r in zip(prompts, reqs):
         out = r.result(timeout=0)
@@ -1423,7 +1453,7 @@ def _stall_run(net, dec, paged, chunk, shorts, longs, warm):
             raise AssertionError(f"a request returned "
                                  f"{len(r.result(timeout=0))} tokens, "
                                  f"expected {want}")
-    st = {k: v - stats0.get(k, 0) for k, v in engine.stats().items()}
+    st = _stats_delta(engine, stats0)
     fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
     if fetched > st["decode_blocks"]:
         raise AssertionError(f"{fetched} decode readbacks for "
@@ -2567,6 +2597,265 @@ def _remote_rounds(card, model, device, on_card, reqs, boot_ab):
     if on_card and worker_b1 <= 0:
         raise AssertionError("the workers reported no B1 launch")
     return worker_b1, parent_b1
+
+
+# ---------------------------------------------------------------- phase 4g
+#: phase 4g's meshes (data, tp), every coordinate on the one card
+MESH_SHAPES = [(2, 1), (1, 2), (2, 2), (1, 4)]
+MESH_PHASE_LIMIT_S = 120
+#: the fixed-seed sampled round: requests, new tokens, temperature
+MESH_SAMPLED = (8, 32, 0.8)
+#: the paged, speculative and bf16 rounds: requests, new tokens
+MESH_ROUND = (8, 32)
+
+
+def _mesh_of(shape, device):
+    data, tp = shape
+    return generation_mesh(data, tp, devices=[device] * (data * tp))
+
+
+def _mesh_run(net, prompts, new_tokens, mesh, temps=None, seed=0,
+              layers=12, **kw):
+    """Serve ``prompts`` to the end on a fresh 8-slot, K = 4 engine over
+    ``mesh`` (None: unsharded) after one warm request. Returns (outputs,
+    wall s, counted B1 launches, predicted B1 launches, decode
+    readbacks, decode blocks, the readback's mesh shards). The
+    prediction: every admission's rows split over the data groups in
+    contiguous runs, so a group runs when the admission's row bucket
+    reaches it, and each group's tp shards run B1 once a layer."""
+    fr = FlightRecorder()
+    engine = SlotGenerationEngine(net, num_slots=8, block_size=4, mesh=mesh,
+                                  seed=seed, flight_recorder=fr,
+                                  registry=MetricsRegistry(), **kw)
+    # the warm prompt shares no page with the counted ones, so a paged
+    # engine's admissions stay fresh (whole prompts, through B1)
+    engine.submit(np.ascontiguousarray(prompts[0][:64][::-1]), 4)
+    engine.run_until_drained()
+    n_adm = len(fr.events(kind="admission"))
+    _sync()
+    reset_launches()
+    stats0 = engine.stats()
+    fetched0 = fetch_counts("engine.decode")["engine.decode"]
+    t0 = time.perf_counter()
+    temps = temps or [0.0] * len(prompts)
+    reqs = [engine.submit(p, new_tokens, temperature=t)
+            for p, t in zip(prompts, temps)]
+    engine.run_until_drained()
+    _sync()
+    wall = time.perf_counter() - t0
+    b1 = read_launches()["shortseq_attention"]
+    stats = _stats_delta(engine, stats0)
+    fetched = fetch_counts("engine.decode")["engine.decode"] - fetched0
+    shards = fetch_shards("engine.decode")["engine.decode"]
+    data, tp = (1, 1) if mesh is None else \
+        (mesh.shape["data"], mesh.shape["tp"])
+    buckets = [ev["bucket"] for ev in fr.events(kind="admission")[n_adm:]]
+    predicted = sum(min(b, data) for b in buckets) * tp * layers
+    outs = []
+    for p, r in zip(prompts, reqs):
+        out = r.result(timeout=0)
+        if len(out) != len(p) + new_tokens or not (out[:len(p)] == p).all():
+            raise AssertionError(f"request returned {len(out)} tokens, "
+                                 f"expected {len(p) + new_tokens}")
+        outs.append(out)
+    if fetched > stats["decode_blocks"] + stats["spec_blocks"]:
+        raise AssertionError(f"{fetched} decode readbacks for "
+                             f"{stats['decode_blocks']} blocks")
+    if engine._pager is not None:
+        _audit(engine, f"mesh {mesh_tag(mesh) or '1x1'}")
+    return (outs, wall, b1, predicted, fetched,
+            stats["decode_blocks"] + stats["spec_blocks"], shards, engine)
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _same_tokens(got, want):
+    return sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+
+
+def _pool_copies_equal(engine):
+    """Every data group's copy of a paged engine's pool equal to group
+    0's, the null page aside (duplicate redirected writes race there)."""
+    for kv in engine._caches.values():
+        for leaf in kv.values():
+            data, tp = leaf.mesh.shape["data"], leaf.mesh.shape["tp"]
+            for t in range(tp):
+                first = leaf.local((0, t))[1:]
+                for d in range(1, data):
+                    if not torch.equal(leaf.local((d, t))[1:], first):
+                        return False
+    return True
+
+
+def phase_mesh(card, device=None, model=None, prompts=None):
+    """Phase 4g: the flagship served over (data, tp) meshes with every
+    coordinate on the card (module docstring). ``device`` / ``model`` /
+    ``prompts`` let the phase be rehearsed on the CPU at a small width.
+    Returns the phase's B1 launches (kernel checks excluded)."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = torch.device(device or "cuda:0")
+    model = dict(model or {"vocab": 32000, "d_model": 768, "num_heads": 12,
+                           "num_layers": 12, "max_length": 577})
+    layers, heads = model["num_layers"], model["num_heads"]
+    if on_card:
+        # B1 where the meshes run it: 8 admission rows at bucket 512 over
+        # H / tp local heads
+        lens = np.random.default_rng(11).integers(200, 513, 8)
+        for tp in sorted({tp for _, tp in MESH_SHAPES if tp > 1}):
+            check_kernel("shortseq_attention", 8, heads // tp, 512, 64,
+                         lens, 12 + tp)
+    conf = transformer_lm_conf(vocab_size=model["vocab"],
+                               d_model=model["d_model"],
+                               num_heads=heads, num_layers=layers,
+                               max_length=model["max_length"])
+    net = ComputationGraph(conf, compute_dtype=torch.bfloat16,
+                           device=dev).init()
+    twin = _f32_twin(net)
+    if prompts is None:
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, model["vocab"], int(n))
+                   for n in rng.integers(200, 513, 16)]
+    b1_total = 0
+    # (1) the f32 twin (TF32 off): phase 4's requests, every mesh's greedy
+    # tokens against the unsharded engine's
+    ref, wall, b1, _, _, _, _, _ = _mesh_run(twin, prompts, 64, None,
+                                              layers=layers)
+    b1_total += b1
+    gen = len(prompts) * 64
+    rates = {"1x1": gen / wall}
+    for shape in MESH_SHAPES:
+        mesh = _mesh_of(shape, dev)
+        tag = mesh_tag(mesh)
+        outs, wall, b1, pred, fetched, blocks, shards, _ = _mesh_run(
+            twin, prompts, 64, mesh, layers=layers)
+        b1_total += b1
+        rates[tag] = gen / wall
+        same = _same_tokens(outs, ref)
+        log(f"mesh {tag} f32: {same}/{len(prompts)} requests token-identical "
+            f"to the unsharded engine; B1 launches {b1} (predicted {pred}); "
+            f"decode readbacks {fetched} for {blocks} blocks, each "
+            f"gathering {shards} shards")
+        if same != len(prompts):
+            raise AssertionError(f"mesh {tag}: f32 tokens differ from the "
+                                 "unsharded engine's")
+        if on_card and b1 != pred:
+            raise AssertionError(f"mesh {tag}: {b1} B1 launches, predicted "
+                                 f"{pred}")
+        if shards != shape[0] * shape[1]:
+            raise AssertionError(f"mesh {tag}: the readback gathered "
+                                 f"{shards} shards")
+    log(f"mesh f32 [{card}]: generated tok/s, 16 requests x 64 tokens, 8 "
+        f"slots, K 4: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                    rates.items()) +
+        " (every shard on this one card: the meshes measure the host's "
+        "dispatch of data x tp shards, not scaling)")
+    # fixed-seed sampled tokens: identical across the meshes
+    n, new, temp = MESH_SAMPLED
+    sampled = {}
+    for shape in [None] + MESH_SHAPES:
+        mesh = None if shape is None else _mesh_of(shape, dev)
+        outs, _, b1, *_ = _mesh_run(twin, prompts[:n], new, mesh,
+                                    temps=[temp] * n, seed=5, layers=layers)
+        b1_total += b1
+        sampled[mesh_tag(mesh) or "1x1"] = outs
+    first = sampled[mesh_tag(_mesh_of(MESH_SHAPES[0], dev))]
+    agree = {k: _same_tokens(v, first) for k, v in sampled.items()}
+    log(f"mesh f32 sampled (T {temp}, seed 5, {n} requests x {new}): "
+        f"requests identical to {MESH_SHAPES[0][0]}x{MESH_SHAPES[0][1]}'s "
+        f"{agree}")
+    if any(agree[mesh_tag(_mesh_of(s, dev))] != n for s in MESH_SHAPES):
+        raise AssertionError("fixed-seed sampled tokens differ across the "
+                             "meshes")
+    # (2) paged and speculative on (2, 2), each against its unsharded run
+    n, new = MESH_ROUND
+    m22 = _mesh_of((2, 2), dev)
+    for what, kw in (("paged", dict(paged=True, page_size=PAGE_SIZE,
+                                    t_max=PAGED_T_MAX)),
+                     ("speculative", dict(speculative=True, spec_k=4,
+                                          spec_threshold=0.0))):
+        want, _, b1a, *_ = _mesh_run(twin, prompts[:n], new, None,
+                                     layers=layers, **kw)
+        outs, wall, b1, pred, fetched, blocks, shards, eng = _mesh_run(
+            twin, prompts[:n], new, m22, layers=layers, **kw)
+        b1_total += b1a + b1
+        same = _same_tokens(outs, want)
+        copies = _pool_copies_equal(eng) if what == "paged" else None
+        log(f"mesh 2x2 {what} f32: {same}/{n} token-identical to the "
+            f"unsharded {what} engine; readbacks {fetched} for {blocks} "
+            f"blocks ({shards} shards); B1 {b1} (predicted {pred})"
+            + ("" if copies is None else
+               f"; the data groups' pool copies equal: {copies}"))
+        if same != n or copies is False or shards != 4:
+            raise AssertionError(f"mesh 2x2 {what}: differs from the "
+                                 "unsharded run")
+        if on_card and b1 != pred:
+            raise AssertionError(f"mesh 2x2 {what}: {b1} B1 launches, "
+                                 f"predicted {pred}")
+        if what == "speculative" and eng.stats()["spec_blocks"] == 0:
+            raise AssertionError("no speculative block ran on the mesh")
+    # (3) bf16 on (1, 2): first-prefill logits gated, tokens reported
+    m12 = _mesh_of((1, 2), dev)
+    tokens, lengths = _padded(prompts[:2], 512)
+    reset_launches()
+    logits = []
+    for mesh in (m12, None):
+        dec = TransformerDecoder(net, mesh=mesh)
+        logits.append(dec.prefill(dec.init_cache(2), tokens, lengths)[1])
+    b1_total += read_launches()["shortseq_attention"]
+    rel = _rel_l2_rows(*logits)
+    want_out, _, b1a, *_ = _mesh_run(net, prompts[:n], new, None,
+                                     layers=layers)
+    outs, wall, b1, *_ = _mesh_run(net, prompts[:n], new, m12,
+                                   layers=layers)
+    b1_total += b1a + b1
+    log(f"mesh 1x2 bf16: first-prefill logits rel-L2 against the unsharded "
+        f"bf16 decoder {rel:.3e} (tol {LOGIT_REL_TOL}); "
+        f"{_same_tokens(outs, want_out)}/{n} requests token-identical "
+        "(reported: bf16 tokens follow the reduction order)")
+    if not (np.isfinite(rel) and rel <= LOGIT_REL_TOL):
+        raise AssertionError("mesh 1x2 bf16 logits disagree")
+    # (4) the routes on (2, 1), 2 requests each, against (1)'s tokens
+    m21 = _mesh_of((2, 1), dev)
+    reset_launches()
+    broker = create_broker("memory://")
+    out_sub = NDArraySubscriber(broker, "dl4j-gen-output")
+    route = GenerationServingRoute(twin, broker, max_new_tokens=16,
+                                   num_slots=2, block_size=4, mesh=m21,
+                                   registry=MetricsRegistry()).start()
+    try:
+        pub = NDArrayPublisher(broker, "dl4j-gen-input")
+        for p in prompts[2:4]:
+            pub.publish(np.asarray(p, np.int32))
+        routed = [np.asarray(out_sub.poll(timeout=120), np.int64)
+                  for _ in range(2)]
+    finally:
+        route.stop()
+        out_sub.close()
+    pi = ParallelInference(twin, generation_slots=2, generation_block_size=4,
+                           generation_mesh=m21,
+                           generation_registry=MetricsRegistry())
+    try:
+        facade = [pi.generate(p, 16, timeout=120) for p in prompts[4:6]]
+        engine_mesh = pi._gen_engine.mesh
+    finally:
+        pi.shutdown()
+    b1_total += read_launches()["shortseq_attention"]
+    want = [r[:len(p) + 16] for p, r in zip(prompts[2:6], ref[2:6])]
+    same = _same_tokens(routed + facade, want)
+    log(f"mesh 2x1 routes: GenerationServingRoute and ParallelInference "
+        f"answered {same}/4 requests token-identical to (1)'s")
+    if same != 4 or engine_mesh is not m21:
+        raise AssertionError("a route on the mesh disagrees")
+    wall = time.perf_counter() - t_phase
+    log(f"mesh phase: {wall:.1f}s wall (limit {MESH_PHASE_LIMIT_S} s), B1 "
+        f"launches {b1_total}")
+    if wall > MESH_PHASE_LIMIT_S:
+        raise AssertionError(f"the mesh phase took {wall:.1f}s")
+    return b1_total
 
 
 def phase_long_prompt():
@@ -4303,8 +4592,9 @@ def main():
     fleet_launches = phase_fleet(card, flagship)
     del flagship
     remote_launches = phase_remote(card)
+    mesh_launches = phase_mesh(card)
     launches = {"shortseq_attention": serving_launches + fleet_launches +
-                remote_launches,
+                remote_launches + mesh_launches,
                 "flash_forward": phase_long_prompt()}
     train = phase_train_flagship(card)
     long = phase_train_long(card)

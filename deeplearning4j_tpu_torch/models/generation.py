@@ -56,12 +56,20 @@ temperature is <= 0, else Gumbel-max sampling from bf16-ROUNDED logits
 with a generator seeded per ABSOLUTE step (a Philox generator on the
 card), so a fixed seed gives the same tokens for every block size K.
 
-Mesh sharding (``mesh=``) is ROADMAP queue A9; the handoff across
-processes (the remote fleet's wire) is queue A8c."""
+``mesh=`` (a ``parallel.mesh.generation_mesh``) shards the decoder over
+a (data, tp) grid of devices driven by this one process: cache slots and
+batch rows over ``data``, heads and projection columns over ``tp``, by
+the roles of ``parallel.spec_layout.SpecLayout``. Every vertex of every
+walk goes through :meth:`TransformerDecoder._vertex` once per data
+group; the tp shards' partial products are summed in coordinate order
+and the logits concatenated on the controller device (coordinate (0,
+0)), where the selection runs as it does unsharded. One readback a block
+still gathers every shard (``ops.transfer.fetch_shards``)."""
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import itertools
 import threading
@@ -72,7 +80,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..nn.conf.layers import SelfAttentionLayer, TokenAndPositionEmbedding
+from ..nn.conf.layers import (SelfAttentionLayer, TokenAndPositionEmbedding,
+                              TransformerFeedForward)
 from ..nn.graph.vertices import LayerVertex
 from ..observability.clock import interval_now
 from ..observability.flightrec import default_flight_recorder
@@ -86,9 +95,14 @@ from ..observability.profiler import default_profiler
 from ..observability.slo import default_slo_tracker
 from ..observability.tracing import Trace, default_trace_ring
 from ..ops import rng as rngmod
-from ..ops.transfer import device_fetch, start_fetch, to_device
+from ..ops.activations import gelu
+from ..ops.transfer import device_fetch, mark_shards, start_fetch, to_device
 from ..parallel.faults import (NULL_INJECTOR, Cancelled, DeadlineExceeded,
                                RejectedError)
+from ..parallel.mesh import (Mesh, ShardedTensor, local_slice, mesh_tag,
+                             serving_grid, validate_decode_mesh)
+from ..parallel.spec_layout import (SpecLayout, decoder_param_specs,
+                                    shard_params, validate_param_specs)
 from .paging import PageAllocator, chain_digests
 from .speculative import NGramDrafter
 
@@ -211,12 +225,74 @@ def _round_up_pow2(n: int, floor: int = 16) -> int:
     return p
 
 
+class _Group:
+    """One data group's share of a dispatch: its rows ``lo:hi`` of the
+    batch, their inputs on each tp shard's device (``inp[t]``; one dict
+    when they share a device), the activations on the group's home device
+    (its tp shard 0), each tp shard's caches (``kv[t]``: {layer: {"k",
+    "v"}}) and, for a slab prefill on a mesh, where its rows' k / v go."""
+
+    __slots__ = ("g", "lo", "hi", "home", "inp", "acts", "kv", "writes")
+
+    def __init__(self, g: int, lo: int, hi: int, home, inp, kv):
+        self.g, self.lo, self.hi, self.home = g, lo, hi, home
+        self.inp = inp
+        self.kv = kv
+        self.acts: Dict[str, torch.Tensor] = {}
+        self.writes = None
+
+
+class _PoolCopies:
+    """A data group's handle on one of a page pool's copies (the pool is
+    replicated over the data axis): reads see the group's own copy, every
+    write lands in all copies in data-group order, so the copies stay
+    equal whichever group writes."""
+
+    __slots__ = ("own", "copies")
+
+    def __init__(self, own: torch.Tensor, copies: List[torch.Tensor]):
+        self.own = own
+        self.copies = copies
+
+    @property
+    def shape(self):
+        return self.own.shape
+
+    @property
+    def dtype(self):
+        return self.own.dtype
+
+    def __getitem__(self, idx):
+        return self.own[idx]
+
+    def __setitem__(self, idx, value):
+        for c in self.copies:
+            at = tuple(i.to(c.device) if torch.is_tensor(i) else i
+                       for i in idx) if isinstance(idx, tuple) else \
+                (idx.to(c.device) if torch.is_tensor(idx) else idx)
+            c[at] = value.to(c.device)
+
+
 class TransformerDecoder:
     """Cache-aware executor for a causal decoder-only ComputationGraph.
 
     ``t_max`` bounds the context (prompt + generated) a cache row holds;
     it defaults to the embedding's max_length and may not exceed it. The
     decoder runs on the net's device, in the net's compute dtype.
+
+    ``mesh`` (``parallel.mesh.generation_mesh(data, tp, devices=...)``)
+    shards the decoder over a grid of devices driven by this process:
+    parameters by role through ``spec_layout`` (a ``parallel.spec_layout.
+    SpecLayout``; the default shards embeddings and projections on
+    ``tp``), the slab cache with slots over ``data`` and heads over
+    ``tp``, the page pool with heads over ``tp`` and a copy per data
+    group. Rows of a dispatch split over the data groups in contiguous
+    runs; a slab prefill's k / v go to the group that owns each row's
+    slot (slot ``s`` of ``S`` lives in group ``s // (S / data)``). Heads
+    divisible by tp and a valid layout are checked here, before anything
+    runs; program names gain a ``__m<data>x<tp>`` suffix. The controller
+    device (``self.device``) is coordinate (0, 0)'s: logits, the
+    selection and every block carry live there.
 
     ``sentinel=True`` makes the serving programs (``prefill_slots``,
     ``prefill_chunk``, ``paged_prefill``, the decode and verify blocks)
@@ -225,7 +301,8 @@ class TransformerDecoder:
     of the token tensor they already return, so it crosses to the host in
     the same readback. An engine must agree with its decoder's setting."""
 
-    def __init__(self, net, t_max: Optional[int] = None,
+    def __init__(self, net, t_max: Optional[int] = None, mesh=None,
+                 spec_layout: Optional[SpecLayout] = None,
                  sentinel: bool = False,
                  logit_bound: Optional[float] = 1e4):
         self._dispatch_lock = threading.RLock()
@@ -284,10 +361,50 @@ class TransformerDecoder:
         #: query tokens a row q, cells read a row ctx), memoized cost]:
         #: what ``observability.devstats.impl_cost_analysis`` reads
         self._cost_seam: Dict[str, List] = {}
+        # ---- mesh sharding
+        self.mesh = mesh
+        self._layout: Optional[SpecLayout] = None
+        self._specs = None
+        self._grid = None            # [data, tp] mesh coordinates
+        self._data = self._tp = 1
+        self._impl_suffix = ""
+        self._views: Dict[str, SelfAttentionLayer] = {}
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError("mesh must be a parallel.mesh.Mesh "
+                                "(generation_mesh / make_mesh), got "
+                                f"{type(mesh).__name__}")
+            self._layout = spec_layout if spec_layout is not None \
+                else SpecLayout()
+            for name in self.attn_names:
+                validate_decode_mesh(
+                    mesh, num_heads=conf.vertices[name].layer.num_heads,
+                    data_axis=self._layout.data_axis,
+                    tp_axis=self._layout.tp_axis)
+            self._specs = decoder_param_specs(self, self._layout)
+            validate_param_specs(mesh, self._specs, net.params)
+            self._grid = serving_grid(mesh, self._layout.data_axis,
+                                      self._layout.tp_axis)
+            self._data, self._tp = self._grid.shape
+            self._impl_suffix = "__m" + mesh_tag(mesh)
+            self.device = self._dev(0, 0)
+        #: mesh shards one readback of a program's result gathers
+        self.fetch_shards = self._data * self._tp
+
+    @property
+    def data_axis_size(self) -> int:
+        """Rows-per-dispatch divisor: slot counts must divide by the data
+        axis (1 for an unsharded decoder)."""
+        return self._data
+
+    def _dev(self, g: int, t: int) -> torch.device:
+        return self.mesh.device(self._grid[g, t])
 
     def _note_program(self, name: str, b: int, q: int, ctx: int) -> None:
         """Record a serving program's first dispatch (one dict lookup a
-        call after that)."""
+        call after that); a sharded decoder's names carry the mesh
+        suffix."""
+        name += self._impl_suffix
         if name not in self._cost_seam:
             self._cost_seam[name] = [{"b": int(b), "q": int(q),
                                       "ctx": int(ctx)}, None]
@@ -295,28 +412,117 @@ class TransformerDecoder:
     # ------------------------------------------------------------- params
     def _device_params(self):
         """Params cast once to the net's compute dtype (recast only when
-        ``net.params`` is replaced)."""
+        ``net.params`` is replaced). On a mesh the cast is also placed
+        once: {coordinate: params tree} with each coordinate's part of
+        every leaf on its device, rebuilt from the same cast."""
         if self._cast_params is None or self._cast_src is not self.net.params:
-            self._cast_params = self.net._cast_params(self.net.params)
+            cast = self.net._cast_params(self.net.params)
+            if self.mesh is not None:
+                cast = shard_params(self.mesh, self._specs, cast)
+            self._cast_params = cast
             self._cast_src = self.net.params
             self.param_casts += 1
         return self._cast_params
 
+    def _leaves(self, params, g: int, t: int, name: str) -> Dict:
+        """Vertex ``name``'s params as tp shard ``t`` of data group ``g``
+        uses them: its coordinate's parts, with the dims an FSDP layout
+        splits over the data axis gathered from every group (in group
+        order) onto its device."""
+        if self.mesh is None:
+            return params[name]
+        coord = self._grid[g, t]
+        tree = params[coord][name]
+        fs = self._layout.fsdp_axis
+        if fs is None or self.mesh.shape.get(fs, 1) == 1:
+            return tree
+        ax = self.mesh.axis_index(fs)
+        specs = self._specs.get(name, {})
+        out = {}
+        for pname, leaf in tree.items():
+            dims = [i for i, e in enumerate(specs.get(pname, ())) if e == fs]
+            if not dims:
+                out[pname] = leaf
+                continue
+            parts = []
+            for i in range(self.mesh.shape[fs]):
+                c = list(coord)
+                c[ax] = i
+                parts.append(params[tuple(c)][name][pname].to(leaf.device))
+            out[pname] = torch.cat(parts, dim=dims[0])
+        return out
+
+    def _attn_view(self, name: str) -> SelfAttentionLayer:
+        """Attention vertex ``name`` as one tp shard runs it: H/tp heads
+        of the same size, no output projection and no activation (the
+        shards' heads meet in :meth:`_row_parallel` first)."""
+        view = self._views.get(name)
+        if view is None:
+            layer = self.net.conf.vertices[name].layer
+            view = dataclasses.replace(
+                layer, num_heads=layer.num_heads // self._tp,
+                head_size=layer._head_size(), project_out=False,
+                activation="identity")
+            self._views[name] = view
+        return view
+
+    @staticmethod
+    def _row_parallel(partials: List[torch.Tensor], home) -> torch.Tensor:
+        """The sum of a row-parallel product's tp partials on ``home``, in
+        shard order (half-precision partials accumulate in f32 and round
+        once)."""
+        acc = partials[0].to(home)
+        if len(partials) == 1:
+            return acc
+        dtype = acc.dtype
+        if dtype in (torch.bfloat16, torch.float16):
+            acc = acc.float()
+        for p in partials[1:]:
+            acc = acc + p.to(home, acc.dtype)
+        return acc.to(dtype)
+
+    # -------------------------------------------------------------- cache
     def init_cache(self, batch: int) -> Dict[str, Dict]:
-        """{attn_name: {"k", "v" [B, H, t_max, Dh]}} in the compute
-        dtype."""
-        return {name: self.net.conf.vertices[name].layer.init_cache(
-                    batch, self.t_max, self.net.compute_dtype, self.device)
-                for name in self.attn_names}
+        """{attn_name: {"k", "v" [B, H, t_max, Dh]}} in the compute dtype;
+        on a mesh each a :class:`~..parallel.mesh.ShardedTensor` born
+        sharded (rows over data, heads over tp)."""
+        if self.mesh is None:
+            return {name: self.net.conf.vertices[name].layer.init_cache(
+                        batch, self.t_max, self.net.compute_dtype,
+                        self.device)
+                    for name in self.attn_names}
+        if batch % self._data:
+            raise ValueError(
+                f"cache rows {batch} are not divisible by the "
+                f"'{self._layout.data_axis}' axis size {self._data} — "
+                "slab rows shard over it")
+        return self._sharded_kv(self._layout.kv_cache(), batch, self.t_max)
 
     def init_paged_pool(self, num_pages: int,
                         page_size: int) -> Dict[str, Dict]:
         """{attn_name: {"k", "v" [P, H, page_size, Dh]}}: one page pool
-        per attention layer in the compute dtype, page 0 the null page."""
-        return {name: self.net.conf.vertices[name].layer.init_page_pool(
-                    int(num_pages), int(page_size), self.net.compute_dtype,
-                    self.device)
-                for name in self.attn_names}
+        per attention layer in the compute dtype, page 0 the null page;
+        on a mesh heads split over tp and each data group holds a copy."""
+        if self.mesh is None:
+            return {name: self.net.conf.vertices[name].layer.init_page_pool(
+                        int(num_pages), int(page_size),
+                        self.net.compute_dtype, self.device)
+                    for name in self.attn_names}
+        return self._sharded_kv(self._layout.kv_pages(), int(num_pages),
+                                int(page_size))
+
+    def _sharded_kv(self, spec, rows: int, depth: int) -> Dict[str, Dict]:
+        out = {}
+        for name in self.attn_names:
+            layer = self.net.conf.vertices[name].layer
+            if not layer.causal:
+                raise ValueError("KV-cache decoding needs causal=True "
+                                 "(autoregressive attention)")
+            shape = (rows, layer.num_heads, depth, layer._head_size())
+            out[name] = {kk: ShardedTensor.zeros(self.mesh, spec, shape,
+                                                 self.net.compute_dtype)
+                         for kk in ("k", "v")}
+        return out
 
     def _to_dev(self, x, dtype) -> torch.Tensor:
         """Host array (or a tensor already on the device, e.g. a block
@@ -331,131 +537,308 @@ class TransformerDecoder:
         return host, self._to_dev(host, torch.float32)
 
     # -------------------------------------------------------------- walks
-    def _walk_prefill(self, params, state, caches, tokens, lengths,
-                      slots=None):
-        """One teacher-forced pass over padded prompts [B, Tp]: fills
-        cache rows ``slots`` (default 0..B-1) at [0, Tp) in every attention
-        vertex and returns the logits at each row's LAST real position
-        [B, V] f32."""
+    def _walk(self, kind: str, params, state, caches, inp: Dict, *,
+              slots=None, row_slot: Optional[int] = None,
+              last: bool = False, fresh: bool = False) -> torch.Tensor:
+        """One pass of the graph; ``inp`` holds the batch's device inputs
+        (rows first) and the result is f32 logits on the controller:
+
+        - ``"prefill"``: teacher-forced over padded prompts ``tokens``
+          [B, Tp] (true ``lengths`` [B]), writing each row's k / v into
+          cache row ``slots[i]`` (a host array; default row i) at
+          [0, Tp); logits at each row's last real position [B, V].
+        - ``"recompute"``: the same forward through
+          ``SelfAttentionLayer.forward``, writing no cache (attention
+          takes the helper seam: B1 on the card at Tp <= 512).
+        - ``"decode"``: one step of ``ids`` [B] at ``positions`` [B] →
+          [B, V]; with ``ptables`` [B, NP] the caches are page pools.
+        - ``"window"``: tokens [B, C] at start positions ``pos0`` [B],
+          ``valid`` [B] real tokens a row, through the slab
+          (``chunk_forward``) or with ``ptables`` through the pages
+          (``paged_prefill_forward``; ``fresh``: every row starts at 0).
+          Logits at every window position [B, C, V], or with ``last`` at
+          each row's last valid one [B, V]. ``row_slot``: the batch is one
+          row that runs on that slab row alone.
+
+        Every vertex goes through :meth:`_vertex` once per data group."""
         conf = self.net.conf
-        tp = tokens.shape[1]
-        kmask = (torch.arange(tp, device=self.device)[None, :] <
-                 lengths[:, None]).float()
-        acts = {self.input_name: tokens}
-        logits = None
+        groups = self._split(kind, caches, inp, slots, row_slot)
+        src = "tokens" if "tokens" in inp else "ids"
+        for grp in groups:
+            grp.acts[self.input_name] = grp.inp[0][src]
         for name in conf.topological_order:
             v = conf.vertices[name]
-            xs = [acts[i] for i in conf.vertex_inputs[name]]
-            if isinstance(v, LayerVertex) and \
-                    isinstance(v.layer, SelfAttentionLayer):
-                acts[name], _ = v.layer.prefill_forward(
-                    params[name], xs[0], caches[name], mask=kmask,
-                    slots=slots)
-            elif name == self.output_name:
-                # gather each row's last real hidden state BEFORE the vocab
-                # projection: [B, Tp, V] logits would be GBs at a 32k vocab
-                rows = torch.arange(tokens.shape[0], device=self.device)
-                h_last = xs[0][rows, (lengths - 1).clamp(min=0)][:, None]
-                logits = v.layer.preoutput(params[name], h_last)[:, 0]
-            else:
-                acts[name], _ = v.forward(params[name], state[name], xs)
-        return logits.float()
+            ins = conf.vertex_inputs[name]
+            for grp in groups:
+                grp.acts[name] = self._vertex(
+                    kind, name, v, [grp.acts[i] for i in ins], grp, params,
+                    state, last, fresh)
+        parts = [grp.acts[self.output_name] for grp in groups]
+        if len(parts) == 1:
+            return parts[0].to(self.device).float()
+        return torch.cat([p.to(self.device) for p in parts]).float()
+
+    def _walk_prefill(self, params, state, caches, tokens, lengths,
+                      slots=None):
+        """Padded prompts [B, Tp] → cache rows ``slots`` (default
+        0..B-1) filled at [0, Tp), logits at each row's last real
+        position [B, V] f32."""
+        return self._walk("prefill", params, state, caches,
+                          {"tokens": tokens, "lengths": lengths},
+                          slots=slots)
 
     def _walk_decode(self, params, state, caches, ids, positions,
                      ptables=None):
-        """One single-token step: ids [B] at per-row ``positions`` [B] →
-        logits [B, V] f32 (caches written in place). With ``ptables``
-        [B, NP] the caches are page pools read through those tables."""
-        conf = self.net.conf
-        acts = {self.input_name: ids}
-        logits = None
-        for name in conf.topological_order:
-            v = conf.vertices[name]
-            xs = [acts[i] for i in conf.vertex_inputs[name]]
-            if isinstance(v, LayerVertex) and \
-                    isinstance(v.layer, TokenAndPositionEmbedding):
-                acts[name] = v.layer.embed_at(params[name], xs[0], positions)
-            elif isinstance(v, LayerVertex) and \
-                    isinstance(v.layer, SelfAttentionLayer):
-                if ptables is None:
-                    acts[name], _ = v.layer.decode_forward(
-                        params[name], xs[0], caches[name], positions)
-                else:
-                    acts[name], _ = v.layer.paged_decode_forward(
-                        params[name], xs[0], caches[name], ptables,
-                        positions)
-            elif name == self.output_name:
-                logits = v.layer.preoutput(params[name], xs[0])[:, 0]
-            else:
-                acts[name], _ = v.forward(params[name], state[name], xs)
-        return logits.float()
+        """One step of ids [B] at ``positions`` [B] → logits [B, V] f32;
+        with ``ptables`` [B, NP] the caches are page pools."""
+        inp = {"ids": ids, "positions": positions}
+        if ptables is not None:
+            inp["ptables"] = ptables
+        return self._walk("decode", params, state, caches, inp)
 
     def _walk_window(self, params, state, caches, tokens, pos0, valid,
-                     ptables=None, last=False, fresh=False):
-        """One window pass: tokens [B, C] at absolute start positions
-        ``pos0`` [B], ``valid`` [B] real tokens a row, written through
-        the slab (``chunk_forward``'s per-cell path) or, with ``ptables``,
-        through the page tables (``paged_prefill_forward``). Returns the
-        logits [B, C, V] f32 at every window position (a verify window),
-        or with ``last`` only at each row's last valid position [B, V] (a
-        prefill tail). ``fresh``: every row starts at position 0 (see
-        ``SelfAttentionLayer.paged_prefill_forward``)."""
-        conf = self.net.conf
-        acts = {self.input_name: tokens}
-        logits = None
-        for name in conf.topological_order:
-            v = conf.vertices[name]
-            xs = [acts[i] for i in conf.vertex_inputs[name]]
-            if isinstance(v, LayerVertex) and \
-                    isinstance(v.layer, TokenAndPositionEmbedding):
-                acts[name] = v.layer.embed_chunk(params[name], xs[0], pos0)
-            elif isinstance(v, LayerVertex) and \
-                    isinstance(v.layer, SelfAttentionLayer):
-                if ptables is None:
-                    acts[name], _ = v.layer.chunk_forward(
-                        params[name], xs[0], caches[name], pos0, valid)
-                else:
-                    acts[name], _ = v.layer.paged_prefill_forward(
-                        params[name], xs[0], caches[name], ptables, pos0,
-                        valid, fresh=fresh)
-            elif name == self.output_name:
-                h = xs[0]
-                if last:
-                    rows = torch.arange(h.shape[0], device=self.device)
-                    h = h[rows, (valid - 1).clamp(min=0)][:, None]
-                logits = v.layer.preoutput(params[name], h)
-                if last:
-                    logits = logits[:, 0]
-            else:
-                acts[name], _ = v.forward(params[name], state[name], xs)
-        return logits.float()
+                     ptables=None, last=False, fresh=False,
+                     row_slot=None):
+        """A window of tokens [B, C] at ``pos0`` [B], ``valid`` [B] real
+        tokens a row, through the slab or, with ``ptables``, the pages:
+        logits [B, C, V] f32, or with ``last`` [B, V]."""
+        inp = {"tokens": tokens, "pos0": pos0, "valid": valid}
+        if ptables is not None:
+            inp["ptables"] = ptables
+        return self._walk("window", params, state, caches, inp,
+                          row_slot=row_slot, last=last, fresh=fresh)
 
     def _walk_recompute(self, params, state, tokens, lengths):
-        """The no-cache forward: one teacher-forced pass over padded
-        contexts [B, Tp] through ``SelfAttentionLayer.forward`` with a key
-        mask (so attention takes the helper seam: B1 on the card at
-        Tp <= 512), writing no cache. Returns the logits at each row's
-        last real position [B, V] f32."""
-        conf = self.net.conf
-        tp = tokens.shape[1]
-        kmask = (torch.arange(tp, device=self.device)[None, :] <
-                 lengths[:, None]).float()
-        acts = {self.input_name: tokens}
-        logits = None
-        for name in conf.topological_order:
-            v = conf.vertices[name]
-            xs = [acts[i] for i in conf.vertex_inputs[name]]
-            if name == self.output_name:
-                rows = torch.arange(tokens.shape[0], device=self.device)
-                h_last = xs[0][rows, (lengths - 1).clamp(min=0)][:, None]
-                logits = v.layer.preoutput(params[name], h_last)[:, 0]
-            elif isinstance(v, LayerVertex) and \
-                    isinstance(v.layer, SelfAttentionLayer):
-                acts[name], _ = v.layer.forward(params[name], state[name],
-                                                xs[0], mask=kmask)
+        """The no-cache forward over padded contexts [B, Tp]: logits at
+        each row's last real position [B, V] f32."""
+        return self._walk("recompute", params, state, None,
+                          {"tokens": tokens, "lengths": lengths})
+
+    def _split(self, kind: str, caches, inp: Dict, slots,
+               row_slot: Optional[int]) -> List[_Group]:
+        """The dispatch's data groups, with their inputs and caches."""
+        b = int(inp["tokens" if "tokens" in inp else "ids"].shape[0])
+        paged = "ptables" in inp
+        if self.mesh is None:
+            kv = caches
+            if row_slot is not None:
+                kv = {n: {kk: caches[n][kk][row_slot:row_slot + 1]
+                          for kk in ("k", "v")} for n in self.attn_names}
+            grp = _Group(0, 0, b, self.device, [inp], [kv])
+            if kind == "prefill" and slots is not None:
+                grp.writes = self._to_dev(slots, torch.long)
+            return self._finish_inputs(kind, [grp])
+        data, tp = self._data, self._tp
+        slab_rows = None
+        if caches is not None and not paged:
+            slab_rows = int(next(iter(caches.values()))["k"].shape[0])
+        per = None if slab_rows is None else slab_rows // data
+        if row_slot is not None:
+            bounds = [(int(row_slot) // per, 0, b)]
+        else:
+            size, extra = divmod(b, data)
+            bounds, lo = [], 0
+            for g in range(data):
+                hi = lo + size + (1 if g < extra else 0)
+                if hi > lo:
+                    bounds.append((g, lo, hi))
+                lo = hi
+            if kind in ("decode", "window") and not paged and b != slab_rows:
+                raise ValueError(
+                    f"a sharded slab dispatch runs every cache row: {b} "
+                    f"rows for a cache of {slab_rows}")
+        groups = []
+        for g, lo, hi in bounds:
+            home = self._dev(g, 0)
+            ginp = {k: x[lo:hi].to(home) for k, x in inp.items()}
+            per_t = []
+            for t in range(tp):
+                dev = self._dev(g, t)
+                per_t.append(ginp if dev == home else
+                             {k: x.to(dev) for k, x in ginp.items()})
+            row = None if row_slot is None else int(row_slot) % per
+            kv = [None if caches is None or kind == "prefill" else
+                  self._local_kv(caches, g, t, paged, row)
+                  for t in range(tp)]
+            groups.append(_Group(g, lo, hi, home, per_t, kv))
+        if kind == "prefill":
+            self._route_writes(groups, caches, slots, b, per)
+        return self._finish_inputs(kind, groups)
+
+    def _local_kv(self, caches, g: int, t: int, paged: bool,
+                  row: Optional[int]) -> Dict[str, Dict]:
+        """Tp shard ``t`` of data group ``g``'s caches: its slab rows (the
+        one local ``row`` if given), or its copy of the page pool, whose
+        writes go to every data group's copy."""
+        c = self._grid[g, t]
+
+        def leaf(x: ShardedTensor):
+            own = x.local(c)
+            if paged:
+                return own if self._data == 1 else _PoolCopies(
+                    own, [x.local(self._grid[d, t])
+                          for d in range(self._data)])
+            return own if row is None else own[row:row + 1]
+
+        return {n: {kk: leaf(caches[n][kk]) for kk in ("k", "v")}
+                for n in self.attn_names}
+
+    def _route_writes(self, groups: List[_Group], caches, slots, b: int,
+                      per: int) -> None:
+        """A sharded slab prefill's write plan: each group's rows go to
+        the group owning their slot, as (owner, the rows' indices in the
+        group, their local cache rows) beside the caches; a slot repeated
+        by padded rows is written once, from its first row."""
+        slots = np.arange(b) if slots is None else \
+            np.asarray(slots.cpu() if torch.is_tensor(slots) else slots,
+                       np.int64).reshape(-1)
+        keep = np.zeros(b, bool)
+        keep[np.unique(slots, return_index=True)[1]] = True
+        for grp in groups:
+            plan = []
+            rows = np.arange(grp.lo, grp.hi)
+            rows = rows[keep[rows]]
+            for o in np.unique(slots[rows] // per):
+                sel = rows[slots[rows] // per == o]
+                plan.append((int(o),
+                             to_device(sel - grp.lo, grp.home, torch.long),
+                             to_device(slots[sel] % per, grp.home,
+                                       torch.long)))
+            grp.writes = (caches, plan)
+
+    def _finish_inputs(self, kind: str, groups: List[_Group]):
+        """Derived per-group inputs: the prefill / recompute key mask."""
+        if kind in ("prefill", "recompute"):
+            for grp in groups:
+                for inp in {id(d): d for d in grp.inp}.values():
+                    tp = inp["tokens"].shape[1]
+                    inp["kmask"] = (
+                        torch.arange(tp, device=inp["tokens"].device)[None, :]
+                        < inp["lengths"][:, None]).float()
+        return groups
+
+    def _vertex(self, kind: str, name: str, v, xs, grp: _Group, params,
+                state, last: bool, fresh: bool) -> torch.Tensor:
+        """Vertex ``name`` on data group ``grp``: the one place that
+        knows how each vertex shards. Embedding and vocab head run per tp
+        shard on their column slices and concatenate; attention and the
+        FFN run per tp shard and meet in a row-parallel sum with their
+        bias added once; everything else (layer norms, the residual adds)
+        runs whole on the group's home device."""
+        layer = v.layer if isinstance(v, LayerVertex) else None
+        inp = grp.inp[0]
+        if name == self.output_name:
+            h = xs[0]
+            idx = inp["lengths"] if kind in ("prefill", "recompute") else \
+                inp["valid"] if kind == "window" and last else None
+            if idx is not None:
+                rows = torch.arange(h.shape[0], device=h.device)
+                h = h[rows, (idx - 1).clamp(min=0)][:, None]
+            logits = self._columns(grp, params, name, lambda p, i, x:
+                                   layer.preoutput(p, x), h)
+            return logits if kind == "window" and not last else logits[:, 0]
+        if isinstance(layer, TokenAndPositionEmbedding):
+            if kind == "decode":
+                fn = lambda p, i, x: layer.embed_at(p, x, i["positions"])
+            elif kind == "window":
+                fn = lambda p, i, x: layer.embed_chunk(p, x, i["pos0"])
             else:
-                acts[name], _ = v.forward(params[name], state[name], xs)
-        return logits.float()
+                fn = lambda p, i, x: layer.forward(p, state[name], x)[0]
+            return self._columns(grp, params, name, fn, xs[0])
+        if isinstance(layer, SelfAttentionLayer):
+            return self._attention(kind, name, layer, xs[0], grp, params,
+                                   state, fresh)
+        if isinstance(layer, TransformerFeedForward) and \
+                self.mesh is not None:
+            parts = []
+            for t in range(self._tp):
+                p = self._leaves(params, grp.g, t, name)
+                x = xs[0].to(self._dev(grp.g, t))
+                parts.append(gelu(x @ p["W1"] + p["b1"]) @ p["W2"])
+            return self._row_parallel(parts, grp.home) + \
+                self._leaves(params, grp.g, 0, name)["b2"]
+        return v.forward(self._leaves(params, grp.g, 0, name), state[name],
+                         xs)[0]
+
+    def _columns(self, grp: _Group, params, name: str, fn, x):
+        """A column-parallel vertex: ``fn(params, inputs, x)`` on every tp
+        shard, the outputs concatenated on their last dim."""
+        if self.mesh is None:
+            return fn(params[name], grp.inp[0], x)
+        parts = [fn(self._leaves(params, grp.g, t, name), grp.inp[t],
+                    x.to(self._dev(grp.g, t))) for t in range(self._tp)]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(grp.home) for p in parts], dim=-1)
+
+    def _attention(self, kind: str, name: str, layer, x, grp: _Group,
+                   params, state, fresh: bool) -> torch.Tensor:
+        """An attention vertex on data group ``grp``. Unsharded it is the
+        layer's own cache seam. On a mesh each tp shard runs its heads
+        through :meth:`_attn_view` on its part of the cache, and the
+        shards' ``heads @ Wo`` partials are summed before ``bo`` and the
+        activation."""
+        if self.mesh is None:
+            return self._cache_seam(kind, layer, params[name], x, grp.inp[0],
+                                grp.kv[0][name] if grp.kv[0] is not None
+                                else None, state[name], fresh, grp.writes)
+        view = self._attn_view(name)
+        parts = []
+        for t in range(self._tp):
+            p = self._leaves(params, grp.g, t, name)
+            xt = x.to(self._dev(grp.g, t))
+            inp = grp.inp[t]
+            if kind == "prefill":
+                q, k, v = view._project_qkv(p, xt)
+                heads = view._attend(q, k, v, inp["kmask"])
+                heads = heads.reshape(*heads.shape[:2], -1)
+                self._write_prefill(name, t, grp, k, v)
+            else:
+                kv = grp.kv[t]
+                heads = self._cache_seam(kind, view, p, xt, inp,
+                                     None if kv is None else kv[name],
+                                     state[name], fresh, None)
+            parts.append(heads @ p["Wo"] if layer.project_out else heads)
+        if layer.project_out:
+            out = self._row_parallel(parts, grp.home) + \
+                self._leaves(params, grp.g, 0, name)["bo"]
+        else:
+            out = parts[0] if len(parts) == 1 else \
+                torch.cat([q.to(grp.home) for q in parts], dim=-1)
+        return layer.activation_fn()(out)
+
+    @staticmethod
+    def _cache_seam(kind: str, lay, p, x, inp, cache, state, fresh, slots):
+        """``lay``'s cache seam for ``kind`` (the layer itself, or a tp
+        shard's view of it)."""
+        if kind == "recompute":
+            return lay.forward(p, state, x, mask=inp["kmask"])[0]
+        if kind == "prefill":
+            return lay.prefill_forward(p, x, cache, mask=inp["kmask"],
+                                       slots=slots)[0]
+        if kind == "decode":
+            if "ptables" in inp:
+                return lay.paged_decode_forward(p, x, cache, inp["ptables"],
+                                                inp["positions"])[0]
+            return lay.decode_forward(p, x, cache, inp["positions"])[0]
+        if "ptables" in inp:
+            return lay.paged_prefill_forward(p, x, cache, inp["ptables"],
+                                             inp["pos0"], inp["valid"],
+                                             fresh=fresh)[0]
+        return lay.chunk_forward(p, x, cache, inp["pos0"], inp["valid"])[0]
+
+    def _write_prefill(self, name: str, t: int, grp: _Group, k, v) -> None:
+        """A sharded slab prefill's k / v [B, T, H/tp, Dh] of tp shard
+        ``t`` into the cache rows of the slots' owner groups."""
+        caches, plan = grp.writes
+        tlen = k.shape[1]
+        for o, sel, local in plan:
+            c = self._grid[o, t]
+            for kk, val in (("k", k), ("v", v)):
+                dst = caches[name][kk].local(c)
+                dst[local.to(dst.device), :, :tlen] = \
+                    val[sel.to(val.device)].transpose(1, 2).to(
+                        dst.device, dst.dtype)
 
     def _fault_of(self, logits, stop=None):
         """The sentinel's per-row verdict [B] bool; frozen lanes
@@ -512,7 +895,7 @@ class TransformerDecoder:
         [M, 2] (id, verdict) in place of the ids."""
         sel, logits, caches = self._prefill(caches, tokens, lengths, slots,
                                             temps, seed)
-        return self._with_verdict(sel, logits), logits, caches
+        return self._out(self._with_verdict(sel, logits)), logits, caches
 
     def _prefill(self, caches, tokens, lengths, slots, temps, seed):
         m, tp = np.shape(tokens)
@@ -520,14 +903,18 @@ class TransformerDecoder:
         self._note_program("prefill" if slots is None else "prefill_slots",
                            m, tp, (tp + 1) // 2)
         host_t, temps_d = self._temps(temps, np.shape(tokens)[0])
-        slots_d = None if slots is None else self._to_dev(slots, torch.long)
         logits = self._walk_prefill(
             self._device_params(), self.net._inference_state(), caches,
-            self._to_dev(tokens, torch.long), self._to_dev(lengths,
-                                                           torch.long),
-            slots_d)
-        return (self._select(logits, temps_d, seed, bool((host_t > 0).any())),
+            self._to_dev(tokens, torch.long),
+            self._to_dev(lengths, torch.long), slots)
+        return (self._out(self._select(logits, temps_d, seed,
+                                       bool((host_t > 0).any()))),
                 logits, caches)
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        """A result the caller reads back, marked with the mesh shards it
+        was gathered from."""
+        return mark_shards(t, self.fetch_shards)
 
     @torch.no_grad()
     @_dispatching
@@ -543,16 +930,15 @@ class TransformerDecoder:
         valid position [1, V] f32; caches), like :meth:`paged_prefill`
         (the JAX package's returns (ids, caches))."""
         host_t, temps_d = self._temps(temps, 1)
-        s = int(slot)
-        row = {n: {kk: caches[n][kk][s:s + 1] for kk in ("k", "v")}
-               for n in self.attn_names}
         logits = self._walk_window(
-            self._device_params(), self.net._inference_state(), row,
+            self._device_params(), self.net._inference_state(), caches,
             self._to_dev(tokens, torch.long),
             self._to_dev(np.asarray([pos0]), torch.long),
-            self._to_dev(np.asarray([valid]), torch.long), last=True)
+            self._to_dev(np.asarray([valid]), torch.long), last=True,
+            row_slot=int(slot))
         sel = self._select(logits, temps_d, seed, bool((host_t > 0).any()))
-        return self._with_verdict(sel, logits, fault_in), logits, caches
+        return self._out(self._with_verdict(sel, logits, fault_in)), \
+            logits, caches
 
     @torch.no_grad()
     @_dispatching
@@ -563,10 +949,10 @@ class TransformerDecoder:
         host_t, temps_d = self._temps(temps, np.shape(tokens)[0])
         logits = self._walk_recompute(
             self._device_params(), self.net._inference_state(),
-            self._to_dev(tokens, torch.long), self._to_dev(lengths,
-                                                           torch.long))
-        return (self._select(logits, temps_d, seed, bool((host_t > 0).any())),
-                logits)
+            self._to_dev(tokens, torch.long),
+            self._to_dev(lengths, torch.long))
+        return (self._out(self._select(logits, temps_d, seed,
+                                       bool((host_t > 0).any()))), logits)
 
     @torch.no_grad()
     @_dispatching
@@ -576,9 +962,10 @@ class TransformerDecoder:
         host_t, temps_d = self._temps(temps, np.shape(ids)[0])
         logits = self._walk_decode(
             self._device_params(), self.net._inference_state(), caches,
-            self._to_dev(ids, torch.long), self._to_dev(positions,
-                                                        torch.long))
-        return (self._select(logits, temps_d, seed, bool((host_t > 0).any())),
+            self._to_dev(ids, torch.long),
+            self._to_dev(positions, torch.long))
+        return (self._out(self._select(logits, temps_d, seed,
+                                       bool((host_t > 0).any()))),
                 logits, caches)
 
     @torch.no_grad()
@@ -630,7 +1017,7 @@ class TransformerDecoder:
             toks[:, j] = nxt
         if self.sentinel:
             toks[:, k] = fault.long()
-        return toks, ids, pos, stop, caches
+        return self._out(toks), ids, pos, stop, caches
 
     def _carry_in(self, b, ids, positions, eos_ids, stopped, ptables):
         """A block's per-lane inputs on the device: (eos ids, stop flags,
@@ -665,14 +1052,15 @@ class TransformerDecoder:
         self._note_program("paged_prefill", np.shape(tokens)[0],
                            np.shape(tokens)[1], self.t_max)
         host_t, temps_d = self._temps(temps, np.shape(tokens)[0])
-        valid_d = self._to_dev(valid, torch.long)
         logits = self._walk_window(
             self._device_params(), self.net._inference_state(), caches,
             self._to_dev(tokens, torch.long), self._to_dev(pos0, torch.long),
-            valid_d, self._to_dev(ptables, torch.long), last=True,
+            self._to_dev(valid, torch.long),
+            self._to_dev(ptables, torch.long), last=True,
             fresh=not np.asarray(pos0).any())
         sel = self._select(logits, temps_d, seed, bool((host_t > 0).any()))
-        return self._with_verdict(sel, logits, fault_in), logits, caches
+        return self._out(self._with_verdict(sel, logits, fault_in)), \
+            logits, caches
 
     @_dispatching
     def paged_decode_block(self, caches, ptables, ids, positions,
@@ -688,26 +1076,75 @@ class TransformerDecoder:
                                  stopped=stopped, step0=step0,
                                  key_salt=key_salt, ptables=ptables)
 
+    def _row_parts(self, leaf, rows) -> List[Tuple[torch.Tensor,
+                                                    torch.Tensor]]:
+        """(tensor, its row indices) pairs that hold the global rows
+        ``rows`` (dim 0) of a cache leaf: the leaf itself unsharded; on a
+        mesh every tp shard of the owning data group for slab rows, and
+        every copy for pool pages."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        if not isinstance(leaf, ShardedTensor):
+            return [(leaf, self._to_dev(rows, torch.long))]
+        split = leaf.spec[0] if len(leaf.spec) else None
+        out = []
+        for c in self.mesh.coords():
+            local = leaf.local(c)
+            sel = rows
+            if split is not None:
+                per = local.shape[0]
+                g = c[self.mesh.axis_index(split)]
+                sel = rows[rows // per == g] % per
+            if len(sel):
+                out.append((local, to_device(sel, local.device,
+                                             torch.long)))
+        return out
+
     @torch.no_grad()
     @_dispatching
     def kv_export(self, caches, pids) -> Dict[str, Dict[str, torch.Tensor]]:
         """Gather pages ``pids`` out of every layer's pool: {layer:
         {"k", "v" [n, H, page_size, Dh]}} on the device (see
-        ``paging.PageFrameSet.from_tensors``)."""
-        idx = self._to_dev(pids, torch.long)
-        return {n: {kk: caches[n][kk][idx] for kk in ("k", "v")}
-                for n in self.attn_names}
+        ``paging.PageFrameSet.from_tensors``). On a mesh the frames are
+        read from data group 0's copy, the tp shards' heads concatenated
+        on the controller: the frame format does not change."""
+        if self.mesh is None:
+            idx = self._to_dev(pids, torch.long)
+            return {n: {kk: caches[n][kk][idx] for kk in ("k", "v")}
+                    for n in self.attn_names}
+        out = {}
+        for n in self.attn_names:
+            out[n] = {}
+            for kk in ("k", "v"):
+                parts = []
+                for t in range(self._tp):
+                    local = caches[n][kk].local(self._grid[0, t])
+                    idx = to_device(np.asarray(pids), local.device,
+                                    torch.long)
+                    parts.append(local[idx].to(self.device))
+                out[n][kk] = torch.cat(parts, dim=1)
+        return out
 
     @torch.no_grad()
     @_dispatching
     def kv_import(self, caches, pids, frames):
         """Scatter page frames ({layer: {"k", "v" [n, H, page_size, Dh]}})
-        into the pools at ``pids`` in place; returns the pools."""
-        idx = self._to_dev(pids, torch.long)
+        into the pools at ``pids`` in place (on a mesh every copy, each tp
+        shard its heads); returns the pools."""
         for n in self.attn_names:
             for kk in ("k", "v"):
                 pool = caches[n][kk]
-                pool[idx] = frames[n][kk].to(pool.device, pool.dtype)
+                frame = frames[n][kk]
+                if not isinstance(pool, ShardedTensor):
+                    idx = self._to_dev(pids, torch.long)
+                    pool[idx] = frame.to(pool.device, pool.dtype)
+                    continue
+                for c in self.mesh.coords():
+                    local = pool.local(c)
+                    idx = to_device(np.asarray(pids), local.device,
+                                    torch.long)
+                    local[idx] = local_slice(self.mesh, pool.spec, c,
+                                             frame).to(local.device,
+                                                       local.dtype)
         return caches
 
     @torch.no_grad()
@@ -717,30 +1154,32 @@ class TransformerDecoder:
         fault: a chunk-admitted successor writes only its windows, and
         residual NaN past its fill point would reach it through the masked
         probs·V product, since 0 × NaN is NaN). Returns the caches."""
-        idx = self._to_dev(np.asarray(slots), torch.long)
         for n in self.attn_names:
             for kk in ("k", "v"):
-                caches[n][kk][idx] = 0
+                for local, idx in self._row_parts(caches[n][kk], slots):
+                    local[idx] = 0
         return caches
 
     @torch.no_grad()
     @_dispatching
     def scrub_pages(self, caches, pids):
         """Zero pool pages ``pids`` in place before they are reused (the
-        same 0 × NaN hazard as :meth:`scrub_slot`). Returns the pools."""
+        same 0 × NaN hazard as :meth:`scrub_slot`; on a mesh in every
+        copy). Returns the pools."""
         return self.scrub_slot(caches, pids)
 
     @torch.no_grad()
     @_dispatching
     def corrupt_page(self, caches, pid: int, mode: str = "nan"):
-        """Chaos only: poison pool page ``pid`` in place: NaN fill
-        (``"nan"``, trips the sentinel) or sign flip (``"flip"``,
-        plausible values only content checksums catch)."""
+        """Chaos only: poison pool page ``pid`` in place (every copy):
+        NaN fill (``"nan"``, trips the sentinel) or sign flip
+        (``"flip"``, plausible values only content checksums catch)."""
         for n in self.attn_names:
             for kk in ("k", "v"):
-                page = caches[n][kk][int(pid)]
-                page.copy_(torch.full_like(page, float("nan"))
-                           if mode == "nan" else -page)
+                for local, idx in self._row_parts(caches[n][kk], [pid]):
+                    page = local[idx]
+                    local[idx] = torch.full_like(page, float("nan")) \
+                        if mode == "nan" else -page
         return caches
 
     @torch.no_grad()
@@ -751,9 +1190,11 @@ class TransformerDecoder:
         :meth:`corrupt_page` does a page."""
         for n in self.attn_names:
             for kk in ("k", "v"):
-                cell = caches[n][kk][int(slot), :, int(pos)]
-                cell.copy_(torch.full_like(cell, float("nan"))
-                           if mode == "nan" else -cell)
+                for local, idx in self._row_parts(caches[n][kk], [slot]):
+                    cell = local[idx, :, int(pos)]
+                    local[idx, :, int(pos)] = \
+                        torch.full_like(cell, float("nan")) \
+                        if mode == "nan" else -cell
         return caches
 
     # ------------------------------------------------------- speculation
@@ -790,7 +1231,7 @@ class TransformerDecoder:
         out, ids, pos, stop = self._verify_accept(
             logits, ids, pos, draft_d, stop, temps_d, eos, seed, step0,
             key_salt, bool((host_t > 0).any()))
-        return out, ids, pos, stop, caches
+        return self._out(out), ids, pos, stop, caches
 
     @_dispatching
     def paged_verify_block(self, caches, ptables, ids, positions, draft,
@@ -853,11 +1294,17 @@ class TransformerDecoder:
         temperature is <= 0; per-row stop on ``eos_id``,
         ``max_new_tokens`` or a full context. Decoding runs in blocks of
         ``block_size`` steps, pipelined: block t+1 is dispatched before
-        block t's [B, K] tokens are read back, one readback per block."""
+        block t's [B, K] tokens are read back, one readback per block. On
+        a mesh the rows are padded to a multiple of the data axis with
+        copies of row 0 (its temperature too), whose outputs are
+        dropped."""
         prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
-        b = len(prompts)
-        if b == 0:
+        n_real = len(prompts)
+        if n_real == 0:
             return []
+        pad = (-n_real) % self._data
+        prompts = prompts + [prompts[0].copy() for _ in range(pad)]
+        b = len(prompts)
         lengths = np.asarray([len(p) for p in prompts], np.int64)
         if (lengths < 1).any():
             raise ValueError("empty prompt")
@@ -869,7 +1316,8 @@ class TransformerDecoder:
         for i, p in enumerate(prompts):
             tokens[i, :len(p)] = p
         temps = np.broadcast_to(np.asarray(temperature, np.float32),
-                                (b,)).copy()
+                                (n_real,)).copy()
+        temps = np.concatenate([temps, np.repeat(temps[:1], pad)])
         nxt, _, caches = self.prefill(self.init_cache(b), tokens, lengths,
                                       temps, seed=rngmod.fold_in(seed, 0))
         gen: List[List[int]] = [[] for _ in range(b)]
@@ -891,7 +1339,7 @@ class TransformerDecoder:
 
         def results():
             return [np.concatenate([p, np.asarray(g, np.int64)]).astype(
-                np.int32) for p, g in zip(prompts, gen)]
+                np.int32) for p, g in zip(prompts[:n_real], gen[:n_real])]
 
         def fetch_block(copy) -> np.ndarray:
             """A block's tokens; a sentinel decoder's verdict column fails
@@ -1187,11 +1635,16 @@ class SlotGenerationEngine:
                  slo=None, slo_label=None, flight_recorder=None,
                  journal=None, profiler=None,
                  profiling: Optional[bool] = None, phase: str = "both",
-                 handoff=None):
+                 handoff=None, mesh=None, spec_layout=None):
         if decoder is not None and t_max is not None and \
                 decoder.t_max != t_max:
             raise ValueError(f"shared decoder has t_max {decoder.t_max}, "
                              f"engine asked for {t_max}")
+        if decoder is not None and mesh is not None and \
+                decoder.mesh is not mesh:
+            raise ValueError("shared decoder was built for a different "
+                             "mesh; pass mesh= only when the engine owns "
+                             "its decoder")
         self._integrity = as_integrity(integrity)
         want_sentinel = self._integrity is not None and \
             self._integrity.sentinel
@@ -1202,12 +1655,21 @@ class SlotGenerationEngine:
                 "sentinel changes the programs' outputs, so decoder and "
                 "engine must agree (build the shared decoder with "
                 "sentinel=, or drop integrity=)")
+        # a shared decoder carries its mesh and layout, so an engine
+        # rebuilt around it (a supervisor restart) serves sharded as well
         self.decoder = decoder if decoder is not None \
             else TransformerDecoder(
-                net, t_max=t_max, sentinel=want_sentinel,
+                net, t_max=t_max, mesh=mesh, spec_layout=spec_layout,
+                sentinel=want_sentinel,
                 logit_bound=None if self._integrity is None
                 else self._integrity.logit_bound)
         self._sentinel_on = want_sentinel
+        self.mesh = self.decoder.mesh
+        if self.mesh is not None:
+            layout = self.decoder._layout
+            validate_decode_mesh(self.mesh, num_slots=int(num_slots),
+                                 data_axis=layout.data_axis,
+                                 tp_axis=layout.tp_axis)
         self.device = self.decoder.device
         if device is not None:
             want = torch.device(device)
@@ -1410,6 +1872,15 @@ class SlotGenerationEngine:
                   ("engine",)).labels(self.engine_id).set_function(
             lambda: (lambda e: 0 if e is None else
                      len(e._pending) + len(e._adopted))(wself()))
+        if self.mesh is not None:
+            # one child per mesh axis: the topology never changes for an
+            # engine's lifetime
+            ax_g = reg.gauge("generation_mesh_axis_size",
+                             "serving-mesh axis size (data/tp)",
+                             ("engine", "axis"))
+            for ax in self.mesh.axis_names:
+                ax_g.labels(self.engine_id, ax).set(
+                    int(self.mesh.shape[ax]))
         if self.phase != "both":
             # the role marker the fleet scrape reads each replica's
             # prefill / decode column from
@@ -1449,13 +1920,15 @@ class SlotGenerationEngine:
     def _prof_impl(self, kind: str, k: Optional[int] = None) -> str:
         """The serving program's name under which the profiler records
         its measured time, the key of ``devstats.impl_cost_analysis``'s
-        analytic cost."""
+        analytic cost (both with the decoder's mesh suffix)."""
         paged = "paged_" if self._pager is not None else ""
         if kind == "block":
-            return f"{paged}decode_block{int(k)}"
-        if kind == "verify":
-            return f"{paged}verify_block{int(k)}"
-        return "paged_prefill" if paged else "prefill_slots"
+            name = f"{paged}decode_block{int(k)}"
+        elif kind == "verify":
+            name = f"{paged}verify_block{int(k)}"
+        else:
+            name = "paged_prefill" if paged else "prefill_slots"
+        return name + self.decoder._impl_suffix
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
@@ -3449,6 +3922,8 @@ class SlotGenerationEngine:
             out["queue_depth"] = len(self._pending) + len(self._adopted)
             out["active_slots"] = sum(r is not None for r in self._slots) + \
                 len(self._chunking)
+        # the serving topology: "<data>x<tp>", None unsharded
+        out["mesh_shape"] = mesh_tag(self.mesh) or None
         return out
 
     # ---------------------------------------------------------- execution

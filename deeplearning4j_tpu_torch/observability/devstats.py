@@ -99,21 +99,28 @@ def device_memory_snapshot() -> dict:
 
 def kv_cache_stats(engine) -> dict:
     """Exact KV-cache byte accounting from the engine's cache tensors.
-    ``bytes`` is the whole allocation (one device: ``addressable_bytes``
-    equals it and ``shards`` is 1); ``slot_shape`` is [S, H, T_max, Dh]
-    on the slab and the POOL shape [P, H, page_size, Dh] on a paged
-    engine, whose ``bytes_per_slot`` is bytes per page."""
+    ``bytes`` is the global logical allocation; ``addressable_bytes`` is
+    what the devices hold (on a mesh a page pool's copy per data group
+    counts each time) and ``shards`` the mesh coordinates one layer's k
+    spans (1 on one device); ``slot_shape`` is [S, H, T_max, Dh] on the
+    slab and the POOL shape [P, H, page_size, Dh] on a paged engine,
+    whose ``bytes_per_slot`` is bytes per page. A sharded engine's stats
+    carry its ``mesh`` tag ("2x2")."""
+    from ..parallel.mesh import ShardedTensor, mesh_tag
     caches = getattr(engine, "_caches", None)
     if not caches:
         return {"bytes": 0, "layers": 0}
     leaves = [x for layer in caches.values() for x in layer.values()
-              if torch.is_tensor(x)]
+              if torch.is_tensor(x) or isinstance(x, ShardedTensor)]
     total = sum(x.numel() * x.element_size() for x in leaves)
+    addressable = sum(x.addressable_bytes if isinstance(x, ShardedTensor)
+                      else x.numel() * x.element_size() for x in leaves)
     first = leaves[0]
     out = {
         "bytes": int(total),
-        "addressable_bytes": int(total),
-        "shards": 1,
+        "addressable_bytes": int(addressable),
+        "shards": max(x.num_shards if isinstance(x, ShardedTensor) else 1
+                      for x in leaves),
         "layers": len(caches),
         "slot_shape": list(first.shape),
         "dtype": str(first.dtype).replace("torch.", ""),
@@ -130,6 +137,9 @@ def kv_cache_stats(engine) -> dict:
         used = pages.get("used", 0)
         out["pages"]["share_ratio"] = round(
             pages.get("shared", 0) / used, 4) if used else 0.0
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None:
+        out["mesh"] = mesh_tag(mesh)
     return out
 
 

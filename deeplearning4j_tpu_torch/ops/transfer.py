@@ -9,7 +9,13 @@ later waits for that event only. A plain ``.cpu()`` at fetch time would
 queue its copy behind everything dispatched since, so the double-buffered
 decode pipeline would wait for the NEXT block too. :func:`to_device` is the
 matching host→device half: it copies from pinned memory without the stream
-synchronisation a copy from pageable memory implies."""
+synchronisation a copy from pageable memory implies.
+
+A mesh-sharded decoder gathers its shards' results on its controller
+device and marks the gathered tensor with their count
+(:func:`mark_shards`); the one readback of it records that count under
+its tag (:func:`fetch_shards`: data x tp on a serving mesh, 1 without
+one), as the JAX package's seam records a sharded array's device set."""
 
 from __future__ import annotations
 
@@ -22,39 +28,54 @@ import torch
 
 _LOCK = threading.Lock()
 _COUNTS: Counter = Counter()
+#: per tag: the mesh shards the most recent fetch under it gathered
+_SHARDS: Dict[str, int] = {}
 
 
 class HostCopy:
-    """A device→host copy in flight: the host tensor and the event that
+    """A device→host copy in flight: the host tensor, the event that
     marks its completion (None for a tensor that already lives on the
-    CPU)."""
+    CPU) and the mesh shards its source was gathered from."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "shards")
 
-    def __init__(self, host: torch.Tensor, event):
+    def __init__(self, host: torch.Tensor, event, shards: int = 1):
         self.host = host
         self.event = event
+        self.shards = shards
+
+
+def mark_shards(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Mark ``x`` as gathered from ``n`` mesh shards; returns ``x``."""
+    if n > 1:
+        x.mesh_shards = int(n)
+    return x
 
 
 def start_fetch(x: torch.Tensor) -> HostCopy:
     """Start copying ``x`` to the host behind the work already queued on
     the current stream, without waiting for it."""
+    shards = getattr(x, "mesh_shards", 1)
     if x.device.type != "cuda":
-        return HostCopy(x.detach().clone(), None)
+        return HostCopy(x.detach().clone(), None, shards)
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     host.copy_(x.detach(), non_blocking=True)
     event = torch.cuda.Event()
     event.record()
-    return HostCopy(host, event)
+    return HostCopy(host, event, shards)
 
 
 def device_fetch(x, tag: str = "default") -> np.ndarray:
     """Blocking device→host readback, counted under ``tag``. ``x`` is a
     tensor or a :class:`HostCopy` started earlier; for the latter only its
     own copy is waited for. Use one call per decode BLOCK, never per
-    token."""
+    token. One call stays one count however many mesh shards ``x`` was
+    gathered from; the shard count is recorded beside it."""
+    shards = x.shards if isinstance(x, HostCopy) else \
+        getattr(x, "mesh_shards", 1)
     with _LOCK:
         _COUNTS[tag] += 1
+        _SHARDS[tag] = int(shards)
     if isinstance(x, HostCopy):
         if x.event is not None:
             x.event.synchronize()
@@ -68,6 +89,15 @@ def fetch_counts(tag: Optional[str] = None) -> Dict[str, int]:
         if tag is not None:
             return {tag: _COUNTS.get(tag, 0)}
         return dict(_COUNTS)
+
+
+def fetch_shards(tag: Optional[str] = None) -> Dict[str, int]:
+    """Mesh shards gathered by the most recent fetch per tag (1 on one
+    device; data x tp on a serving mesh)."""
+    with _LOCK:
+        if tag is not None:
+            return {tag: _SHARDS.get(tag, 1)}
+        return dict(_SHARDS)
 
 
 def to_device(a, device, dtype=None) -> torch.Tensor:

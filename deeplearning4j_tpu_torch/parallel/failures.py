@@ -243,7 +243,7 @@ class EngineSupervisor(HeartbeatMonitor):
         recoverable, dead = old.quarantine()
         for k, v in old.stats().items():
             # gauges and topology labels don't accumulate across engines
-            if k not in ("queue_depth", "active_slots"):
+            if k not in ("queue_depth", "active_slots", "mesh_shape"):
                 self._prior_stats[k] = self._prior_stats.get(k, 0) + v
         cause = dead or cause or RuntimeError("engine restarted")
         self._flightrec.record(

@@ -1,15 +1,18 @@
 """ParallelInference (reference parallelism/ParallelInference.java +
 observers/BatchedInferenceObservable.java) — the JAX package's
-``parallel/inference.py`` on one card: an inference server with
-SEQUENTIAL and BATCHED modes and a shared generation engine.
+``parallel/inference.py``: an inference server with SEQUENTIAL and
+BATCHED modes and a shared generation engine.
 
 BATCHED mode keeps the reference's request coalescing: concurrent
 callers' inputs are concatenated up to ``max_batch_size``, run as one
-forward of the net on its device, and the slices handed back.
-``generate`` coalesces concurrent callers into ONE slot engine
-(``models/generation.py``). The JAX package shards the forward over a
-device mesh (``mesh=``): that is ROADMAP queue A9, and passing a mesh
-raises."""
+forward, and the slices handed back. Without a mesh the forward runs on
+the net's device. With ``mesh=`` (``parallel.mesh.make_mesh(n)``; the
+``Builder``'s ``workers(n)``) it is data-parallel: the batch rows, padded
+to a multiple of the mesh's coordinates, split over them in contiguous
+runs, each run through a replica of the params on its coordinate's
+device, the outputs concatenated in order. ``generate`` coalesces
+concurrent callers into ONE slot engine (``models/generation.py``),
+sharded over ``generation_mesh`` when one is given."""
 
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
-_A9 = ("a device mesh (one forward sharded over several cards) is ROADMAP "
-       "queue A9, not ported yet: ParallelInference serves from one card")
+from .mesh import Mesh, make_mesh
 
 
 class InferenceMode:
@@ -58,9 +61,21 @@ class ParallelInference:
                  generation_page_size: int = 16,
                  generation_num_pages: Optional[int] = None,
                  generation_prefix_cache: bool = True):
-        if mesh is not None or generation_mesh is not None:
-            raise NotImplementedError(_A9)
+        for name, m in (("mesh", mesh), ("generation_mesh",
+                                         generation_mesh)):
+            if m is not None and not isinstance(m, Mesh):
+                raise TypeError(f"{name} must be a parallel.mesh.Mesh "
+                                f"(make_mesh / generation_mesh), got "
+                                f"{type(m).__name__}")
         self.net = net
+        self.mesh = mesh
+        # per mesh coordinate: (params, state) replicas on its device,
+        # made at the first forward (rebuilt when net.params is replaced)
+        self._replicas = None
+        self._replica_src = None
+        # mesh-sharded generation: the engine decodes over this (data,
+        # tp) mesh (models/generation.py)
+        self.generation_mesh = generation_mesh
         self.mode = inference_mode
         self.max_batch_size = int(max_batch_size)
         self.queue_timeout = queue_timeout
@@ -134,8 +149,9 @@ class ParallelInference:
             return self
 
         def workers(self, n: int):
-            if int(n) != 1:
-                raise NotImplementedError(_A9)
+            """Data-parallel over the first ``n`` CUDA devices (a clear
+            error where fewer exist)."""
+            self._mesh = make_mesh(int(n))
             return self
 
         def build(self) -> "ParallelInference":
@@ -143,13 +159,59 @@ class ParallelInference:
                                      self._max_batch)
 
     def _forward(self, feats: np.ndarray) -> np.ndarray:
-        """One forward of the net in inference mode on its device: the
-        first output of a ComputationGraph, a MultiLayerNetwork's
-        output."""
+        """One forward of the net in inference mode: the first output of a
+        ComputationGraph, a MultiLayerNetwork's output; on the net's
+        device, or data-parallel over the mesh."""
+        if self.mesh is not None:
+            return self._forward_mesh(feats)
         out = self.net.output(feats)
         if isinstance(out, (list, tuple)):
             out = out[0]
         return np.asarray(out)
+
+    @torch.no_grad()
+    def _forward_mesh(self, feats: np.ndarray) -> np.ndarray:
+        """The rows padded to a multiple of the mesh's coordinates (with
+        copies of the first rows, dropped after), split in contiguous
+        runs, each run's forward on its coordinate's replica."""
+        net = self.net
+        net._ensure_init()
+        devices = list(self.mesh.devices.flat)
+        if self._replicas is None or self._replica_src is not net.params:
+            graph = hasattr(net.conf, "network_inputs")
+            # a graph's forward takes the compute-dtype copy, a
+            # MultiLayerNetwork's casts its masters itself
+            params = net._cast_params(net.params) if graph else net.params
+            state = net._inference_state()
+
+            def place(tree, d):
+                move = lambda p: {k: a.to(d) if torch.is_tensor(a) else a
+                                  for k, a in p.items()}
+                return {v: move(p) for v, p in tree.items()} if graph \
+                    else [move(p) for p in tree]
+
+            self._replicas = [(place(params, d), place(state, d))
+                              for d in devices]
+            self._replica_src = net.params
+        n = feats.shape[0]
+        pad = (-n) % len(devices)
+        if pad:
+            feats = np.concatenate([feats, feats[:pad]], axis=0)
+        per = feats.shape[0] // len(devices)
+        outs = []
+        for i, (d, (params, state)) in enumerate(zip(devices,
+                                                     self._replicas)):
+            part = feats[i * per:(i + 1) * per]
+            if hasattr(net.conf, "network_inputs"):
+                x = {k: t.to(d) for k, t in net._inputs_dict(part).items()}
+                acts, *_ = net._forward(params, state, x)
+                y = acts[net.conf.network_outputs[0]]
+            else:
+                y, _, _ = net._forward(params, state,
+                                       net._as_tensor(part).to(d),
+                                       train=False, rng=None)
+            outs.append(y.float().cpu())
+        return torch.cat(outs).numpy()[:n]
 
     # --- public API (reference ParallelInference.output) ---
     def output(self, features: np.ndarray) -> np.ndarray:
@@ -244,7 +306,8 @@ class ParallelInference:
                     paged=self.generation_paged,
                     page_size=self.generation_page_size,
                     num_pages=self.generation_num_pages,
-                    prefix_cache=self.generation_prefix_cache)
+                    prefix_cache=self.generation_prefix_cache,
+                    mesh=self.generation_mesh)
                 if self.generation_supervised:
                     from .failures import EngineSupervisor
                     self._gen_supervisor = EngineSupervisor(

@@ -35,7 +35,7 @@ This module splits the fleet into phase-specialized workers:
   :class:`PhaseAutoscaler`, one :class:`~.autoscale.BurnRateAutoscaler`
   a role.
 
-A transport across processes is ROADMAP queue A8c.
+The transport across processes is ``streaming/remote.py``'s wire.
 """
 
 from __future__ import annotations

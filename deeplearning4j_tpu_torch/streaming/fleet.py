@@ -43,9 +43,12 @@ heartbeat iteration; arm one injector per replica so replicas never
 share a hit counter.
 
 :class:`KVFleetMembership` takes any client with ``key_value_set`` /
-``key_value_dir_get`` / ``key_value_delete``; the TCP coordinator that
-supplies one across processes, and the process-per-replica deployment,
-are ROADMAP queue A8c. A mesh-sharded decoder is queue A9.
+``key_value_dir_get`` / ``key_value_delete``; ``streaming/remote.py``
+supplies one across processes (``CoordinatorKVClient``) and the
+process-per-replica deployment (``RemoteFleetRouter``). A replica's
+engine may decode over a (data, tp) mesh (``mesh=``, through the shared
+decoder); data-parallel training and the sharded trainers are ROADMAP
+queues A9b and A9c.
 """
 
 from __future__ import annotations

@@ -251,7 +251,7 @@ class GenerationServingRoute(_RoutePublishMixin):
                  publish_retries: int = 3, retry_backoff: float = 0.05,
                  fault_injector=None, block_size: int = 1, registry=None,
                  trace_store=None, tracing: bool = True, mesh=None,
-                 journal=None, scheduling: str = "fifo",
+                 spec_layout=None, journal=None, scheduling: str = "fifo",
                  shed_headroom: bool = False,
                  headroom_margin: float = 1.0,
                  prefill_chunk: Optional[int] = None,
@@ -262,21 +262,29 @@ class GenerationServingRoute(_RoutePublishMixin):
         self._owns_engine = engine is None
         self._faults = fault_injector if fault_injector is not None \
             else NULL_INJECTOR
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a sharded decode over several cards) is ROADMAP "
-                "queue A9, not ported yet: serve from one card")
+        if engine is not None and mesh is not None:
+            # a prebuilt engine (or supervisor) carries its own mesh:
+            # ignoring mesh= here would let a caller believe decode is
+            # sharded when it is not (the engine's shared-decoder guard,
+            # one level up)
+            inner = getattr(engine, "_engine", engine)
+            if getattr(inner, "mesh", None) is not mesh:
+                raise ValueError(
+                    "prebuilt engine was built for a different mesh; "
+                    "pass mesh= only when the route owns its engine "
+                    "(give the engine/supervisor its mesh instead)")
         if engine is None:
             from ..models.generation import SlotGenerationEngine
             # block_size > 1: requests complete (and publish) at decode-
-            # block boundaries; the observability sinks and the journal
-            # thread through to the route-owned engine (a prebuilt engine
-            # or supervisor carries its own)
+            # block boundaries; the observability sinks, the journal and
+            # the mesh thread through to the route-owned engine (a
+            # prebuilt engine or supervisor carries its own)
             engine = SlotGenerationEngine(
                 net, num_slots=num_slots, t_max=t_max,
                 fault_injector=self._faults, block_size=block_size,
                 registry=registry, trace_store=trace_store,
-                tracing=tracing, journal=journal, scheduling=scheduling,
+                tracing=tracing, mesh=mesh, spec_layout=spec_layout,
+                journal=journal, scheduling=scheduling,
                 shed_headroom=shed_headroom,
                 headroom_margin=headroom_margin,
                 prefill_chunk=prefill_chunk,

@@ -36,8 +36,9 @@ the JAX package's ``scripts/chaos_soak.py``.
   page flip, a canary-caught flip, a mid-handoff flip and a degraded
   journal: every corruption caught before a client sees it.
 
-The process-per-replica rounds (``--remote``, ``--remote-scale``) are
-ROADMAP queue A8c.
+The process-per-replica rounds (``--remote``, ``--remote-scale``) drive
+``streaming/remote.py``: :func:`run_remote_soak` and
+:func:`run_remote_scale_ab`.
 
 By default every round builds a tiny LM on the CUDA card (``device=``,
 or ``--device cpu``, runs it on the CPU); ``net=`` (a ComputationGraph on

@@ -22,6 +22,7 @@ columns split over the grid); each with one kernel launch a wrapper call
 The training API's paths: a frozen char-RNN layer bit-identical over
 fine-tune steps on B6, ``AsyncDataSetIterator`` staging bf16 on the card,
 and a frozen ResNet trunk whose BNs still launch their kernels at lr 0.
+A (1, 2) serving mesh on one card: B1 on each tp shard's 6 heads.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1186,3 +1187,53 @@ def test_frozen_resnet_trunk_still_launches_its_bn_kernels(cuda_device):
     assert stats and all(not torch.equal(new.state[v]["mean"], s["mean"])
                          for v, s in stats.items())
     assert not torch.equal(new.params["new_fc"]["W"], head)
+
+
+def test_mesh_prefill_runs_b1_on_local_heads(cuda_device, monkeypatch):
+    """A (1, 2) serving mesh with both coordinates on the card, at the
+    flagship's widths (d 768, 12 heads of 64; 2 layers, bf16): the
+    prefill launches B1 once a layer a tp shard, each on the shard's 6
+    heads, every launch matches the plain version on its own inputs, and
+    the mesh's logits match the unsharded decoder's."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import (TransformerDecoder,
+                                                 transformer_lm_conf)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import generation_mesh
+    net = ComputationGraph(transformer_lm_conf(32000, d_model=768,
+                                               num_heads=12, num_layers=2,
+                                               max_length=577),
+                           compute_dtype=torch.bfloat16,
+                           device=cuda_device).init()
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(200, 513, 4)
+    tokens = np.zeros((4, 512), np.int64)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rng.integers(0, 32000, n)
+    seen = []
+    real = ff.short_attention_fwd
+
+    def recording(q3, k3, v3, km, h, causal):
+        seen.append((q3, k3, v3, km, h, causal))
+        return real(q3, k3, v3, km, h, causal)
+
+    monkeypatch.setattr(ff, "short_attention_fwd", recording)
+    mesh = generation_mesh(1, 2, devices=[cuda_device] * 2)
+    dec = TransformerDecoder(net, mesh=mesh)
+    before = real.launches
+    _, got, _ = dec.prefill(dec.init_cache(4), tokens, lengths)
+    torch.cuda.synchronize()
+    assert real.launches - before == 2 * 2
+    assert [args[4] for args in seen] == [6] * 4
+    for q3, k3, v3, km, h, causal in seen:
+        assert q3.shape == (4 * 6, 512, 64)
+        o_k, _ = real(q3, k3, v3, km, h, causal)
+        o_p, _ = ss.attention_fwd_plain(q3, k3, v3, km, h, causal)
+        assert (o_k.float() - o_p.float()).abs().max() <= \
+            FWD_TOL[torch.bfloat16]
+    monkeypatch.undo()
+    plain = TransformerDecoder(net)
+    _, want, _ = plain.prefill(plain.init_cache(4), tokens, lengths)
+    rel = ((got.double() - want.double()).norm(dim=-1) /
+           want.double().norm(dim=-1)).max().item()
+    assert rel <= 5e-2

@@ -261,7 +261,34 @@ Phases, each an uncaught exception on failure:
    steps, the frozen vertices bit-identical, 106 batch-norm kernel
    launches a step, then ``GraphTransferLearningHelper``'s featurize and
    3 ``fit_featurized`` epochs moving only the head.
-14. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+14. data-parallel training (``phase_data_parallel``, within 120 s), every
+   data shard on the card (``make_mesh(devices=[cuda:0] * n)``): (1) the
+   flagship LM (vocab 32000, d 768, 12 heads, 12 layers, T 512). Its f32
+   twin (TF32 off), 2 steps each of ``GraphDataParallelTrainer`` and
+   ``ParallelWrapper`` at data 2 and 4 on B 8, and both at data 4 on a
+   ragged B 6 (padded to 8 with zero-weight rows), against 2 solo
+   ``fit_batch`` steps from the same weights: each step's loss within rel
+   1e-6, the parameters within rel-L2 1e-5, B1 and B2 each 12 x data x 2.
+   In bf16, global B 32, 2 warm + 4 timed steps of the graph trainer at
+   data 2 and 4 beside the solo step: the loss finite and falling, the
+   first-step loss within rel 2e-2 of the solo step's, B1 and B2 each
+   exactly 12 x data x 6, ms a step beside the solo step's (one card:
+   host dispatch over the shards, not scaling; reported). (2) local steps
+   on the bf16 net, data 2, k 2, 2 rounds: the replicas bitwise equal
+   after each round, the round score falling, B1 = B2 = 96; then one
+   round with ``gradient_compression`` 5e-4: its sent fraction in (0,
+   1]. (3) a masked LSTM (32 units, f32, 7 ragged rows) under sync DP at
+   data 2 against a solo step: parameters within rel-L2 1e-5, B6 once a
+   shard. (4) sync DP at data 2 of a net with a batch norm raises the
+   ROADMAP A9b-bn error. (5) on small nets on the card:
+   ``ParameterServerParallelWrapper(backend="native")`` with 2 workers
+   (the native store built and used, pushes >= the batches),
+   ``EarlyStoppingParallelTrainer``, the CLI
+   (``parallel/main.py --workers 2``) and ``ClusterDl4jMultiLayer`` with 2
+   executors, each with its held-out loss falling. The phase's B1, B2 and
+   B6 launches join the ``kernels`` line; it prints its wall time and
+   fails past 120 s.
+15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the three batch-norm variants of ``csrc/batchnorm.cu``
 (an identity BN, a BN with its ReLU folded in, the fused BN -> add ->
@@ -319,6 +346,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.cluster import (
+    ClusterDl4jMultiLayer, DistributedDataSet,
+    ParameterAveragingTrainingMaster)
 from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.kernels import cuda_lib
 from deeplearning4j_tpu_torch.kernels.flash_backward import (
@@ -345,7 +375,7 @@ from deeplearning4j_tpu_torch.earlystopping import (
     ScoreImprovementEpochTerminationCondition)
 from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    RBM, AutoEncoder, BatchNormalization, CenterLossOutputLayer,
+    LSTM, RBM, AutoEncoder, BatchNormalization, CenterLossOutputLayer,
     ConvolutionLayer, DenseLayer, GravesLSTM, OutputLayer, RnnOutputLayer,
     VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
@@ -362,10 +392,13 @@ from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts, fetch_shards
-from deeplearning4j_tpu_torch.parallel import (EngineSupervisor,
-                                               FaultInjector,
-                                               ParallelInference,
-                                               generation_mesh, mesh_tag)
+from deeplearning4j_tpu_torch.parallel import (
+    EarlyStoppingParallelTrainer, EngineSupervisor, FaultInjector,
+    GraphDataParallelTrainer, ParallelInference, ParallelWrapper,
+    ParameterServerParallelWrapper, generation_mesh, make_mesh, mesh_tag)
+from deeplearning4j_tpu_torch.parallel.main import main as dp_main
+from deeplearning4j_tpu_torch.parallel.native_ps import NativeParameterServer
+from deeplearning4j_tpu_torch.parallel.wrapper import tree_leaves
 from deeplearning4j_tpu_torch.observability import (FlightRecorder,
                                                     MetricsRegistry,
                                                     PhaseProfiler, SLOTracker,
@@ -383,7 +416,8 @@ from deeplearning4j_tpu_torch.streaming import (BurnRateAutoscaler,
                                                 create_broker)
 from deeplearning4j_tpu_torch.tools import chaos_soak
 from deeplearning4j_tpu_torch.tools.bn_probe import device_ms
-from deeplearning4j_tpu_torch.utils import (graph_from_numpy,
+from deeplearning4j_tpu_torch.utils import (ModelSerializer,
+                                            graph_from_numpy,
                                             network_from_numpy)
 
 #: H100 SXM data-sheet peaks (not measured): HBM bytes/s, dense bf16
@@ -4578,6 +4612,369 @@ def phase_training_api(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+#: the data-parallel phase's wall-clock budget, s
+DP_PHASE_LIMIT_S = 120
+#: the f32 twin's runs against solo steps: (trainer, data shards, rows)
+DP_TWIN_RUNS = [("graph", 2, 8), ("graph", 4, 8), ("wrapper", 2, 8),
+                ("wrapper", 4, 8), ("graph", 4, 6), ("wrapper", 4, 6)]
+#: f32 sync DP against solo steps (TF32 off): each step's loss (relative)
+#: and the parameters after 2 steps (relative L2); the shards' sums only
+#: reorder the batch's
+DP_LOSS_REL, DP_PARAM_REL = 1e-6, 1e-5
+#: bf16 sync DP: data shards, global rows, warm and timed steps
+DP_BF16_DATA, DP_BF16_B, DP_WARM, DP_TIMED = (2, 4), 32, 2, 4
+#: the compressed local-steps round's threshold: above one adam step's
+#: per-element move (lr 3e-4), below two in one direction
+DP_THRESHOLD = 5e-4
+DP_COUNTERS = ("shortseq_attention", "shortseq_attention_bwd",
+               "lstm_recurrence")
+
+
+def _dp_conf(model):
+    return transformer_lm_conf(vocab_size=model["vocab"],
+                               d_model=model["d_model"],
+                               num_heads=model["num_heads"],
+                               num_layers=model["num_layers"],
+                               max_length=model["t"], learning_rate=3e-4)
+
+
+def _lm_ds(model, b, seed):
+    x, y = lm_batch_sparse(np.random.default_rng(seed).integers(
+        0, model["vocab"], (b, model["t"] + 1)))
+    return DataSet(x, y)
+
+
+def _dp_step(kind, net, data, dev, **kw):
+    """One step function of ``net`` over ``data`` shards on ``dev``:
+    GraphDataParallelTrainer.fit_batch, or ParallelWrapper.fit."""
+    mesh = make_mesh(devices=[dev] * data)
+    if kind == "graph":
+        return GraphDataParallelTrainer(net, mesh=mesh).fit_batch
+    pw = ParallelWrapper(net, mesh=mesh, **kw)
+    return lambda ds: pw.fit([ds])
+
+
+def _tree_rel_l2(got, want):
+    """Relative L2 of every tensor of ``got`` against ``want`` (f64, on
+    their device)."""
+    num = den = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        num += float(((g.double() - w.double()) ** 2).sum())
+        den += float((w.double() ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _count(total, launches):
+    for name in DP_COUNTERS:
+        total[name] += launches[name]
+
+
+def _dp_f32_twin(dev, model, on_card, total):
+    """(1) f32, TF32 off: every DP_TWIN_RUNS run's 2 steps against 2 solo
+    fit_batch steps from the same weights."""
+    base = ComputationGraph(_dp_conf(model), device=dev).init()
+    batches = {b: [_lm_ds(model, b, 100 + b + s) for s in range(2)]
+               for b in {b for _, _, b in DP_TWIN_RUNS}}
+    refs = {}
+    for b, dss in batches.items():
+        solo = base.clone()
+        losses = []
+        for ds in dss:
+            solo.fit_batch(ds)
+            losses.append(float(solo.score_value))
+        refs[b] = (solo.params, losses)
+    layers = model["num_layers"]
+    for kind, data, b in DP_TWIN_RUNS:
+        net = base.clone()
+        step = _dp_step(kind, net, data, dev)
+        _sync()
+        reset_launches()
+        losses = []
+        for ds in batches[b]:
+            step(ds)
+            losses.append(float(net.score_value))
+        _sync()
+        launches = read_launches()
+        _count(total, launches)
+        want_p, want_l = refs[b]
+        rel_l = max(abs(g - w) / abs(w) for g, w in zip(losses, want_l))
+        rel_p = _tree_rel_l2(net.params, want_p)
+        b1, b2 = (launches[n] for n in DP_COUNTERS[:2])
+        log(f"data-parallel f32 {kind} data {data} B {b}: losses "
+            f"{losses} vs solo {want_l} (max rel {rel_l:.3e}, tol "
+            f"{DP_LOSS_REL}); params rel-L2 {rel_p:.3e} (tol "
+            f"{DP_PARAM_REL}); B1 {b1}, B2 {b2}")
+        if rel_l > DP_LOSS_REL or rel_p > DP_PARAM_REL:
+            raise AssertionError(f"f32 {kind} DP at data {data}, B {b} "
+                                 "disagrees with the solo steps")
+        want = layers * data * 2 if on_card else 0
+        if (b1, b2) != (want, want):
+            raise AssertionError(f"{kind} DP at data {data}: B1 {b1}, B2 "
+                                 f"{b2} in 2 steps, expected {want} each")
+        del net, step
+    del base, refs
+
+
+def _dp_bf16(card, dev, model, on_card, total):
+    """(1) bf16, global B 32: solo, then each DP_BF16_DATA mesh, DP_WARM
+    + DP_TIMED steps each."""
+    base = ComputationGraph(_dp_conf(model), compute_dtype=torch.bfloat16,
+                            device=dev).init()
+    ds = _lm_ds(model, DP_BF16_B, 13)
+    layers = model["num_layers"]
+    runs = [("solo", 1)] + [("graph", d) for d in DP_BF16_DATA]
+    first, ms = {}, {}
+    for kind, data in runs:
+        net = base.clone()
+        step = net.fit_batch if kind == "solo" else \
+            _dp_step(kind, net, data, dev)
+        warm, _, w_launch = train_steps(net, ds, DP_WARM, step)
+        losses, wall, t_launch = train_steps(net, ds, DP_TIMED, step)
+        ms[data] = wall / DP_TIMED * 1e3
+        first[data] = warm[0]
+        losses = warm + losses
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"bf16 DP at data {data}: loss not "
+                                 f"finite and falling: {losses}")
+        if kind == "solo":
+            continue
+        _count(total, w_launch)
+        _count(total, t_launch)
+        b1 = w_launch["shortseq_attention"] + t_launch["shortseq_attention"]
+        b2 = w_launch["shortseq_attention_bwd"] + \
+            t_launch["shortseq_attention_bwd"]
+        want = layers * data * (DP_WARM + DP_TIMED) if on_card else 0
+        rel = abs(first[data] - first[1]) / abs(first[1])
+        log(f"data-parallel bf16 data {data} [{card}]: losses "
+            f"{[round(x, 4) for x in losses]}; first-step loss rel "
+            f"{rel:.3e} to solo (tol {TRAIN_LOSS_TOL}); B1 {b1}, B2 {b2} "
+            f"(expected {want} each); {ms[data]:.2f} ms per step against "
+            f"solo {ms[1]:.2f} ms (B {DP_BF16_B}, T {model['t']}; one "
+            f"card: host dispatch over the shards, not scaling)")
+        if rel > TRAIN_LOSS_TOL or (b1, b2) != (want, want):
+            raise AssertionError(f"bf16 DP at data {data} failed its "
+                                 "checks")
+        del net, step
+    return base, ds
+
+
+def _replicas_equal(pw):
+    r0 = pw._replicas[0]
+    return all(torch.equal(a, b) for r in pw._replicas[1:]
+               for t0, t in ((r0.params, r.params),
+                             (r0.updater_state, r.updater_state),
+                             (r0.state, r.state))
+               for a, b in zip(tree_leaves(t0), tree_leaves(t)))
+
+
+def _dp_local_steps(base, dev, model, on_card, total):
+    """(2) local steps on the bf16 net: data 2, k 2, 2 rounds; then one
+    compressed round."""
+    ds_b = _lm_ds(model, DP_BF16_B, 14)
+    ds_a = _lm_ds(model, DP_BF16_B, 13)
+    net = base.clone()
+    pw = ParallelWrapper(net, mesh=make_mesh(devices=[dev] * 2),
+                         averaging_frequency=2)
+    _sync()
+    reset_launches()
+    scores = []
+    for _ in range(2):
+        pw.fit([ds_a, ds_b])
+        scores.append(float(net.score_value))
+        if not _replicas_equal(pw):
+            raise AssertionError("local-steps replicas differ after a "
+                                 "round")
+    _sync()
+    launches = read_launches()
+    _count(total, launches)
+    b1, b2 = launches["shortseq_attention"], \
+        launches["shortseq_attention_bwd"]
+    want = model["num_layers"] * 2 * 2 * 2 if on_card else 0
+    comp = ParallelWrapper(base.clone(), mesh=make_mesh(devices=[dev] * 2),
+                           averaging_frequency=2,
+                           gradient_compression=DP_THRESHOLD)
+    reset_launches()
+    comp.fit([ds_a, ds_b])
+    _sync()
+    _count(total, read_launches())
+    frac = float(comp.last_sent_fraction)
+    log(f"data-parallel local steps (data 2, k 2, bf16): round scores "
+        f"{scores}, replicas bitwise equal after each round; B1 {b1}, B2 "
+        f"{b2} (expected {want} each); compressed round (threshold "
+        f"{DP_THRESHOLD}) sent fraction {frac:.6f}")
+    if not (np.isfinite(scores).all() and scores[1] < scores[0]):
+        raise AssertionError(f"local-steps loss not falling: {scores}")
+    if (b1, b2) != (want, want) or not 0.0 < frac <= 1.0:
+        raise AssertionError("local-steps DP failed its checks")
+
+
+def _small_mln(dev, lstm=False, bn=False, seed=5):
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    b = (NeuralNetConfiguration.Builder().seed(seed)
+         .learning_rate(0.05 if lstm else 0.1).updater("sgd")
+         .weight_init("xavier").activation("tanh").list())
+    if lstm:
+        b = b.layer(LSTM(n_out=32, activation="tanh")).layer(
+            RnnOutputLayer(n_out=4, loss="mcxent", activation="softmax"))
+        it = InputType.recurrent(8)
+    else:
+        b = b.layer(DenseLayer(n_out=64))
+        if bn:
+            b = b.layer(BatchNormalization())
+        b = b.layer(OutputLayer(n_out=4, loss="mcxent",
+                                activation="softmax"))
+        it = InputType.feed_forward(16)
+    return MultiLayerNetwork(b.set_input_type(it).build(),
+                             device=dev).init()
+
+
+def _small_batches(n, b=32, seed=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.normal(size=(b, 16)).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[(np.abs(x).sum(1) * 2).astype(int)
+                                        % 4]
+        out.append(DataSet(x, y))
+    return out
+
+
+def _dp_masked_lstm(dev, total, on_card):
+    """(3) the masked LSTM, f32: sync DP at data 2 on a ragged batch
+    against a solo step."""
+    rng = np.random.default_rng(21)
+    n, t = 7, 12
+    x = rng.normal(size=(n, t, 8)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, (n, t))]
+    mask = (np.arange(t)[None] < rng.integers(3, t + 1, n)[:, None]) \
+        .astype(np.float32)
+    ds = DataSet(x, y, features_mask=mask, labels_mask=mask.copy())
+    solo = _small_mln(dev, lstm=True)
+    dp = solo.clone()
+    solo.fit([ds])
+    _sync()
+    reset_launches()
+    ParallelWrapper(dp, mesh=make_mesh(devices=[dev] * 2)).fit([ds])
+    _sync()
+    launches = read_launches()
+    _count(total, launches)
+    rel = _tree_rel_l2(dp.params, solo.params)
+    b6 = launches["lstm_recurrence"]
+    want = 2 if on_card else 0
+    log(f"data-parallel masked LSTM (f32, data 2, 7 rows): params rel-L2 "
+        f"{rel:.3e} to solo (tol {DP_PARAM_REL}); B6 {b6} (expected "
+        f"{want}: one a shard)")
+    if rel > DP_PARAM_REL or b6 != want:
+        raise AssertionError("masked LSTM DP failed its checks")
+
+
+def _dp_batch_norm_refused(dev):
+    """(4) sync DP over 2 shards of a net with a batch norm raises."""
+    net = _small_mln(dev, bn=True)
+    try:
+        ParallelWrapper(net, mesh=make_mesh(devices=[dev] * 2)).fit(
+            _small_batches(1))
+    except NotImplementedError as e:
+        if "A9b-bn" not in str(e):
+            raise
+        log(f"data-parallel batch norm at data 2: refused ({e})"[:200])
+        return
+    raise AssertionError("sync DP with a batch norm at data 2 did not "
+                         "raise")
+
+
+def _falls(before, after, what):
+    log(f"{what}: held-out loss {before:.4f} -> {after:.4f}")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError(f"{what}: loss did not fall")
+
+
+def _dp_tools(dev):
+    """(5) the parameter servers (native), early stopping, the CLI and the
+    cluster master, each on a small net on ``dev``."""
+    batches, held = _small_batches(16), _small_batches(4, seed=4)
+    score = lambda net: float(np.mean([net.score(d) for d in held]))
+    net = _small_mln(dev)
+    s0 = score(net)
+    ps = ParameterServerParallelWrapper(net, num_workers=2,
+                                        backend="native")
+    ps.fit(batches, num_epochs=2)
+    if ps.backend != "native" or \
+            not isinstance(ps.server, NativeParameterServer) or \
+            ps.server.pushes < len(batches):
+        raise AssertionError(f"parameter server: backend {ps.backend}, "
+                             f"{ps.server.pushes} pushes")
+    _falls(s0, score(net), f"native parameter server (2 workers, "
+           f"{ps.server.pushes} pushes for {2 * len(batches)} batches)")
+    ps.server.shutdown()
+
+    net = _small_mln(dev)
+    s0 = score(net)
+    cfg = EarlyStoppingConfiguration(
+        score_calculator=DataSetLossCalculator(held),
+        epoch_terminations=[MaxEpochsTerminationCondition(3)])
+    result = EarlyStoppingParallelTrainer(
+        cfg, net, batches, mesh=make_mesh(devices=[dev] * 2)).fit()
+    _falls(s0, result.best_model_score,
+           f"EarlyStoppingParallelTrainer ({result.total_epochs} epochs, "
+           f"{result.termination_reason})")
+
+    net = _small_mln(dev)
+    s0 = score(net)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model.zip"
+        ModelSerializer.write_model(net, path)
+        mod = type(sys)("_dp_cli_factory")
+        mod.make_iterator = lambda: ListDataSetIterator(batches)
+        sys.modules["_dp_cli_factory"] = mod
+        rc = dp_main(["--model-path", path, "--iterator-factory",
+                      "_dp_cli_factory:make_iterator", "--workers", "2",
+                      "--epochs", "2", "--device", str(dev)])
+        trained = ModelSerializer.restore_multi_layer_network(path,
+                                                              device=dev)
+    if rc != 0 or trained.iteration != 2 * len(batches):
+        raise AssertionError(f"the CLI: rc {rc}, iteration "
+                             f"{trained.iteration}")
+    _falls(s0, score(trained), "the CLI (--workers 2, 2 epochs)")
+
+    net = _small_mln(dev)
+    s0 = score(net)
+    rdd = DistributedDataSet.from_datasets(batches, num_partitions=2,
+                                           num_executors=2)
+    ClusterDl4jMultiLayer(net, ParameterAveragingTrainingMaster(
+        num_workers=2, averaging_frequency=2)).fit(rdd, num_epochs=3)
+    _falls(s0, score(net), "ClusterDl4jMultiLayer (2 executors, 3 "
+           "epochs)")
+
+
+def phase_data_parallel(card, device=None, model=None):
+    """Phase 14: data-parallel training of the flagship LM and the scale-out
+    tools (module docstring). ``device`` / ``model`` let the phase be
+    rehearsed on the CPU at a small width. Returns the phase's B1, B2 and
+    B6 launches."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = torch.device(device or "cuda:0")
+    model = dict(model or {"vocab": 32000, "d_model": 768, "num_heads": 12,
+                           "num_layers": 12, "t": 512})
+    total = dict.fromkeys(DP_COUNTERS, 0)
+    _dp_f32_twin(dev, model, on_card, total)
+    base, _ = _dp_bf16(card, dev, model, on_card, total)
+    _dp_local_steps(base, dev, model, on_card, total)
+    del base
+    _dp_masked_lstm(dev, total, on_card)
+    _dp_batch_norm_refused(dev)
+    _dp_tools(dev)
+    wall = time.perf_counter() - t_phase
+    log(f"data-parallel phase: launches {total}; {wall:.1f}s wall (limit "
+        f"{DP_PHASE_LIMIT_S} s)")
+    if wall > DP_PHASE_LIMIT_S:
+        raise AssertionError(f"the data-parallel phase took {wall:.1f}s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4607,12 +5004,15 @@ def main():
     phase_lenet_vgg(card)
     phase_evaluate(card)
     api = phase_training_api(card)
+    dp = phase_data_parallel(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
         launches[name] = resnet[name] + resnet[f"{name}.bwd"] + \
             api[name] + api[f"{name}.bwd"]
     launches["lstm_recurrence"] = lstm_train["lstm_recurrence"] + \
-        api["lstm_recurrence"]
-    launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"]
+        api["lstm_recurrence"] + dp["lstm_recurrence"]
+    launches["shortseq_attention"] += dp["shortseq_attention"]
+    launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"] + \
+        dp["shortseq_attention_bwd"]
     for name in ("flash_backward_dq", "flash_backward_dkv"):
         launches[name] = long[name]
     for line in measured["shortseq_attention"].pop("main_shapes"):

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from ..ops.losses import clamp_count
+
 # Above this many logit elements ([rows x vocab]) the forward chunks the
 # row axis and the backward recomputes logits chunk-wise instead of
 # storing them: 2^29 elements = 1 GiB of bf16.
@@ -146,14 +148,13 @@ def sparse_labels_eligible(layer, y, layer_params=None) -> bool:
     return sparse_shaped(layer, y)
 
 
-def fused_sparse_ce_score(layer_params, x, ids,
-                          mask: Optional[torch.Tensor],
-                          average: bool = True):
-    """The loss of a fused head: x is the output layer's INPUT ([N, D] or
-    [N, T, D]) and ids the integer labels ([N] or [N, T]). A [N, T] mask
-    averages over present cells; a per-example [N] / [N, 1] mask over a
-    sequence keeps the N·T denominator; 2-D inputs average per (present)
-    example."""
+def fused_sparse_ce_terms(layer_params, x, ids,
+                          mask: Optional[torch.Tensor]):
+    """(the summed loss of a fused head, its denominator unclamped): x is
+    the output layer's INPUT ([N, D] or [N, T, D]) and ids the integer
+    labels ([N] or [N, T]). A [N, T] mask counts its present cells; a
+    per-example [N] / [N, 1] mask over a sequence keeps the N·T
+    denominator; 2-D inputs count their (present) examples."""
     W, b = layer_params["W"], layer_params["b"]
     seq = x.dim() == 3
     if seq:
@@ -179,9 +180,15 @@ def fused_sparse_ce_score(layer_params, x, ids,
         w = torch.ones(x2.shape[0], dtype=acc, device=x2.device)
     chunked = x2.shape[0] * W.shape[1] > MATERIALIZE_LIMIT
     total = sparse_softmax_ce_sum(x2, W, b, ids2, w, chunked)
-    if not average:
-        return total
     if mask is not None and not per_example_seq_mask:
-        return total / w.sum().clamp_min(1.0)
-    rows = x.shape[0] * x.shape[1] if seq else x.shape[0]
-    return total / float(rows)
+        return total, w.sum()
+    return total, float(x.shape[0] * x.shape[1] if seq else x.shape[0])
+
+
+def fused_sparse_ce_score(layer_params, x, ids,
+                          mask: Optional[torch.Tensor],
+                          average: bool = True):
+    """The loss of a fused head (:func:`fused_sparse_ce_terms`), averaged
+    over its denominator unless ``average`` is False."""
+    total, count = fused_sparse_ce_terms(layer_params, x, ids, mask)
+    return total / clamp_count(count) if average else total

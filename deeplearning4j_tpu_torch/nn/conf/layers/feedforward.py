@@ -24,7 +24,7 @@ from typing import Dict
 
 import torch
 
-from ....ops.losses import compute_loss, get_loss
+from ....ops.losses import compute_loss, get_loss, loss_terms
 from ..input_type import InputType
 from ..serde import register_config
 from .base import FeedForwardLayerConf, LayerConf
@@ -64,6 +64,12 @@ class OutputLayer(DenseLayer):
                       average: bool = True):
         return compute_loss(self.loss, labels, preoutput,
                             self.activation or "identity", mask, average)
+
+    def compute_score_terms(self, params, labels, preoutput, mask=None):
+        """(summed score, its denominator unclamped): ops/losses.py's
+        ``loss_terms``."""
+        return loss_terms(self.loss, labels, preoutput,
+                          self.activation or "identity", mask)
 
     def preoutput(self, params, x):
         return _affine(x, params["W"], params["b"])
@@ -112,6 +118,10 @@ class LossLayer(LayerConf):
                       average: bool = True):
         return compute_loss(self.loss, labels, preoutput,
                             self.activation or "identity", mask, average)
+
+    def compute_score_terms(self, params, labels, preoutput, mask=None):
+        return loss_terms(self.loss, labels, preoutput,
+                          self.activation or "identity", mask)
 
     def preoutput(self, params, x):
         return x

@@ -49,10 +49,11 @@ from ...eval.regression import RegressionEvaluation
 from ...eval.roc import ROC, ROCMultiClass
 from ...ops import rng as rngmod
 from ...ops.dataset import DataSet, MultiDataSet
+from ...ops.losses import reduce_terms
 from ...ops.platform import resolve_device, state_on
 from ...ops.transfer import device_fetch
 from ...ops.updaters import make_updater, normalize_gradient, schedule_lr
-from ...kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_score,
+from ...kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_terms,
                                  sparse_shaped)
 from ..conf.layers import OutputLayer
 from ..conf.layers.convolution import detached_running_update
@@ -77,6 +78,12 @@ def _strip_rnn_carry(states):
     every inference call but ``rnn_time_step``, starts from zeros."""
     return {name: {k: v for k, v in s.items() if k not in _CARRY}
             for name, s in states.items()}
+
+
+def _detached(states):
+    return {name: {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in st.items()}
+            for name, st in states.items()}
 
 
 def _carries(states):
@@ -348,18 +355,19 @@ class ComputationGraph:
             eligible.add(out_name)
         return eligible
 
-    def _loss(self, params, state, inputs, labels: Dict, rng,
-              label_masks: Optional[Dict] = None, input_masks=None,
-              initial_rnn=None):
-        """(score, new_state): the summed output losses plus the l1/l2
-        penalty, on the compute-dtype cast of ``params``."""
+    def _loss_terms(self, params, state, inputs, labels: Dict, rng,
+                    label_masks: Optional[Dict] = None, input_masks=None,
+                    initial_rnn=None):
+        """(terms, reg, new_state) on the compute-dtype cast of ``params``:
+        one (summed loss, denominator unclamped) term per scoring output,
+        in ``network_outputs`` order, and the l1/l2 penalty."""
         params = self._cast_params(params)
         fused_outs = self._fused_ce_outputs(labels)
         _, new_state, reg, masks, last_in, preouts = self._forward(
             params, state, inputs, train=True, rng=rng,
             input_masks=input_masks, output_preout=True,
             skip_preoutput=fused_outs, initial_rnn=initial_rnn)
-        score = reg
+        terms = []
         for out_name in self.conf.network_outputs:
             v = self.conf.vertices[out_name]
             if not isinstance(v, LayerVertex) or \
@@ -371,8 +379,8 @@ class ComputationGraph:
                 x = last_in[out_name]
                 if lmask is None and x.dim() == 3:
                     lmask = masks.get(out_name)
-                score = score + fused_sparse_ce_score(params[out_name], x, y,
-                                                      lmask)
+                terms.append(fused_sparse_ce_terms(params[out_name], x, y,
+                                                   lmask))
                 continue
             if sparse_shaped(v.layer, y) and \
                     str(getattr(v.layer, "loss", "")).lower() in \
@@ -387,9 +395,19 @@ class ComputationGraph:
             pre = preouts[out_name]
             if lmask is None and pre.dim() == 3:
                 lmask = masks.get(out_name)
-            score = score + v.layer.compute_score(params[out_name], y, pre,
-                                                  lmask)
-        return score, new_state
+            terms.append(v.layer.compute_score_terms(params[out_name], y,
+                                                     pre, lmask))
+        return terms, reg, new_state
+
+    def _loss(self, params, state, inputs, labels: Dict, rng,
+              label_masks: Optional[Dict] = None, input_masks=None,
+              initial_rnn=None):
+        """(score, new_state): the l1/l2 penalty plus each output's loss
+        (:meth:`_loss_terms`, each over its denominator)."""
+        terms, reg, new_state = self._loss_terms(
+            params, state, inputs, labels, rng, label_masks, input_masks,
+            initial_rnn)
+        return reduce_terms(terms, start=reg), new_state
 
     def _masks_of(self, ds):
         """(input_masks, label_masks) dicts from a DataSet or MultiDataSet
@@ -422,64 +440,86 @@ class ComputationGraph:
         return (self._inputs_dict(features), self._labels_dict(labels),
                 imasks, lmasks)
 
+    def _param_leaves(self):
+        """Autograd leaves sharing the masters' storage."""
+        return {name: {k: p.detach().requires_grad_(True)
+                       for k, p in ps.items()}
+                for name, ps in self.params.items()}
+
+    @staticmethod
+    def _grads_of(score, leaves):
+        """{vertex: {param: gradient of ``score``}} over ``leaves``."""
+        flat = [(name, k) for name, ps in leaves.items() for k in ps]
+        with torch.enable_grad():
+            grads = torch.autograd.grad(
+                score, [leaves[n][k] for n, k in flat],
+                materialize_grads=True) if flat else ()
+        by_vertex: Dict[str, Dict[str, torch.Tensor]] = {
+            name: {} for name in leaves}
+        for (name, k), g in zip(flat, grads):
+            by_vertex[name][k] = g
+        return by_vertex
+
     def _value_and_grad(self, state, inputs, labels, rng, lmasks, imasks,
                         initial_rnn=None):
         """(score, new_state, {vertex: {param: gradient}}) of the loss over
         the f32 masters, the new state detached. The autograd leaves share
         the masters' storage, so an update may write the masters in place
         once this returns."""
-        leaves = {name: {k: p.detach().requires_grad_(True)
-                         for k, p in ps.items()}
-                  for name, ps in self.params.items()}
-        flat = [(name, k) for name, ps in leaves.items() for k in ps]
+        leaves = self._param_leaves()
         with torch.enable_grad():
             score, new_state = self._loss(leaves, state, inputs, labels,
                                           rng, lmasks, imasks, initial_rnn)
-            grads = torch.autograd.grad(
-                score, [leaves[n][k] for n, k in flat],
-                materialize_grads=True) if flat else ()
-        by_vertex: Dict[str, Dict[str, torch.Tensor]] = {
-            name: {} for name in self.params}
-        for (name, k), g in zip(flat, grads):
-            by_vertex[name][k] = g
-        new_state = {name: {k: v.detach() if torch.is_tensor(v) else v
-                            for k, v in st.items()}
-                     for name, st in new_state.items()}
-        return score.detach(), new_state, by_vertex
+        by_vertex = self._grads_of(score, leaves)
+        return score.detach(), _detached(new_state), by_vertex
+
+    def _dropout_rng(self) -> int:
+        """The step's dropout seed (per iteration)."""
+        return rngmod.for_iteration(
+            rngmod.for_purpose(self.conf.seed, "dropout"), self.iteration)
 
     def _train_step(self, inputs, labels, imasks, lmasks, initial_rnn=None):
         """One update of every parameter in place; returns (the score as a
         0-d device tensor, the new state with its recurrent carry)."""
-        conf = self.conf
-        rng = rngmod.for_iteration(rngmod.for_purpose(conf.seed, "dropout"),
-                                   self.iteration)
         score, new_state, by_vertex = self._value_and_grad(
-            self.state, inputs, labels, rng, lmasks, imasks, initial_rnn)
-        with torch.no_grad():
-            for name, g in by_vertex.items():
-                if not g:
-                    continue
-                v = conf.vertices[name]
-                layer = v.layer if isinstance(v, LayerVertex) else None
-                if layer is not None:
-                    g = normalize_gradient(
-                        g, layer.gradient_normalization,
-                        _nz(layer.gradient_normalization_threshold, 1.0))
-                lr = schedule_lr(
-                    _nz(layer.learning_rate if layer else None, 0.1),
-                    conf.lr_policy, self.iteration,
-                    decay_rate=conf.lr_policy_decay_rate,
-                    steps=conf.lr_policy_steps, power=conf.lr_policy_power,
-                    max_iterations=float(conf.max_iterations or 1),
-                    schedule=conf.learning_rate_schedule)
-                upd = self.updaters[name]
-                for pname, grad in g.items():
-                    step, ustate = upd.update(
-                        grad, self.updater_state[name][pname], lr,
-                        float(self.iteration))
-                    self.params[name][pname].sub_(step)
-                    self.updater_state[name][pname] = ustate
+            self.state, inputs, labels, self._dropout_rng(), lmasks, imasks,
+            initial_rnn)
+        self._apply_gradients(by_vertex)
         return score, new_state
+
+    @torch.no_grad()
+    def _apply_gradients(self, by_vertex):
+        """Per vertex: the gradient normalization, the scheduled learning
+        rate and the update rule, applied to the masters in place (solo
+        and data-parallel training alike)."""
+        conf = self.conf
+        for name, g in by_vertex.items():
+            if not g:
+                continue
+            v = conf.vertices[name]
+            layer = v.layer if isinstance(v, LayerVertex) else None
+            if layer is not None:
+                g = normalize_gradient(
+                    g, layer.gradient_normalization,
+                    _nz(layer.gradient_normalization_threshold, 1.0))
+            lr = schedule_lr(
+                _nz(layer.learning_rate if layer else None, 0.1),
+                conf.lr_policy, self.iteration,
+                decay_rate=conf.lr_policy_decay_rate,
+                steps=conf.lr_policy_steps, power=conf.lr_policy_power,
+                max_iterations=float(conf.max_iterations or 1),
+                schedule=conf.learning_rate_schedule)
+            upd = self.updaters[name]
+            for pname, grad in g.items():
+                step, ustate = upd.update(
+                    grad, self.updater_state[name][pname], lr,
+                    float(self.iteration))
+                self.params[name][pname].sub_(step)
+                self.updater_state[name][pname] = ustate
+
+    @staticmethod
+    def _strip_rnn_carry(states):
+        return _strip_rnn_carry(states)
 
     def _after_step(self, score, new_state):
         self.state = _strip_rnn_carry(new_state)

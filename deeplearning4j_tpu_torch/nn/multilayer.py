@@ -44,11 +44,11 @@ from ..datasets.iterators import AsyncDataSetIterator, as_iterator
 from ..eval.evaluation import Evaluation
 from ..eval.regression import RegressionEvaluation
 from ..eval.roc import ROC, ROCMultiClass
-from ..kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_score,
+from ..kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_terms,
                                 sparse_labels_eligible, sparse_shaped)
 from ..ops import rng as rngmod
 from ..ops.dataset import DataSet
-from ..ops.losses import get_loss
+from ..ops.losses import get_loss, reduce_terms
 from ..ops.platform import resolve_device, state_on
 from ..ops.transfer import device_fetch
 from ..ops.updaters import make_updater, normalize_gradient, schedule_lr
@@ -255,11 +255,13 @@ class MultiLayerNetwork:
             raise ValueError("Last layer has no loss (need an Output layer)")
         return last
 
-    def _loss_fn(self, params, state, feats, labels, fmask, lmask, rng,
-                 initial_rnn=None):
-        """(score, new_states) on the compute-dtype cast of ``params``: the
-        head's loss (plus a center-loss head's center loss, whose moved
-        centers are the head's new state) plus the l1 / l2 penalty."""
+    def _loss_terms(self, params, state, feats, labels, fmask, lmask, rng,
+                    initial_rnn=None):
+        """(terms, reg, new_states) on the compute-dtype cast of
+        ``params``: ``terms`` holds the head's (summed loss, denominator
+        unclamped) and, for a center-loss head, (its center loss, None);
+        the moved centers are the head's new state. ``reg`` is the l1 /
+        l2 penalty."""
         params = self._cast_params(params)
         out_layer = self._output_layer()
         fused = sparse_labels_eligible(out_layer, labels, params[-1])
@@ -270,7 +272,8 @@ class MultiLayerNetwork:
         if fused:
             mask = lmask if lmask is not None else \
                 (out_mask if last_in.dim() == 3 else None)
-            score = fused_sparse_ce_score(params[-1], last_in, labels, mask)
+            terms = [fused_sparse_ce_terms(params[-1], last_in, labels,
+                                           mask)]
         else:
             if sparse_shaped(out_layer, labels) and \
                     str(getattr(out_layer, "loss", "")).lower() in \
@@ -282,32 +285,52 @@ class MultiLayerNetwork:
                     "here.")
             mask = lmask if lmask is not None else \
                 (out_mask if pre.dim() == 3 else None)
-            score = out_layer.compute_score(params[-1], labels, pre, mask)
+            terms = [out_layer.compute_score_terms(params[-1], labels, pre,
+                                                   mask)]
         if isinstance(out_layer, CenterLossOutputLayer):
             closs, centers = out_layer.center_loss_and_update(
                 state[-1], last_in, labels)
-            score = score + closs
+            terms.append((closs, None))
             new_states = new_states[:-1] + [centers]
-        return score + reg, new_states
+        return terms, reg, new_states
+
+    def _loss_fn(self, params, state, feats, labels, fmask, lmask, rng,
+                 initial_rnn=None):
+        """(score, new_states): :meth:`_loss_terms` each divided by its
+        denominator, summed, plus the penalty."""
+        terms, reg, new_states = self._loss_terms(
+            params, state, feats, labels, fmask, lmask, rng, initial_rnn)
+        return reduce_terms(terms) + reg, new_states
+
+    def _param_leaves(self):
+        """Autograd leaves sharing the masters' storage."""
+        return [{k: p.detach().requires_grad_(True) for k, p in ps.items()}
+                for ps in self.params]
+
+    @staticmethod
+    def _grads_of(score, leaves):
+        """[{param: gradient of ``score``}] over ``leaves``."""
+        flat = [(i, k) for i, ps in enumerate(leaves) for k in ps]
+        with torch.enable_grad():
+            grads = torch.autograd.grad(
+                score, [leaves[i][k] for i, k in flat],
+                materialize_grads=True) if flat else ()
+        by_layer: List[Dict[str, torch.Tensor]] = [{} for _ in leaves]
+        for (i, k), g in zip(flat, grads):
+            by_layer[i][k] = g
+        return by_layer
 
     def _value_and_grad(self, state, feats, labels, fmask, lmask, rng,
                         initial_rnn=None):
         """(score, new_states, [{param: gradient}]) of the loss over the
         f32 masters. The autograd leaves share the masters' storage, so an
         update may write the masters in place once this returns."""
-        leaves = [{k: p.detach().requires_grad_(True) for k, p in ps.items()}
-                  for ps in self.params]
-        flat = [(i, k) for i, ps in enumerate(leaves) for k in ps]
+        leaves = self._param_leaves()
         with torch.enable_grad():
             score, new_states = self._loss_fn(leaves, state, feats, labels,
                                               fmask, lmask, rng, initial_rnn)
-            grads = torch.autograd.grad(
-                score, [leaves[i][k] for i, k in flat],
-                materialize_grads=True) if flat else ()
-        by_layer: List[Dict[str, torch.Tensor]] = [{} for _ in self.params]
-        for (i, k), g in zip(flat, grads):
-            by_layer[i][k] = g
-        return score.detach(), _detached(new_states), by_layer
+        grads = self._grads_of(score, leaves)
+        return score.detach(), _detached(new_states), grads
 
     def _lr(self, base):
         c = self.conf
@@ -317,33 +340,46 @@ class MultiLayerNetwork:
                            max_iterations=float(c.max_iterations or 1),
                            schedule=c.learning_rate_schedule)
 
+    def _dropout_rng(self) -> int:
+        """The step's dropout seed (per iteration)."""
+        return rngmod.for_iteration(
+            rngmod.for_purpose(self.conf.seed, "dropout"), self.iteration)
+
     def _train_step(self, feats, labels, fmask, lmask, initial_rnn=None):
         """One update of every parameter in place; returns (score as a 0-d
         device tensor, new states)."""
-        rng = rngmod.for_iteration(
-            rngmod.for_purpose(self.conf.seed, "dropout"), self.iteration)
         score, new_states, grads = self._value_and_grad(
-            self.state, feats, labels, fmask, lmask, rng, initial_rnn)
-        with torch.no_grad():
-            for i, (layer, g) in enumerate(zip(self.layers, grads)):
-                if not g:
-                    continue
-                g = normalize_gradient(
-                    g, layer.gradient_normalization,
-                    _nz(layer.gradient_normalization_threshold, 1.0))
-                lr = self._lr(_nz(layer.learning_rate, 0.1))
-                upd = self.updaters[i]
-                for name, grad in g.items():
-                    use_lr = lr
-                    if name in _BIAS_PARAMS and \
-                            layer.bias_learning_rate is not None:
-                        use_lr = self._lr(layer.bias_learning_rate)
-                    step, ustate = upd.update(grad,
-                                              self.updater_state[i][name],
-                                              use_lr, float(self.iteration))
-                    self.params[i][name].sub_(step)
-                    self.updater_state[i][name] = ustate
+            self.state, feats, labels, fmask, lmask, self._dropout_rng(),
+            initial_rnn)
+        self._apply_gradients(grads)
         return score, new_states
+
+    @torch.no_grad()
+    def _apply_gradients(self, grads):
+        """Per layer: the gradient normalization, the scheduled learning
+        rate and the update rule, applied to the masters in place (solo
+        and data-parallel training alike)."""
+        for i, (layer, g) in enumerate(zip(self.layers, grads)):
+            if not g:
+                continue
+            g = normalize_gradient(
+                g, layer.gradient_normalization,
+                _nz(layer.gradient_normalization_threshold, 1.0))
+            lr = self._lr(_nz(layer.learning_rate, 0.1))
+            upd = self.updaters[i]
+            for name, grad in g.items():
+                use_lr = lr
+                if name in _BIAS_PARAMS and \
+                        layer.bias_learning_rate is not None:
+                    use_lr = self._lr(layer.bias_learning_rate)
+                step, ustate = upd.update(grad, self.updater_state[i][name],
+                                          use_lr, float(self.iteration))
+                self.params[i][name].sub_(step)
+                self.updater_state[i][name] = ustate
+
+    @staticmethod
+    def _strip_rnn_carry(states):
+        return _strip_carry(states)
 
     def _after_step(self, score, new_states):
         self.state = _strip_carry(new_states)

@@ -173,25 +173,51 @@ for _name, _fn in [
     register_loss(_name, _fn)
 
 
-def compute_loss(name, labels, preoutput, activation="identity",
-                 mask: Optional[torch.Tensor] = None, average: bool = True):
-    """The scalar score: per-example scores summed and, with ``average``,
-    divided by the JAX package's denominator — for [N, T, ...] labels the
-    count of present (example, timestep) cells (N·T without a [N, T]
-    mask), otherwise the example count (the present examples' under an
-    [N] / [N, 1] mask). Mask counts are taken in f32."""
+def loss_terms(name, labels, preoutput, activation="identity",
+               mask: Optional[torch.Tensor] = None):
+    """(the summed per-example score, the count :func:`compute_loss`
+    divides it by, unclamped): for [N, T, ...] labels the count of
+    present (example, timestep) cells (N·T without a [N, T] mask),
+    otherwise the example count (the present examples' under an [N] /
+    [N, 1] mask). Mask counts are f32 tensors, shape counts ints, so the
+    counts of row blocks add up to the whole batch's (data-parallel
+    training divides every block's sum by that)."""
     total = get_loss(name)(labels, preoutput, activation, mask).sum()
-    if not average:
-        return total
     if labels.dim() == 3:
         if mask is not None and mask.dim() >= 2 and \
                 tuple(mask.shape[:2]) == tuple(labels.shape[:2]):
-            count = torch.clamp_min(mask.to(torch.float32).sum(), 1.0)
-        else:
-            count = labels.shape[0] * labels.shape[1]
-    else:
-        count = labels.shape[0]
-        if mask is not None and (mask.dim() == 1 or
-                                 (mask.dim() == 2 and mask.shape[-1] == 1)):
-            count = torch.clamp_min(mask.to(torch.float32).sum(), 1.0)
-    return total / count
+            return total, mask.to(torch.float32).sum()
+        return total, labels.shape[0] * labels.shape[1]
+    if mask is not None and (mask.dim() == 1 or
+                             (mask.dim() == 2 and mask.shape[-1] == 1)):
+        return total, mask.to(torch.float32).sum()
+    return total, labels.shape[0]
+
+
+def clamp_count(count):
+    """A loss denominator as the score divides by it: a counted mask is
+    at least 1 (an all-masked batch scores 0, not NaN)."""
+    return torch.clamp_min(count, 1.0) if torch.is_tensor(count) else count
+
+
+def compute_loss(name, labels, preoutput, activation="identity",
+                 mask: Optional[torch.Tensor] = None, average: bool = True):
+    """The scalar score: per-example scores summed and, with ``average``,
+    divided by the JAX package's denominator (:func:`loss_terms`)."""
+    total, count = loss_terms(name, labels, preoutput, activation, mask)
+    return total / clamp_count(count) if average else total
+
+
+def reduce_terms(terms, start=None, denominators=None):
+    """The score of loss terms: ``start`` (e.g. the l1 / l2 penalty) plus,
+    in order, each (total, count) term's total over its clamped count (a
+    None count adds the total as is). ``denominators``, one per term,
+    replace the terms' own counts: a data-parallel shard divides its
+    block's sum by the whole batch's count."""
+    score = start
+    for i, (total, count) in enumerate(terms):
+        if denominators is not None:
+            count = denominators[i]
+        value = total if count is None else total / clamp_count(count)
+        score = value if score is None else score + value
+    return score

@@ -1,15 +1,24 @@
-"""Device meshes and the decoder's partition specs, serving lifecycle
-errors, fault injection, supervised restart, the preemption drains and
-parallel inference."""
+"""Device meshes and the decoder's partition specs, data-parallel
+training (sync and local-steps ``ParallelWrapper``, the graph trainer,
+the parameter servers, multi-process averaging and checkpoints), serving
+lifecycle errors, fault injection, supervised restart, the preemption
+drains and parallel inference."""
 
+from .early_stopping_parallel import EarlyStoppingParallelTrainer
 from .failures import (EngineSupervisor, HeartbeatMonitor,
                        PreemptionHandler, WorkerLostError, run_elastic)
 from .faults import (NULL_INJECTOR, Cancelled, DeadlineExceeded,
                      FaultInjector, RejectedError)
+from .graph_wrapper import GraphDataParallelTrainer
 from .inference import InferenceMode, ParallelInference
+from .magic_queue import MagicQueue
 from .mesh import (Mesh, P, ShardedTensor, batch_sharded, generation_mesh,
                    make_mesh, mesh_axis_sizes, mesh_tag, parse_mesh_shape,
                    replicated, shard_batch_spec, validate_decode_mesh)
+from .param_server import (InMemoryParameterServer, ParameterServerClient,
+                           ParameterServerNode,
+                           ParameterServerParallelWrapper,
+                           ParameterServerTrainer)
 # the SERVING drain handler, exported under a distinct name as in the JAX
 # package: failures.PreemptionHandler (training checkpoint-on-SIGTERM)
 # keeps its name
@@ -17,11 +26,16 @@ from .preemption import DrainReport
 from .preemption import PreemptionHandler as ServingPreemptionHandler
 from .spec_layout import (SpecLayout, decoder_param_specs, param_shardings,
                           shard_params, validate_param_specs)
+from .wrapper import ParallelWrapper
 
 __all__ = ["Cancelled", "DeadlineExceeded", "DrainReport",
-           "EngineSupervisor", "FaultInjector", "HeartbeatMonitor",
-           "InferenceMode", "Mesh", "NULL_INJECTOR", "P",
-           "ParallelInference", "PreemptionHandler", "RejectedError",
+           "EarlyStoppingParallelTrainer", "EngineSupervisor",
+           "FaultInjector", "GraphDataParallelTrainer", "HeartbeatMonitor",
+           "InMemoryParameterServer", "InferenceMode", "MagicQueue", "Mesh",
+           "NULL_INJECTOR", "P", "ParallelInference", "ParallelWrapper",
+           "ParameterServerClient", "ParameterServerNode",
+           "ParameterServerParallelWrapper", "ParameterServerTrainer",
+           "PreemptionHandler", "RejectedError",
            "ServingPreemptionHandler", "ShardedTensor", "SpecLayout",
            "WorkerLostError", "batch_sharded", "decoder_param_specs",
            "generation_mesh", "make_mesh", "mesh_axis_sizes", "mesh_tag",

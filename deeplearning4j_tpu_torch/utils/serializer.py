@@ -2,12 +2,15 @@
 and written with numpy alone: ``configuration.json``, ``coefficients.npz``
 (``r/<vertex or layer index>/<param>`` keys), ``layerState.npz``,
 ``updaterState.npz`` (``r/<vertex or layer index>/<param>/<slot>`` keys,
-e.g. ``m`` and ``v`` for adam) and ``meta.json`` (model type, iteration,
+e.g. ``m`` and ``v`` for adam), ``normalizer.bin`` (a ``DataNormalizer``'s
+``to_bytes``, when one is saved) and ``meta.json`` (model type, iteration,
 epoch). A checkpoint either package writes, the other restores, and
 training resumes where it stopped, with the layer state (batch norm's
 running statistics) it had; ComputationGraph and MultiLayerNetwork
 alike. ``graph_from_numpy`` / ``network_from_numpy`` carry parameters and
-state across without a checkpoint."""
+state across without a checkpoint. :class:`ModelSerializer` and
+:class:`ModelGuesser` are the JAX package's class faces of these
+functions."""
 
 from __future__ import annotations
 
@@ -24,12 +27,14 @@ from ..nn.conf.config import MultiLayerConfiguration
 from ..nn.graph.computation_graph import ComputationGraph
 from ..nn.graph.graph_config import ComputationGraphConfiguration
 from ..nn.multilayer import MultiLayerNetwork
+from ..ops.dataset import DataNormalizer
 from ..ops.platform import state_on
 
 CONFIG_ENTRY = "configuration.json"
 COEFF_ENTRY = "coefficients.npz"
 UPDATER_ENTRY = "updaterState.npz"
 STATE_ENTRY = "layerState.npz"
+NORMALIZER_ENTRY = "normalizer.bin"
 META_ENTRY = "meta.json"
 
 
@@ -172,25 +177,27 @@ def _resume(net, owners, upd, meta):
     return net
 
 
-def restore_computation_graph(path, device=None,
-                              compute_dtype=None) -> ComputationGraph:
+def restore_computation_graph(path, device=None, compute_dtype=None,
+                              load_updater: bool = True) -> ComputationGraph:
     """Load a ComputationGraph checkpoint written by the JAX package's
     ``ModelSerializer.write_model`` (or :func:`write_model`): parameters,
-    updater state, iteration and epoch, so ``fit_batch`` continues the
-    run, and the layer state (batch norm's running statistics).
-    ``device=None`` means the card."""
+    updater state (fresh with ``load_updater=False``), iteration and
+    epoch, so ``fit_batch`` continues the run, and the layer state (batch
+    norm's running statistics). ``device=None`` means the card."""
     conf_json, arrays, state, upd, meta = _read(path)
     conf = ComputationGraphConfiguration.from_json(conf_json)
     net = graph_from_numpy(conf, arrays, device, compute_dtype, state)
-    return _resume(net, net.updater_state.items(), upd, meta)
+    return _resume(net, net.updater_state.items(),
+                   upd if load_updater else None, meta)
 
 
-def restore_multi_layer_network(path, device=None,
-                                compute_dtype=None) -> MultiLayerNetwork:
+def restore_multi_layer_network(path, device=None, compute_dtype=None,
+                                load_updater: bool = True
+                                ) -> MultiLayerNetwork:
     """Load a MultiLayerNetwork checkpoint written by the JAX package's
     ``ModelSerializer.write_model`` (or :func:`write_model`): parameters,
-    updater state, iteration and epoch, and the layer state.
-    ``device=None`` means the card."""
+    updater state (fresh with ``load_updater=False``), iteration and
+    epoch, and the layer state. ``device=None`` means the card."""
     conf_json, arrays, state, upd, meta = _read(path)
     conf = MultiLayerConfiguration.from_json(conf_json)
     owners = [str(i) for i in range(len(conf.layers))]
@@ -198,17 +205,24 @@ def restore_multi_layer_network(path, device=None,
                              device, compute_dtype,
                              [state.get(o, {}) for o in owners])
     return _resume(net, ((str(i), s) for i, s in
-                         enumerate(net.updater_state)), upd, meta)
+                         enumerate(net.updater_state)),
+                   upd if load_updater else None, meta)
 
 
-def write_model(net, path) -> None:
-    """Write a ComputationGraph or MultiLayerNetwork with its updater state
-    as a checkpoint zip the JAX package's ``ModelSerializer`` restores."""
+def write_model(net, path, save_updater: bool = True,
+                normalizer: Optional[DataNormalizer] = None) -> None:
+    """Write a ComputationGraph or MultiLayerNetwork, with its updater
+    state unless ``save_updater`` is False and with ``normalizer`` where
+    given, as a checkpoint zip the JAX package's ``ModelSerializer``
+    restores."""
     with zipfile.ZipFile(Path(path), "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr(CONFIG_ENTRY, net.conf.to_json())
         z.writestr(COEFF_ENTRY, _flat_to_npz(net.params))
         z.writestr(STATE_ENTRY, _flat_to_npz(net.state))
-        z.writestr(UPDATER_ENTRY, _flat_to_npz(net.updater_state))
+        if save_updater:
+            z.writestr(UPDATER_ENTRY, _flat_to_npz(net.updater_state))
+        if normalizer is not None:
+            z.writestr(NORMALIZER_ENTRY, normalizer.to_bytes())
         z.writestr(META_ENTRY, json.dumps({
             "model_type": type(net).__name__,
             "iteration": net.iteration,
@@ -217,13 +231,70 @@ def write_model(net, path) -> None:
         }))
 
 
+def _meta(path) -> Dict:
+    with zipfile.ZipFile(Path(path), "r") as z:
+        return json.loads(z.read(META_ENTRY)) if META_ENTRY in z.namelist() \
+            else {}
+
+
 def restore_model(path, device=None, compute_dtype=None):
     """Restore a checkpoint as the model type its ``meta.json`` names
     (MultiLayerNetwork unless it says ComputationGraph)."""
-    with zipfile.ZipFile(Path(path), "r") as z:
-        meta = json.loads(z.read(META_ENTRY)) if META_ENTRY in z.namelist() \
-            else {}
     restore = restore_computation_graph \
-        if meta.get("model_type") == "ComputationGraph" \
+        if _meta(path).get("model_type") == "ComputationGraph" \
         else restore_multi_layer_network
     return restore(path, device, compute_dtype)
+
+
+def restore_normalizer(path) -> Optional[DataNormalizer]:
+    """The checkpoint's ``normalizer.bin`` as a DataNormalizer (None when
+    the checkpoint has none)."""
+    with zipfile.ZipFile(Path(path), "r") as z:
+        if NORMALIZER_ENTRY not in z.namelist():
+            return None
+        return DataNormalizer.from_bytes(z.read(NORMALIZER_ENTRY))
+
+
+class ModelSerializer:
+    """The JAX package's checkpoint API (``utils/serializer.py:71``) over
+    this module's functions; ``device=None`` means the card."""
+
+    @staticmethod
+    def write_model(net, path, save_updater: bool = True,
+                    normalizer: Optional[DataNormalizer] = None) -> None:
+        write_model(net, path, save_updater, normalizer)
+
+    @staticmethod
+    def restore_multi_layer_network(path, load_updater: bool = True,
+                                    device=None, compute_dtype=None):
+        return restore_multi_layer_network(path, device, compute_dtype,
+                                           load_updater)
+
+    @staticmethod
+    def restore_computation_graph(path, load_updater: bool = True,
+                                  device=None, compute_dtype=None):
+        return restore_computation_graph(path, device, compute_dtype,
+                                         load_updater)
+
+    @staticmethod
+    def restore_normalizer(path) -> Optional[DataNormalizer]:
+        return restore_normalizer(path)
+
+
+class ModelGuesser:
+    """Load a saved model, guessing its type (the JAX package's
+    ``utils/serializer.py:149``): the zip's ``meta.json`` decides
+    MultiLayerNetwork or ComputationGraph. A Keras HDF5 file raises: the
+    Keras importer is ROADMAP item A11b."""
+
+    HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+
+    @staticmethod
+    def load_model_guess_type(path, device=None, compute_dtype=None):
+        with open(path, "rb") as f:
+            magic = f.read(8)
+        if magic == ModelGuesser.HDF5_MAGIC:
+            raise NotImplementedError(
+                f"{path} is a Keras HDF5 file; the port's Keras importer "
+                "is not written yet (ROADMAP A11b)")
+        return restore_model(path, device, compute_dtype)

@@ -23,6 +23,8 @@ The training API's paths: a frozen char-RNN layer bit-identical over
 fine-tune steps on B6, ``AsyncDataSetIterator`` staging bf16 on the card,
 and a frozen ResNet trunk whose BNs still launch their kernels at lr 0.
 A (1, 2) serving mesh on one card: B1 on each tp shard's 6 heads.
+Sync data-parallel training at data 2 on one card against solo steps,
+with B1 and B2 launched once a layer a shard.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1237,3 +1239,48 @@ def test_mesh_prefill_runs_b1_on_local_heads(cuda_device, monkeypatch):
     rel = ((got.double() - want.double()).norm(dim=-1) /
            want.double().norm(dim=-1)).max().item()
     assert rel <= 5e-2
+
+
+def test_sync_dp_matches_solo_on_card_with_b1_b2_per_shard(cuda_device):
+    """Sync data-parallel training at data 2, both shards on the card: a
+    2-layer LM (vocab 512, d 128, 2 heads of 64, T 128, B 6, f32, TF32
+    off; 6 rows split 3 + 3), two steps of ``GraphDataParallelTrainer``
+    against two solo ``fit_batch`` steps from the same weights: each
+    step's loss within rel 1e-6, the parameters within rel-L2 1e-5, and
+    B1 and B2 launched once a layer a shard a step (2 x 2 x 2 = 8 each)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import (lm_batch_sparse,
+                                                 transformer_lm_conf)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (GraphDataParallelTrainer,
+                                                   make_mesh)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        solo = ComputationGraph(transformer_lm_conf(
+            512, d_model=128, num_heads=2, num_layers=2, max_length=128,
+            learning_rate=3e-4), device=dev).init()
+        dp = solo.clone()
+        trainer = GraphDataParallelTrainer(
+            dp, mesh=make_mesh(devices=[dev] * 2))
+        fwd, bwd = ss.short_attention_fwd, ss.short_attention_bwd
+        counted = [0, 0]
+        for seed in (1, 2):
+            x, y = lm_batch_sparse(np.random.default_rng(seed).integers(
+                0, 512, (6, 129)))
+            solo.fit_batch(DataSet(x, y))
+            f0, b0 = fwd.launches, bwd.launches
+            trainer.fit_batch(DataSet(x, y))
+            torch.cuda.synchronize()
+            counted[0] += fwd.launches - f0
+            counted[1] += bwd.launches - b0
+            want, got = float(solo.score_value), float(dp.score_value)
+            assert abs(got - want) <= 1e-6 * abs(want)
+        assert counted == [8, 8]
+        a = torch.from_numpy(solo.params_flat()).double()
+        b = torch.from_numpy(dp.params_flat()).double()
+        assert ((a - b).norm() / a.norm()).item() <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

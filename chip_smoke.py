@@ -279,8 +279,9 @@ Phases, each an uncaught exception on failure:
    round with ``gradient_compression`` 5e-4: its sent fraction in (0,
    1]. (3) a masked LSTM (32 units, f32, 7 ragged rows) under sync DP at
    data 2 against a solo step: parameters within rel-L2 1e-5, B6 once a
-   shard. (4) sync DP at data 2 of a net with a batch norm raises the
-   ROADMAP A9b-bn error. (5) on small nets on the card:
+   shard. (4) sync DP at data 2 of a net with a batch norm (f32) against
+   a solo step: parameters and running statistics within rel-L2 1e-5, the
+   batch norm across the shards. (5) on small nets on the card:
    ``ParameterServerParallelWrapper(backend="native")`` with 2 workers
    (the native store built and used, pushes >= the batches),
    ``EarlyStoppingParallelTrainer``, the CLI
@@ -288,7 +289,50 @@ Phases, each an uncaught exception on failure:
    executors, each with its held-out loss falling. The phase's B1, B2 and
    B6 launches join the ``kernels`` line; it prints its wall time and
    fails past 120 s.
-15. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+15. model parallelism (``phase_model_parallel``, within 120 s), every
+   shard on the card: (1) the flagship LM (vocab 32000, d 768, 12 heads,
+   12 layers, T 512) through ``GraphSequenceParallelTrainer`` (the
+   vertex-synchronous walk of ``parallel/sharded.py``, attention on the
+   ring over B3 / B4 / B5, each shard's embedding at its absolute
+   positions): its f32 twin (TF32 off), 2 steps at sp 2, sp 4 and (data
+   2, sp 2) on B 4 against 2 solo steps (each step's loss within rel
+   1e-5, the parameters within rel-L2 1e-4); in bf16 on B 8, 1 warm and 3
+   timed steps a mesh beside the solo step (first-step loss within rel
+   2e-2, ms a step); the long context (the same width at 2 layers, B 4,
+   T 2048, sp 4: shards of 512) the same way. B3, B4 and B5 launch
+   exactly layers x data x sp(sp+1)/2 times a step (the causal ring skips
+   strictly-future pairs), B1 and B2 never. (2) ResNet-50 (``bench.py``'s
+   configuration) under sync DP at data 2, every batch norm across the
+   shards (``batchnorm.cu``'s ``batchnorm_xs_*`` phases): the f32 twin
+   (B 8) within phase 11's gradient bar of the solo step's update and
+   its running statistics within rel-L2 1e-4; bf16 at global B 128, 1
+   warm and 2 timed steps beside the solo step: the first-step loss
+   within rel 2e-2, the running statistics after it within 2e-2, every
+   phase launched 53 x (2, 1, 2) times a direction a step and no
+   single-shard BN kernel; a center-loss head after a batch norm (f32,
+   data 2) against a solo step (its centers moved by the global batch's
+   class means). (3) ``TensorParallelTrainer`` on LeNet (f32, B 128) at
+   (1, 2) and (2, 2), (4) ``ExpertParallelTrainer`` on a Switch MoE (d
+   768, 8 experts, hidden 3072, 512 tokens) at ep 2 and 4, (5)
+   ``PipelineParallelTrainer`` (8 tanh Dense 768 blocks and a head, pipe
+   4, M 4, B 256) against the one-stage stack: the parameters within
+   rel-L2 1e-5 after 2 steps, each shard's local shape, ms a step beside
+   the unsharded run. The phase's B3 / B4 / B5 and cross-shard BN
+   launches join the ``kernels`` line; it prints its wall time and fails
+   past 120 s.
+16. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+
+Phase 3 also holds the ring (``parallel/sequence.py``'s ``_RingFlash``:
+causal bf16 q / k / v at phase 15's shapes, B 8 x T 512 at sp 4 and 2,
+B 4 x T 2048 at sp 4) against the plain streaming ring in f32 (o max-abs
+<= 5e-2, dq / dk / dv rel-L2 <= 2e-2, B3 / B4 / B5 each sp(sp+1)/2
+launches), timed forward + backward beside the plain ring, SDPA on the
+unsharded q / k / v and the bound; and the batch norm across 2 shards
+(``bn_train_shards``) at every ResNet-50 site and variant a step runs
+against the plain version on the whole batch, each phase launched once a
+shard (the finalize once) a direction, timed beside the plain version and
+F.batch_norm on the whole batch, summed over the step's sites. Both are
+rows of the ``kernels`` line (``ring_attention``, ``batchnorm_cross_shard``).
 
 Phase 3 also holds the three batch-norm variants of ``csrc/batchnorm.cu``
 (an identity BN, a BN with its ReLU folded in, the fused BN -> add ->
@@ -393,11 +437,14 @@ from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts, fetch_shards
 from deeplearning4j_tpu_torch.parallel import (
-    EarlyStoppingParallelTrainer, EngineSupervisor, FaultInjector,
-    GraphDataParallelTrainer, ParallelInference, ParallelWrapper,
-    ParameterServerParallelWrapper, generation_mesh, make_mesh, mesh_tag)
+    EarlyStoppingParallelTrainer, EngineSupervisor, ExpertParallelTrainer,
+    FaultInjector, GraphDataParallelTrainer, GraphSequenceParallelTrainer,
+    MixtureOfExpertsLayer, ParallelInference, ParallelWrapper,
+    ParameterServerParallelWrapper, PipelineParallelTrainer,
+    TensorParallelTrainer, generation_mesh, make_mesh, mesh_tag)
 from deeplearning4j_tpu_torch.parallel.main import main as dp_main
 from deeplearning4j_tpu_torch.parallel.native_ps import NativeParameterServer
+from deeplearning4j_tpu_torch.parallel.sequence import ring_attend
 from deeplearning4j_tpu_torch.parallel.wrapper import tree_leaves
 from deeplearning4j_tpu_torch.observability import (FlightRecorder,
                                                     MetricsRegistry,
@@ -526,20 +573,32 @@ def time_ms(fn, warmup: int = 3, reps: int = 20, batch: int = 10) -> float:
     return statistics.median(times)
 
 
+#: the cross-shard batch norm's three phases (``csrc/batchnorm.cu``'s
+#: ``batchnorm_xs_*``), each counting forward and backward launches
+XS_WRAPPERS = {"batchnorm_xs_stats": bnk.bn_xs_stats,
+               "batchnorm_xs_finalize": bnk.bn_xs_finalize,
+               "batchnorm_xs_apply": bnk.bn_xs_apply}
+
+
 def reset_launches():
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
         if "bwd" in spec:
             spec["bwd"].launches = 0
+    for fn in XS_WRAPPERS.values():
+        fn.launches = fn.bwd_launches = 0
     lk.lstm_recurrence_fwd.routes = dict.fromkeys(lk.ROUTES, 0)
 
 
 def read_launches():
     """Launches by kernel since the last reset_launches(); a kernel with a
-    backward wrapper also as "<name>.bwd"."""
+    backward wrapper also as "<name>.bwd", and each cross-shard batch-norm
+    phase as "batchnorm_xs_<phase>" and "...bwd"."""
     out = {n: s["wrapper"].launches for n, s in KERNELS.items()}
     out.update({f"{n}.bwd": s["bwd"].launches for n, s in KERNELS.items()
                 if "bwd" in s})
+    for n, fn in XS_WRAPPERS.items():
+        out[n], out[f"{n}.bwd"] = fn.launches, fn.bwd_launches
     return out
 
 
@@ -1016,6 +1075,8 @@ def phase_kernel_checks():
         f"{(dq['ms'] + dkv['ms']) / dkv['library_ms']:.2f}x)")
     measured["lstm_recurrence"] = check_lstm_kernel()
     measured.update(check_bn_kernels())
+    measured["ring_attention"] = check_ring_kernels()
+    measured["batchnorm_cross_shard"] = check_bn_cross_shard()
     rows = check_c4_variants()
     log(json.dumps({"c4_variants": rows}))
     return measured
@@ -3813,6 +3874,201 @@ def check_bn_kernels():
     return measured
 
 
+# -------------------------------------- phase 3: the ring and the BN shards
+#: the ring's rows: (B, H, T, D, sp) of phase 15's steps; the first is
+#: timed for the kernels line
+RING_CASES = [(8, 12, 512, 64, 4), (8, 12, 512, 64, 2), (4, 12, 2048, 64, 4)]
+#: cross-shard batch norm: data shards of one ResNet-50 step at data 2
+BN_XS_SHARDS = 2
+
+
+def _ring_run(chunks, impl, dtype=None):
+    """Forward and backward of the ring over ``chunks`` ((qs, ks, vs, dos),
+    lists of [B, T/sp, H, D]): (outputs, (dq, dk, dv) chunk lists)."""
+    qs, ks, vs, dos = chunks
+    cast = (lambda t: t.to(dtype)) if dtype else (lambda t: t)
+    leaves = [cast(t).detach().requires_grad_(True) for t in qs + ks + vs]
+    n = len(qs)
+    outs = ring_attend(leaves[:n], leaves[n:2 * n], leaves[2 * n:], True,
+                       impl)
+    grads = torch.autograd.grad(outs, leaves, [cast(t) for t in dos])
+    return outs, (grads[:n], grads[n:2 * n], grads[2 * n:])
+
+
+def _sdpa_ring_yardstick(q, k, v, do):
+    """scaled_dot_product_attention (is_causal) forward and backward on the
+    unsharded q / k / v."""
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    dot = do.transpose(1, 2)
+
+    def run():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, dot)
+    return run
+
+
+def check_ring(b, h, t, d, sp, seed, timed):
+    """The flash-kernel ring (``parallel/sequence.py``'s ``_RingFlash``,
+    each pair on B3 and B4 / B5) over ``sp`` chunks of causal bf16 q / k /
+    v [B, T, H, D] against its plain version (the streaming ring, in f32
+    on the same inputs): o max-abs, dq / dk / dv rel-L2, and B3, B4, B5
+    each launched sp(sp+1)/2 times. With ``timed``: the ring's forward +
+    backward, the plain ring's in bf16, SDPA's on the unsharded q / k / v
+    and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = [torch.randn(b, t, h, d, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(4)]
+    chunks = [[c.contiguous() for c in x.chunk(sp, dim=1)] for x in full]
+    _sync()
+    reset_launches()
+    outs, grads = _ring_run(chunks, None)
+    _sync()
+    launches = {k: read_launches()[k] for k in RING_KERNELS}
+    outs_p, grads_p = _ring_run(chunks, "jnp", torch.float32)
+    err = max((o.float() - p).abs().max().item()
+              for o, p in zip(outs, outs_p))
+    rels = {n: _rel_l2(torch.cat(gk, 1).float(), torch.cat(gp, 1))
+            for n, gk, gp in zip("qkv", grads, grads_p)}
+    want = sp * (sp + 1) // 2
+    line = (f"ring B {b} H {h} T {t} D {d} sp {sp} (causal, bf16): o "
+            f"max-abs {err:.3e} (tol {O_TOL}); d"
+            + ", d".join(f"{n} rel-L2 {e:.3e}" for n, e in rels.items())
+            + f" (tol {GRAD_TOL}); launches {launches} (expected {want} "
+            "each)")
+    if err > O_TOL or any(e > GRAD_TOL for e in rels.values()) or \
+            any(n != want for n in launches.values()) or \
+            not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"the ring disagrees with its plain version: "
+                             f"{line}")
+    if not timed:
+        log(f"  {line}")
+        return None
+    pairs = b * h * t * (t + 1) // 2
+    bytes_ = 8 * b * t * h * d * 2
+    flops = 14 * d * pairs
+    bound = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    r = {"max_abs_err": err,
+         "ms": time_ms(lambda: _ring_run(chunks, None), reps=10, batch=3),
+         "plain_ms": time_ms(lambda: _ring_run(chunks, "jnp"), warmup=1,
+                             reps=5, batch=1),
+         "library_ms": time_ms(_sdpa_ring_yardstick(*full), reps=10),
+         "bound_ms": bound,
+         "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >=
+         flops / BF16_FLOPS else "operations"}
+    log(f"  {line}; forward + backward {r['ms']:.4f} ms (host dispatch "
+        f"of the pairs and merges in it), plain ring {r['plain_ms']:.4f}, "
+        f"SDPA unsharded {r['library_ms']:.4f}, bound {bound:.4f} "
+        f"({r['bound_by']})")
+    return r
+
+
+def check_ring_kernels():
+    """The ring at phase 15's shapes (RING_CASES); the first timed."""
+    out = None
+    for i, case in enumerate(RING_CASES):
+        r = check_ring(*case, 400 + i, i == 0)
+        out = out or r
+    return out
+
+
+def _bn_xs_run(variant, case, shards=BN_XS_SHARDS):
+    """The cross-shard batch norm's forward and backward (its autograd
+    Function) over ``shards`` row blocks of the case: (ys, mean, var,
+    grads of the xs, gamma, beta and the residuals)."""
+    x, res, dy, gamma, beta, shift = case
+    tail = variant == "tail"
+    xs = [c.detach().requires_grad_(True) for c in x.chunk(shards)]
+    rs = [c.detach().requires_grad_(True) for c in res.chunk(shards)] \
+        if tail else None
+    gl, bl = (p.detach().requires_grad_(True) for p in (gamma, beta))
+    ys, mean, var = bnk.bn_train_shards(
+        xs, gl, bl, shift, 1e-5, "identity" if variant == "identity"
+        else "relu", rs)
+    grads = torch.autograd.grad(ys, xs + [gl, bl] + (rs or []),
+                                list(dy.chunk(shards)))
+    return ys, mean, var, grads
+
+
+def _bn_xs_plain(variant, case):
+    """The same function on the whole batch by the plain versions."""
+    x, res, dy, gamma, beta, shift = case
+    tail, relu = variant == "tail", variant != "identity"
+    y, mean, var, rstd = bnk.bn_fwd_plain(x, gamma, beta, shift, 1e-5,
+                                          res if tail else None, relu)
+    return (y, mean, var), bnk.bn_bwd_plain(dy, x, gamma, mean, rstd,
+                                            y if tail else None, relu, beta)
+
+
+def check_bn_cross_site(variant, m, c, seed):
+    """A batch norm over BN_XS_SHARDS row blocks of one ResNet-50 site
+    (bf16) through the cross-shard kernels against the plain version on
+    the whole batch, timed beside it, F.batch_norm on the whole batch and
+    the bytes bound."""
+    case = _bn_case(m, c, torch.bfloat16, seed)
+    n = BN_XS_SHARDS
+    _sync()
+    reset_launches()
+    ys, mean, var, grads = _bn_xs_run(variant, case)
+    _sync()
+    launches = _xs_launches(read_launches())
+    (y_p, mean_p, var_p), grads_p = _bn_xs_plain(variant, case)
+    y = torch.cat(ys)
+    errs = {"y": _rel_l2(y, y_p), "dx": _rel_l2(torch.cat(grads[:n]),
+                                                grads_p[0])}
+    stats = {"mean": _rel_l2(mean, mean_p), "var": _rel_l2(var, var_p),
+             "dgamma": _rel_l2(grads[n], grads_p[1]),
+             "dbeta": _rel_l2(grads[n + 1], grads_p[2])}
+    if variant == "tail":
+        errs["dres"] = _rel_l2(torch.cat(grads[n + 2:]), grads_p[3])
+    want = {f"{p}{s}": (1 if "finalize" in p else n)
+            for p in XS_PHASES for s in ("", ".bwd")}
+    line = (f"cross-shard {variant} M {m} C {c} bf16 over {n} shards: "
+            + ", ".join(f"{k} {e:.2e}" for k, e in {**errs, **stats}.items())
+            + f"; launches {launches}")
+    if any(e > BN_TOL[torch.bfloat16] for e in errs.values()) or \
+            any(e > BN_STAT_TOL for e in stats.values()) or \
+            launches != want or not torch.isfinite(y).all():
+        raise AssertionError(f"the cross-shard batch norm disagrees with "
+                             f"its plain version: {line} (expected "
+                             f"launches {want})")
+    x, res, dy, gamma, beta, _ = case
+    size = x.element_size()
+    t = {"max_abs_err": (y.float() - y_p.float()).abs().max().item(),
+         "ms": time_ms(lambda: _bn_xs_run(variant, case), reps=10,
+                       batch=3),
+         "plain_ms": time_ms(lambda: _bn_xs_plain(variant, case), reps=5,
+                             batch=2),
+         "library_ms": time_ms(_bn_library(variant, x, res, dy, gamma,
+                                           beta), reps=10, batch=3),
+         "bound_ms": (m * c * size * (8 if variant == "tail" else 5) +
+                      9 * c * 4) / HBM_BYTES_PER_S * 1e3}
+    log(f"  {line}; fwd + bwd {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
+        f"{BN_LIBRARY[variant]} {t['library_ms']:.4f}, bound "
+        f"{t['bound_ms']:.4f} (bytes)")
+    return t
+
+
+def check_bn_cross_shard():
+    """Every variant a ResNet-50 step runs at each site, over 2 shards,
+    summed over the step's sites (times the layers at each) for the
+    kernels line; max_abs_err the largest y difference of any site."""
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes", "max_abs_err": 0.0}
+    for i, ((m, c), counts) in enumerate(BN_SITES.items()):
+        for variant, k in counts.items():
+            t = check_bn_cross_site(variant, m, c, 500 + i)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                row[key] += k * t[key]
+            row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+    log(f"batchnorm_cross_shard over one ResNet-50 step's sites at data 2 "
+        f"(bf16, fwd + bwd): {row['ms']:.4f} ms, plain {row['plain_ms']:.4f},"
+        f" F.batch_norm (composed) {row['library_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f}")
+    return row
+
+
 # ------------------------------------------------- phase 3: C4 variants
 #: batch norms the fused kernel does not take, on the general route:
 #: (M, C, dtype); the first three are an RGB input's and LeNet's BN sites
@@ -4870,19 +5126,28 @@ def _dp_masked_lstm(dev, total, on_card):
         raise AssertionError("masked LSTM DP failed its checks")
 
 
-def _dp_batch_norm_refused(dev):
-    """(4) sync DP over 2 shards of a net with a batch norm raises."""
-    net = _small_mln(dev, bn=True)
-    try:
-        ParallelWrapper(net, mesh=make_mesh(devices=[dev] * 2)).fit(
-            _small_batches(1))
-    except NotImplementedError as e:
-        if "A9b-bn" not in str(e):
-            raise
-        log(f"data-parallel batch norm at data 2: refused ({e})"[:200])
-        return
-    raise AssertionError("sync DP with a batch norm at data 2 did not "
-                         "raise")
+def _dp_batch_norm(dev, total):
+    """(4) sync DP over 2 shards of a net with a batch norm (f32): the
+    whole batch's statistics, against a solo step."""
+    solo = _small_mln(dev, bn=True)
+    dp = solo.clone()
+    batches = _small_batches(1)
+    solo.fit(batches)
+    _sync()
+    reset_launches()
+    ParallelWrapper(dp, mesh=make_mesh(devices=[dev] * 2)).fit(batches)
+    _sync()
+    xs = {k: v for k, v in read_launches().items()
+          if k.startswith("batchnorm_xs")}
+    for k, v in xs.items():
+        total[k] = total.get(k, 0) + v
+    rel = _tree_rel_l2(dp.params, solo.params)
+    rel_s = _tree_rel_l2(dp.state, solo.state)
+    log(f"data-parallel batch norm (f32, data 2): params rel-L2 {rel:.3e}, "
+        f"running statistics rel-L2 {rel_s:.3e} to solo (tol "
+        f"{DP_PARAM_REL}); cross-shard BN launches {xs}")
+    if rel > DP_PARAM_REL or rel_s > DP_PARAM_REL:
+        raise AssertionError("batch-norm DP disagrees with the solo step")
 
 
 def _falls(before, after, what):
@@ -4953,7 +5218,7 @@ def phase_data_parallel(card, device=None, model=None):
     """Phase 14: data-parallel training of the flagship LM and the scale-out
     tools (module docstring). ``device`` / ``model`` let the phase be
     rehearsed on the CPU at a small width. Returns the phase's B1, B2 and
-    B6 launches."""
+    B6 launches and its cross-shard batch-norm launches by phase."""
     t_phase = time.perf_counter()
     on_card = device is None
     dev = torch.device(device or "cuda:0")
@@ -4965,13 +5230,458 @@ def phase_data_parallel(card, device=None, model=None):
     _dp_local_steps(base, dev, model, on_card, total)
     del base
     _dp_masked_lstm(dev, total, on_card)
-    _dp_batch_norm_refused(dev)
+    _dp_batch_norm(dev, total)
     _dp_tools(dev)
     wall = time.perf_counter() - t_phase
     log(f"data-parallel phase: launches {total}; {wall:.1f}s wall (limit "
         f"{DP_PHASE_LIMIT_S} s)")
     if wall > DP_PHASE_LIMIT_S:
         raise AssertionError(f"the data-parallel phase took {wall:.1f}s")
+    return total
+
+
+# ---------------------------------------------------------------- phase 15
+MP_PHASE_LIMIT_S = 120
+#: the flagship's sequence-parallel meshes: (data, sp)
+SP_MESHES = [(1, 2), (1, 4), (2, 2)]
+#: f32 twin rows, bf16 rows, warm and timed bf16 steps a mesh
+SP_TWIN_B, SP_BF16_B, SP_WARM, SP_TIMED = 4, 8, 1, 3
+#: the long-context run: the flagship's width at 2 layers, T 2048, sp 4
+SP_LONG = {"num_layers": 2, "t": 2048, "b": 4, "sp": 4}
+#: f32 sequence-parallel steps against solo steps (TF32 off): each step's
+#: loss (relative) and the parameters after 2 adam steps (relative L2).
+#: The ring merges each query chunk's pair partials, so attention sums
+#: in another order than the solo kernels; adam then moves the elements
+#: whose gradient is near zero by up to lr in a direction that order
+#: decides
+SP_LOSS_REL, SP_PARAM_REL = 1e-5, 1e-4
+#: the kernels the phase counts, and the cross-shard batch norm's counters
+MP_COUNTERS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv",
+               "shortseq_attention", "shortseq_attention_bwd")
+RING_KERNELS = MP_COUNTERS[:3]
+XS_PHASES = ("batchnorm_xs_stats", "batchnorm_xs_finalize",
+             "batchnorm_xs_apply")
+#: ResNet-50 under sync DP at data 2: global rows, the f32 twin's rows
+RESNET_DP_B, RESNET_DP_TWIN_B = 128, 8
+#: the f32 twin's step against the solo step: the parameters' difference
+#: relative to the solo step's update (|p_dp - p_solo| / |p_solo - p_0|),
+#: at phase 11's gradient bar, and the running statistics (relative L2).
+#: The batch statistics are one-pass sums about the running mean, 0 at the
+#: first step: the variance keeps f32's rounding of Σx² times (mean /
+#: std)², so another order of the sums (two shards' partials, or the
+#: batch's rows reversed, the witness below) moves a few % of ResNet-50's
+#: first update at lr 0.1; in f64 the two-shard step equals the solo step
+#: to 1e-12 of it (``tests/test_torch_scaleout.py``)
+RESNET_DP_UPDATE_REL, RESNET_DP_STATE_REL = TRAIN_GRAD_TOL, 1e-4
+#: the dense parities of TP / EP / PP / the small nets on the card (f32,
+#: TF32 off): relative L2 of the parameters after 2 steps against the
+#: unsharded run; the shards sum their partial products in another order
+MP_PARAM_REL = 1e-5
+
+
+def _xs_launches(launches):
+    return {k: launches[k] for k in launches if k.startswith(
+        "batchnorm_xs")}
+
+
+def _count_mp(total, launches):
+    for name in MP_COUNTERS + tuple(
+            f"{p}{s}" for p in XS_PHASES for s in ("", ".bwd")):
+        total[name] = total.get(name, 0) + launches[name]
+
+
+def _sp_trainer(net, data, sp, dev):
+    mesh = make_mesh(axis_names=("data", "sp"), shape=(data, sp),
+                     devices=[dev] * (data * sp))
+    return GraphSequenceParallelTrainer(
+        net, mesh=mesh, data_axis="data" if data > 1 else None)
+
+
+def _ring_want(layers, data, sp, steps, on_card):
+    """B3 / B4 / B5 launches of ``steps`` sequence-parallel steps: each
+    layer's causal ring runs sp(sp+1)/2 pairs a data group."""
+    return layers * data * sp * (sp + 1) // 2 * steps if on_card else 0
+
+
+def _check_ring_launches(launches, want, what):
+    got = {k: launches[k] for k in MP_COUNTERS}
+    expect = {k: want if k in RING_KERNELS else 0 for k in MP_COUNTERS}
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, expected {expect}")
+    return got
+
+
+def _mp_sp_f32(dev, model, on_card, total):
+    """(1) the flagship's f32 twin (TF32 off): 2 steps on each SP_MESHES
+    mesh against 2 solo fit_batch steps from the same weights."""
+    base = ComputationGraph(_dp_conf(model), device=dev).init()
+    dss = [_lm_ds(model, SP_TWIN_B, 300 + s) for s in range(2)]
+    solo = base.clone()
+    want_l = []
+    for ds in dss:
+        solo.fit_batch(ds)
+        want_l.append(float(solo.score_value))
+    for data, sp in SP_MESHES:
+        net = base.clone()
+        with _sp_trainer(net, data, sp, dev) as tr:
+            _sync()
+            reset_launches()
+            losses = []
+            for ds in dss:
+                tr.fit_batch(ds)
+                losses.append(float(net.score_value))
+            _sync()
+            launches = read_launches()
+        _count_mp(total, launches)
+        rel_l = max(abs(g - w) / abs(w) for g, w in zip(losses, want_l))
+        rel_p = _tree_rel_l2(net.params, solo.params)
+        got = _check_ring_launches(
+            launches, _ring_want(model["num_layers"], data, sp, 2, on_card),
+            f"f32 SP at data {data}, sp {sp}")
+        log(f"sequence-parallel f32 (data {data}, sp {sp}, B {SP_TWIN_B}, "
+            f"T {model['t']}): losses {losses} vs solo {want_l} (max rel "
+            f"{rel_l:.3e}, tol {SP_LOSS_REL}); params rel-L2 {rel_p:.3e} "
+            f"(tol {SP_PARAM_REL}); launches in 2 steps {got}")
+        if rel_l > SP_LOSS_REL or rel_p > SP_PARAM_REL:
+            raise AssertionError(f"f32 SP at data {data}, sp {sp} "
+                                 "disagrees with the solo steps")
+        del net
+    del base, solo
+
+
+def _mp_sp_bf16(card, dev, model, on_card, total, b=SP_BF16_B,
+                meshes=SP_MESHES, what="flagship"):
+    """bf16: the solo step, then each mesh, SP_WARM + SP_TIMED steps:
+    the first-step loss against the solo step's, the ring's launches, ms
+    a step beside the solo step's."""
+    base = ComputationGraph(_dp_conf(model), compute_dtype=torch.bfloat16,
+                            device=dev).init()
+    ds = _lm_ds(model, b, 17)
+    first, ms = {}, {}
+    for data, sp in [(1, 1)] + list(meshes):
+        net = base.clone()
+        tr = None if sp == 1 else _sp_trainer(net, data, sp, dev)
+        step = net.fit_batch if tr is None else tr.fit_batch
+        warm, _, w_l = train_steps(net, ds, SP_WARM, step)
+        losses, wall, t_l = train_steps(net, ds, SP_TIMED, step)
+        if tr is not None:
+            tr.close()
+        ms[(data, sp)] = wall / SP_TIMED * 1e3
+        first[(data, sp)] = warm[0]
+        if not np.isfinite(warm + losses).all():
+            raise AssertionError(f"bf16 SP {what} at {data}x{sp}: loss not "
+                                 f"finite: {warm + losses}")
+        if tr is None:
+            continue
+        launches = {k: w_l[k] + t_l[k] for k in w_l}
+        _count_mp(total, launches)
+        got = _check_ring_launches(
+            launches, _ring_want(model["num_layers"], data, sp,
+                                 SP_WARM + SP_TIMED, on_card),
+            f"bf16 SP {what} at {data}x{sp}")
+        rel = abs(first[(data, sp)] - first[(1, 1)]) / abs(first[(1, 1)])
+        log(f"sequence-parallel bf16 {what} (data {data}, sp {sp}, B {b}, "
+            f"T {model['t']}) [{card}]: losses "
+            f"{[round(x, 4) for x in warm + losses]}; first-step loss rel "
+            f"{rel:.3e} to solo (tol {TRAIN_LOSS_TOL}); launches {got}; "
+            f"{ms[(data, sp)]:.2f} ms a step against solo "
+            f"{ms[(1, 1)]:.2f} ms (one card: the shards' operators in "
+            f"turn, not scaling)")
+        if rel > TRAIN_LOSS_TOL:
+            raise AssertionError(f"bf16 SP {what} at {data}x{sp}: first "
+                                 "step disagrees with the solo step")
+        del net
+    del base
+    return ms
+
+
+def _mp_resnet(card, dev, on_card, total, conf_fn=None, b=RESNET_DP_B,
+               twin_b=RESNET_DP_TWIN_B, hw=224):
+    """(2) ResNet-50 under sync DP at data 2, every batch norm across the
+    shards: the f32 twin (B twin_b) against a solo step's parameters and
+    running statistics, then bf16 at global B b against the solo step's
+    first loss and running statistics, the BN phases' launches counted,
+    ms a step beside the solo step's."""
+    conf_fn = conf_fn or (lambda: resnet50_conf(
+        1000, hw, hw, 3, updater="nesterovs", learning_rate=0.1))
+    mesh = make_mesh(devices=[dev] * 2)
+    n_bn = sum(1 for v in conf_fn().vertices.values()
+               if isinstance(getattr(v, "layer", None), BatchNormalization))
+    # f32 twin, TF32 off
+    base = ComputationGraph(conf_fn(), device=dev).init()
+    x, y = _images_on(dev, twin_b, hw, 3, 1000, 41)
+    solo, dp, unfused, rev = (base.clone() for _ in range(4))
+    solo.fit_batch(DataSet(x, y))
+    GraphDataParallelTrainer(dp, mesh=mesh).fit_batch(DataSet(x, y))
+    # two witnesses, solo steps of the same arithmetic in another f32
+    # order: an empty fusion plan (the BN -> add -> act tails vertex by
+    # vertex; the statistics' sums unchanged), and the batch's rows
+    # reversed (the statistics summed in another order)
+    unfused._fusion = ({}, set())
+    unfused.fit_batch(DataSet(x, y))
+    rows = torch.arange(twin_b - 1, -1, -1, device=x.device)
+    rev.fit_batch(DataSet(x[rows], y[rows]))
+    step = _tree_norm(_tree_diff(solo.params, base.params))
+    of_update = lambda net: _tree_rel_l2(net.params, solo.params) * \
+        _tree_norm(solo.params) / step
+    upd = of_update(dp)
+    rel_s = _tree_rel_l2(dp.state, solo.state)
+    log(f"ResNet-50 sync DP f32 (data 2, B {twin_b}): parameters' "
+        f"difference {upd:.3e} of the solo step's update (tol "
+        f"{RESNET_DP_UPDATE_REL}; solo steps against the solo step: "
+        f"unfused {of_update(unfused):.3e}, rows reversed "
+        f"{of_update(rev):.3e}), running statistics rel-L2 {rel_s:.3e} "
+        f"(tol {RESNET_DP_STATE_REL}); losses "
+        f"{float(dp.score_value):.6f} vs {float(solo.score_value):.6f}")
+    if upd > RESNET_DP_UPDATE_REL or rel_s > RESNET_DP_STATE_REL:
+        raise AssertionError("f32 ResNet-50 DP disagrees with the solo "
+                             "step")
+    del base, solo, dp, unfused, rev
+    # bf16 at global B
+    base = ComputationGraph(conf_fn(), compute_dtype=torch.bfloat16,
+                            device=dev).init()
+    x, y = _images_on(dev, b, hw, 3, 1000, 42)
+    ds = DataSet(x, y)
+    runs, first, ms, states = {}, {}, {}, {}
+    for kind in ("solo", "dp"):
+        net = base.clone()
+        step = net.fit_batch if kind == "solo" else \
+            GraphDataParallelTrainer(net, mesh=mesh).fit_batch
+        warm, _, w_l = train_steps(net, ds, 1, step)
+        states[kind] = copy.deepcopy(net.state)
+        losses, wall, t_l = train_steps(net, ds, 2, step)
+        first[kind], ms[kind] = warm[0], wall / 2 * 1e3
+        runs[kind] = {k: w_l[k] + t_l[k] for k in w_l}
+        if not np.isfinite(warm + losses).all():
+            raise AssertionError(f"bf16 ResNet-50 {kind}: loss not finite")
+        del net
+    launches = runs["dp"]
+    _count_mp(total, launches)
+    xs = _xs_launches(launches)
+    want = {f"{p}{s}": n_bn * 3 * (1 if "finalize" in p else 2)
+            for p in XS_PHASES for s in ("", ".bwd")} if on_card else \
+        dict.fromkeys(xs, 0)
+    fused = {k: launches[k] for k in launches if k.startswith(
+        "batchnorm_train") or k.startswith("batchnorm_add_act")}
+    rel = abs(first["dp"] - first["solo"]) / abs(first["solo"])
+    rel_s = _tree_rel_l2(states["dp"], states["solo"])
+    log(f"ResNet-50 sync DP bf16 (data 2, global B {b}) [{card}]: "
+        f"first-step loss {first['dp']:.5f} vs solo {first['solo']:.5f} "
+        f"(rel {rel:.3e}, tol {TRAIN_LOSS_TOL}); running statistics after "
+        f"it rel-L2 {rel_s:.3e} (tol {RESNET_STATE_TOL}); cross-shard BN "
+        f"launches in 3 steps {xs} (expected {want}); single-shard BN "
+        f"kernels {fused}; {ms['dp']:.2f} ms a step against solo "
+        f"{ms['solo']:.2f} ms")
+    if rel > TRAIN_LOSS_TOL or rel_s > RESNET_STATE_TOL or xs != want or \
+            any(fused.values()):
+        raise AssertionError("bf16 ResNet-50 DP failed its checks")
+    del base
+    return ms
+
+
+def _tree_norm(tree):
+    return sum(float((a.double() ** 2).sum())
+               for a in tree_leaves(tree)) ** 0.5
+
+
+def _tree_diff(a, b):
+    return [x - y for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+
+def _images_on(dev, b, hw, c, classes, seed):
+    if dev.type == "cuda":
+        return _images(b, hw, c, classes, seed)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, hw, hw, c, generator=g)
+    lab = torch.randint(0, classes, (b,), generator=g)
+    return x, torch.nn.functional.one_hot(lab, classes).float()
+
+
+def _mp_center_loss(dev, total):
+    """(2) a center-loss head (after a batch norm) under sync DP at data
+    2 against a solo step: parameters, running statistics and centers."""
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    conf = (NeuralNetConfiguration.Builder().seed(8).learning_rate(0.1)
+            .updater("sgd").weight_init("xavier").activation("tanh").list()
+            .layer(DenseLayer(n_out=64)).layer(BatchNormalization())
+            .layer(CenterLossOutputLayer(n_out=4, loss="mcxent",
+                                         activation="softmax", alpha=0.3,
+                                         lambda_=0.5))
+            .set_input_type(InputType.feed_forward(16)).build())
+    solo = MultiLayerNetwork(conf, device=dev).init()
+    dp = solo.clone()
+    batches = _small_batches(2, b=64, seed=9)
+    solo.fit(batches)
+    _sync()
+    reset_launches()
+    ParallelWrapper(dp, mesh=make_mesh(devices=[dev] * 2)).fit(batches)
+    _sync()
+    launches = read_launches()
+    _count_mp(total, launches)
+    rel_p = _tree_rel_l2(dp.params, solo.params)
+    rel_s = _tree_rel_l2(dp.state, solo.state)
+    log(f"center-loss head + batch norm under sync DP (data 2, f32, 2 "
+        f"steps of 64): params rel-L2 {rel_p:.3e}, state (running "
+        f"statistics, centers) rel-L2 {rel_s:.3e} (tol {MP_PARAM_REL}); "
+        f"cross-shard BN launches {_xs_launches(launches)}")
+    if rel_p > MP_PARAM_REL or rel_s > MP_PARAM_REL:
+        raise AssertionError("center-loss DP disagrees with the solo steps")
+
+
+def _timed_steps(step, ds, steps=2):
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(ds)
+    _sync()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _mp_tp(card, dev):
+    """(3) TensorParallelTrainer on LeNet (f32, B 128) at (1, 2) and (2,
+    2), 2 steps, against 2 solo steps; then ms a step each."""
+    base = MultiLayerNetwork(lenet_conf(), device=dev).init()
+    x, y = _images_on(dev, 128, 28, 1, 10, 51)
+    ds = DataSet(x, y)
+    solo = base.clone()
+    for _ in range(2):
+        solo._fit_batch(ds)
+    solo_ms = _timed_steps(base.clone()._fit_batch, ds)
+    for shape in ((1, 2), (2, 2)):
+        net = base.clone()
+        mesh = make_mesh(axis_names=("data", "model"), shape=shape,
+                         devices=[dev] * (shape[0] * shape[1]))
+        tr = TensorParallelTrainer(net, mesh)
+        for _ in range(2):
+            tr.fit_batch(ds)
+        rel = _tree_rel_l2(net.params, solo.params)
+        local = tuple(tr.params[0]["W"].local((0, 1)).shape)
+        ms = _timed_steps(tr.fit_batch, ds)
+        log(f"tensor-parallel LeNet (data {shape[0]}, model {shape[1]}, "
+            f"f32, B 128) [{card}]: params rel-L2 {rel:.3e} to the solo "
+            f"steps (tol {MP_PARAM_REL}); conv0 W local {local}; "
+            f"{ms:.2f} ms a step against solo {solo_ms:.2f} ms")
+        if rel > MP_PARAM_REL or local != (5, 5, 1, 20 // shape[1]):
+            raise AssertionError(f"TP LeNet at {shape} failed its checks")
+
+
+def _moe_net(dev):
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    conf = (NeuralNetConfiguration.Builder().seed(12).learning_rate(0.05)
+            .updater("sgd").weight_init("xavier").list()
+            .layer(MixtureOfExpertsLayer(n_out=768, num_experts=8,
+                                         expert_hidden=3072,
+                                         activation="relu"))
+            .layer(OutputLayer(n_out=16, loss="mcxent",
+                               activation="softmax"))
+            .set_input_type(InputType.feed_forward(768)).build())
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+def _mp_ep(card, dev):
+    """(4) ExpertParallelTrainer on a Switch MoE (d 768, 8 experts,
+    hidden 3072, 512 tokens, f32) at ep 2 and 4, 2 steps, against the
+    unsharded net."""
+    base = _moe_net(dev)
+    g = torch.Generator(device=dev).manual_seed(61)
+    x = torch.randn(512, 768, generator=g, device=dev)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 16, (512,), generator=g, device=dev), 16).float()
+    ds = DataSet(x, y)
+    solo = base.clone()
+    for _ in range(2):
+        solo._fit_batch(ds)
+    solo_ms = _timed_steps(base.clone()._fit_batch, ds)
+    for ep in (2, 4):
+        net = base.clone()
+        tr = ExpertParallelTrainer(net, make_mesh(
+            axis_names=("data", "ep"), shape=(1, ep), devices=[dev] * ep))
+        for _ in range(2):
+            tr.fit_batch(ds)
+        rel = _tree_rel_l2(net.params, solo.params)
+        local = tuple(tr.params[0]["We1"].local((0, ep - 1)).shape)
+        ms = _timed_steps(tr.fit_batch, ds)
+        log(f"expert-parallel MoE (ep {ep}, 8 experts, d 768, hidden 3072, "
+            f"512 tokens, f32) [{card}]: params rel-L2 {rel:.3e} to the "
+            f"unsharded steps (tol {MP_PARAM_REL}); We1 local {local}; "
+            f"{ms:.2f} ms a step against unsharded {solo_ms:.2f} ms")
+        if rel > MP_PARAM_REL or local != (8 // ep, 768, 3072):
+            raise AssertionError(f"EP at {ep} failed its checks")
+
+
+def _mp_pp(card, dev):
+    """(5) PipelineParallelTrainer: 8 tanh Dense 768 -> 768 blocks and a
+    16-class head, pipe 4, M 4, B 256, f32, 2 steps, against the same
+    stack on one stage (the sequential stack)."""
+    block = DenseLayer(n_in=768, n_out=768, activation="tanh",
+                       weight_init="xavier")
+    head = OutputLayer(n_in=768, n_out=16, loss="mcxent",
+                       activation="softmax", weight_init="xavier")
+    piped = PipelineParallelTrainer(
+        block, 8, head, mesh=make_mesh(axis_names=("pipe",),
+                                       devices=[dev] * 4),
+        num_microbatches=4, learning_rate=0.1, seed=7)
+    seq = PipelineParallelTrainer(
+        block, 8, head, mesh=make_mesh(axis_names=("pipe",), devices=[dev]),
+        num_microbatches=4, learning_rate=0.1,
+        block_params={k: v.gather().cpu().numpy()
+                      for k, v in piped.block_params.items()},
+        head_params={k: v.cpu().numpy()
+                     for k, v in piped.head_params.items()})
+    rng = np.random.default_rng(71)
+    x = rng.normal(size=(256, 768)).astype(np.float32)
+    y = np.eye(16, dtype=np.float32)[rng.integers(0, 16, 256)]
+    ds = DataSet(x, y)
+    scores = []
+    for _ in range(2):
+        piped.fit_batch(ds)
+        seq.fit_batch(ds)
+        scores.append((float(piped.score_value), float(seq.score_value)))
+    rel = _tree_rel_l2({k: v.gather() for k, v in piped.block_params.items()},
+                       {k: v.gather() for k, v in seq.block_params.items()})
+    ms = _timed_steps(piped.fit_batch, ds)
+    seq_ms = _timed_steps(seq.fit_batch, ds)
+    local = tuple(piped.block_params["W"].local((3,)).shape)
+    log(f"pipeline-parallel (pipe 4, M 4, 8 x Dense 768 tanh, B 256, f32) "
+        f"[{card}]: scores {scores}; block params rel-L2 {rel:.3e} to the "
+        f"sequential stack (tol {MP_PARAM_REL}); stage 3 W {local}; "
+        f"{ms:.2f} ms a step against the sequential stack {seq_ms:.2f} ms")
+    if rel > MP_PARAM_REL or local != (2, 768, 768) or any(
+            abs(a - b) > 1e-6 * abs(b) for a, b in scores):
+        raise AssertionError("PP disagrees with the sequential stack")
+
+
+def phase_model_parallel(card, device=None, model=None, long=None,
+                         resnet_hw=224, resnet_b=RESNET_DP_B):
+    """Phase 15: sequence, data-with-batch-norm, tensor, expert and
+    pipeline parallelism, every shard on the card (module docstring).
+    ``device`` / ``model`` / ``long`` / ``resnet_hw`` / ``resnet_b`` let
+    the phase be rehearsed on the CPU at a small size. Returns its
+    launches by counter."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = torch.device(device or "cuda:0")
+    model = dict(model or {"vocab": 32000, "d_model": 768, "num_heads": 12,
+                           "num_layers": 12, "t": 512})
+    long = dict(long or {**model, **{k: SP_LONG[k] for k in
+                                     ("num_layers", "t")}})
+    total = {}
+    _mp_sp_f32(dev, model, on_card, total)
+    _mp_sp_bf16(card, dev, model, on_card, total)
+    _mp_sp_bf16(card, dev, long, on_card, total, b=SP_LONG["b"],
+                meshes=[(1, SP_LONG["sp"])], what="long context")
+    _mp_resnet(card, dev, on_card, total, hw=resnet_hw, b=resnet_b)
+    _mp_center_loss(dev, total)
+    _mp_tp(card, dev)
+    _mp_ep(card, dev)
+    _mp_pp(card, dev)
+    wall = time.perf_counter() - t_phase
+    log(f"model-parallel phase: launches {total}; {wall:.1f}s wall (limit "
+        f"{MP_PHASE_LIMIT_S} s)")
+    if wall > MP_PHASE_LIMIT_S:
+        raise AssertionError(f"the model-parallel phase took {wall:.1f}s")
     return total
 
 
@@ -5005,6 +5715,7 @@ def main():
     phase_evaluate(card)
     api = phase_training_api(card)
     dp = phase_data_parallel(card)
+    mp = phase_model_parallel(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
         launches[name] = resnet[name] + resnet[f"{name}.bwd"] + \
             api[name] + api[f"{name}.bwd"]
@@ -5015,6 +5726,13 @@ def main():
         dp["shortseq_attention_bwd"]
     for name in ("flash_backward_dq", "flash_backward_dkv"):
         launches[name] = long[name]
+    # phase 15: the ring's pairs on B3 / B4 / B5, the cross-shard BN
+    for name in RING_KERNELS:
+        launches[name] += mp.get(name, 0)
+    launches["ring_attention"] = sum(mp.get(n, 0) for n in RING_KERNELS)
+    launches["batchnorm_cross_shard"] = sum(
+        v for src in (dp, mp) for k, v in src.items()
+        if k.startswith("batchnorm_xs"))
     for line in measured["shortseq_attention"].pop("main_shapes"):
         log(line)
     rows = []
@@ -5024,6 +5742,16 @@ def main():
                                f"{spec['lib']}.cu",
                      "replaces": spec["replaces"],
                      "launches": launches[name], **measured[name]})
+    rows.append({"name": "ring_attention", "route": "cuda",
+                 "source": "deeplearning4j_tpu_torch/parallel/sequence.py",
+                 "replaces": "deeplearning4j_tpu/parallel/sequence.py:94",
+                 "launches": launches["ring_attention"],
+                 **measured["ring_attention"]})
+    rows.append({"name": "batchnorm_cross_shard", "route": "cuda",
+                 "source": "deeplearning4j_tpu_torch/csrc/batchnorm.cu",
+                 "replaces": "deeplearning4j_tpu/kernels/batchnorm.py:44",
+                 "launches": launches["batchnorm_cross_shard"],
+                 **measured["batchnorm_cross_shard"]})
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1082,11 +1082,41 @@ cudaError_t run(const GenArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int dtype, const GenArgs& a, cudaStream_t st) {
+// One phase of the general route alone, for batch norm across shards:
+// 0 the statistics partials, 1 the finalize, 2 the elementwise pass.
+template <typename T>
+cudaError_t run_phase(const GenArgs& a, int phase, cudaStream_t st) {
+  if (phase == 0) {
+    const int lanes = a.c < 32 ? a.c : 32;
+    const dim3 sgrid((unsigned)a.gx, (unsigned)((a.c + lanes - 1) / lanes));
+    bn_gen_stats<T><<<sgrid, kGenThreads, 0, st>>>(a);
+  } else if (phase == 1) {
+    bn_gen_finalize<T><<<(a.c + kGenThreads - 1) / kGenThreads, kGenThreads,
+                         0, st>>>(a);
+  } else {
+    int dev = 0, sms = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    const long long total = a.m * a.c;
+    long long blocks = (total + kGenThreads - 1) / kGenThreads;
+    if (blocks > 8LL * sms) blocks = 8LL * sms;
+    bn_gen_apply<T><<<(unsigned)blocks, kGenThreads, 0, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int dtype, const GenArgs& a, cudaStream_t st,
+                     int phase = -1) {
   switch (dtype) {
-    case kF32: return run<float>(a, st);
-    case kF16: return run<__half>(a, st);
-    case kBF16: return run<__nv_bfloat16>(a, st);
+    case kF32: return phase < 0 ? run<float>(a, st)
+                                : run_phase<float>(a, phase, st);
+    case kF16: return phase < 0 ? run<__half>(a, st)
+                                : run_phase<__half>(a, phase, st);
+    case kBF16: return phase < 0 ? run<__nv_bfloat16>(a, st)
+                                 : run_phase<__nv_bfloat16>(a, phase, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1166,4 +1196,126 @@ extern "C" int batchnorm_gen_bwd(const void* dy, const void* x, const void* y,
   a.gd = gdtype;
   a.var = variant;
   return (int)dispatch(dtype, a, static_cast<cudaStream_t>(stream));
+}
+
+// Batch norm across shards: the general route's three phases as separate
+// entry points, so one controller can run the statistics on every shard,
+// finalize once over all the shards' partials and apply on every shard.
+// Variants as above (0-3 forward, 4-6 backward).
+//
+// Statistics partials of one shard's rows into partial [gx, 2, c] f32:
+// forward, sum(x - center) and sum((x - center)^2) about center = the
+// shared shift hint; backward, sum(g) and sum(g * xhat) with g the
+// (masked) dy and xhat = (x - center) * rstd about center = the global
+// mean (y for variant 6, beta for variant 5, as in batchnorm_gen_bwd).
+extern "C" int batchnorm_xs_stats(const void* x, const void* dy,
+                                  const void* y, const void* gamma,
+                                  const void* beta, const float* center,
+                                  const float* rstd, float* partial,
+                                  long long m, int c, int gx, int dtype,
+                                  int gdtype, int variant, void* stream) {
+  using namespace dl4j_bn_gen;
+  const bool bwd = variant >= kBwd;
+  if (variant < kFwd || variant > kBwdResRelu || !dtype_ok(dtype) ||
+      !dtype_ok(gdtype) || m < 1 || c < 1 || gx < 1 || gx > 65535 ||
+      center == nullptr || partial == nullptr ||
+      (bwd && (dy == nullptr || rstd == nullptr || gamma == nullptr)) ||
+      (variant == kBwdRelu && beta == nullptr) ||
+      (variant == kBwdResRelu && y == nullptr))
+    return (int)cudaErrorInvalidValue;
+  GenArgs a = {};
+  a.x = x;
+  a.dy = dy;
+  a.y = y;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.shift = center;
+  a.mean = center;
+  a.rstd = rstd;
+  a.partial = partial;
+  a.m = m;
+  a.c = c;
+  a.gx = gx;
+  a.gd = gdtype;
+  a.var = variant;
+  return (int)dispatch(dtype, a, static_cast<cudaStream_t>(stream), 0);
+}
+
+// The finalize over every shard's partials, concatenated in shard order
+// into partial [g, 2, c] (summed in that order, in f64), m the rows of
+// all the shards. Forward: stats [3, c] (mean, var, rstd) and coef [2, c]
+// (scale, shift rounded to the activations' dtype). Backward: dgb [2, c]
+// (dgamma, dbeta in gdtype) and coef [2, c] (sum(g) / m, sum(g * xhat) /
+// m rounded to the activations' dtype).
+extern "C" int batchnorm_xs_finalize(const float* partial, long long m,
+                                     int c, int g, const void* gamma,
+                                     const void* beta, const float* shift,
+                                     float* stats, void* dgb, float* coef,
+                                     int dtype, int gdtype, int variant,
+                                     float eps, void* stream) {
+  using namespace dl4j_bn_gen;
+  const bool bwd = variant >= kBwd;
+  if (variant < kFwd || variant > kBwdResRelu || !dtype_ok(dtype) ||
+      !dtype_ok(gdtype) || m < 1 || c < 1 || g < 1 || partial == nullptr ||
+      coef == nullptr ||
+      (!bwd && (gamma == nullptr || beta == nullptr || shift == nullptr ||
+                stats == nullptr)) ||
+      (bwd && dgb == nullptr))
+    return (int)cudaErrorInvalidValue;
+  GenArgs a = {};
+  a.gamma = gamma;
+  a.beta = beta;
+  a.shift = shift;
+  a.stats = stats;
+  a.dgb = dgb;
+  a.partial = const_cast<float*>(partial);
+  a.coef = coef;
+  a.m = m;
+  a.c = c;
+  a.gx = g;
+  a.gd = gdtype;
+  a.var = variant;
+  a.eps = eps;
+  return (int)dispatch(dtype, a, static_cast<cudaStream_t>(stream), 1);
+}
+
+// The elementwise pass on one shard's rows with the global coefficients:
+// forward, out = y from x (+ res, variants 2 and 3); backward, out = dx
+// from dy, x, gamma, the global mean and rstd (and dres, the masked dy,
+// for variant 6).
+extern "C" int batchnorm_xs_apply(const void* x, const void* res,
+                                  const void* dy, const void* y,
+                                  const void* gamma, const void* beta,
+                                  const float* mean, const float* rstd,
+                                  const float* coef, void* out, void* dres,
+                                  long long m, int c, int dtype, int gdtype,
+                                  int variant, void* stream) {
+  using namespace dl4j_bn_gen;
+  const bool bwd = variant >= kBwd;
+  const bool has_res = variant == kFwdRes || variant == kFwdResRelu;
+  if (variant < kFwd || variant > kBwdResRelu || !dtype_ok(dtype) ||
+      !dtype_ok(gdtype) || m < 1 || c < 1 || coef == nullptr ||
+      out == nullptr || has_res != (res != nullptr) ||
+      (bwd && (dy == nullptr || mean == nullptr || rstd == nullptr ||
+               gamma == nullptr)) ||
+      (variant == kBwdRelu && beta == nullptr) ||
+      (variant == kBwdResRelu && (y == nullptr || dres == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  GenArgs a = {};
+  a.x = x;
+  a.res = res;
+  a.dy = dy;
+  a.y = y;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.mean = mean;
+  a.rstd = rstd;
+  a.coef = const_cast<float*>(coef);
+  a.out0 = out;
+  a.dres = dres;
+  a.m = m;
+  a.c = c;
+  a.gd = gdtype;
+  a.var = variant;
+  return (int)dispatch(dtype, a, static_cast<cudaStream_t>(stream), 2);
 }

@@ -357,6 +357,281 @@ for _fn in (bn_train_fwd, bn_train_bwd, bn_add_act_fwd, bn_add_act_bwd):
     _fn.routes = dict.fromkeys(ROUTES, 0)
 
 
+# ------------------------------------------------- batch norm across shards
+# One controller runs a batch norm over several shards (row blocks of one
+# global batch, each on its own device) with the statistics of the whole
+# batch: every shard's partial sums (``bn_xs_stats``), one finalize over
+# the partials of every shard concatenated in shard order on the home
+# device (``bn_xs_finalize``), then every shard's elementwise pass with the
+# global coefficients (``bn_xs_apply``); the backward the same three phases
+# over Σdy and Σdy·x̂. On a CUDA tensor each wrapper launches one kernel of
+# the general route (``batchnorm_xs_*`` in ``csrc/batchnorm.cu``) and
+# counts it (``launches``, and ``bwd_launches`` for the backward
+# variants); on a CPU tensor it runs its plain version, whose sums follow
+# :func:`bn_fwd_plain` / :func:`bn_bwd_plain` with the shards' partials
+# added in shard order.
+
+def _wide(x2):
+    """The plain versions' accumulation type: f32 (the kernels'), f64 for
+    an f64 input, which no kernel takes."""
+    return torch.float64 if x2.dtype == torch.float64 else torch.float32
+
+
+def _masked_dy_plain(dy2, x2, variant, gamma, beta, mean, rstd, y2):
+    """dy masked as the backward variant masks it (the tail by its saved
+    output, a folded ReLU by the BN output recomputed from x)."""
+    if variant == BWD_RES_RELU:
+        return torch.where(y2 > 0, dy2, torch.zeros_like(dy2))
+    if variant == BWD_RELU:
+        y = _bn_out_plain(x2, gamma, beta, mean, rstd)
+        return torch.where(y > 0, dy2, torch.zeros_like(dy2))
+    return dy2
+
+
+def _xs_check(x2, variant, others, channel):
+    check_args(x2, *[t for t in others if t is not None])
+    c, dev = x2.shape[1], x2.device
+    _check_channel(c, dev, _DTYPES, *[t for t in channel if t is not None])
+
+
+def bn_xs_stats(x2, center, variant, dy2=None, gamma=None, rstd=None,
+                y2=None, beta=None):
+    """One shard's partials [g, 2, C] f32: forward variants Σ(x − center)
+    and Σ(x − center)² about the shared shift; backward variants Σg and
+    Σg·x̂ with g the masked dy, x̂ = (x − center) · rstd about the global
+    mean."""
+    bwd = variant >= BWD
+    if x2.device.type == "cpu":
+        xf = x2.to(_wide(x2))
+        if not bwd:
+            d = xf - center.to(xf.dtype)
+            return torch.stack([d.sum(dim=0), (d * d).sum(dim=0)])[None]
+        g = _masked_dy_plain(dy2, x2, variant, gamma, beta, center, rstd,
+                             y2).to(xf.dtype)
+        xhat = (xf - center) * rstd
+        return torch.stack([g.sum(dim=0), (g * xhat).sum(dim=0)])[None]
+    _xs_check(x2, variant, (dy2, y2), (gamma, beta))
+    m, c = x2.shape
+    dev = x2.device
+    _check_channel(c, dev, (torch.float32,),
+                   *[t for t in (center, rstd) if t is not None])
+    gx = general_chunks(m, c, dev)
+    partial = torch.empty((gx, 2, c), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with _on(dev):
+        rc = _lib().batchnorm_xs_stats(
+            x2.data_ptr(), ptr(dy2), ptr(y2), ptr(gamma), ptr(beta),
+            center.data_ptr(), ptr(rstd), partial.data_ptr(), m, c, gx,
+            _DTYPE_CODE[x2.dtype],
+            _DTYPE_CODE[(gamma if gamma is not None else x2).dtype],
+            variant, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"batch-norm shard statistics launch failed: "
+                           f"CUDA error {rc}")
+    _count_xs(bn_xs_stats, bwd)
+    return partial
+
+
+def bn_xs_finalize(partials, m, dtype, variant, gamma, beta=None,
+                   shift=None, eps=1e-5):
+    """The finalize over every shard's partials ([G, 2, C], concatenated in
+    shard order, summed in that order in f64) for ``m`` rows in all.
+    Forward: (mean, var, rstd, coef [2, C]); backward: (dgamma, dbeta in
+    gamma's dtype, coef [2, C]); coef rounded to the activations'
+    ``dtype``."""
+    bwd = variant >= BWD
+    c = partials.shape[2]
+    dev = partials.device
+    if dev.type == "cpu":
+        acc = partials[0].double()
+        for p in partials[1:]:
+            acc = acc + p.double()
+        wide = partials.dtype
+        q0, q1 = acc.to(wide)
+        n = float(m)
+        rnd = lambda t: t.to(dtype).to(wide)
+        if not bwd:
+            m1, m2 = q0 / n, q1 / n
+            mean = shift.to(wide) + m1
+            var = (m2 - m1 * m1).clamp_min(0.0)
+            rstd = torch.rsqrt(var + eps)
+            scale = gamma.to(wide) * rstd
+            coef = torch.stack([rnd(scale),
+                                rnd(beta.to(wide) - mean * scale)])
+            return mean, var, rstd, coef
+        return q1.to(gamma.dtype), q0.to(gamma.dtype), \
+            torch.stack([rnd(q0 / n), rnd(q1 / n)])
+    if partials.dtype != torch.float32 or not partials.is_contiguous() or \
+            partials.dim() != 3 or partials.shape[1] != 2:
+        raise ValueError("partials must be a contiguous [G, 2, C] float32 "
+                         "tensor")
+    _check_channel(c, dev, _DTYPES, gamma,
+                   *((beta,) if beta is not None else ()))
+    coef = torch.empty((2, c), dtype=torch.float32, device=dev)
+    stats = dgb = None
+    if bwd:
+        dgb = torch.empty((2, c), dtype=gamma.dtype, device=dev)
+    else:
+        _check_channel(c, dev, (torch.float32,), shift)
+        stats = torch.empty((3, c), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with _on(dev):
+        rc = _lib().batchnorm_xs_finalize(
+            partials.data_ptr(), m, c, partials.shape[0], gamma.data_ptr(),
+            ptr(beta), ptr(shift), ptr(stats), ptr(dgb), coef.data_ptr(),
+            _DTYPE_CODE[dtype], _DTYPE_CODE[gamma.dtype], variant,
+            float(eps), torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"batch-norm shard finalize launch failed: CUDA "
+                           f"error {rc}")
+    _count_xs(bn_xs_finalize, bwd)
+    if bwd:
+        return dgb[0], dgb[1], coef
+    return (*stats.unbind(0), coef)
+
+
+def bn_xs_apply(x2, coef, variant, res2=None, dy2=None, y2=None, gamma=None,
+                beta=None, mean=None, rstd=None):
+    """One shard's elementwise pass with the global ``coef``: forward
+    variants → y (+ res, ReLU); backward variants → (dx, dres) with dres
+    the masked dy of the ReLU tail (dy itself otherwise)."""
+    bwd = variant >= BWD
+    if x2.device.type == "cpu":
+        if not bwd:
+            y = x2 * coef[0].to(x2.dtype) + coef[1].to(x2.dtype)
+            if res2 is not None:
+                y = y + res2
+            if variant in (FWD_RELU, FWD_RES_RELU):
+                y = torch.clamp_min(y, 0)
+            return y
+        g = _masked_dy_plain(dy2, x2, variant, gamma, beta, mean, rstd, y2)
+        xhat = (x2.to(_wide(x2)) - mean) * rstd
+        k = (gamma.to(xhat.dtype) * rstd).to(x2.dtype)
+        dx = k * ((g - coef[0].to(x2.dtype)) - xhat * coef[1].to(x2.dtype))
+        return dx.to(x2.dtype), g
+    _xs_check(x2, variant, (res2, dy2, y2), (gamma, beta))
+    m, c = x2.shape
+    dev = x2.device
+    _check_channel(c, dev, (torch.float32,),
+                   *[t for t in (mean, rstd) if t is not None])
+    if coef.shape != (2, c) or coef.dtype != torch.float32 or \
+            coef.device != dev or not coef.is_contiguous():
+        raise ValueError(f"coef must be a contiguous (2, {c}) float32 "
+                         f"tensor on {dev}")
+    out = torch.empty_like(x2)
+    dres = torch.empty_like(x2) if variant == BWD_RES_RELU else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with _on(dev):
+        rc = _lib().batchnorm_xs_apply(
+            x2.data_ptr(), ptr(res2), ptr(dy2), ptr(y2), ptr(gamma),
+            ptr(beta), ptr(mean), ptr(rstd), coef.data_ptr(),
+            out.data_ptr(), ptr(dres), m, c, _DTYPE_CODE[x2.dtype],
+            _DTYPE_CODE[(gamma if gamma is not None else x2).dtype],
+            variant, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"batch-norm shard apply launch failed: CUDA "
+                           f"error {rc}")
+    _count_xs(bn_xs_apply, bwd)
+    if not bwd:
+        return out
+    return out, (dres if dres is not None else dy2)
+
+
+def _count_xs(fn, bwd):
+    if bwd:
+        fn.bwd_launches += 1
+    else:
+        fn.launches += 1
+
+
+for _fn in (bn_xs_stats, bn_xs_finalize, bn_xs_apply):
+    _fn.launches = 0
+    _fn.bwd_launches = 0
+
+
+class CrossShardBatchNorm(torch.autograd.Function):
+    """A batch norm over the shards ``xs`` (each [..., C] on its own
+    device) with the statistics of all of them: (*ys, mean, var), ys =
+    act(bn(x) [+ res]) per shard, mean / var f32 on ``gamma``'s device and
+    not differentiable. ``spec`` = (shards, eps, act, tail): with ``tail``
+    the arguments after the xs are the residuals, one a shard. dγ and dβ
+    (the sums over every shard) flow to ``gamma`` / ``beta``."""
+
+    @staticmethod
+    def forward(ctx, spec, gamma, beta, shift, *args):
+        n, eps, act, tail = spec
+        xs, res = args[:n], (args[n:] if tail else (None,) * n)
+        relu = act == "relu"
+        variant = (FWD_RES_RELU if relu else FWD_RES) if tail else \
+            (FWD_RELU if relu else FWD)
+        home = gamma.device
+        x2s = [_rows(x) for x in xs]
+        parts = [bn_xs_stats(x2, shift.to(x2.device), variant)
+                 for x2 in x2s]
+        m = sum(x2.shape[0] for x2 in x2s)
+        mean, var, rstd, coef = bn_xs_finalize(
+            torch.cat([p.to(home) for p in parts]), m, xs[0].dtype, variant,
+            gamma, beta, shift, eps)
+        ys = []
+        for x, x2, r in zip(xs, x2s, res):
+            y = bn_xs_apply(x2, coef.to(x2.device), variant,
+                            res2=None if r is None else _rows(r))
+            ys.append(y.view(x.shape))
+        ctx.spec = spec
+        ctx.save_for_backward(gamma, beta, mean, rstd, *xs,
+                              *(ys if tail else ()))
+        ctx.mark_non_differentiable(mean, var)
+        return (*ys, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, _eps, act, tail = ctx.spec
+        gamma, beta, mean, rstd, *rest = ctx.saved_tensors
+        xs, ys = rest[:n], (rest[n:] if tail else (None,) * n)
+        relu = act == "relu"
+        variant = BWD_RES_RELU if tail and relu else \
+            (BWD_RELU if relu else BWD)
+        home = gamma.device
+        per = []
+        for x, y, dy in zip(xs, ys, grads[:n]):
+            dev = x.device
+            per.append(dict(
+                x2=_rows(x), dy2=_rows(dy.contiguous()),
+                y2=None if y is None else _rows(y),
+                gamma=gamma.to(dev), beta=beta.to(dev) if relu else None,
+                mean=mean.to(dev), rstd=rstd.to(dev)))
+        parts = [bn_xs_stats(p["x2"], p["mean"], variant, dy2=p["dy2"],
+                             gamma=p["gamma"], rstd=p["rstd"], y2=p["y2"],
+                             beta=p["beta"]) for p in per]
+        m = sum(p["x2"].shape[0] for p in per)
+        dgamma, dbeta, coef = bn_xs_finalize(
+            torch.cat([q.to(home) for q in parts]), m, xs[0].dtype, variant,
+            gamma)
+        dxs, dres = [], []
+        for x, p in zip(xs, per):
+            dx, dr = bn_xs_apply(p["x2"], coef.to(x.device), variant,
+                                 dy2=p["dy2"], y2=p["y2"], gamma=p["gamma"],
+                                 beta=p["beta"], mean=p["mean"],
+                                 rstd=p["rstd"])
+            dxs.append(dx.view(x.shape))
+            dres.append(dr.view(x.shape))
+        return (None, dgamma, dbeta, None, *dxs,
+                *(dres if tail else ()))
+
+
+def bn_train_shards(xs, gamma, beta, shift_hint, eps, act="identity",
+                    res=None):
+    """Batch-norm training over shards (:class:`CrossShardBatchNorm`):
+    (ys, mean, var); ``res`` (one residual a shard) makes it the
+    BN → add → act tail."""
+    _check_act(act, "the cross-shard batch norm")
+    tail = res is not None
+    out = CrossShardBatchNorm.apply((len(xs), float(eps), act, tail), gamma,
+                                    beta, shift_hint, *xs,
+                                    *(res if tail else ()))
+    return list(out[:len(xs)]), out[-2], out[-1]
+
+
 # --------------------------------------------------------- autograd Functions
 def _rows(t):
     return t.reshape(-1, t.shape[-1])

@@ -72,6 +72,22 @@ ENTRIES = {
                   [ctypes.c_float, ctypes.c_void_p],
                   "batchnorm_gen_bwd": [ctypes.c_void_p] * 11 +
                   [ctypes.c_longlong] + [ctypes.c_int] * 5 +
+                  [ctypes.c_void_p],
+                  # across shards: (x, dy, y, gamma, beta, center, rstd,
+                  # partial, m, c, gx, dtype, gdtype, variant, stream),
+                  # (partial, m, c, g, gamma, beta, shift, stats, dgb,
+                  # coef, dtype, gdtype, variant, eps, stream) and (x, res,
+                  # dy, y, gamma, beta, mean, rstd, coef, out, dres, m, c,
+                  # dtype, gdtype, variant, stream)
+                  "batchnorm_xs_stats": [ctypes.c_void_p] * 8 +
+                  [ctypes.c_longlong] + [ctypes.c_int] * 5 +
+                  [ctypes.c_void_p],
+                  "batchnorm_xs_finalize": [ctypes.c_void_p,
+                                            ctypes.c_longlong] +
+                  [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 +
+                  [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+                  "batchnorm_xs_apply": [ctypes.c_void_p] * 11 +
+                  [ctypes.c_longlong] + [ctypes.c_int] * 4 +
                   [ctypes.c_void_p]},
 }
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}

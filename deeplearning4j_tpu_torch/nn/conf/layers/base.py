@@ -102,17 +102,20 @@ class LayerConf:
         return get_activation(self.activation or "identity")
 
     def uses_dropout(self) -> bool:
-        """Whether :meth:`maybe_dropout` draws anything when training."""
+        """Whether the training forward draws from the layer's generator
+        (here: :meth:`maybe_dropout`'s retention probability is in (0,
+        1))."""
         p = self.drop_out
         return p is not None and 0.0 < p < 1.0
 
     def maybe_dropout(self, x, *, train: bool, gen):
         """Inverted dropout: ``drop_out`` is the retention probability p;
         kept elements are scaled by 1/p. Draws from ``gen`` (on x's
-        device); identity when not training or without a generator."""
-        if not train or gen is None or not self.uses_dropout():
-            return x
+        device); identity when not training, without a generator, or
+        without a retention probability in (0, 1)."""
         p = self.drop_out
+        if not train or gen is None or p is None or not 0.0 < p < 1.0:
+            return x
         keep = torch.rand(x.shape, generator=gen, device=x.device) < p
         return torch.where(keep, x / p, torch.zeros_like(x))
 

@@ -59,7 +59,7 @@ from ..conf.layers import OutputLayer
 from ..conf.layers.convolution import detached_running_update
 from ..helpers import get_helper
 from ..multilayer import (_clone_tree, _host, _pretrain_step, _to_numpy,
-                          format_summary_table)
+                          drive, format_summary_table)
 from .fusion import build_fusion_plan
 from .graph_config import ComputationGraphConfiguration, with_ancestors
 from .vertices import LayerVertex
@@ -194,11 +194,16 @@ class ComputationGraph:
         new_state[fu.act_name] = state[fu.act_name]
 
     # --------------------------------------------------------------- forward
-    def _forward(self, params, state, inputs: Dict[str, torch.Tensor], *,
-                 train: bool = False, rng: Optional[int] = None,
-                 input_masks: Optional[Dict] = None,
-                 output_preout: bool = False, skip_preoutput=(),
-                 initial_rnn: Optional[Dict] = None, only=None):
+    def _forward(self, *args, **kwargs):
+        """:meth:`_forward_walk` run to its end (no cross-shard vertex)."""
+        return drive(self._forward_walk(*args, **kwargs))
+
+    def _forward_walk(self, params, state, inputs: Dict[str, torch.Tensor],
+                      *, train: bool = False, rng: Optional[int] = None,
+                      input_masks: Optional[Dict] = None,
+                      output_preout: bool = False, skip_preoutput=(),
+                      initial_rnn: Optional[Dict] = None, only=None,
+                      cross=()):
         """Walk the topological order. Returns (activations, new_state,
         reg, masks, last_inputs, preouts). ``rng`` is the step's dropout
         seed: a vertex that draws dropout gets a generator seeded with
@@ -211,7 +216,14 @@ class ComputationGraph:
         vertex and their BN and add vertices are skipped. ``initial_rnn``:
         per-vertex (h, c) carries (truncated BPTT, ``rnn_time_step``); a
         non-empty entry replaces that vertex's state. ``only``: the set of
-        vertices to run (the rest are skipped)."""
+        vertices to run (the rest are skipped).
+
+        A generator (``parallel/sharded.py`` walks one a shard, vertex by
+        vertex): it yields None after each vertex, and at a vertex named
+        in ``cross`` it yields a request instead of computing it —
+        ``("layer", layer, params, state, x, mask, gen)``, or
+        ``("bn_add_act", bn layer, params, state, x, res, activation)``
+        for a fused tail — and takes (activation, new state) back."""
         acts: Dict[str, torch.Tensor] = dict(inputs)
         masks: Dict[str, Optional[torch.Tensor]] = dict(input_masks or {})
         new_state: Dict[str, Dict] = {}
@@ -228,8 +240,19 @@ class ComputationGraph:
                 new_state.setdefault(name, state[name])
                 continue
             if name in fusion_plan:
-                self._forward_fused(fusion_plan[name], params, state, acts,
-                                    masks, new_state)
+                fu = fusion_plan[name]
+                if name in cross:
+                    acts[name], new_state[fu.bn_name] = yield (
+                        "bn_add_act", self.conf.vertices[fu.bn_name].layer,
+                        params[fu.bn_name], state[fu.bn_name],
+                        acts[fu.bn_input], acts[fu.res_input],
+                        fu.activation)
+                    masks[name] = None
+                    new_state[name] = state[name]
+                else:
+                    self._forward_fused(fu, params, state, acts, masks,
+                                        new_state)
+                yield None
                 continue
             v = self.conf.vertices[name]
             vstate = state[name]
@@ -256,15 +279,23 @@ class ComputationGraph:
                 last_inputs[name] = x
                 masks[name] = m
                 new_state[name] = vstate
-                if name in skip_preoutput:
-                    continue            # projection fused into the loss
-                preouts[name] = layer.preoutput(params[name], x)
-                acts[name] = layer.activation_fn()(preouts[name])
+                if name not in skip_preoutput:   # else fused into the loss
+                    preouts[name] = layer.preoutput(params[name], x)
+                    acts[name] = layer.activation_fn()(preouts[name])
+            elif name in cross:
+                x, m = xs[0], ms[0]
+                if v.preprocessor is not None:
+                    x = v.preprocessor.pre_process(x, m)
+                    m = v.preprocessor.feed_forward_mask(m)
+                acts[name], new_state[name] = yield (
+                    "layer", layer, params[name], vstate, x, m, gen)
+                masks[name] = ms[0] if ms else None
             else:
                 acts[name], new_state[name] = v.forward(
                     params[name], vstate, xs, train=train, gen=gen,
                     masks=ms)
                 masks[name] = ms[0] if ms else None
+            yield None
         return acts, new_state, reg, masks, last_inputs, preouts
 
     def _to_device_dtype(self, a) -> torch.Tensor:
@@ -355,18 +386,25 @@ class ComputationGraph:
             eligible.add(out_name)
         return eligible
 
-    def _loss_terms(self, params, state, inputs, labels: Dict, rng,
-                    label_masks: Optional[Dict] = None, input_masks=None,
-                    initial_rnn=None):
+    def _loss_terms(self, *args, **kwargs):
+        """:meth:`_loss_terms_walk` run to its end."""
+        return drive(self._loss_terms_walk(*args, **kwargs))
+
+    def _loss_terms_walk(self, params, state, inputs, labels: Dict, rng,
+                         label_masks: Optional[Dict] = None,
+                         input_masks=None, initial_rnn=None, cross=()):
         """(terms, reg, new_state) on the compute-dtype cast of ``params``:
         one (summed loss, denominator unclamped) term per scoring output,
-        in ``network_outputs`` order, and the l1/l2 penalty."""
+        in ``network_outputs`` order, and the l1/l2 penalty. A generator
+        over the forward's vertices, as :meth:`_forward_walk`."""
         params = self._cast_params(params)
         fused_outs = self._fused_ce_outputs(labels)
-        _, new_state, reg, masks, last_in, preouts = self._forward(
-            params, state, inputs, train=True, rng=rng,
-            input_masks=input_masks, output_preout=True,
-            skip_preoutput=fused_outs, initial_rnn=initial_rnn)
+        _, new_state, reg, masks, last_in, preouts = \
+            yield from self._forward_walk(
+                params, state, inputs, train=True, rng=rng,
+                input_masks=input_masks, output_preout=True,
+                skip_preoutput=fused_outs, initial_rnn=initial_rnn,
+                cross=cross)
         terms = []
         for out_name in self.conf.network_outputs:
             v = self.conf.vertices[out_name]

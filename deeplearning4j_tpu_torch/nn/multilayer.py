@@ -60,6 +60,18 @@ _BIAS_PARAMS = ("b", "vb", "mub", "ob")
 _CARRY = ("h", "c")
 
 
+def drive(walk):
+    """Run a forward walk (a generator that yields None after each layer or
+    vertex, see ``parallel/sharded.py``) to its end; its return value."""
+    try:
+        while True:
+            if next(walk) is not None:
+                raise RuntimeError("a cross-shard request outside a "
+                                   "sharded walk")
+    except StopIteration as stop:
+        return stop.value
+
+
 def _nz(value, default):
     """None-aware default (0.0 is a real value — e.g. a frozen lr)."""
     return default if value is None else value
@@ -145,14 +157,25 @@ class MultiLayerNetwork:
             self.init()
 
     # --------------------------------------------------------------- forward
-    def _forward(self, params, state, x, *, train, rng, fmask=None,
-                 initial_rnn=None, last_preoutput=False,
-                 skip_last_preoutput=False):
+    def _forward(self, *args, **kwargs):
+        """:meth:`_forward_walk` run to its end."""
+        return drive(self._forward_walk(*args, **kwargs))
+
+    def _forward_walk(self, params, state, x, *, train, rng, fmask=None,
+                      initial_rnn=None, last_preoutput=False,
+                      skip_last_preoutput=False, cross=()):
         """Run the stack: (activation, new_states, reg). ``initial_rnn``:
         per-layer (h, c) carries (truncated BPTT). With ``last_preoutput``
         stop before the output layer's activation and return (preoutput,
         new_states, reg, its input, its mask); ``skip_last_preoutput``
-        skips the projection too (it runs inside the fused sparse CE)."""
+        skips the projection too (it runs inside the fused sparse CE).
+
+        A generator: it yields None after each layer, and for a layer
+        index in ``cross`` it yields ``("layer", layer, params, state, x,
+        mask, gen)`` and takes (activation, new state) back (the sharded
+        walk of ``parallel/sharded.py``); for the output layer's index
+        under ``last_preoutput``, ``("preoutput", layer, params, x)`` (x
+        dropped out already), taking the preoutput back."""
         new_states = []
         reg = 0.0
         act, mask = x, fmask
@@ -176,11 +199,19 @@ class MultiLayerNetwork:
                 new_states.append(lstate)
                 if skip_last_preoutput:
                     return None, new_states, reg, act, mask
-                return layer.preoutput(params[i], act), new_states, reg, \
-                    act, mask
-            act, nstate = layer.forward(params[i], lstate, act, mask,
-                                        train=train, gen=gen)
+                if i in cross:
+                    pre = yield ("preoutput", layer, params[i], act)
+                else:
+                    pre = layer.preoutput(params[i], act)
+                return pre, new_states, reg, act, mask
+            if i in cross:
+                act, nstate = yield ("layer", layer, params[i], lstate, act,
+                                     mask, gen)
+            else:
+                act, nstate = layer.forward(params[i], lstate, act, mask,
+                                            train=train, gen=gen)
             new_states.append(nstate)
+            yield None
         if last_preoutput:
             return act, new_states, reg, act, mask
         return act, new_states, reg
@@ -255,20 +286,27 @@ class MultiLayerNetwork:
             raise ValueError("Last layer has no loss (need an Output layer)")
         return last
 
-    def _loss_terms(self, params, state, feats, labels, fmask, lmask, rng,
-                    initial_rnn=None):
+    def _loss_terms(self, *args, **kwargs):
+        """:meth:`_loss_terms_walk` run to its end."""
+        return drive(self._loss_terms_walk(*args, **kwargs))
+
+    def _loss_terms_walk(self, params, state, feats, labels, fmask, lmask,
+                         rng, initial_rnn=None, cross=()):
         """(terms, reg, new_states) on the compute-dtype cast of
         ``params``: ``terms`` holds the head's (summed loss, denominator
         unclamped) and, for a center-loss head, (its center loss, None);
         the moved centers are the head's new state. ``reg`` is the l1 /
-        l2 penalty."""
+        l2 penalty. A generator over the layers, as :meth:`_forward_walk`;
+        with ``"center"`` in ``cross`` the center loss is a request too,
+        ``("center_loss", head, state, features, labels)``."""
         params = self._cast_params(params)
         out_layer = self._output_layer()
         fused = sparse_labels_eligible(out_layer, labels, params[-1])
-        pre, new_states, reg, last_in, out_mask = self._forward(
-            params, state, feats, train=True, rng=rng, fmask=fmask,
-            initial_rnn=initial_rnn, last_preoutput=True,
-            skip_last_preoutput=fused)
+        pre, new_states, reg, last_in, out_mask = \
+            yield from self._forward_walk(
+                params, state, feats, train=True, rng=rng, fmask=fmask,
+                initial_rnn=initial_rnn, last_preoutput=True,
+                skip_last_preoutput=fused, cross=cross)
         if fused:
             mask = lmask if lmask is not None else \
                 (out_mask if last_in.dim() == 3 else None)
@@ -288,8 +326,12 @@ class MultiLayerNetwork:
             terms = [out_layer.compute_score_terms(params[-1], labels, pre,
                                                    mask)]
         if isinstance(out_layer, CenterLossOutputLayer):
-            closs, centers = out_layer.center_loss_and_update(
-                state[-1], last_in, labels)
+            if "center" in cross:
+                closs, centers = yield ("center_loss", out_layer, state[-1],
+                                        last_in, labels)
+            else:
+                closs, centers = out_layer.center_loss_and_update(
+                    state[-1], last_in, labels)
             terms.append((closs, None))
             new_states = new_states[:-1] + [centers]
         return terms, reg, new_states
@@ -355,16 +397,24 @@ class MultiLayerNetwork:
         return score, new_states
 
     @torch.no_grad()
-    def _apply_gradients(self, grads):
+    def _apply_gradients(self, grads, params=None, updater_state=None,
+                         normalize: bool = True):
         """Per layer: the gradient normalization, the scheduled learning
         rate and the update rule, applied to the masters in place (solo
-        and data-parallel training alike)."""
+        and data-parallel training alike). ``params`` / ``updater_state``
+        (default the net's) are updated instead where given, as a tensor-
+        parallel shard's slices are; ``normalize=False`` when the caller
+        normalized the whole layer's gradient already."""
+        params = self.params if params is None else params
+        updater_state = self.updater_state if updater_state is None \
+            else updater_state
         for i, (layer, g) in enumerate(zip(self.layers, grads)):
             if not g:
                 continue
-            g = normalize_gradient(
-                g, layer.gradient_normalization,
-                _nz(layer.gradient_normalization_threshold, 1.0))
+            if normalize:
+                g = normalize_gradient(
+                    g, layer.gradient_normalization,
+                    _nz(layer.gradient_normalization_threshold, 1.0))
             lr = self._lr(_nz(layer.learning_rate, 0.1))
             upd = self.updaters[i]
             for name, grad in g.items():
@@ -372,10 +422,10 @@ class MultiLayerNetwork:
                 if name in _BIAS_PARAMS and \
                         layer.bias_learning_rate is not None:
                     use_lr = self._lr(layer.bias_learning_rate)
-                step, ustate = upd.update(grad, self.updater_state[i][name],
+                step, ustate = upd.update(grad, updater_state[i][name],
                                           use_lr, float(self.iteration))
-                self.params[i][name].sub_(step)
-                self.updater_state[i][name] = ustate
+                params[i][name].sub_(step)
+                updater_state[i][name] = ustate
 
     @staticmethod
     def _strip_rnn_carry(states):

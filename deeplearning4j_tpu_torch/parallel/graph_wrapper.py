@@ -5,7 +5,8 @@ accepts a MultiLayerNetwork or a ComputationGraph).
 The batch (a DataSet or a MultiDataSet) is padded to divide evenly with
 zero-weight rows and split into one row block per ``data`` shard of the
 mesh; :func:`~.wrapper.sync_step` runs every shard and applies the summed
-gradient once, as ``ParallelWrapper``'s sync mode does."""
+gradient once, as ``ParallelWrapper``'s sync mode does (through the
+vertex-synchronous walk where a batch norm needs the whole batch)."""
 
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ from typing import Optional
 import numpy as np
 
 from .mesh import Mesh, make_mesh
-from .wrapper import (check_sync_layers, data_devices, pad_dataset,
-                      split_rows, sync_step)
+from .wrapper import data_devices, pad_dataset, split_rows, sync_step
 
 
 class GraphDataParallelTrainer:
@@ -31,7 +31,6 @@ class GraphDataParallelTrainer:
     def fit_batch(self, ds):
         net = self.net
         net._ensure_init()
-        check_sync_layers(net, len(self.devices))
         padded = pad_dataset(ds, self.num_workers)
         score, new_state = sync_step(net, self.devices,
                                      split_rows(padded, len(self.devices)))

@@ -299,8 +299,35 @@ class ShardedTensor:
                                     device=mesh.device(c))
         return cls(mesh, spec, shards, shape, dtype)
 
+    @classmethod
+    def from_global(cls, mesh: Mesh, spec, t: torch.Tensor
+                    ) -> "ShardedTensor":
+        """``t`` laid out by ``spec``: each coordinate a contiguous copy of
+        its :func:`local_slice` on its device."""
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        for c in mesh.coords():
+            shards[c] = local_slice(mesh, spec, c, t).to(
+                mesh.device(c), copy=True).contiguous()
+        return cls(mesh, spec, shards, t.shape, t.dtype)
+
     def local(self, coord) -> torch.Tensor:
         return self.shards[tuple(coord)]
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The global tensor on ``device`` (coordinate 0's by default),
+        each coordinate's part copied to its place."""
+        first = tuple([0] * self.shards.ndim)
+        device = self.shards[first].device if device is None else device
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for c in self.mesh.coords():
+            view = out
+            for dim, entry in enumerate(tuple(self.spec)):
+                idx, n = _split_of(self.mesh, entry, c)
+                if n > 1:
+                    step = self.shape[dim] // n
+                    view = view.narrow(dim, idx * step, step)
+            view.copy_(self.shards[c])
+        return out
 
     @property
     def num_shards(self) -> int:

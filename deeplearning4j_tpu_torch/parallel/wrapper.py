@@ -10,10 +10,10 @@ reductions in shard order. No NCCL or gloo rank is involved.
 - ``averaging_frequency == 1`` (synchronous DP, :func:`sync_step`): the
   batch, padded to divide evenly (:func:`pad_rows`), splits into one
   contiguous row block per ``data`` shard. Every shard runs the forward
-  on its block and keeps its graph; the loss denominators of the whole
-  batch (one per output: present cells or examples over all shards) are
-  summed in shard order; each shard then divides its block's summed loss
-  by them and back-propagates, the penalty counted on shard 0 only. The
+  on its block; the loss denominators of the whole batch (one per
+  output: present cells or examples over all shards) are summed in shard
+  order; each shard divides its block's summed loss by them, the penalty
+  counted on shard 0 only, and one backward runs through every shard. The
   gradients are summed in shard order and the net's ``_apply_gradients``
   (gradient normalization included) updates the masters once: the step of
   the whole batch, as JAX's one GSPMD program over the global batch
@@ -28,10 +28,10 @@ reductions in shard order. No NCCL or gloo rank is involved.
   delta (``compression.py``), carries its residual, and the mean of the
   encodings is added to the round's base.
 
-Sync DP over more than one ``data`` shard refuses a net with a
-BatchNormalization (or a center-loss head): JAX's step takes their batch
-statistics over the global batch, and the port's batch-norm kernel takes
-them inside its own launch (ROADMAP A9b-bn). When ``multihost`` reports
+The shards' forwards advance together, vertex by vertex (the walk of
+``sharded.py``), so a batch norm, a center-loss head or an MoE router
+reads the whole batch across the shards, as JAX's GSPMD step does. When
+``multihost`` reports
 several processes, each process trains over its own mesh and the step's
 (or round's) parameters and updater state are averaged across processes
 with ``host_allreduce_mean``, under tags namespaced by construction
@@ -45,14 +45,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..nn.conf.layers.convolution import BatchNormalization
-from ..nn.conf.layers.feedforward import CenterLossOutputLayer
 from ..nn.graph.computation_graph import ComputationGraph
 from ..ops import rng as rngmod
 from ..ops.dataset import DataSet, MultiDataSet
 from ..ops.losses import reduce_terms
 from . import multihost
 from .mesh import DATA_AXIS, Mesh, make_mesh
+from .sharded import ShardPlan, cross_points, walk
 
 
 # ------------------------------------------------------------------ trees
@@ -207,29 +206,6 @@ def data_devices(mesh: Mesh) -> List[torch.device]:
             for d in range(mesh.shape[DATA_AXIS])]
 
 
-def _layers(net):
-    if isinstance(net, ComputationGraph):
-        return [getattr(v, "layer", None)
-                for v in net.conf.vertices.values()]
-    return list(net.layers)
-
-
-def check_sync_layers(net, n_data: int) -> None:
-    """Sync DP over several ``data`` shards cannot give a batch norm (or a
-    center-loss head) the statistics of the whole batch yet: raise."""
-    if n_data <= 1:
-        return
-    for layer in _layers(net):
-        if isinstance(layer, (BatchNormalization, CenterLossOutputLayer)):
-            raise NotImplementedError(
-                f"synchronous data-parallel training over {n_data} data "
-                f"shards of a net with a {type(layer).__name__}: JAX takes "
-                "its batch statistics over the global batch, and the "
-                "port's per-shard launches cannot yet (ROADMAP A9b-bn). "
-                "Use a data axis of 1, averaging_frequency > 1 (local "
-                "steps, a replica per shard) or the parameter servers.")
-
-
 def _canonical(device) -> torch.device:
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
@@ -259,22 +235,24 @@ def _view(net, device):
     return replica(net, device)
 
 
-def _loss_terms(net, leaves, batch, rng):
+def _loss_terms_walk(net, leaves, batch, rng, cross):
+    """The walk (a generator, for :func:`~.sharded.walk`) of the net's
+    loss terms on one shard's batch."""
     feats, labels, fmask, lmask = batch
     if isinstance(net, ComputationGraph):
-        return net._loss_terms(leaves, net.state, feats, labels, rng, lmask,
-                               fmask)
-    return net._loss_terms(leaves, net.state, feats, labels, fmask, lmask,
-                           rng)
+        args = (leaves, net.state, feats, labels, rng, lmask, fmask)
+    else:
+        args = (leaves, net.state, feats, labels, fmask, lmask, rng)
+    return net._loss_terms_walk(*args, cross=cross)
 
 
-def _global_counts(fwd, device):
+def _global_counts(outs, device):
     """Per loss term, its count over every shard (summed in shard order;
     a tensor on ``device`` for mask counts, a number for shape counts)."""
     out = []
-    for i in range(len(fwd[0][2])):
+    for i in range(len(outs[0][0])):
         total = None
-        for _, _, terms, _, _ in fwd:
+        for terms, _, _ in outs:
             c = terms[i][1]
             if torch.is_tensor(c):
                 c = c.detach().to(device)
@@ -283,37 +261,56 @@ def _global_counts(fwd, device):
     return out
 
 
-def sync_step(net, devices: List[torch.device], blocks: list):
-    """One synchronous data-parallel step of ``net`` over ``blocks`` (one
-    row block per device, as :func:`split_rows` cuts them): returns (the
-    whole batch's score as a 0-d tensor on the net's device, the layer
-    state shard 0 computed). The masters are updated in place."""
+def walk_loss(net, views, params, blocks, plan: ShardPlan, cross,
+              answer_fn=None):
+    """(the step's loss on the net's device, each shard's (terms, reg,
+    new state)): shard s's loss walk (``views[s]``, the net on its
+    device, with parameters ``params[s]`` on ``blocks[s]``) run in step
+    with the others through the vertex-synchronous walk (``sharded.py``),
+    the cross-shard vertices ``cross`` over all the shards at once (by
+    ``answer_fn``, default :func:`~.sharded.answer`). The loss counts are
+    summed over the shards, each shard's sums divided by them and added
+    up, the penalty taken once, from shard 0."""
     rng = net._dropout_rng()
-    fwd = []
-    for s, (dev, block) in enumerate(zip(devices, blocks)):
-        view = _view(net, dev)
-        leaves = view._param_leaves()
-        with torch.enable_grad():
-            terms, reg, new_state = _loss_terms(
-                view, leaves, view._batch(block), rngmod.fold_in(rng, s))
-        fwd.append((view, leaves, terms, reg, new_state))
-    new_state0 = fwd[0][4]
-    counts = _global_counts(fwd, net.device)
-    grads = score = None
-    for s, (view, leaves, terms, reg, _) in enumerate(fwd):
+    walks = [_loss_terms_walk(view, p, view._batch(block),
+                              rngmod.fold_in(rng, s), cross)
+             for s, (view, p, block) in enumerate(zip(views, params,
+                                                      blocks))]
+    outs = walk(walks, plan, answer_fn)
+    counts = _global_counts(outs, net.device)
+    total = None
+    for s, (view, (terms, reg, _)) in enumerate(zip(views, outs)):
         denominators = [c.to(view.device) if torch.is_tensor(c) else c
                         for c in counts]
-        with torch.enable_grad():
-            loss = reduce_terms(terms, start=reg if s == 0 else None,
-                                denominators=denominators)
-        g = view._grads_of(loss, leaves)
-        fwd[s] = None                 # the shard's graph is spent
-        grads = tree_to(g, net.device) if grads is None else \
-            tree_sum([grads, g], net.device)
-        loss = loss.detach().to(net.device)
-        score = loss if score is None else score + loss
-    net._apply_gradients(grads)
-    return score, tree_map(lambda a: a.detach().to(net.device), new_state0)
+        loss = reduce_terms(terms, start=reg if s == 0 else None,
+                            denominators=denominators).to(net.device)
+        total = loss if total is None else total + loss
+    return total, outs
+
+
+def sync_step(net, devices: List[torch.device], blocks: list,
+              plan: Optional[ShardPlan] = None):
+    """One synchronous step of ``net`` over ``blocks`` (one row block a
+    device, as :func:`split_rows` cuts them, or the (data, sp) blocks of
+    a sequence-parallel ``plan``): :func:`walk_loss` over the shards,
+    then one backward through every shard. The shards' gradients are
+    summed in shard order and the net's ``_apply_gradients`` updates the
+    masters once: the step of the whole batch. Returns (the score as a
+    0-d tensor on the net's device, shard 0's new layer state — the
+    global statistics)."""
+    plan = plan or ShardPlan(devices)
+    views = [_view(net, dev) for dev in devices]
+    with torch.enable_grad():
+        leaves = [view._param_leaves() for view in views]
+        total, outs = walk_loss(net, views, leaves, blocks, plan,
+                                cross_points(net, plan))
+        flat = [x for lv in leaves for x in tree_leaves(lv)]
+        grads = iter(torch.autograd.grad(total, flat,
+                                         materialize_grads=True))
+    per_shard = [tree_map(lambda _: next(grads), lv) for lv in leaves]
+    net._apply_gradients(tree_sum(per_shard, net.device))
+    return total.detach(), tree_map(lambda a: a.detach().to(net.device),
+                                    outs[0][2])
 
 
 class ParallelWrapper:
@@ -432,7 +429,6 @@ class ParallelWrapper:
     # --- mode 1: synchronous DP, gradients summed over the shards ---
     def _fit_sync(self, iterator):
         net = self.net
-        check_sync_layers(net, len(self.devices))
         for ds in iterator:
             padded = pad_dataset(ds, self.num_workers)
             score, new_state = sync_step(

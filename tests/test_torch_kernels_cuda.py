@@ -24,7 +24,13 @@ fine-tune steps on B6, ``AsyncDataSetIterator`` staging bf16 on the card,
 and a frozen ResNet trunk whose BNs still launch their kernels at lr 0.
 A (1, 2) serving mesh on one card: B1 on each tp shard's 6 heads.
 Sync data-parallel training at data 2 on one card against solo steps,
-with B1 and B2 launched once a layer a shard.
+with B1 and B2 launched once a layer a shard. The batch norm across data
+shards (``batchnorm.cu``'s ``batchnorm_xs_*`` phases, every variant,
+uneven row blocks) against the plain version on the whole batch, each
+phase's launches counted, and sync DP of a BN net against a solo step;
+the ring over B3 / B4 / B5 against the plain streaming ring, forward
+and gradients, with sp(sp+1)/2 (causal) or sp² pair launches, and a
+sequence-parallel LM step against a solo step.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1282,5 +1288,274 @@ def test_sync_dp_matches_solo_on_card_with_b1_b2_per_shard(cuda_device):
         a = torch.from_numpy(solo.params_flat()).double()
         b = torch.from_numpy(dp.params_flat()).double()
         assert ((a - b).norm() / a.norm()).item() <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+# ------------------------------------------- batch norm across data shards
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("variant", ["identity", "relu", "tail"])
+@pytest.mark.parametrize("m,c,shards", [(64, 8, 2), (3001, 64, 3),
+                                        (20000, 256, 2), (777, 2048, 4)])
+def test_cross_shard_batchnorm_matches_plain_on_card(cuda_device, m, c,
+                                                     shards, variant,
+                                                     dtype):
+    """The batch norm over row blocks of one batch (``bn_train_shards``:
+    each shard's partials, one finalize over all of them, each shard's
+    elementwise pass, both ways; uneven blocks included) against the plain
+    version on the whole batch: y, dx, dres within 1e-2 relative L2 in
+    bf16 (1e-5 in f32), the statistics and dgamma / dbeta within 1e-5;
+    each phase launched once a shard (the finalize once) a direction and
+    no single-shard batch-norm kernel."""
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    x, res, dy, gamma, beta, shift = _bn_inputs(m, c, dtype, cuda_device, 9)
+    tail, relu = variant == "tail", variant != "identity"
+    rows = [m * i // shards for i in range(shards + 1)]
+    cut = lambda t: [t[a:b].detach().requires_grad_(True)
+                     for a, b in zip(rows, rows[1:])]
+    xs, rs = cut(x), cut(res) if tail else None
+    gl, bl = (p.detach().requires_grad_(True) for p in (gamma, beta))
+    fns = (bnk.bn_xs_stats, bnk.bn_xs_finalize, bnk.bn_xs_apply,
+           bnk.bn_train_fwd, bnk.bn_train_bwd, bnk.bn_add_act_fwd,
+           bnk.bn_add_act_bwd)
+    before = [(f.launches, getattr(f, "bwd_launches", 0)) for f in fns]
+    ys, mean, var = bnk.bn_train_shards(xs, gl, bl, shift, 1e-5,
+                                        "relu" if relu else "identity", rs)
+    grads = torch.autograd.grad(ys, xs + [gl, bl] + (rs or []),
+                                [dy[a:b] for a, b in zip(rows, rows[1:])])
+    torch.cuda.synchronize()
+    after = [(f.launches, getattr(f, "bwd_launches", 0)) for f in fns]
+    delta = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)]
+    assert delta[:3] == [(shards, shards), (1, 1), (shards, shards)]
+    assert all(d == (0, 0) for d in delta[3:])
+    y_p, mean_p, var_p, rstd_p = bnk.bn_fwd_plain(
+        x, gamma, beta, shift, 1e-5, res if tail else None, relu)
+    dx_p, dg_p, db_p, dres_p = bnk.bn_bwd_plain(
+        dy, x, gamma, mean_p, rstd_p, y_p if tail else None, relu, beta)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _rel(torch.cat(ys), y_p) <= tol
+    assert _rel(torch.cat(grads[:shards]), dx_p) <= tol
+    for got, want in ((mean, mean_p), (var, var_p),
+                      (grads[shards], dg_p), (grads[shards + 1], db_p)):
+        assert _rel(got, want) <= 1e-5
+    if tail:
+        assert _rel(torch.cat(grads[shards + 2:]), dres_p) <= tol
+
+
+def test_cross_shard_batchnorm_phases_match_plain_on_card(cuda_device):
+    """Each cross-shard entry point against its plain version on the same
+    inputs (the CPU path of the same wrapper, the inputs copied there):
+    partials, finalize, apply, forward and backward, f32."""
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    x, res, dy, gamma, beta, shift = _bn_inputs(5000, 96, torch.float32,
+                                                cuda_device, 10)
+    cpu = lambda t: t.cpu()
+    part = bnk.bn_xs_stats(x, shift, bnk.FWD)
+    part_p = bnk.bn_xs_stats(cpu(x), cpu(shift), bnk.FWD)
+    assert _rel(part.sum(0), part_p.sum(0).to(part.device)) <= 1e-5
+    mean, var, rstd, coef = bnk.bn_xs_finalize(part, 5000, x.dtype,
+                                               bnk.FWD_RES, gamma, beta,
+                                               shift, 1e-5)
+    got_p = bnk.bn_xs_finalize(cpu(part), 5000, x.dtype, bnk.FWD_RES,
+                               cpu(gamma), cpu(beta), cpu(shift), 1e-5)
+    for a, b in zip((mean, var, rstd, coef), got_p):
+        assert _rel(a, b.to(a.device)) <= 1e-6
+    y = bnk.bn_xs_apply(x, coef, bnk.FWD_RES, res2=res)
+    y_p = bnk.bn_xs_apply(cpu(x), cpu(coef), bnk.FWD_RES, res2=cpu(res))
+    assert _rel(y, y_p.to(y.device)) <= 1e-6
+    bpart = bnk.bn_xs_stats(x, mean, bnk.BWD_RELU, dy2=dy, gamma=gamma,
+                            rstd=rstd, beta=beta)
+    bpart_p = bnk.bn_xs_stats(cpu(x), cpu(mean), bnk.BWD_RELU, dy2=cpu(dy),
+                              gamma=cpu(gamma), rstd=cpu(rstd),
+                              beta=cpu(beta))
+    assert _rel(bpart.sum(0), bpart_p.sum(0).to(x.device)) <= 1e-5
+    dg, db, bcoef = bnk.bn_xs_finalize(bpart, 5000, x.dtype, bnk.BWD_RELU,
+                                       gamma)
+    dx, _ = bnk.bn_xs_apply(x, bcoef, bnk.BWD_RELU, dy2=dy, gamma=gamma,
+                            beta=beta, mean=mean, rstd=rstd)
+    dx_p, _ = bnk.bn_xs_apply(cpu(x), cpu(bcoef), bnk.BWD_RELU,
+                              dy2=cpu(dy), gamma=cpu(gamma), beta=cpu(beta),
+                              mean=cpu(mean), rstd=cpu(rstd))
+    assert _rel(dx, dx_p.to(dx.device)) <= 1e-5
+    assert torch.isfinite(dg).all() and torch.isfinite(db).all()
+
+
+def test_sync_dp_batch_norm_matches_solo_on_card(cuda_device):
+    """A batch-norm MLP under sync DP at data 2 on one card (f32, TF32
+    off) against a solo step: the parameters and running statistics
+    within 1e-5 relative L2; the cross-shard phases launched, the
+    single-shard kernel not."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (BatchNormalization,
+                                                         DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    conf = (NeuralNetConfiguration.Builder().seed(2).learning_rate(0.1)
+            .updater("sgd").weight_init("xavier").activation("relu").list()
+            .layer(DenseLayer(n_out=64)).layer(BatchNormalization())
+            .layer(OutputLayer(n_out=4, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        solo = MultiLayerNetwork(conf, device=dev).init()
+        dp = solo.clone()
+        rng = np.random.default_rng(3)
+        ds = DataSet(rng.normal(size=(64, 16)).astype(np.float32),
+                     np.eye(4, dtype=np.float32)[rng.integers(0, 4, 64)])
+        solo.fit([ds])
+        n0 = (bnk.bn_xs_stats.launches, bnk.bn_train_fwd.launches)
+        ParallelWrapper(dp, mesh=make_mesh(devices=[dev] * 2)).fit([ds])
+        torch.cuda.synchronize()
+        assert bnk.bn_xs_stats.launches - n0[0] == 2
+        assert bnk.bn_train_fwd.launches == n0[1]
+        a = torch.from_numpy(solo.params_flat()).double()
+        b = torch.from_numpy(dp.params_flat()).double()
+        assert ((a - b).norm() / a.norm()).item() <= 1e-5
+        for k in ("mean", "var"):
+            assert _rel(dp.state[1][k], solo.state[1][k]) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+@pytest.mark.parametrize("data", [1, 2])
+def test_graph_dp_fused_tail_matches_solo_on_card(cuda_device, data):
+    """resnet_tiny (2 BN → add → ReLU tails, 7 other batch norms) trained
+    one step by GraphDataParallelTrainer on one card (f32, TF32 off)
+    against a solo step: parameters and running statistics within 1e-5
+    relative L2. At data 2 every batch norm and both tails take the
+    cross-shard phases and the single-shard kernels launch no time; at
+    data 1 the step takes the single-shard kernels, as the solo step
+    does."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    from deeplearning4j_tpu_torch.models import resnet_tiny_conf
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (GraphDataParallelTrainer,
+                                                   make_mesh)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        solo = ComputationGraph(resnet_tiny_conf(
+            num_classes=4, height=16, width=16, channels=3),
+            device=dev).init()
+        dp = solo.clone()
+        assert len(solo._get_fusion_plan()[0]) == 2
+        rng = np.random.default_rng(5)
+        ds = DataSet(rng.normal(size=(16, 16, 16, 3)).astype(np.float32),
+                     np.eye(4, dtype=np.float32)[rng.integers(0, 4, 16)])
+        solo.fit_batch(ds)
+        counters = (bnk.bn_train_fwd, bnk.bn_add_act_fwd, bnk.bn_xs_stats)
+        before = [f.launches for f in counters]
+        GraphDataParallelTrainer(
+            dp, mesh=make_mesh(devices=[dev] * data)).fit_batch(ds)
+        torch.cuda.synchronize()
+        got = [f.launches - b for f, b in zip(counters, before)]
+        assert got == ([7, 2, 0] if data == 1 else [0, 0, 9 * 2])
+        for v in solo.params:
+            for k in solo.params[v]:
+                assert _rel(dp.params[v][k], solo.params[v][k]) <= 1e-5, \
+                    (v, k)
+            for k in solo.state[v]:
+                assert _rel(dp.state[v][k], solo.state[v][k]) <= 1e-5, \
+                    (v, k)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+# ------------------------------------------------- the ring over B3 - B5
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sp,t", [(2, 256), (4, 512), (3, 387)])
+def test_ring_matches_plain_ring_on_card(cuda_device, sp, t, causal,
+                                         dtype):
+    """The flash-kernel ring (``_RingFlash``) over sp chunks of q / k / v
+    [2, T, 4, 64] against the plain streaming ring run in f32 on the same
+    inputs: o max-abs within the forward kernels' tolerance, dq / dk / dv
+    within 2e-2 relative L2 (1e-4 in f32); B3, B4 and B5 each launched
+    sp(sp+1)/2 times causal, sp² times unmasked."""
+    from deeplearning4j_tpu_torch.parallel.sequence import ring_attend
+    g = torch.Generator(device=cuda_device).manual_seed(sp + t)
+    full = [torch.randn(2, t, 4, 64, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(4)]
+    chunks = [list(x.chunk(sp, dim=1)) for x in full]
+
+    def run(impl, cast):
+        leaves = [c.to(cast).detach().requires_grad_(True)
+                  for c in chunks[0] + chunks[1] + chunks[2]]
+        outs = ring_attend(leaves[:sp], leaves[sp:2 * sp], leaves[2 * sp:],
+                           causal, impl)
+        grads = torch.autograd.grad(outs, leaves,
+                                    [c.to(cast) for c in chunks[3]])
+        return torch.cat(outs, 1), [torch.cat(grads[i * sp:(i + 1) * sp], 1)
+                                    for i in range(3)]
+    fns = (ff.flash_forward, fb.flash_backward_dq, fb.flash_backward_dkv)
+    before = [f.launches for f in fns]
+    o, grads = run(None, dtype)
+    torch.cuda.synchronize()
+    pairs = sp * (sp + 1) // 2 if causal else sp * sp
+    assert [f.launches - b for f, b in zip(fns, before)] == [pairs] * 3
+    o_p, grads_p = run("jnp", torch.float32)
+    assert (o.float() - o_p).abs().max().item() <= FWD_TOL[dtype]
+    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(grads, grads_p):
+        assert _rel(got, want) <= gtol
+
+
+def test_sequence_parallel_lm_step_matches_solo_on_card(cuda_device):
+    """A 2-layer LM (vocab 512, d 128, 2 heads of 64, T 256, B 2, f32,
+    TF32 off) trained one step by GraphSequenceParallelTrainer at sp 2 on
+    one card against a solo step: the loss within rel 1e-5, the
+    parameters within rel-L2 1e-4; the ring's pairs on B3 / B4 / B5 (3 a
+    layer each), no B1 / B2."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import (lm_batch_sparse,
+                                                 transformer_lm_conf)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        GraphSequenceParallelTrainer, make_mesh)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        solo = ComputationGraph(transformer_lm_conf(
+            512, d_model=128, num_heads=2, num_layers=2, max_length=256,
+            learning_rate=3e-4), device=dev).init()
+        sp = solo.clone()
+        x, y = lm_batch_sparse(np.random.default_rng(4).integers(
+            0, 512, (2, 257)))
+        solo.fit_batch(DataSet(x, y))
+        fns = (ff.flash_forward, fb.flash_backward_dq,
+               fb.flash_backward_dkv, ss.short_attention_fwd,
+               ss.short_attention_bwd)
+        before = [f.launches for f in fns]
+        with GraphSequenceParallelTrainer(sp, mesh=make_mesh(
+                axis_names=("sp",), devices=[dev] * 2)) as tr:
+            tr.fit_batch(DataSet(x, y))
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == \
+            [6, 6, 6, 0, 0]
+        want, got = float(solo.score_value), float(sp.score_value)
+        assert abs(got - want) <= 1e-5 * abs(want)
+        a = torch.from_numpy(solo.params_flat()).double()
+        b = torch.from_numpy(sp.params_flat()).double()
+        assert ((a - b).norm() / a.norm()).item() <= 1e-4
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

@@ -10,8 +10,10 @@ the conftest's host devices: sync DP of a small MLP on a ragged batch and
 on fewer rows than shards, the graph trainer on a ragged batch, a graph
 with two outputs whose label masks differ, a 2-layer transformer LM at
 data 2, local steps on the masked LSTM, compressed local steps, and
-``threshold_encode`` over one residual sequence; sync DP over several
-data shards refusing a batch norm (ROADMAP A9b-bn); and checkpoints with
+``threshold_encode`` over one residual sequence; sync DP over two data
+shards of nets with a batch norm or a center-loss head (the global
+batch's statistics and class means, against JAX and the solo step; ROADMAP
+A9b-bn); and checkpoints with
 updater state and normalizer both ways through ``ModelSerializer`` and
 ``ModelGuesser``.
 
@@ -912,28 +914,167 @@ def _bn_net():
 
 
 def test_sync_dp_refuses_batch_norm_over_data_shards():
+    """Named for the refusal it held until the vertex-synchronous walk
+    (ROADMAP A9b-bn): sync DP over data shards now trains a batch-norm
+    net, by the whole batch's statistics, as one solo step does; one data
+    shard and local steps (a replica per shard) train it as before."""
     ds = DataSet(*_xy(np.random.default_rng(0), 8))
-    with pytest.raises(NotImplementedError, match="A9b-bn"):
-        _pw(_bn_net(), 2).fit([ds])
-    with pytest.raises(NotImplementedError, match="A9b-bn"):
-        GraphDataParallelTrainer(ComputationGraph(
-            ComputationGraphConfiguration.from_json(
-                (NeuralNetConfiguration.Builder().seed(1).graph_builder()
-                 .add_inputs("in")
-                 .add_layer("bn", BatchNormalization(), "in")
-                 .add_layer("out", OutputLayer(n_out=3, loss="mcxent",
-                                               activation="softmax"), "bn")
-                 .set_outputs("out")
-                 .set_input_types(InputType.feed_forward(4)).build()
-                 ).to_json()), device="cpu").init(),
-            mesh=_mesh(2)).fit_batch(ds)
-    # one data shard, and local steps (a replica per shard), train it
+    solo, dp = _bn_net(), _bn_net()
+    solo._fit_batch(ds)
+    _pw(dp, 2).fit([ds])
+    _close(dp, solo, atol=1e-6)
     one = _bn_net()
     _pw(one, 1).fit([ds])
     assert one.iteration == 1
     local = _bn_net()
     _pw(local, 2, k=2).fit([ds, ds])
     assert local.iteration == 2 and np.isfinite(float(local.score_value))
+
+
+def test_one_shard_sync_dp_computes_no_vertex_across_shards():
+    """One data shard takes no cross-shard point: its own forward (on a
+    card the single-shard kernels) sees the whole batch, and trains as
+    the solo step does. Two shards take the batch norm and the center
+    loss across them."""
+    from deeplearning4j_tpu_torch.parallel.sharded import (ShardPlan,
+                                                           cross_points)
+    net = _port_mln(_jax_bn_mlp(center=True))
+    cpu = torch.device("cpu")
+    assert cross_points(net, ShardPlan([cpu])) == set()
+    assert cross_points(net, ShardPlan([cpu, cpu])) == {1, "center"}
+    ds = DataSet(*_xy(np.random.default_rng(2), 8))
+    solo, one = _port_mln(_jax_bn_mlp(center=True)), net
+    solo._fit_batch(ds)
+    _pw(one, 1).fit([ds])
+    _close(one, solo, atol=1e-6)
+    np.testing.assert_allclose(one.state[3]["centers"].numpy(),
+                               solo.state[3]["centers"].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _jax_bn_mlp(center=False):
+    head = jl.CenterLossOutputLayer(n_out=3, loss="mcxent",
+                                    activation="softmax", alpha=0.3,
+                                    lambda_=0.5) if center else \
+        jl.OutputLayer(n_out=3, loss="mcxent", activation="softmax")
+    conf = (JaxNNC.Builder().seed(4).learning_rate(0.1).updater("sgd")
+            .weight_init("xavier").activation("tanh").list()
+            .layer(jl.DenseLayer(n_out=8))
+            .layer(jl.BatchNormalization())
+            .layer(jl.DenseLayer(n_out=6))
+            .layer(head)
+            .set_input_type(JaxInputType.feed_forward(4)).build())
+    return JaxMLN(conf).init()
+
+
+def _close_state(tnet, jnet):
+    for i, (ts, js) in enumerate(zip(tnet.state, jnet.state)):
+        for k, a in js.items():
+            np.testing.assert_allclose(ts[k].numpy(), np.asarray(a),
+                                       rtol=1e-5, atol=1e-6,
+                                       err_msg=f"state {i} {k}")
+
+
+@pytest.mark.parametrize("rows", [8, 7], ids=["even", "ragged"])
+@pytest.mark.parametrize("center", [False, True], ids=["bn", "bn_center"])
+def test_sync_dp_batch_norm_matches_jax_and_solo(center, rows):
+    """A batch norm (and a center-loss head) under sync DP at data 2, two
+    steps: parameters, running statistics and centers against JAX's
+    ParallelWrapper on 2 host devices (its GSPMD step takes them over the
+    global, padded batch) and, on an even batch, against the port's solo
+    step."""
+    rng = np.random.default_rng(rows + 10 * center)
+    batches = [DataSet(*_xy(rng, rows)) for _ in range(2)]
+    jnet = _jax_bn_mlp(center)
+    tnet = _port_mln(jnet)
+    solo = _port_mln(jnet)
+    jpw = JaxParallelWrapper.Builder(jnet).mesh(jax_mesh(2)).build()
+    tpw = _pw(tnet, 2)
+    jpw.fit([_jds(d) for d in batches])
+    tpw.fit(batches)
+    _close(tnet, jnet, atol=1e-6)
+    _close_state(tnet, jnet)
+    np.testing.assert_allclose(float(tnet.score_value),
+                               float(jnet.score_value), rtol=1e-5)
+    if rows % 2 == 0:
+        for ds in batches:
+            solo._fit_batch(ds)
+        _close(tnet, solo, atol=1e-6)
+        for ts, ss in zip(tnet.state, solo.state):
+            for k in ss:
+                np.testing.assert_allclose(ts[k].numpy(), ss[k].numpy(),
+                                           rtol=1e-5, atol=1e-6)
+
+
+def test_graph_dp_batch_norm_matches_jax_and_solo():
+    """GraphDataParallelTrainer at data 2 on a graph with a batch norm
+    feeding a residual add and a ReLU (the BN → add → act tail, vertex by
+    vertex on the CPU): against JAX's trainer and the solo step."""
+    def build(nnc, lay, it, vertex):
+        return (nnc.Builder().seed(9).learning_rate(0.1).updater("sgd")
+                .weight_init("xavier").activation("tanh").graph_builder()
+                .add_inputs("in")
+                .add_layer("d", lay.DenseLayer(n_out=6), "in")
+                .add_layer("bn", lay.BatchNormalization(), "d")
+                .add_vertex("add", vertex(op="add"), "bn", "d")
+                .add_layer("act", lay.ActivationLayer(activation="relu"),
+                           "add")
+                .add_layer("d2", lay.DenseLayer(n_out=6), "act")
+                .add_layer("out", lay.OutputLayer(
+                    n_out=3, loss="mcxent", activation="softmax"), "d2")
+                .set_outputs("out")
+                .set_input_types(it.feed_forward(4)).build())
+    from deeplearning4j_tpu.nn.graph import ElementWiseVertex
+    from deeplearning4j_tpu_torch.nn.conf import layers as tl
+    jg = JaxGraph(build(JaxNNC, jl, JaxInputType, ElementWiseVertex)).init()
+    tg = _port_graph(jg)
+    solo = _port_graph(jg)
+    jtr = JaxGraphDP(jg, mesh=jax_mesh(2))
+    ttr = GraphDataParallelTrainer(tg, mesh=_mesh(2))
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        ds = DataSet(*_xy(rng, 8))
+        jtr.fit_batch(_jds(ds))
+        ttr.fit_batch(ds)
+        solo.fit_batch(ds)
+    assert isinstance(tg.conf.vertices["bn"].layer, tl.BatchNormalization)
+    for v, p in jg.params.items():
+        for k, a in p.items():
+            np.testing.assert_allclose(tg.params[v][k].numpy(),
+                                       np.asarray(a), rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{v}.{k}")
+            np.testing.assert_allclose(tg.params[v][k].numpy(),
+                                       solo.params[v][k].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{v}.{k}")
+    for k, a in jg.state["bn"].items():
+        np.testing.assert_allclose(tg.state["bn"][k].numpy(),
+                                   np.asarray(a), rtol=1e-5, atol=1e-6)
+
+
+def test_graph_dp_batch_norm_f64_equals_solo():
+    """resnet_tiny in f64 (9 batch norms, 2 of them feeding a residual add
+    and a ReLU) under GraphDataParallelTrainer at data 2: the parameters
+    and running statistics equal the solo step's to f64 rounding. In f32
+    the one-pass statistics about the running mean (0 at the first step)
+    round Σx² to f32, so any other order of the sums moves the update; in
+    f64 that is gone and only a wrong statistic would show."""
+    from deeplearning4j_tpu_torch.models import resnet_tiny_conf
+    solo = ComputationGraph(resnet_tiny_conf(
+        num_classes=4, height=16, width=16, channels=3),
+        compute_dtype=torch.float64, device="cpu").init()
+    dp = solo.clone()
+    rng = np.random.default_rng(1)
+    ds = DataSet(rng.normal(size=(8, 16, 16, 3)),
+                 np.eye(4)[rng.integers(0, 4, 8)])
+    solo.fit_batch(ds)
+    GraphDataParallelTrainer(dp, mesh=_mesh(2)).fit_batch(ds)
+    for tree in ("params", "state"):
+        got, want = getattr(dp, tree), getattr(solo, tree)
+        for v in want:
+            for k in want[v]:
+                np.testing.assert_allclose(
+                    got[v][k].numpy(), want[v][k].numpy(), rtol=1e-10,
+                    atol=1e-12, err_msg=f"{tree} {v}.{k}")
 
 
 # ============================================================= checkpoints

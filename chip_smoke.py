@@ -320,7 +320,43 @@ Phases, each an uncaught exception on failure:
    the unsharded run. The phase's B3 / B4 / B5 and cross-shard BN
    launches join the ``kernels`` line; it prints its wall time and fails
    past 120 s.
-16. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+16. data and Keras models to the card (``phase_data_and_keras``, within
+   120 s; every file it reads it writes first, into a temporary
+   directory). (a) IDX files of 60,000 + 10,000 synthetic glyphs (uint8,
+   ``datasets/mnist.py``'s stand-in): ``MnistDataSetIterator`` finds them
+   through ``MNIST_DIR``; with shuffle off the native loader
+   (``csrc/dataloader.cpp``, built by g++) gives the Python iterator's
+   batches bit for bit (flattened, B 64); LeNet (``lenet_conf``) trains
+   one epoch at B 64 from the native loader through
+   ``AsyncDataSetIterator(device=cuda)``: the loss falls, the test
+   accuracy reaches 0.95; ms a step, each loader's batches/s alone and
+   the device's busy share over 100 profiled steps. (b) the 10,000 test
+   rows as a 785-column CSV: ``NativeCSVDataSetIterator`` and
+   ``RecordReaderDataSetIterator(CSVRecordReader)`` give equal batches;
+   rows/s of each. (c) ``export_resnet50_keras_h5`` (224 x 224 x 3, 1000
+   classes) imported by ``KerasModelImport`` on the card: f32 logits (TF32
+   off, B 8) within rel-L2 1e-5 of ``resnet50_conf`` carrying the same
+   arrays; bf16 at B 128, 1 warm and 2 timed steps of the imported and
+   the native graph in turns, twice: 106 batch-norm kernel launches a step
+   each (the fusion plan takes the import's 16 BN -> add -> Activation
+   tails) and ms a step; then ``examples/transfer_learning.py``'s
+   workflow: frozen below avgpool, a new 4-way head, 6 steps at B 32, the
+   frozen parameters bit-identical and the loss falling. (d) the native
+   VGG16's initialized weights written as a Keras 2 Sequential file
+   (about 0.55 GB) and loaded by ``TrainedModels.vgg16(weights_h5=)`` on
+   the card: f32 logits at B 4 within rel-L2 1e-5 of the native net;
+   ``ImageNetLabels.decode_predictions`` over a labels JSON. (e) a Keras
+   Sequential of 2 LSTM(512) with hard_sigmoid gates and a
+   TimeDistributed softmax Dense over 80 classes (B 64, T 128): f32
+   logits on B6 within rel-L2 1e-5 of the plain recurrence (the same file
+   imported on the CPU), one B6 launch a layer; a warm and a counted bf16
+   step, 2 B6 launches, its loss finite. (f)
+   ``KerasBackendServer(device=cuda)`` over HTTP on (c)'s file:
+   ``/predict`` at B 2 equal to the direct import's output (max-abs
+   1e-6), ``/fit``, ``/evaluate``, ``/save``, ``/load``, and the reloaded
+   net predicting as the saved one. Its BN and B6
+   launches join the ``kernels`` line.
+17. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the ring (``parallel/sequence.py``'s ``_RingFlash``:
 causal bf16 q / k / v at phase 15's shapes, B 8 x T 512 at sp 4 and 2,
@@ -377,15 +413,19 @@ the flash backward's two kernels against SDPA's whole backward.
 import copy
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -405,14 +445,28 @@ from deeplearning4j_tpu_torch.kernels.shortseq_attention import (
     attention_bwd_plain, attention_fwd_plain, row_delta, short_attention_bwd,
     short_attention_fwd)
 from deeplearning4j_tpu_torch.models import (CharacterIterator,
+                                             ImageNetLabels,
                                              SlotGenerationEngine,
+                                             TrainedModels,
                                              TransformerDecoder,
                                              char_rnn_conf, lenet_conf,
                                              lm_batch_sparse, resnet50_conf,
                                              transformer_lm_conf, vgg16_conf)
 from deeplearning4j_tpu_torch.datasets import (AsyncDataSetIterator,
+                                               CSVRecordReader,
                                                DataSetIterator,
-                                               ListDataSetIterator)
+                                               ListDataSetIterator,
+                                               MnistDataSetIterator,
+                                               RecordReaderDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.mnist import _read_idx
+from deeplearning4j_tpu_torch.datasets.mnist import \
+    _synthetic as mnist_synthetic
+from deeplearning4j_tpu_torch.datasets.native_loader import (
+    NativeCSVDataSetIterator, NativeMnistDataSetIterator, native_available)
+from deeplearning4j_tpu_torch.keras import (KerasBackendServer,
+                                            KerasModelImport)
+from deeplearning4j_tpu_torch.keras.export import (export_resnet50_keras_h5,
+                                                   write_keras_h5)
 from deeplearning4j_tpu_torch.earlystopping import (
     DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
     LocalFileModelSaver, MaxEpochsTerminationCondition,
@@ -5685,6 +5739,546 @@ def phase_model_parallel(card, device=None, model=None, long=None,
     return total
 
 
+# ---------------------------------------------------------------- phase 16
+#: phase 16's wall-clock budget, s
+DATA_KERAS_LIMIT_S = 120
+#: phase 16's sizes: MNIST's train / test rows, LeNet's batch, ResNet-50's
+#: side and batches (the f32 check, the bf16 step, the fine-tune), VGG16's
+#: side and batch, the Keras LSTM (width, vocab, B, T)
+DK_SHAPES = {"mnist_train": 60000, "mnist_test": 10000, "lenet_b": 64,
+             "resnet_hw": 224, "resnet_classes": 1000, "resnet_f32_b": 8,
+             "resnet_b": 128, "transfer_b": 32, "vgg_hw": 224, "vgg_b": 4,
+             "lstm_h": 512, "lstm_v": 80, "lstm_b": 64, "lstm_t": 128}
+#: LeNet's test accuracy after one epoch on the synthetic glyphs (stated
+#: in PERF.md before the phase first ran)
+LENET_ACC_BAR = 0.95
+#: f32 (TF32 off) logits of an imported net against the same weights in
+#: the native configuration, and the Keras LSTM's against the plain path
+KERAS_F32_TOL = 1e-5
+#: the server's predictions against the direct net's, and the reloaded
+#: net's against the saved one's (max-abs)
+SERVER_TOL = 1e-6
+DK_COUNTERS = ("batchnorm_train", "batchnorm_train.bwd",
+               "batchnorm_add_act_train", "batchnorm_add_act_train.bwd",
+               "lstm_recurrence")
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in DK_COUNTERS}
+
+
+def _dk_steps(net, ds, steps):
+    """``steps`` train steps (a graph's fit_batch, a MultiLayerNetwork's
+    fit on the one DataSet; no launch reset): (losses, wall s)."""
+    step = net.fit_batch if isinstance(net, ComputationGraph) else net.fit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        step(ds)
+        losses.append(net.score_value)
+    torch.cuda.synchronize()
+    return [float(v) for v in losses], time.perf_counter() - t0
+
+
+def _mln_logits(net, x):
+    """A MultiLayerNetwork's pre-softmax output of an inference forward."""
+    with torch.no_grad():
+        pre = net._forward(net._cast_params(net.params),
+                           net._inference_state(), net._as_tensor(x),
+                           train=False, rng=None, last_preoutput=True)[0]
+    return pre.float().cpu()
+
+
+class _AsImages(DataSetIterator):
+    """Flat [N, H*W] batches of ``source`` as NHWC [N, H, W, 1] views."""
+    async_supported = False
+
+    def __init__(self, source, hw):
+        self.source, self.hw = source, hw
+
+    def __iter__(self):
+        for ds in self.source:
+            yield DataSet(ds.features.reshape(-1, self.hw, self.hw, 1),
+                          ds.labels)
+
+
+def _write_idx(path, arr):
+    arr = np.ascontiguousarray(arr, np.uint8)
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x0800 | arr.ndim) +
+                b"".join(struct.pack(">I", d) for d in arr.shape) +
+                arr.tobytes())
+
+
+def _same_batches(got, want, what):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches against "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.features, w.features) and
+                np.array_equal(g.labels, w.labels)):
+            raise AssertionError(f"{what}: batch {i} differs")
+
+
+def _dk_mnist(card, tmp, dev, s):
+    """(a) MNIST at its size through the native loader to LeNet; (b) the
+    test rows as CSV through both CSV readers."""
+    mdir = tmp / "mnist"
+    mdir.mkdir()
+    t0 = time.perf_counter()
+    for prefix, n, train in (("train", s["mnist_train"], True),
+                             ("t10k", s["mnist_test"], False)):
+        imgs, labels = mnist_synthetic(n, train)
+        _write_idx(mdir / f"{prefix}-images-idx3-ubyte",
+                   np.round(imgs * 255))
+        _write_idx(mdir / f"{prefix}-labels-idx1-ubyte", labels)
+    write_s = time.perf_counter() - t0
+    os.environ["MNIST_DIR"] = str(mdir)
+    b = s["lenet_b"]
+    images, labels = (mdir / "train-images-idx3-ubyte",
+                      mdir / "train-labels-idx1-ubyte")
+    t0 = time.perf_counter()
+    py_it = MnistDataSetIterator(b, shuffle=False, flatten=True)
+    py_load = time.perf_counter() - t0
+    if py_it.is_synthetic:
+        raise AssertionError("MnistDataSetIterator did not find the IDX "
+                             "files")
+    t0 = time.perf_counter()
+    py_batches = list(py_it)
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native_available():
+        raise AssertionError("the native loader did not build")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat_it = NativeMnistDataSetIterator(images, labels, b, shuffle=False)
+    nat_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat_batches = list(nat_it)
+    nat_s = time.perf_counter() - t0
+    n = s["mnist_train"]
+    _same_batches(nat_batches[:n // b], py_batches, "native vs Python MNIST")
+    if len(nat_batches) != -(-n // b):
+        raise AssertionError(f"native MNIST gave {len(nat_batches)} batches")
+    nat_rate = len(nat_batches) / nat_s
+    log(f"data (a) MNIST [{card}]: IDX files of {n} + {s['mnist_test']} "
+        f"glyphs written in {write_s:.2f}s; shuffle off, the native loader's"
+        f" {len(nat_batches)} batches of {b} equal the Python iterator's "
+        f"{len(py_batches)} bit for bit (it keeps the last {n % b} rows); "
+        f"alone, after the g++ build ({build_s:.2f}s) and loading the files"
+        f" (native {nat_load:.2f}s, Python {py_load:.2f}s): native "
+        f"{nat_rate:.1f} batches/s, Python "
+        f"{len(py_batches) / py_s:.1f} batches/s")
+    del py_batches, nat_batches
+    net = MultiLayerNetwork(lenet_conf(), device=dev).init()
+    shuffled = NativeMnistDataSetIterator(images, labels, b, shuffle=True,
+                                          seed=1)
+    first = next(iter(shuffled))
+    loss0 = net.score(DataSet(first.features.reshape(-1, 28, 28, 1),
+                              first.labels))
+    shuffled = NativeMnistDataSetIterator(images, labels, b, shuffle=True,
+                                          seed=1)
+    steps = -(-shuffled.total_examples() // b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(AsyncDataSetIterator(_AsImages(shuffled, 28), device=dev))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    loss1 = float(net.score_value)
+    ev = net.evaluate(MnistDataSetIterator(1000, train=False,
+                                           shuffle=False))
+    acc = ev.accuracy()
+    slice_it = NativeMnistDataSetIterator(images, labels, b, shuffle=True,
+                                          seed=2)
+    part = [ds for _, ds in zip(range(100), slice_it)]
+    busy = None
+    if dev.type == "cuda":
+        _, busy_us, wall_us, _ = profile_step(
+            lambda: net.fit(AsyncDataSetIterator(
+                _AsImages(ListDataSetIterator(part), 28), device=dev)),
+            "lenet, 100 steps from the native loader")
+        busy = busy_us / wall_us
+    log(f"data (a) LeNet [{card}]: one epoch of {steps} steps at B {b} "
+        f"from the native loader through AsyncDataSetIterator: "
+        f"{epoch_s / steps * 1e3:.3f} ms a step ({steps / epoch_s:.1f} "
+        f"steps/s against the native loader's {nat_rate:.1f} batches/s "
+        f"alone); busy share {busy if busy is None else round(busy, 3)} "
+        f"(100 profiled steps); loss "
+        f"{loss0:.4f} -> {loss1:.4f}; test accuracy {acc:.4f} (bar "
+        f"{LENET_ACC_BAR})")
+    if not loss1 < loss0:
+        raise AssertionError("LeNet's loss did not fall over the epoch")
+    if not acc >= LENET_ACC_BAR:
+        raise AssertionError(f"LeNet's test accuracy {acc:.4f} is below "
+                             f"{LENET_ACC_BAR}")
+    # (b) the test rows as a 785-column CSV (label, 784 pixels)
+    timgs = _read_idx(mdir / "t10k-images-idx3-ubyte")
+    tlabels = _read_idx(mdir / "t10k-labels-idx1-ubyte")
+    csv_path = tmp / "mnist_test.csv"
+    rows = np.concatenate([tlabels[:, None].astype(np.int64),
+                           timgs.reshape(len(timgs), -1)], axis=1)
+    np.savetxt(csv_path, rows, fmt="%d", delimiter=",")
+    t0 = time.perf_counter()
+    nat = list(NativeCSVDataSetIterator(csv_path, b, label_index=0,
+                                        num_classes=10, shuffle=False))
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = list(RecordReaderDataSetIterator(CSVRecordReader(csv_path), b,
+                                          label_index=0, num_classes=10))
+    py_s = time.perf_counter() - t0
+    _same_batches(nat, py, "native vs Python CSV")
+    n_rows = len(rows)
+    log(f"data (b) CSV [{card}]: {n_rows} rows x 785 columns, shuffle off,"
+        f" {len(nat)} equal batches; native {n_rows / nat_s:.0f} rows/s, "
+        f"RecordReaderDataSetIterator(CSVRecordReader) "
+        f"{n_rows / py_s:.0f} rows/s")
+    os.environ.pop("MNIST_DIR", None)
+
+
+def _native_resnet(weights, s, dev, dtype=None):
+    """resnet50_conf (Keras's BN epsilon) carrying the exported arrays."""
+    conf = resnet50_conf(s["resnet_classes"], s["resnet_hw"], s["resnet_hw"],
+                         3)
+    for v in conf.vertices.values():
+        if isinstance(v, LayerVertex) and \
+                isinstance(v.layer, BatchNormalization):
+            v.layer.eps = 1e-3
+    arrays, state = {}, {}
+    for name, arrs in weights.items():
+        if name.endswith("_conv"):
+            arrays[name] = {"W": arrs[0]}
+        elif name.endswith("_bn"):
+            arrays[name] = {"gamma": arrs[0], "beta": arrs[1]}
+            state[name] = {"mean": arrs[2], "var": arrs[3]}
+        else:
+            arrays[name] = {"W": arrs[0], "b": arrs[1]}
+    return graph_from_numpy(conf, arrays, device=dev, compute_dtype=dtype,
+                            state=state)
+
+
+def _dk_resnet(card, tmp, dev, s, on_card):
+    """(c) Keras ResNet-50 at full width: export, import, f32 against the
+    native configuration, a bf16 step's BN launches, the imported and
+    native step times, then the transfer-learning workflow. Returns the
+    file, the f32 import's B-2 probabilities on ``x2`` and ``x2``."""
+    hw, classes = s["resnet_hw"], s["resnet_classes"]
+    path = tmp / "resnet50.h5"
+    t0 = time.perf_counter()
+    weights = export_resnet50_keras_h5(path, num_classes=classes,
+                                       height=hw, width=hw, seed=7)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = KerasModelImport.import_keras_model_and_weights(path, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    native = _native_resnet(weights, s, dev)
+    g = np.random.default_rng(71)
+    x8 = g.normal(size=(s["resnet_f32_b"], hw, hw, 3)).astype(np.float32)
+    err = _rel_l2(_logits(net, x8), _logits(native, x8))
+    x2 = x8[:2]
+    probs2 = net.output(x2)[0]
+    log(f"keras (c) ResNet-50 [{card}]: export {export_s:.2f}s "
+        f"({path.stat().st_size / 1e6:.1f} MB), import "
+        f"{import_s:.2f}s to {net.device}; f32 logits at B "
+        f"{len(x8)} against native resnet50_conf on the same arrays: "
+        f"rel-L2 {err:.3e} (tol {KERAS_F32_TOL})")
+    if not err <= KERAS_F32_TOL:
+        raise AssertionError("the imported ResNet-50 disagrees with the "
+                             "native configuration")
+    del net, native
+    b = s["resnet_b"]
+    imp = KerasModelImport.import_keras_model_and_weights(
+        path, device=dev, compute_dtype=torch.bfloat16)
+    nat = _native_resnet(weights, s, dev, torch.bfloat16)
+    plan = imp._get_fusion_plan()[0]
+    x, y = (_images(b, hw, 3, classes, 72) if on_card else
+            (torch.randn(b, hw, hw, 3),
+             torch.eye(classes)[torch.randint(0, classes, (b,))]))
+    ds = DataSet(x, y)
+    ms = {}
+    for what, model in (("imported", imp), ("native", nat), ("imported", imp),
+                        ("native", nat)):
+        _dk_steps(model, ds, 1)
+        before = read_launches()
+        losses, wall = _dk_steps(model, ds, 2)
+        bn = _delta(before, read_launches())
+        ms.setdefault(what, []).append(wall / 2 * 1e3)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"the {what} ResNet-50's loss is not finite")
+        if on_card and sum(bn[k] for k in DK_COUNTERS[:4]) != 106 * 2:
+            raise AssertionError(f"the {what} ResNet-50 launched the BN "
+                                 f"kernels {bn} in 2 steps, expected 106 a "
+                                 "step (37 + 16 a direction)")
+    log(f"keras (c) ResNet-50 bf16 B {b} [{card}]: fusion plan "
+        f"{len(plan)} tails; BN launches a step {_bn_per_step(bn)}; ms a "
+        f"step (2 steps, twice each, in turns) imported "
+        f"{[round(v, 2) for v in ms['imported']]}, native "
+        f"{[round(v, 2) for v in ms['native']]}")
+    if on_card and len(plan) != 16:
+        raise AssertionError(f"the imported graph's fusion plan has "
+                             f"{len(plan)} tails, expected 16")
+    del nat
+    # examples/transfer_learning.py's workflow at full width
+    tb = s["transfer_b"]
+    # plain SGD on ~2048 unit-scale features moves a logit by about
+    # lr x 2048 a step: 1e-4 keeps the head's steps below overshooting
+    new = (TransferLearning.GraphBuilder(imp)
+           .fine_tune_configuration(FineTuneConfiguration(
+               learning_rate=1e-4, updater="sgd"))
+           .set_feature_extractor("avgpool")
+           .remove_vertex_and_connections("fc")
+           .add_layer("new_fc", OutputLayer(n_out=4, loss="mcxent",
+                                            activation="softmax"), "avgpool")
+           .set_outputs("new_fc").build())
+    del imp
+    frozen = _clone_params(new.params, sorted(new.frozen_vertices))
+    xt = x[:tb]
+    yt = torch.nn.functional.one_hot(torch.arange(tb, device=xt.device) % 4,
+                                     4).float()
+    losses, wall = _dk_steps(new, DataSet(xt, yt), 6)
+    changed = _unchanged(new.params, frozen)
+    log(f"keras (c) transfer learning [{card}]: frozen below avgpool "
+        f"({len(frozen)} vertices), a new 4-way head, 6 steps at B {tb}: "
+        f"losses {[round(v, 4) for v in losses]}, {wall / 6 * 1e3:.2f} ms "
+        f"a step; frozen vertices changed: {changed}")
+    if changed:
+        raise AssertionError(f"frozen vertices changed: {changed}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the fine-tuned head's loss did not fall")
+    return path, x2, probs2
+
+
+def _bn_per_step(bn):
+    return {k: v // 2 for k, v in bn.items() if "batchnorm" in k}
+
+
+_VGG_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+
+
+def _vgg_keras_config(hw, classes):
+    """A Keras 2 Sequential VGG16 (Keras's layer names)."""
+    layers = []
+    for bi, (n, width) in enumerate(_VGG_BLOCKS, start=1):
+        for ci in range(1, n + 1):
+            conf = {"name": f"block{bi}_conv{ci}", "filters": width,
+                    "kernel_size": [3, 3], "strides": [1, 1],
+                    "padding": "same", "activation": "relu",
+                    "use_bias": True}
+            if not layers:
+                conf["batch_input_shape"] = [None, hw, hw, 3]
+            layers.append({"class_name": "Conv2D", "config": conf})
+        layers.append({"class_name": "MaxPooling2D", "config": {
+            "name": f"block{bi}_pool", "pool_size": [2, 2],
+            "strides": [2, 2], "padding": "valid"}})
+    layers.append({"class_name": "Flatten", "config": {"name": "flatten"}})
+    for name, units, act in (("fc1", 4096, "relu"), ("fc2", 4096, "relu"),
+                             ("predictions", classes, "softmax")):
+        layers.append({"class_name": "Dense", "config": {
+            "name": name, "units": units, "activation": act,
+            "use_bias": True}})
+    return {"class_name": "Sequential",
+            "config": {"name": "vgg16", "layers": layers}}
+
+
+def _dk_vgg(card, tmp, dev, s):
+    """(d) VGG16: the native net's weights written as a Keras 2 file,
+    loaded through TrainedModels.vgg16(weights_h5=), its f32 logits
+    against the native net's; ImageNetLabels on a labels JSON."""
+    hw = s["vgg_hw"]
+    native = MultiLayerNetwork(vgg16_conf(1000, height=hw, width=hw),
+                               device=dev).init()
+    config = _vgg_keras_config(hw, 1000)
+    names = [lc["config"]["name"] for lc in config["config"]["layers"]
+             if lc["class_name"] in ("Conv2D", "Dense")]
+    weighted = [p for p in native.params if p]
+    weights = {name: [("kernel:0", p["W"].cpu().numpy()),
+                      ("bias:0", p["b"].cpu().numpy())]
+               for name, p in zip(names, weighted)}
+    path = tmp / "vgg16.h5"
+    t0 = time.perf_counter()
+    write_keras_h5(path, config, weights, {
+        "loss": "categorical_crossentropy",
+        "optimizer_config": {"class_name": "SGD",
+                             "config": {"lr": 0.01, "momentum": 0.9}}})
+    write_s = time.perf_counter() - t0
+    del weights
+    t0 = time.perf_counter()
+    net = TrainedModels.vgg16(weights_h5=str(path), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = np.random.default_rng(73).normal(
+        size=(s["vgg_b"], hw, hw, 3)).astype(np.float32) * 50
+    err = _rel_l2(_mln_logits(net, x), _mln_logits(native, x))
+    labels_path = tmp / "imagenet_labels.json"
+    labels_path.write_text(json.dumps(
+        {str(i): [f"n{i:08d}", f"class_{i}"] for i in range(1000)}))
+    probs = net.output(x)
+    top = ImageNetLabels(path=str(labels_path)).decode_predictions(probs,
+                                                                   top=3)
+    want = [f"class_{i}" for i in np.argsort(probs[0])[::-1][:3]]
+    log(f"keras (d) VGG16 [{card}]: {path.stat().st_size / 1e9:.3f} GB "
+        f"written in {write_s:.2f}s, TrainedModels.vgg16(weights_h5=) "
+        f"{load_s:.2f}s to {net.device}; f32 logits at B {len(x)} against "
+        f"the native net: rel-L2 {err:.3e} (tol {KERAS_F32_TOL}); "
+        f"decode_predictions row 0 {[t['label'] for t in top[0]]}")
+    if not err <= KERAS_F32_TOL:
+        raise AssertionError("the imported VGG16 disagrees with the native "
+                             "net")
+    if [t["label"] for t in top[0]] != want:
+        raise AssertionError("decode_predictions disagrees with the argsort")
+
+
+def _dk_lstm(card, tmp, dev, s, on_card):
+    """(e) a Keras Sequential of 2 LSTMs (hard_sigmoid gates) and a
+    TimeDistributed softmax Dense: f32 on B6 against the plain
+    recurrence (the same file on the CPU), a warm and a counted bf16
+    step."""
+    h, v, b, t = s["lstm_h"], s["lstm_v"], s["lstm_b"], s["lstm_t"]
+    g = np.random.default_rng(74)
+
+    def lstm(name, n_in, first):
+        conf = {"name": name, "units": h, "activation": "tanh",
+                "recurrent_activation": "hard_sigmoid",
+                "return_sequences": True}
+        if first:
+            conf["batch_input_shape"] = [None, t, n_in]
+        return {"class_name": "LSTM", "config": conf}
+
+    def lstm_w(n_in):
+        return [("kernel:0", g.normal(0, n_in ** -0.5, (n_in, 4 * h))),
+                ("recurrent_kernel:0", g.normal(0, h ** -0.5, (h, 4 * h))),
+                ("bias:0", g.normal(0, 0.1, 4 * h))]
+
+    config = {"class_name": "Sequential", "config": {"name": "char_lstm",
+              "layers": [lstm("lstm_1", v, True), lstm("lstm_2", h, False),
+                         {"class_name": "TimeDistributed", "config": {
+                             "name": "td", "layer": {
+                                 "class_name": "Dense", "config": {
+                                     "name": "out", "units": v,
+                                     "activation": "softmax"}}}}]}}
+    path = tmp / "lstm.h5"
+    write_keras_h5(path, config, {
+        "lstm_1": lstm_w(v), "lstm_2": lstm_w(h),
+        "td": [("kernel:0", g.normal(0, h ** -0.5, (h, v))),
+               ("bias:0", np.zeros(v))]},
+        {"loss": "categorical_crossentropy",
+         "optimizer_config": {"class_name": "RMSprop",
+                              "config": {"lr": 0.001}}})
+    ids = g.integers(0, v, (b, t + 1))
+    x = np.eye(v, dtype=np.float32)[ids[:, :-1]]
+    y = np.eye(v, dtype=np.float32)[ids[:, 1:]].reshape(b * t, v)
+    net = KerasModelImport.import_keras_model_and_weights(path, device=dev)
+    plain = KerasModelImport.import_keras_model_and_weights(path,
+                                                            device="cpu")
+    before = read_launches()
+    got = _mln_logits(net, x)
+    fwd = _delta(before, read_launches())["lstm_recurrence"]
+    err = _rel_l2(got, _mln_logits(plain, x))
+    del net, plain
+    bnet = KerasModelImport.import_keras_model_and_weights(
+        path, device=dev, compute_dtype=torch.bfloat16)
+    _dk_steps(bnet, DataSet(x, y), 1)
+    before = read_launches()
+    losses, wall = _dk_steps(bnet, DataSet(x, y), 1)
+    step = _delta(before, read_launches())["lstm_recurrence"]
+    log(f"keras (e) LSTM 2 x {h}, hard_sigmoid gates, vocab {v}, B {b}, "
+        f"T {t} [{card}]: gates "
+        f"{[la.gate_activation for la in bnet.layers[:2]]}; f32 logits on B6 against the plain recurrence (CPU): rel-L2 "
+        f"{err:.3e} (tol {KERAS_F32_TOL}), B6 launches {fwd}; a bf16 step "
+        f"after a warm one {wall * 1e3:.2f} ms, loss {losses[0]:.4f}, B6 "
+        f"launches {step}")
+    if not err <= KERAS_F32_TOL:
+        raise AssertionError("the Keras LSTM on B6 disagrees with the plain "
+                             "recurrence")
+    if not np.isfinite(losses).all():
+        raise AssertionError("the Keras LSTM's loss is not finite")
+    if on_card and (fwd, step) != (2, 2):
+        raise AssertionError(f"B6 launched {fwd} / {step} times, expected 2")
+
+
+def _post(base, path, payload):
+    req = urllib.request.Request(base + path, json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _dk_server(card, tmp, dev, path, x2, probs2):
+    """(f) KerasBackendServer on the device over HTTP on (c)'s file."""
+    srv = KerasBackendServer(device=dev).start()
+    try:
+        base = f"http://{srv.host}:{srv.port}"
+        t0 = time.perf_counter()
+        mid = _post(base, "/import", {"path": str(path)})["model_id"]
+        import_s = time.perf_counter() - t0
+        feats = x2.tolist()
+        out = np.asarray(_post(base, "/predict", {
+            "model_id": mid, "features": feats})["output"])[0]
+        predict_err = float(np.abs(out - probs2).max())
+        labels = np.eye(probs2.shape[1])[[3, 5]].tolist()
+        score = _post(base, "/fit", {"model_id": mid, "features": feats,
+                                     "labels": labels, "epochs": 1})["score"]
+        ev = _post(base, "/evaluate", {"model_id": mid, "features": feats,
+                                       "labels": labels})
+        fitted = np.asarray(_post(base, "/predict", {
+            "model_id": mid, "features": feats})["output"])[0]
+        saved = tmp / "served.zip"
+        _post(base, "/save", {"model_id": mid, "path": str(saved)})
+        again = _post(base, "/load", {"path": str(saved)})["model_id"]
+        reloaded = np.asarray(_post(base, "/predict", {
+            "model_id": again, "features": feats})["output"])[0]
+        reload_err = float(np.abs(reloaded - fitted).max())
+        with urllib.request.urlopen(base + "/models") as r:
+            models = json.loads(r.read())["models"]
+    finally:
+        srv.shutdown()
+    log(f"keras (f) KerasBackendServer(device={dev}) [{card}]: /import "
+        f"{import_s:.2f}s, /predict at B 2 against the direct net max-abs "
+        f"{predict_err:.3e} (tol {SERVER_TOL}), /fit score {score:.4f}, "
+        f"/evaluate accuracy {ev['accuracy']:.3f}, /save + /load: the "
+        f"reloaded net's predictions max-abs {reload_err:.3e}; models "
+        f"{models}")
+    if not predict_err <= SERVER_TOL:
+        raise AssertionError("/predict disagrees with the direct net")
+    if not np.isfinite(score) or not 0.0 <= ev["accuracy"] <= 1.0:
+        raise AssertionError("/fit or /evaluate gave no valid number")
+    if not reload_err <= SERVER_TOL or sorted(models) != sorted([mid, again]):
+        raise AssertionError("the reloaded net predicts differently")
+
+
+def phase_data_and_keras(card, device=None, shapes=None):
+    """Phase 16: data to the card (MNIST through the native loader to
+    LeNet, CSV) and Keras models to the card (ResNet-50 and transfer
+    learning, VGG16, an LSTM on B6, the backend server) (module
+    docstring). ``device`` / ``shapes`` let the phase be rehearsed on the
+    CPU at a small size. Returns its launches by counter."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = torch.device(device or "cuda:0")
+    s = dict(DK_SHAPES, **(shapes or {}))
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_phase16_"))
+    reset_launches()
+    try:
+        _dk_mnist(card, tmp, dev, s)
+        path, x2, probs2 = _dk_resnet(card, tmp, dev, s, on_card)
+        _dk_vgg(card, tmp, dev, s)
+        _dk_lstm(card, tmp, dev, s, on_card)
+        _dk_server(card, tmp, dev, path, x2, probs2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = read_launches()
+    wall = time.perf_counter() - t_phase
+    log(f"data and keras phase: launches "
+        f"{ {k: total[k] for k in DK_COUNTERS} }; {wall:.1f}s wall (limit "
+        f"{DATA_KERAS_LIMIT_S} s)")
+    if wall > DATA_KERAS_LIMIT_S:
+        raise AssertionError(f"the data and Keras phase took {wall:.1f}s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5716,11 +6310,13 @@ def main():
     api = phase_training_api(card)
     dp = phase_data_parallel(card)
     mp = phase_model_parallel(card)
+    dk = phase_data_and_keras(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
-        launches[name] = resnet[name] + resnet[f"{name}.bwd"] + \
-            api[name] + api[f"{name}.bwd"]
+        launches[name] = sum(src[name] + src[f"{name}.bwd"]
+                             for src in (resnet, api, dk))
     launches["lstm_recurrence"] = lstm_train["lstm_recurrence"] + \
-        api["lstm_recurrence"] + dp["lstm_recurrence"]
+        api["lstm_recurrence"] + dp["lstm_recurrence"] + \
+        dk["lstm_recurrence"]
     launches["shortseq_attention"] += dp["shortseq_attention"]
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"] + \
         dp["shortseq_attention_bwd"]

@@ -21,6 +21,11 @@ module has an obvious counterpart there:
                  evaluation (numpy).
 - ``optimize`` — training listeners.
 - ``utils``    — loading JAX checkpoints and parameters.
+- ``datasets`` — iterators (MNIST, Iris, CIFAR-10, LFW, Curves, DataVec
+                 record readers) and the native C++ loader
+                 (``csrc/dataloader.cpp``, built with g++ at first use).
+- ``keras``    — Keras HDF5 import and export over the port's own HDF5
+                 reader and writer, and the Keras backend server.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

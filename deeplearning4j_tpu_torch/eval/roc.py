@@ -48,12 +48,20 @@ class ROC:
             thresholds = np.unique(np.concatenate([[0.0, 1.0], s]))
         pos = max(np.sum(y > 0.5), 1)
         neg = max(np.sum(y <= 0.5), 1)
-        tpr, fpr = [], []
-        for t in thresholds:
-            pred_pos = s >= t
-            tpr.append(np.sum(pred_pos & (y > 0.5)) / pos)
-            fpr.append(np.sum(pred_pos & (y <= 0.5)) / neg)
-        return thresholds, np.array(fpr), np.array(tpr)
+        # counts of s >= t for every threshold at once: the scores sorted
+        # once, a prefix count of positives, a binary search a threshold
+        # (a NaN score is >= no threshold; a NaN threshold takes none)
+        keep = ~np.isnan(s)
+        order = np.argsort(s[keep], kind="stable")
+        ranked = s[keep][order]
+        positives = np.concatenate([[0], np.cumsum((y[keep] > 0.5)[order])])
+        below = np.searchsorted(ranked, thresholds, side="left")
+        at_or_above = len(ranked) - below
+        tp = positives[-1] - positives[below]
+        fp = at_or_above - tp
+        undefined = np.isnan(thresholds)
+        tp[undefined], fp[undefined] = 0, 0
+        return thresholds, fp / neg, tp / pos
 
     def calculate_auc(self) -> float:
         _, fpr, tpr = self._curve()

@@ -2,7 +2,7 @@
 decoder and the slot engine (slab or paged, with the prefix cache,
 speculative decoding, and the scheduling and resilience tier); the
 GravesLSTM character RNN; the convolutional nets ResNet-50, LeNet and
-VGG16."""
+VGG16 (with ImageNet labels and Keras-imported pretrained weights)."""
 
 from .char_rnn import CharacterIterator, char_rnn_conf
 from .lenet import lenet_conf
@@ -12,7 +12,8 @@ from .transformer import (generate, lm_batch, lm_batch_sparse,
 from .generation import (TransformerDecoder, SlotGenerationEngine,
                          GenerationRequest)
 from .paging import PageAllocator, prefix_route_key
-from .vgg16 import VGG16ImagePreProcessor, vgg16_conf
+from .vgg16 import (ImageNetLabels, TrainedModels, VGG16ImagePreProcessor,
+                    vgg16_conf)
 
 __all__ = ["char_rnn_conf", "CharacterIterator",
            "transformer_lm_conf", "lm_batch", "lm_batch_sparse", "generate",
@@ -20,4 +21,5 @@ __all__ = ["char_rnn_conf", "CharacterIterator",
            "SlotGenerationEngine", "GenerationRequest",
            "PageAllocator", "prefix_route_key",
            "lenet_conf", "resnet_conf", "resnet50_conf", "resnet_tiny_conf",
-           "vgg16_conf", "VGG16ImagePreProcessor"]
+           "vgg16_conf", "VGG16ImagePreProcessor", "ImageNetLabels",
+           "TrainedModels"]

@@ -1,10 +1,14 @@
 """VGG16 (the JAX package's ``models/vgg16.py``): the VGG16 / VGG16NoTop
-configurations (the same JSON) and the ImageNet mean-subtracting image
-preprocessor. Pretrained weights come through the Keras importer in the
-JAX package (``TrainedModels``, ``ImageNetLabels``), which the port does
-not have yet."""
+configurations (the same JSON), the ImageNet mean-subtracting image
+preprocessor, ``ImageNetLabels`` (a labels JSON on disk) and
+``TrainedModels`` (pretrained weights from a Keras HDF5 file on disk,
+through the port's Keras importer). Nothing is downloaded."""
 
 from __future__ import annotations
+
+import json
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -59,3 +63,65 @@ class VGG16ImagePreProcessor:
                                       dtype=np.float32) - mean
 
     __call__ = pre_process
+
+
+class ImageNetLabels:
+    """ImageNet-1k class labels from a local JSON file: a list of names, or
+    Keras's ``{"0": ["n01440764", "tench"], ...}`` index, passed as
+    ``path`` or found at ``$DL4J_TPU_IMAGENET_LABELS``; or the ``labels``
+    themselves. Nothing is downloaded."""
+
+    def __init__(self, path: Optional[str] = None,
+                 labels: Optional[Sequence[str]] = None):
+        if labels is not None:
+            self._labels = list(labels)
+            return
+        path = path or os.environ.get("DL4J_TPU_IMAGENET_LABELS")
+        if not path or not os.path.exists(path):
+            raise FileNotFoundError(
+                "ImageNet labels file not found; pass path=, labels=, or set "
+                "DL4J_TPU_IMAGENET_LABELS (nothing is downloaded)")
+        with open(path) as f:
+            raw = json.load(f)
+        if isinstance(raw, dict):
+            self._labels = [raw[str(i)][-1] if isinstance(raw[str(i)], list)
+                            else raw[str(i)] for i in range(len(raw))]
+        else:
+            self._labels = list(raw)
+
+    def get_label(self, idx: int) -> str:
+        return self._labels[idx]
+
+    def decode_predictions(self, predictions,
+                           top: int = 5) -> List[List[dict]]:
+        """The top-``top`` {label, probability} of each row."""
+        p = np.asarray(predictions)
+        out = []
+        for row in p:
+            order = np.argsort(row)[::-1][:top]
+            out.append([{"label": self._labels[int(i)],
+                         "probability": float(row[int(i)])} for i in order])
+        return out
+
+
+class TrainedModels:
+    """Pretrained-model entry: ``vgg16`` builds the configuration with a
+    seeded init, or imports a Keras VGG16 HDF5 file (``weights_h5``)
+    through the Keras importer; ``device=None`` means the card."""
+
+    @staticmethod
+    def vgg16(num_classes: int = 1000, top: bool = True,
+              weights_h5: Optional[str] = None, device=None,
+              compute_dtype=None):
+        from ..nn.multilayer import MultiLayerNetwork
+        if weights_h5 is not None:
+            from ..keras.importer import KerasModelImport
+            return KerasModelImport.import_keras_sequential_model_and_weights(
+                weights_h5, device=device, compute_dtype=compute_dtype)
+        net = MultiLayerNetwork(vgg16_conf(num_classes=num_classes, top=top),
+                                compute_dtype=compute_dtype, device=device)
+        return net.init()
+
+    @staticmethod
+    def get_pre_processor() -> VGG16ImagePreProcessor:
+        return VGG16ImagePreProcessor()

@@ -283,9 +283,10 @@ class ModelSerializer:
 
 class ModelGuesser:
     """Load a saved model, guessing its type (the JAX package's
-    ``utils/serializer.py:149``): the zip's ``meta.json`` decides
-    MultiLayerNetwork or ComputationGraph. A Keras HDF5 file raises: the
-    Keras importer is ROADMAP item A11b."""
+    ``utils/serializer.py:149``): a file with the HDF5 signature is a
+    Keras model and goes through ``keras.importer`` (Sequential →
+    MultiLayerNetwork, functional → ComputationGraph); otherwise the
+    zip's ``meta.json`` decides MultiLayerNetwork or ComputationGraph."""
 
     HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
 
@@ -294,7 +295,7 @@ class ModelGuesser:
         with open(path, "rb") as f:
             magic = f.read(8)
         if magic == ModelGuesser.HDF5_MAGIC:
-            raise NotImplementedError(
-                f"{path} is a Keras HDF5 file; the port's Keras importer "
-                "is not written yet (ROADMAP A11b)")
+            from ..keras.importer import KerasModelImport
+            return KerasModelImport.import_keras_model_and_weights(
+                path, device=device, compute_dtype=compute_dtype)
         return restore_model(path, device, compute_dtype)

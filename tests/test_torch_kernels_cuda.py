@@ -30,7 +30,9 @@ uneven row blocks) against the plain version on the whole batch, each
 phase's launches counted, and sync DP of a BN net against a solo step;
 the ring over B3 / B4 / B5 against the plain streaming ring, forward
 and gradients, with sp(sp+1)/2 (causal) or sp² pair launches, and a
-sequence-parallel LM step against a solo step.
+sequence-parallel LM step against a solo step. A Keras functional net
+imported on the card runs its BN -> add -> ReLU tail on the fused
+kernel and matches its CPU import.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1559,3 +1561,88 @@ def test_sequence_parallel_lm_step_matches_solo_on_card(cuda_device):
         assert ((a - b).norm() / a.norm()).item() <= 1e-4
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+# ------------------------------------------------------ a Keras import
+def test_keras_import_fuses_its_bn_add_relu_tail_on_card(cuda_device,
+                                                         tmp_path):
+    """A Keras functional net written by the port's HDF5 writer (conv →
+    BatchNormalization → Add(bn, input) → Activation(relu) → pooling →
+    softmax Dense, trained with SGD) imported on the card: its tail is in
+    the fusion plan, a training step launches the fused tail kernel once
+    a direction and no plain BN kernel, and its output and one step's
+    parameters and running statistics match the same file imported on
+    the CPU (f32, TF32 off, 1e-5 relative L2)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
+    from deeplearning4j_tpu_torch.keras import KerasModelImport
+    from deeplearning4j_tpu_torch.keras.export import write_keras_h5
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    c = 8
+    rng = np.random.default_rng(7)
+
+    def layer(cls, name, config, inputs):
+        return {"class_name": cls, "name": name,
+                "config": dict(config, name=name),
+                "inbound_nodes": [[[i, 0, 0, {}] for i in inputs]]
+                if inputs else []}
+    config = {"class_name": "Model", "config": {
+        "name": "tail",
+        "layers": [
+            layer("InputLayer", "inp",
+                  {"batch_input_shape": [None, 8, 8, c]}, []),
+            layer("Conv2D", "conv", {"filters": c, "kernel_size": [3, 3],
+                                     "strides": [1, 1], "padding": "same",
+                                     "use_bias": False,
+                                     "activation": "linear"}, ["inp"]),
+            layer("BatchNormalization", "bn", {"epsilon": 1e-3}, ["conv"]),
+            layer("Add", "add", {}, ["bn", "inp"]),
+            layer("Activation", "relu", {"activation": "relu"}, ["add"]),
+            layer("GlobalAveragePooling2D", "gap", {}, ["relu"]),
+            layer("Dense", "out", {"units": 3, "activation": "softmax",
+                                   "use_bias": True}, ["gap"])],
+        "input_layers": [["inp", 0, 0]], "output_layers": [["out", 0, 0]]}}
+    path = tmp_path / "tail.h5"
+    write_keras_h5(path, config, {
+        "conv": [("kernel:0", rng.normal(0, 0.3, (3, 3, c, c)))],
+        "bn": [("gamma:0", rng.uniform(0.5, 1.5, c)),
+               ("beta:0", rng.normal(0, 0.1, c)),
+               ("moving_mean:0", rng.normal(0, 0.1, c)),
+               ("moving_variance:0", rng.uniform(0.5, 1.5, c))],
+        "out": [("kernel:0", rng.normal(0, 0.3, (c, 3))),
+                ("bias:0", np.zeros(3))]},
+        {"loss": "categorical_crossentropy",
+         "optimizer_config": {"class_name": "SGD", "config": {"lr": 0.1}}})
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = KerasModelImport.import_keras_model_and_weights(
+            path, device=cuda_device)
+        cpu = KerasModelImport.import_keras_model_and_weights(path,
+                                                              device="cpu")
+        assert card.device.type == "cuda"
+        assert list(card._get_fusion_plan()[0]) == ["relu"]
+        x = rng.normal(size=(16, 8, 8, c)).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)]
+        assert _rel(torch.from_numpy(card.output(x)[0]),
+                    torch.from_numpy(cpu.output(x)[0])) <= 1e-5
+        counters = (bnk.bn_add_act_fwd, bnk.bn_add_act_bwd,
+                    bnk.bn_train_fwd, bnk.bn_train_bwd)
+        before = [f.launches for f in counters]
+        card.fit_batch(DataSet(x, y))
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == \
+            [1, 1, 0, 0]
+        cpu.fit_batch(DataSet(x, y))
+        for v in cpu.params:
+            for k in cpu.params[v]:
+                assert _rel(card.params[v][k].cpu(), cpu.params[v][k]) <= \
+                    1e-5, (v, k)
+        for k in ("mean", "var"):
+            assert _rel(card.state["bn"][k].cpu(), cpu.state["bn"][k]) <= \
+                1e-5, k
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags

@@ -356,7 +356,36 @@ Phases, each an uncaught exception on failure:
    1e-6), ``/fit``, ``/evaluate``, ``/save``, ``/load``, and the reloaded
    net predicting as the saved one. Its BN and B6
    launches join the ``kernels`` line.
-17. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+17. word and graph embeddings (``phase_nlp_graph``, within 120 s) on a
+   corpus made from the seed: 2,000,000 tokens in sentences of 8-24, a
+   Zipf(1.0) vocabulary of 50,000 types in 20 topic blocks (``NLP_SHAPES``).
+   (a) Word2Vec with Word2VecRawTextExample's settings (layer 100, window
+   5, min count 5, seed 42, HS, one epoch) through the corpus scan: V
+   after min count, each table's segment-update route, tokens/s, the
+   busy share and launches a step of the fit's first 64 steps, profiled
+   again on copies of its tables; in-topic cosine above cross-topic. (b) the NS scan at layer 300, 5 negatives,
+   shared, over the corpus, and per pair over a 200,000-token prefix:
+   tokens/s each, the loss finite. (c) on the prefix, the seeded NS scan
+   twice: syn0 bitwise equal; the HS per-batch fit on the card against
+   the CPU's plain path (the rel-L2 of the change to syn0 / syn1 <=
+   NLP_CPU_BF16_TOL on the one-hot route, NLP_CPU_TOL on the f32 route;
+   the CPU side runs in a thread beside (c)'s card runs and (d), after
+   the timed scans). (d) (b)'s
+   vectors through ``Word2VecDataSetIterator`` (2-topic documents, B 64,
+   cut at T 256, masked) into GravesLSTM(256) -> RnnOutputLayer(2,
+   mcxent), 2 epochs of 3 batches in f32 and in bf16: B6 once a step,
+   the epoch loss falling, B6 on the first batch with the trained
+   weights against ``lstm_recurrence_plain`` within LSTM_TOL (those
+   launches not counted). (e) ParagraphVectors DBOW (2,000 documents of
+   100 tokens, 5 epochs) with ``infer_vector`` on 100 held out, their
+   topic by the nearest training centroid at 3x chance or better; GloVe
+   over the prefix (in-topic cosine above cross-topic); DeepWalk (d 128,
+   window 10, walk length 40, 2 walks a vertex, cut from the paper's 80)
+   on a 10,312-vertex, 333,983-edge graph of 39 planted groups (in-group
+   cosine above across). (f) (c)'s vectors as text and binary files and
+   DeepWalk's as a graph-vector file, read back (max-abs NLP_TXT_TOL,
+   the binary bitwise). Its B6 launches join the ``kernels`` line.
+18. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the ring (``parallel/sequence.py``'s ``_RingFlash``:
 causal bf16 q / k / v at phase 15's shapes, B 8 x T 512 at sp 4 and 2,
@@ -441,6 +470,7 @@ from deeplearning4j_tpu_torch.kernels.flash_forward import (
     flash_forward, flash_forward_plain)
 from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
 from deeplearning4j_tpu_torch.kernels import lstm as lk
+from deeplearning4j_tpu_torch.kernels import segment_update as sgk
 from deeplearning4j_tpu_torch.kernels.shortseq_attention import (
     attention_bwd_plain, attention_fwd_plain, row_delta, short_attention_bwd,
     short_attention_fwd)
@@ -471,7 +501,19 @@ from deeplearning4j_tpu_torch.earlystopping import (
     DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
     LocalFileModelSaver, MaxEpochsTerminationCondition,
     ScoreImprovementEpochTerminationCondition)
+from deeplearning4j_tpu_torch.graph_embeddings import (DeepWalk, Graph,
+                                                       GraphVectorSerializer)
+from deeplearning4j_tpu_torch.nlp import (Glove, ParagraphVectors,
+                                          StaticWord2Vec, Word2Vec,
+                                          Word2VecDataSetIterator,
+                                          WordVectorSerializer)
+from deeplearning4j_tpu_torch.nlp import skipgram as psg
+from deeplearning4j_tpu_torch.nlp.huffman import build_huffman
+from deeplearning4j_tpu_torch.nlp.skipgram import (segment_route,
+                                                   skipgram_hs_corpus_scan,
+                                                   skipgram_ns_corpus_scan)
 from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, RBM, AutoEncoder, BatchNormalization, CenterLossOutputLayer,
     ConvolutionLayer, DenseLayer, GravesLSTM, OutputLayer, RnnOutputLayer,
@@ -489,6 +531,7 @@ from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
                                                     NumericalFault)
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.ops.rng import fold_in
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts, fetch_shards
 from deeplearning4j_tpu_torch.parallel import (
     EarlyStoppingParallelTrainer, EngineSupervisor, ExpertParallelTrainer,
@@ -593,6 +636,12 @@ KERNELS = {
         "lib": "batchnorm",
         "replaces": "deeplearning4j_tpu/kernels/batchnorm.py:120",
         "wrapper": bnk.bn_add_act_fwd, "bwd": bnk.bn_add_act_bwd},
+    # the embedding tables' segment update (a jnp one-hot matmul or
+    # scatter-add in the JAX package, not Pallas): deterministic on the card
+    "segment_update": {
+        "lib": "segment_update",
+        "replaces": "deeplearning4j_tpu/nlp/skipgram.py:150",
+        "wrapper": sgk.segment_update, "plain": sgk.segment_update_plain},
 }
 
 
@@ -1129,11 +1178,140 @@ def phase_kernel_checks():
         f"{(dq['ms'] + dkv['ms']) / dkv['library_ms']:.2f}x)")
     measured["lstm_recurrence"] = check_lstm_kernel()
     measured.update(check_bn_kernels())
+    measured["segment_update"] = check_segment_update_kernel()
     measured["ring_attention"] = check_ring_kernels()
     measured["batchnorm_cross_shard"] = check_bn_cross_shard()
     rows = check_c4_variants()
     log(json.dumps({"c4_variants": rows}))
     return measured
+
+
+#: max-abs of the segment-update kernel's change to the table against its
+#: plain version's on the card (index_add_'s float atomics), relative to
+#: the largest change: both sum the same f32 values in other orders
+SEGMENT_UPDATE_TOL = 1e-5
+
+
+def _segment_case(v, targets, window, d, seed):
+    """Phase 17's HS-scan syn1 update: the Huffman points (padding zeros
+    included) of 2·window·targets Zipf-drawn targets over a Zipf
+    vocabulary of ``v`` words, random f32 updates [B·L, d], weights 0 / 1
+    and a table on the card."""
+    rng = np.random.default_rng(seed)
+    _, points = build_huffman(1.0 / np.arange(1, v + 1))
+    depth = max(len(x) for x in points)
+    tab = np.zeros((v, depth), np.int64)
+    for i, x in enumerate(points):
+        tab[i, :len(x)] = x
+    cdf = np.cumsum(1.0 / np.arange(1, v + 1))
+    tgt = np.minimum(np.searchsorted(cdf, rng.random(targets * 2 * window) *
+                                     cdf[-1]), v - 1)
+    idx = torch.from_numpy(tab[tgt].reshape(-1)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    upd = torch.randn(idx.shape[0], d, generator=g, device="cuda")
+    w = (torch.rand(idx.shape[0], generator=g, device="cuda") > 0.1).float()
+    table = torch.randn(v - 1, d, generator=g, device="cuda") * 0.1
+    return idx, upd, w, table, depth
+
+
+def _update_err(idx, upd, w, table, bf16):
+    """Max-abs of the kernel's change against the plain version's, the
+    largest change, and whether two kernel calls agree bitwise."""
+    got = sgk.segment_update(table.clone(), idx, upd, w, 0.025, bf16)
+    again = sgk.segment_update(table.clone(), idx, upd, w, 0.025, bf16)
+    want = sgk.segment_update_plain(table.clone(), idx, upd, w, 0.025, bf16)
+    torch.cuda.synchronize()
+    delta = want - table
+    return ((got - want).abs().max().item(), delta.abs().max().item(),
+            bool(torch.equal(got, again)))
+
+
+def _zipf_rows(v, n, seed, power=1.0):
+    """``n`` row indices over ``v`` rows on the card, row r drawn with
+    weight (r + 1)^-power (Zipf ranks; 0.75 is negative sampling's
+    unigram^0.75)."""
+    cdf = np.cumsum(np.arange(1, v + 1, dtype=np.float64) ** -power)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.minimum(np.searchsorted(
+        cdf, rng.random(n) * cdf[-1]), v - 1)).cuda()
+
+
+def _prefix_vocab(s=None):
+    """Words of at least min count in phase 17's prefix (the vocabulary
+    its per-pair scan and per-batch fit build)."""
+    s = s or NLP_SHAPES
+    _, prefix = nlp_corpus(s)
+    counts = np.unique(np.concatenate([np.asarray(x) for x in prefix]),
+                       return_counts=True)[1]
+    return int((counts >= s["min_count"]).sum())
+
+
+def check_segment_update_kernel(v=37166, p=204, window=5, d=100,
+                                d_ns=300, k=5):
+    """The segment-update kernel at phase 17's shapes against its plain
+    version, bitwise over two calls: the HS corpus scan's syn1 update
+    ((a): V - 1 rows, 204 centers x 10 contexts x the Huffman depth
+    updates of 100 columns, the f32 route), the bf16 route at 3000 rows,
+    and the NS scans' width 300 ((b): syn0 and the shared syn1neg
+    positives, 2,040 updates of V rows on the f32 route; the per-pair
+    scan over the prefix's vocabulary on the bf16 route, syn0's 2,040
+    updates and syn1neg's 2,040 x (1 + k)), where 301 columns take two
+    column blocks of the kernel's pass 1. Timed at (a)'s syn1 shape beside
+    its bytes bound and the plain version (no single PyTorch call
+    computes the update; index_put_(accumulate=True), the library's
+    deterministic sum alone, is logged)."""
+    idx, upd, w, table, depth = _segment_case(v, p, window, d, 41)
+    err, scale, same = _update_err(idx, upd, w, table, False)
+    hot = int(torch.bincount(idx).max())
+    c0 = torch.from_numpy(np.random.default_rng(42).integers(
+        0, 3000, p * 2 * window)).cuda()
+    err0, scale0, same0 = _update_err(c0, upd[:len(c0)], w[:len(c0)],
+                                      table[:3000], True)
+    n_pairs, v_pre = p * 2 * window, _prefix_vocab()
+    g = torch.Generator(device="cuda").manual_seed(43)
+    wide = []
+    for what, rows, n_upd, power, bf16 in (
+            ("NS scan syn0 / syn1neg positives", v, n_pairs, 1.0, False),
+            ("per-pair syn0", v_pre, n_pairs, 1.0, True),
+            ("per-pair syn1neg", v_pre, n_pairs * (1 + k), 0.75, True)):
+        i = _zipf_rows(rows, n_upd, 44 + len(wide), power)
+        u = torch.randn(n_upd, d_ns, generator=g, device="cuda") * 0.01
+        wt = (torch.rand(n_upd, generator=g, device="cuda") > 0.1).float()
+        tab = torch.randn(rows, d_ns, generator=g, device="cuda") * 0.01
+        route = segment_route(rows, n_upd)
+        if route != ("onehot" if bf16 else "scatter"):
+            raise AssertionError(f"{what}: route {route} at {rows} rows")
+        wide.append((what, rows, n_upd, route) +
+                    _update_err(i, u, wt, tab, bf16))
+    ms = time_ms(lambda: sgk.segment_update(table, idx, upd, w, 0.025,
+                                            False))
+    plain_ms = time_ms(lambda: sgk.segment_update_plain(table, idx, upd, w,
+                                                        0.025, False))
+    u = torch.cat([upd, w[:, None]], dim=1)
+    put_ms = time_ms(lambda: torch.zeros(v - 1, d + 1, device="cuda")
+                     .index_put_((idx,), u, accumulate=True))
+    n, touched = idx.shape[0], int(torch.unique(idx).numel())
+    bytes_ = n * (d + 1) * 4 + n * 8 + 2 * touched * d * 4
+    bound_ms = max(bytes_ / HBM_BYTES_PER_S, 3 * n * d / F32_FLOPS) * 1e3
+    log(f"segment_update N={n} (Huffman depth {depth}, the hottest row "
+        f"{hot} times, {touched} rows named) rows={v - 1} D={d} f32 route: "
+        f"max-abs {err:.3e} against the plain version (tol "
+        f"{SEGMENT_UPDATE_TOL} x the largest change {scale:.3e}), bitwise "
+        f"over two calls {same}; bf16 route (N={len(c0)}, 3000 rows) "
+        f"max-abs {err0:.3e} (of {scale0:.3e}), bitwise {same0}; D={d_ns}: "
+        + "; ".join(f"{what} N={n_upd} rows={rows} {route} max-abs "
+                    f"{e:.3e} (of {sc:.3e}), bitwise {b}"
+                    for what, rows, n_upd, route, e, sc, b in wide) +
+        f" | kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_us "
+        f"{bound_ms * 1e3:.1f} (bytes); index_put_(accumulate=True) of the "
+        f"sums alone {put_ms:.4f} ms")
+    cases = [(err, scale, same), (err0, scale0, same0)] + \
+        [c[4:] for c in wide]
+    if not all(b and e <= SEGMENT_UPDATE_TOL * sc for e, sc, b in cases):
+        raise AssertionError("segment_update disagrees with its plain "
+                             "version or is not reproducible")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 # ----------------------------------------------------------------- phase 4
@@ -6279,6 +6457,618 @@ def phase_data_and_keras(card, device=None, shapes=None):
     return total
 
 
+# ---------------------------------------------------------------- phase 17
+NLP_LIMIT_S = 120
+#: phase 17's shapes. The corpus: a Zipf(1.0) vocabulary of 50,000 types
+#: in 20 topic blocks (the 100 most frequent types shared, every other
+#: type one topic's), sentences of 8-24 tokens. (a) and (c) take DL4J's
+#: Word2VecRawTextExample settings (layer 100, window 5, min count 5,
+#: seed 42, HS, one epoch), (b) GoogleNews's width 300 with 5 negatives;
+#: (d) dl4j-examples' Word2VecSentimentRNN shape (batch 64, sequences cut
+#: at 256 steps, GravesLSTM 256, a 2-way mcxent head); (e) DeepWalk at
+#: the paper's d 128, window 10, walk length 40 on a planted-community
+#: graph of BlogCatalog's size (10,312 vertices, 333,983 edges, 39
+#: groups), the walks per vertex cut from the paper's 80 to fit the limit
+NLP_SHAPES = {"vocab": 50000, "common": 100, "topics": 20,
+              "tokens": 2_000_000, "prefix": 200_000, "sent": (8, 24),
+              "width": 100, "window": 5, "min_count": 5, "ns_width": 300,
+              "negative": 5, "lstm_h": 256, "lstm_b": 64, "lstm_t": 256,
+              "lstm_batches": 3, "lstm_epochs": 2, "pv_docs": 2000,
+              "pv_len": 100, "pv_heldout": 100, "pv_epochs": 5,
+              "glove_epochs": 5, "dw_vertices": 10312, "dw_edges": 333983,
+              "dw_groups": 39, "dw_width": 128, "dw_window": 10,
+              "dw_walk": 40, "dw_walks": 2, "profile_steps": 64}
+#: relative L2 of the change the card's HS per-batch fit makes to syn0 /
+#: syn1 against the change the same fit makes on the CPU's plain path,
+#: with the segment update forced onto its f32 (scatter) route: both sum
+#: the same f32 products in other orders, carried through hundreds of
+#: dependent batches. scripts/torch_w2v_parity_faults.py reads the sound
+#: card path at 1.357e-06 / 2.216e-07 and a card path that rounds the
+#: values to bf16 on this route at 9.442e-04 / 1.573e-03
+NLP_CPU_TOL = 3e-5
+#: the same on the one-hot route the prefix's vocabulary takes: each
+#: update is rounded to bf16 there, so an f32 difference between the two
+#: devices can flip a rounding by one bf16 unit. The script reads the
+#: sound card path at 2.665e-04 / 4.523e-04 and a card path that skips
+#: the bf16 rounding at 8.550e-04 / 1.346e-03 (dividing by the weight
+#: instead of its square root: 0.998 / 0.974)
+NLP_CPU_BF16_TOL = 7.5e-4
+#: tokens of the prefix the f32-route comparison fits (the CPU side of the
+#: 200,000-token comparison takes ~12 s on the card's host)
+NLP_F32_ROUTE_TOKENS = 50_000
+#: max-abs of the text word-vector / graph-vector files against the
+#: tables: six decimals (half a unit of the sixth, 5e-7), then the f32
+#: rounding of the value read back
+NLP_TXT_TOL = 1e-6
+
+
+def _topic_tokens(rng, s, n_tokens, topics=None):
+    """``n_tokens`` token ids in sentences of s["sent"] tokens: each
+    sentence one topic (drawn from ``topics``, default all), its tokens
+    Zipf(1.0) ranks over the vocabulary with every rank past the shared
+    ones moved into that topic's block (so each type keeps its rank's
+    frequency and belongs to one topic). Returns (sentences as id
+    arrays, their topics)."""
+    V, C, T = s["vocab"], s["common"], s["topics"]
+    cdf = np.cumsum(1.0 / np.arange(1, V + 1))
+    lo, hi = s["sent"]
+    lens = rng.integers(lo, hi + 1, n_tokens // lo + 1)
+    lens = lens[:np.searchsorted(np.cumsum(lens), n_tokens) + 1]
+    pool = np.asarray(topics if topics is not None else np.arange(T))
+    topic = pool[rng.integers(0, len(pool), len(lens))]
+    ranks = np.minimum(np.searchsorted(cdf, rng.random(int(lens.sum())) *
+                                       cdf[-1]), V - 1)
+    tok_topic = np.repeat(topic, lens)
+    ids = np.where(ranks < C, ranks,
+                   C + T * ((ranks - C) // T) + tok_topic)
+    return np.split(ids, np.cumsum(lens)[:-1]), topic
+
+
+def nlp_corpus(s):
+    """Phase 17's corpus from the seed: (the sentences as word lists, its
+    first ``s["prefix"]`` tokens' sentences)."""
+    sents, _ = _topic_tokens(np.random.default_rng(42), s, s["tokens"])
+    seqs = _as_words(sents)
+    n, prefix = 0, []
+    for x in seqs:
+        if n >= s["prefix"]:
+            break
+        prefix.append(x)
+        n += len(x)
+    return seqs, prefix
+
+
+def _as_words(sentences):
+    return [[f"w{i}" for i in sent.tolist()] for sent in sentences]
+
+
+def _topic_words(s, topic, n):
+    """The ``n`` most frequent content words of ``topic``."""
+    return [f"w{s['common'] + s['topics'] * g + topic}" for g in range(n)]
+
+
+def _topic_bar(sim, s, n_topics=5, n_words=10):
+    """Mean cosine of word pairs within a topic and across topics, over
+    the ``n_words`` most frequent content words of ``n_topics`` topics
+    (tests/test_nlp_graph.py's in-topic over cross-topic bar)."""
+    words = [_topic_words(s, k, n_words) for k in range(n_topics)]
+    intra = [sim(a, b) for ws in words for i, a in enumerate(ws)
+             for b in ws[i + 1:]]
+    inter = [sim(a, b) for k, ws in enumerate(words)
+             for other in words[k + 1:] for a in ws for b in other]
+    intra, inter = np.nanmean(intra), np.nanmean(inter)
+    return float(intra), float(inter)
+
+
+def _nlp_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nlp_profile(card, dev, fn, steps, what):
+    """Busy share and launches a step of ``steps`` scan steps (``fn``) on
+    the card ((None, None) on the CPU), and the segment-update launches
+    the profiled run made (not the path's: they are not counted)."""
+    before = sgk.segment_update.launches
+    if dev.type != "cuda":
+        fn()
+        return None, None, sgk.segment_update.launches - before
+    rows, busy, wall, _ = profile_step(fn, what)
+    return (busy / wall, sum(n for _, _, n in rows) / steps,
+            sgk.segment_update.launches - before)
+
+
+def _w2v(dev, s, **kw):
+    b = (Word2Vec.Builder().layer_size(kw.pop("width", s["width"]))
+         .window_size(s["window"]).min_word_frequency(s["min_count"])
+         .seed(42).epochs(1).device(dev))
+    for k, v in kw.items():
+        getattr(b, k)(v)
+    return b.build()
+
+
+def _timed_fit(model, seqs, dev):
+    _nlp_sync(dev)
+    t0 = time.perf_counter()
+    model.fit(seqs)
+    _nlp_sync(dev)
+    return time.perf_counter() - t0
+
+
+def _scan_segment(model, seqs, steps):
+    """The first ``steps`` scan steps of ``model``'s fit over ``seqs`` —
+    the same indexed corpus, its sentence breaks included, and the same
+    step seeds — on copies of its tables (the profiled window; the model
+    is untouched)."""
+    from deeplearning4j_tpu_torch.nlp.sequence_vectors import _stage_corpus
+    lt, w = model.lookup, model.window
+    p = max(32, model.batch_size // (2 * w))
+    need, n, head = steps * p, 0, []
+    for x in seqs:                      # enough sentences for the window
+        if n >= 2 * need:
+            break
+        head.append(x)
+        n += len(x) + 1
+    corpus = next(model._index_chunks(head))[:need]
+    padded = np.full((need + 2 * w,), -1, np.int32)
+    padded[w:w + len(corpus)] = corpus
+    corpus, sep = _stage_corpus(padded, model.device)
+    key = fold_in(model.seed, 0)
+    syn0 = lt.syn0.clone()
+    if model.negative > 0:
+        out = lt.syn1neg.clone()
+        return lambda: skipgram_ns_corpus_scan(
+            syn0, out, corpus, sep, model._neg_table_dev, key, 0, 0.025,
+            1e-4, 0.0, 1e-6, k=model.negative, window=w, n_steps=steps,
+            p=p, shared_negatives=model.shared_negatives)
+    out = lt.syn1.clone()
+    return lambda: skipgram_hs_corpus_scan(
+        syn0, out, corpus, sep, model._codes, model._points,
+        model._lengths, key, 0, 0.025, 1e-4, 0.0, 1e-6, window=w,
+        n_steps=steps, p=p)
+
+
+def _nlp_scans(card, dev, s, seqs, prefix):
+    """(a) the HS corpus scan, (b) the NS scans. Returns (the 300-wide
+    model of (b), the segment-update launches of the profiled runs)."""
+    w = _w2v(dev, s)
+    t0 = time.perf_counter()
+    w.build_vocab(seqs)
+    vocab_s = time.perf_counter() - t0
+    V = len(w.vocab)
+    p = max(32, w.batch_size // (2 * w.window))
+    L = int(w._codes.shape[1])
+    ntok = sum(len(x) for x in seqs)
+    # the scan's steps: in-vocabulary tokens and a separator a sentence,
+    # p centers a step; two segment updates a step
+    n = sum(1 for x in seqs for t in x if t in w.vocab) + len(seqs)
+    steps = -(-n // p)
+    before = sgk.segment_update.launches
+    wall = _timed_fit(w, seqs, dev)
+    seg = sgk.segment_update.launches - before
+    intra, inter = _topic_bar(w.similarity, s)
+    busy, per_step, excluded = _nlp_profile(card, dev, _scan_segment(
+        w, seqs, s["profile_steps"]), s["profile_steps"], "HS scan segment")
+    routes = (segment_route(V, p * 2 * w.window),
+              segment_route(V - 1, p * 2 * w.window * L))
+    log(f"nlp (a) HS corpus scan, layer {s['width']}, window "
+        f"{s['window']}, min count {s['min_count']} [{card}]: {ntok} tokens,"
+        f" V {V} after min count (of {s['vocab']}), Huffman depth {L}, "
+        f"wire {'int16' if V < 2 ** 15 else 'int32'}, {p} centers a step; "
+        f"segment routes syn0 {routes[0]}, syn1 {routes[1]}; vocab "
+        f"{vocab_s:.2f}s, fit {wall:.2f}s = {ntok / wall:.0f} tokens/s, "
+        f"loss {w._last_loss:.4f}; busy share {busy} over "
+        f"{s['profile_steps']} steps, {per_step} launches a step; "
+        f"segment_update launches {seg} (predicted 2 x {steps} steps); "
+        f"in-topic cosine {intra:.4f} vs cross-topic {inter:.4f}")
+    if not (np.isfinite(w._last_loss) and intra > inter):
+        raise AssertionError("the HS scan's vectors miss the topic bar")
+    if dev.type == "cuda" and seg != 2 * steps:
+        raise AssertionError(f"segment_update launched {seg} times in the HS "
+                             f"scan, predicted {2 * steps}")
+    ns = _w2v(dev, s, width=s["ns_width"], negative_sample=s["negative"])
+    ns.build_vocab(seqs)
+    wall = _timed_fit(ns, seqs, dev)
+    intra, inter = _topic_bar(ns.similarity, s)
+    busy, per_step, more = _nlp_profile(card, dev, _scan_segment(
+        ns, seqs, s["profile_steps"]), s["profile_steps"], "NS scan segment")
+    excluded += more
+    pp = _w2v(dev, s, width=s["ns_width"], negative_sample=s["negative"],
+              shared_negatives=False)
+    npre = sum(len(x) for x in prefix)
+    pwall = _timed_fit(pp, prefix, dev)
+    pintra, pinter = _topic_bar(pp.similarity, s)
+    B = p * 2 * ns.window
+    log(f"nlp (b) NS corpus scan, layer {s['ns_width']}, {s['negative']} "
+        f"negatives [{card}]: shared negatives over {ntok} tokens "
+        f"{wall:.2f}s = {ntok / wall:.0f} tokens/s, loss "
+        f"{ns._last_loss:.4f}, busy share {busy}, {per_step} launches a "
+        f"step, routes syn0 {segment_route(V, B)} syn1neg "
+        f"{segment_route(V, B)}; topic cosine {intra:.4f} vs {inter:.4f}; "
+        f"per-pair negatives over the {npre}-token prefix {pwall:.2f}s = "
+        f"{npre / pwall:.0f} tokens/s (syn1neg route "
+        f"{segment_route(len(pp.vocab), B * (1 + s['negative']))}), topic "
+        f"cosine {pintra:.4f} vs {pinter:.4f}")
+    if not (np.isfinite(ns._last_loss) and np.isfinite(pp._last_loss)):
+        raise AssertionError("an NS scan's loss is not finite")
+    return ns, excluded
+
+
+def _hs_batch_fit(dev, s, seqs):
+    """The HS per-batch fit of ``seqs`` on ``dev``: (model, wall s, its
+    syn0 at init on the host)."""
+    m = _w2v(dev, s, scan_min_tokens=10 ** 12)
+    m.build_vocab(seqs)
+    init = m.lookup.syn0.to("cpu", copy=True)
+    return m, _timed_fit(m, seqs, dev), init
+
+
+def _table_errs(got, want, init):
+    """syn0 / syn1 rel-L2 of ``got``'s change to its tables against
+    ``want``'s (both start from the same numpy draws, ``init``; syn1 from
+    zeros)."""
+    return [_rel_l2(getattr(got.lookup, k).cpu().double() - base,
+                    getattr(want.lookup, k).double() - base)
+            for k, base in (("syn0", init.double()), ("syn1", 0.0))]
+
+
+def _nlp_card_runs(dev, s, prefix):
+    """(c)'s runs on the card: the seeded NS scan twice over the prefix
+    and the HS per-batch fit. Returns (whether the two scans' syn0 are
+    bitwise equal, the per-batch model, its wall s)."""
+    runs = []
+    for _ in range(2):
+        m = _w2v(dev, s, width=s["ns_width"], negative_sample=s["negative"])
+        m.fit(prefix)
+        runs.append(m.lookup.syn0)
+    same = bool(torch.equal(runs[0], runs[1]))
+    del runs
+    return (same,) + _hs_batch_fit(dev, s, prefix)[:2]
+
+
+def _nlp_parity(card, dev, s, prefix, cpu_fit, same, card_m, card_s):
+    """(c) the seeded NS scan's reruns (``same``), the card's HS per-batch
+    fit (``card_m``, ``card_s`` s) against the CPU's plain path
+    (``cpu_fit``: a future of that fit, started when (c) began), on the
+    segment update's route for the prefix's vocabulary, then both forced
+    onto its f32 route over a shorter prefix."""
+    t0 = time.perf_counter()
+    cpu_m, cpu_s, init, cpu_end = cpu_fit.result()
+    wait_s = time.perf_counter() - t0
+    errs = _table_errs(card_m, cpu_m, init)
+    V = len(card_m.vocab)
+    route = (segment_route(V, card_m.batch_size),
+             segment_route(V - 1, card_m.batch_size *
+                           int(card_m._codes.shape[1])))
+    n, short = 0, []
+    for x in prefix:
+        if n >= NLP_F32_ROUTE_TOKENS:
+            break
+        short.append(x)
+        n += len(x)
+    saved = psg.ONEHOT_SEGMENT_MAX_V
+    psg.ONEHOT_SEGMENT_MAX_V = 0            # every table on the f32 route
+    try:
+        f32 = [_hs_batch_fit(d, s, short)
+               for d in (dev, torch.device("cpu"))]
+    finally:
+        psg.ONEHOT_SEGMENT_MAX_V = saved
+    f32_errs = _table_errs(f32[0][0], f32[1][0], f32[1][2])
+    tol = NLP_CPU_BF16_TOL if "onehot" in route else NLP_CPU_TOL
+    log(f"nlp (c) determinism and parity [{card}]: the seeded NS scan "
+        f"(layer {s['ns_width']}) twice over the prefix: syn0 bitwise "
+        f"equal {same}; the HS per-batch fit (layer {s['width']}, routes "
+        f"syn0 {route[0]}, syn1 {route[1]}) on {dev} {card_s:.2f}s (beside "
+        f"the CPU side's thread) vs the CPU's plain path {cpu_s:.2f}s (in a "
+        f"thread beside (c)'s card runs and (d), done {cpu_end:.2f}s into "
+        f"the phase; "
+        f"waited {wait_s:.2f}s): rel-L2 of the change to syn0 / syn1 "
+        f"{errs[0]:.3e} / {errs[1]:.3e} (tol {tol:.3e}); on the f32 route "
+        f"over the first {n} tokens ({f32[0][1]:.2f}s / {f32[1][1]:.2f}s): "
+        f"{f32_errs[0]:.3e} / {f32_errs[1]:.3e} (tol {NLP_CPU_TOL:.3e})")
+    if not same:
+        raise AssertionError("the seeded NS scan is not reproducible")
+    if not (max(errs) <= tol and max(f32_errs) <= NLP_CPU_TOL):
+        raise AssertionError("the HS per-batch fit disagrees with the CPU")
+
+
+def _nlp_lstm(card, dev, s, vectors, on_card):
+    """(d) word vectors into B6: masked sequences from
+    Word2VecDataSetIterator through GravesLSTM → RnnOutputLayer, f32 and
+    bf16. Returns B6's launches on the path."""
+    rng = np.random.default_rng(17)
+    n = s["lstm_b"] * s["lstm_batches"]
+    docs, topic = [], rng.integers(0, 2, n)
+    for k in topic:
+        sents, _ = _topic_tokens(rng, s, int(rng.integers(
+            s["lstm_t"] * 3 // 4, s["lstm_t"] * 3 // 2)), topics=[k])
+        docs.append(" ".join(f"w{i}" for i in np.concatenate(sents)))
+    labelled = [(d, ("positive", "negative")[k]) for d, k in zip(docs, topic)]
+    # (b)'s vectors scaled to unit length (DL4J's normalized word-vector
+    # matrix): the NS scan leaves them near their init scale, 1/300, where
+    # the LSTM's input projection sees almost nothing
+    syn0 = vectors.lookup.host_syn0()
+    unit = StaticWord2Vec(vectors.vocab, syn0 / np.maximum(
+        np.linalg.norm(syn0, axis=1, keepdims=True), 1e-12))
+    unit.vector_length = syn0.shape[1]
+    it = Word2VecDataSetIterator(unit, labelled, ["positive", "negative"],
+                                 batch_size=s["lstm_b"],
+                                 max_length=s["lstm_t"])
+    t0 = time.perf_counter()
+    batches = list(it)
+    it_s = time.perf_counter() - t0
+    ds0 = batches[0]
+    conf = (NeuralNetConfiguration.Builder().seed(3).learning_rate(2e-3)
+            .updater("adam").l2(1e-5).weight_init("xavier")
+            .gradient_normalization("ClipElementWiseAbsoluteValue")
+            .gradient_normalization_threshold(1.0).list()
+            .layer(GravesLSTM(n_out=s["lstm_h"], activation="tanh"))
+            .layer(RnnOutputLayer(n_out=2, loss="mcxent",
+                                  activation="softmax"))
+            .set_input_type(InputType.recurrent(s["ns_width"])).build())
+    launches, report = 0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        net = MultiLayerNetwork(conf, compute_dtype=dtype,
+                                device=dev).init()
+        first = net.score(ds0)
+        before = lk.lstm_recurrence_fwd.launches
+        losses, wall = [], 0.0
+        for _ in range(s["lstm_epochs"]):
+            got, w_s = _nlp_steps(net, batches)
+            losses += got
+            wall += w_s
+        launched = lk.lstm_recurrence_fwd.launches - before
+        launches += launched
+        last = net.score(ds0)
+        steps = s["lstm_epochs"] * len(batches)
+        err = _nlp_b6_check(net, ds0, dtype, dev)
+        report.append(f"{str(dtype)[6:]}: the first batch's loss {first:.4f}"
+                      f" -> {last:.4f} after {steps} steps (losses "
+                      f"{[round(x, 4) for x in losses]}), "
+                      f"{wall / steps * 1e3:.1f} ms a step (beside (c)'s "
+                      f"CPU thread), B6 {launched} "
+                      f"launches in {steps} steps, masked B6 against "
+                      f"lstm_recurrence_plain max-abs {err:.3e} (tol "
+                      f"{LSTM_TOL[dtype]})")
+        if on_card and launched != steps:
+            raise AssertionError(f"B6 launched {launched} times in {steps} "
+                                 "steps, expected one a step")
+        if not (np.isfinite(losses).all() and last < first):
+            raise AssertionError(f"the LSTM's loss does not fall: "
+                                 f"{report[-1]}")
+        if not err <= LSTM_TOL[dtype]:
+            raise AssertionError("B6 disagrees with the plain recurrence")
+    T = ds0.features.shape[1]
+    fill = float(np.mean([b.features_mask.mean() for b in batches]))
+    log(f"nlp (d) Word2VecDataSetIterator -> GravesLSTM({s['lstm_h']}) -> "
+        f"RnnOutputLayer(2, mcxent) [{card}]: {len(batches)} batches of "
+        f"{s['lstm_b']} x T {T} x F {s['ns_width']} built in {it_s:.2f}s, "
+        f"mask fill {fill:.3f}; " + "; ".join(report))
+    return launches
+
+
+def _nlp_steps(net, batches):
+    """One epoch of fit steps over ``batches``: (losses, wall s)."""
+    _nlp_sync(net.device)
+    t0 = time.perf_counter()
+    losses = []
+    for ds in batches:
+        net.fit(ds)
+        losses.append(net.score_value)
+    _nlp_sync(net.device)
+    return [float(v) for v in losses], time.perf_counter() - t0
+
+
+def _nlp_b6_check(net, ds, dtype, dev):
+    """B6 on the first batch's masked sequences, with the trained layer's
+    weights, against lstm_recurrence_plain on the same inputs: max-abs of
+    y, hT and cT (on the CPU both are the plain version)."""
+    layer, params = net.layers[0], net.params[0]
+    x = torch.from_numpy(ds.features).to(dev, dtype)
+    n, t, _ = x.shape
+    h = layer.n_out
+    W, R, b = (params[k].to(dtype) for k in ("W", "R", "b"))
+    peep = tuple(params[k].to(dtype) for k in ("pi", "pf", "po"))
+    xw_t = ((x.reshape(n * t, -1) @ W).reshape(n, t, 4 * h) +
+            b).transpose(0, 1)
+    mask_t = torch.from_numpy(ds.features_mask).to(dev, dtype).T
+    zeros = torch.zeros((n, h), dtype=dtype, device=dev)
+    args = (xw_t, R, zeros, zeros, peep, mask_t)
+    got = lk.lstm_recurrence_fwd(*args)
+    want = lk.lstm_recurrence_plain(*args, get_activation("sigmoid"),
+                                    get_activation("tanh"))
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def _planted_graph(s, rng):
+    """BlogCatalog's size as a planted partition: vertex v in group
+    v mod groups, 80% of the edges inside a group."""
+    nv, ne, k = s["dw_vertices"], s["dw_edges"], s["dw_groups"]
+    g = Graph(nv)
+    u = rng.integers(0, nv, ne)
+    inside = rng.random(ne) < 0.8
+    same = (u % k) + k * rng.integers(0, (nv - 1 - u % k) // k + 1, ne)
+    v = np.where(inside, same, rng.integers(0, nv, ne))
+    keep = u != v
+    for a, b in zip(u[keep].tolist(), v[keep].tolist()):
+        g.add_edge(a, b)
+    return g, int(keep.sum())
+
+
+def _nlp_embeddings(card, dev, s, prefix, tmp):
+    """(e) ParagraphVectors DBOW with infer_vector, GloVe, DeepWalk.
+    Returns the DeepWalk model."""
+    rng = np.random.default_rng(23)
+    T = s["topics"]
+    docs, labels = [], []
+    for i in range(s["pv_docs"] + s["pv_heldout"]):
+        k = i % T
+        sents, _ = _topic_tokens(rng, s, s["pv_len"], topics=[k])
+        docs.append((f"doc{i}", _as_words([np.concatenate(sents)])[0]))
+        labels.append(k)
+    train, held = docs[:s["pv_docs"]], docs[s["pv_docs"]:]
+    pv = ParagraphVectors(vector_length=s["width"], epochs=s["pv_epochs"],
+                          min_word_frequency=s["min_count"], seed=42,
+                          device=dev)
+    _nlp_sync(dev)
+    t0 = time.perf_counter()
+    pv.fit_documents(train)
+    _nlp_sync(dev)
+    pv_s = time.perf_counter() - t0
+    dv = pv.doc_vectors.float().cpu().numpy()
+    dv /= np.linalg.norm(dv, axis=1, keepdims=True)
+    cents = np.stack([dv[np.array(labels[:len(train)]) == k].mean(0)
+                      for k in range(T)])
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    inferred = np.stack([pv.infer_vector(toks) for _, toks in held])
+    infer_s = time.perf_counter() - t0
+    pred = np.argmax(inferred @ cents.T, axis=1)
+    acc = float(np.mean(pred == np.array(labels[len(train):])))
+    log(f"nlp (e) ParagraphVectors DBOW, layer {s['width']}, "
+        f"{len(train)} documents of {s['pv_len']} tokens, {s['pv_epochs']} "
+        f"epochs [{card}]: fit {pv_s:.2f}s; infer_vector on "
+        f"{len(held)} held-out documents {infer_s:.2f}s; their topic by "
+        f"the nearest training centroid: accuracy {acc:.3f} (chance "
+        f"{1 / T:.3f}, bar {3 / T:.3f})")
+    if not acc >= 3 / T:
+        raise AssertionError("inferred vectors miss the topic bar")
+    glove = Glove(vector_length=s["width"], window=s["window"],
+                  min_word_frequency=s["min_count"],
+                  epochs=s["glove_epochs"], seed=42, device=dev)
+    _nlp_sync(dev)
+    t0 = time.perf_counter()
+    glove.fit(prefix)
+    _nlp_sync(dev)
+    glove_s = time.perf_counter() - t0
+    intra, inter = _topic_bar(glove.similarity, s)
+    log(f"nlp (e) GloVe, layer {s['width']}, window {s['window']}, "
+        f"{s['glove_epochs']} epochs over the prefix [{card}]: "
+        f"{glove_s:.2f}s (co-occurrence on the host included), loss "
+        f"{glove._last_loss:.4f}, topic cosine {intra:.4f} vs "
+        f"{inter:.4f}")
+    if not (np.isfinite(glove._last_loss) and intra > inter):
+        raise AssertionError("GloVe misses the topic bar")
+    t0 = time.perf_counter()
+    graph, edges = _planted_graph(s, rng)
+    graph_s = time.perf_counter() - t0
+    dw = DeepWalk(vector_size=s["dw_width"], window=s["dw_window"],
+                  seed=42, device=dev)
+    _nlp_sync(dev)
+    t0 = time.perf_counter()
+    dw.fit(graph, walk_length=s["dw_walk"], walks_per_vertex=s["dw_walks"])
+    _nlp_sync(dev)
+    dw_s = time.perf_counter() - t0
+    vv = dw.vertex_vectors.cpu().numpy()
+    vv = vv / np.linalg.norm(vv, axis=1, keepdims=True)
+    a, b = rng.integers(0, s["dw_vertices"], (2, 4000))
+    k = s["dw_groups"]
+    cos = np.sum(vv[a] * vv[b], axis=1)
+    intra = float(cos[(a % k == b % k) & (a != b)].mean())
+    inter = float(cos[a % k != b % k].mean())
+    log(f"nlp (e) DeepWalk d {s['dw_width']}, window {s['dw_window']}, walk "
+        f"length {s['dw_walk']}, {s['dw_walks']} walks a vertex (the "
+        f"paper's 80 cut to fit the phase's limit) on {s['dw_vertices']} "
+        f"vertices, {edges} edges, {k} planted groups [{card}]: graph "
+        f"{graph_s:.2f}s, fit {dw_s:.2f}s (walks on the host included); "
+        f"in-group cosine {intra:.4f} vs across {inter:.4f}")
+    if not intra > inter:
+        raise AssertionError("DeepWalk misses the community bar")
+    return dw
+
+
+def _nlp_files(card, model, dw, tmp):
+    """(f) the text and binary word-vector files and the graph-vector
+    file, written from the card's tables and read back."""
+    syn0 = model.lookup.syn0.cpu().numpy()
+    t0 = time.perf_counter()
+    WordVectorSerializer.write_word_vectors(model, tmp / "w2v.txt")
+    WordVectorSerializer.write_word_vectors_binary(model, tmp / "w2v.npz")
+    GraphVectorSerializer.write_graph_vectors(dw, tmp / "graph.txt")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vocab, txt = WordVectorSerializer.load_txt_vectors(tmp / "w2v.txt")
+    static = StaticWord2Vec.load(tmp / "w2v.npz")
+    graph = GraphVectorSerializer.load_graph_vectors(tmp / "graph.txt")
+    read_s = time.perf_counter() - t0
+    txt_err = float(np.abs(txt - syn0).max())
+    same = vocab.index2word == model.vocab.index2word and \
+        static.vocab.index2word == model.vocab.index2word and \
+        np.array_equal(static.vectors, syn0)
+    graph_err = float(np.abs(graph - dw.vertex_vectors.cpu().numpy()).max())
+    log(f"nlp (f) serializers [{card}]: {syn0.shape[0]} x {syn0.shape[1]} "
+        f"word vectors and {graph.shape[0]} x {graph.shape[1]} graph "
+        f"vectors written {write_s:.2f}s, read {read_s:.2f}s; text max-abs "
+        f"{txt_err:.3e}, binary bitwise {same}, graph max-abs "
+        f"{graph_err:.3e} (tol {NLP_TXT_TOL})")
+    if not (same and txt_err <= NLP_TXT_TOL and graph_err <= NLP_TXT_TOL):
+        raise AssertionError("a vector file does not read back its table")
+
+
+def phase_nlp_graph(card, device=None, shapes=None):
+    """Phase 17: word embeddings and graph embeddings on the card (module
+    docstring). ``device`` / ``shapes`` let the phase be rehearsed on the
+    CPU at a small size. Returns its launches by counter (B6 only on the
+    path: the kernel checks' launches are not counted)."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = torch.device(device or "cuda:0")
+    s = dict(NLP_SHAPES, **(shapes or {}))
+    t0 = time.perf_counter()
+    seqs, prefix = nlp_corpus(s)
+    n = sum(len(x) for x in prefix)
+    log(f"nlp corpus: {sum(len(x) for x in seqs)} tokens in {len(seqs)} "
+        f"sentences, {len(prefix)} in the {n}-token prefix, made in "
+        f"{time.perf_counter() - t0:.2f}s")
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_phase17_"))
+    seg0 = sgk.segment_update.launches
+    threads = torch.get_num_threads()
+    pool = ThreadPoolExecutor(1)
+    try:
+        walls = [time.perf_counter()]
+        ns, excluded = _nlp_scans(card, dev, s, seqs, prefix)
+        walls.append(time.perf_counter())
+        # (c)'s CPU side runs in a thread beside (c)'s card runs and (d),
+        # on the host's other cores ((a) and (b) are timed with the host
+        # to themselves); it changes no module state: (c) waits for it
+        # before forcing the f32 route
+        torch.set_num_threads(max(1, threads - 2))
+        cpu_fit = pool.submit(
+            lambda: _hs_batch_fit(torch.device("cpu"), s, prefix) +
+            (time.perf_counter() - t_phase,))
+        same, hs_batch, card_s = _nlp_card_runs(dev, s, prefix)
+        walls.append(time.perf_counter())
+        b6 = _nlp_lstm(card, dev, s, ns, on_card)
+        del ns
+        walls.append(time.perf_counter())
+        _nlp_parity(card, dev, s, prefix, cpu_fit, same, hs_batch, card_s)
+        torch.set_num_threads(threads)
+        walls.append(time.perf_counter())
+        dw = _nlp_embeddings(card, dev, s, prefix, tmp)
+        walls.append(time.perf_counter())
+        _nlp_files(card, hs_batch, dw, tmp)
+        walls.append(time.perf_counter())
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        torch.set_num_threads(threads)
+        shutil.rmtree(tmp, ignore_errors=True)
+    seg = sgk.segment_update.launches - seg0 - excluded
+    wall = time.perf_counter() - t_phase
+    parts = dict(zip(("corpus", "a-b", "c on the card", "d",
+                      "c's comparison", "e", "f"),
+                     np.diff([t_phase] + walls).round(2).tolist()))
+    log(f"nlp and graph phase: B6 launches {b6}, segment_update launches "
+        f"{seg}; {wall:.1f}s wall (limit {NLP_LIMIT_S} s): seconds by part "
+        f"{parts}")
+    if wall > NLP_LIMIT_S:
+        raise AssertionError(f"the NLP and graph phase took {wall:.1f}s")
+    if on_card and not seg > 0:
+        raise AssertionError("the embedding trainers launched no "
+                             "segment_update")
+    return {"lstm_recurrence": b6, "segment_update": seg}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6311,12 +7101,14 @@ def main():
     dp = phase_data_parallel(card)
     mp = phase_model_parallel(card)
     dk = phase_data_and_keras(card)
+    nlp = phase_nlp_graph(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
         launches[name] = sum(src[name] + src[f"{name}.bwd"]
                              for src in (resnet, api, dk))
     launches["lstm_recurrence"] = lstm_train["lstm_recurrence"] + \
         api["lstm_recurrence"] + dp["lstm_recurrence"] + \
-        dk["lstm_recurrence"]
+        dk["lstm_recurrence"] + nlp["lstm_recurrence"]
+    launches["segment_update"] = nlp["segment_update"]
     launches["shortseq_attention"] += dp["shortseq_attention"]
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"] + \
         dp["shortseq_attention_bwd"]

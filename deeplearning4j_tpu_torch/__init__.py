@@ -26,6 +26,12 @@ module has an obvious counterpart there:
                  (``csrc/dataloader.cpp``, built with g++ at first use).
 - ``keras``    — Keras HDF5 import and export over the port's own HDF5
                  reader and writer, and the Keras backend server.
+- ``nlp``      — SequenceVectors / Word2Vec / ParagraphVectors / GloVe on
+                 the device (the tables' segment update a kernel on the
+                 card), word-vector files, and the text tier: tokenizers,
+                 CJK lattices, taggers, the tree parser, sentiment.
+- ``graph_embeddings`` — graphs, random walks, DeepWalk and graph-vector
+                 files.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

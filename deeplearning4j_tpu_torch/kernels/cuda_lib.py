@@ -54,6 +54,12 @@ ENTRIES = {
     # gdtype, variant, eps, stream), (dy, x, y, gamma, beta, mean, rstd, dx,
     # dres, dgb, scratch, plan, m, c, dtype, gdtype, variant, stream) and
     # (m, c, dtype, variant, plan*)
+    # (sidx, perm, updates, weights, partial, bounds, table, n, rows, d,
+    # lr, bf16, stream)
+    "segment_update": {"segment_update_f32": [ctypes.c_void_p] * 7 +
+                       [ctypes.c_longlong] * 2 +
+                       [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                        ctypes.c_void_p]},
     "batchnorm": {"batchnorm_fwd": [ctypes.c_void_p] * 9 +
                   [ctypes.c_longlong] + [ctypes.c_int] * 4 +
                   [ctypes.c_float, ctypes.c_void_p],

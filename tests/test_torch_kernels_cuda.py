@@ -32,7 +32,11 @@ the ring over B3 / B4 / B5 against the plain streaming ring, forward
 and gradients, with sp(sp+1)/2 (causal) or sp² pair launches, and a
 sequence-parallel LM step against a solo step. A Keras functional net
 imported on the card runs its BN -> add -> ReLU tail on the fused
-kernel and matches its CPU import.
+kernel and matches its CPU import. Word vectors trained on the card,
+made into masked sequences by ``Word2VecDataSetIterator``, launch B6 once
+a GravesLSTM forward and match the plain recurrence; the embedding
+tables' segment update on the card is bitwise reproducible on both of its
+numerics, and so is a seeded Word2Vec scan.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1646,3 +1650,145 @@ def test_keras_import_fuses_its_bn_add_relu_tail_on_card(cuda_device,
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+# ------------------------------------------------ word vectors into B6
+W2V_SENTENCES = ["the quick brown fox jumps over the lazy dog",
+                 "the lazy dog sleeps in the warm sun",
+                 "a quick red fox runs past the brown dog",
+                 "cats chase the quick mice in the barn",
+                 "the warm sun shines over the green field"] * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_word2vec_sequences_launch_b6_and_match_plain(cuda_device, dtype):
+    """Word vectors trained on the card, turned into masked [N, T, F]
+    sequences by Word2VecDataSetIterator (ragged sentences, so the mask
+    has holes at the tails), feed a GravesLSTM: its forward launches B6
+    once and matches lstm_recurrence_plain on the same inputs, and a fit
+    step launches it once more."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import (Word2Vec,
+                                              Word2VecDataSetIterator)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (GravesLSTM,
+                                                         RnnOutputLayer)
+    w2v = (Word2Vec.Builder().layer_size(16).window_size(3).epochs(4)
+           .min_word_frequency(1).seed(11).iterate(W2V_SENTENCES)
+           .device(cuda_device).build())
+    w2v.fit()
+    assert w2v.lookup.syn0.device.type == "cuda"
+    labelled = [(s, ("animal", "nature")[i % 2])
+                for i, s in enumerate(W2V_SENTENCES[:5] + [
+                    "the dog", "sun over the field", "fox"])]
+    ds = next(iter(Word2VecDataSetIterator(w2v, labelled,
+                                           ["animal", "nature"], 8)))
+    assert ds.features_mask.min() == 0.0        # ragged: a masked tail
+    conf = (NeuralNetConfiguration.Builder().seed(3).learning_rate(0.01)
+            .updater("adam").list()
+            .layer(GravesLSTM(n_out=32, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=2, loss="mcxent",
+                                  activation="softmax"))
+            .set_input_type(InputType.recurrent(16)).build())
+    net = MultiLayerNetwork(conf, compute_dtype=dtype,
+                            device=cuda_device).init()
+    layer, params = net.layers[0], net._cast_params(net.params)[0]
+    x = torch.from_numpy(ds.features).to(cuda_device, dtype)
+    mask = torch.from_numpy(ds.features_mask).to(cuda_device)
+    before = lk.lstm_recurrence_fwd.launches
+    y, st = layer.forward(params, {}, x, mask)
+    torch.cuda.synchronize()
+    assert lk.lstm_recurrence_fwd.launches == before + 1
+    n, t, _ = x.shape
+    xw_t = ((x.reshape(n * t, -1) @ params["W"]).reshape(n, t, 128) +
+            params["b"]).transpose(0, 1)
+    zeros = torch.zeros((n, 32), dtype=dtype, device=cuda_device)
+    want = lk.lstm_recurrence_plain(
+        xw_t, params["R"], zeros, zeros,
+        tuple(params[k] for k in ("pi", "pf", "po")), mask.to(dtype).T,
+        torch.sigmoid, torch.tanh)
+    for a, b in zip((y.transpose(0, 1), st["h"], st["c"]), want):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= LSTM_TOL[dtype]
+    net.fit(ds)
+    assert lk.lstm_recurrence_fwd.launches == before + 2
+    assert np.isfinite(float(net.score_value))
+
+
+@pytest.mark.parametrize("rows", [300, 40000], ids=["onehot", "scatter"])
+def test_segment_update_is_bitwise_reproducible_on_card(cuda_device, rows):
+    """The embedding tables' segment update on the card sums a Zipf-hot
+    index set (a few rows take most of the updates) in a fixed order:
+    bitwise equal over two calls, and equal to the CPU's within f32
+    order; a seeded Word2Vec scan with negatives drawn on the card gives
+    the same syn0 twice."""
+    from deeplearning4j_tpu_torch.kernels import segment_update as sgk
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.skipgram import (_segment_update,
+                                                       segment_route)
+    g = torch.Generator().manual_seed(rows)
+    b, d = 8192, 100
+    idx = torch.minimum((torch.rand(b, generator=g) ** 4 * rows).long(),
+                        torch.tensor(rows - 1))
+    upd = torch.randn(b, d, generator=g)
+    w = (torch.rand(b, generator=g) > 0.1).float()
+    table = torch.randn(rows, d, generator=g) * 0.1
+    assert segment_route(rows, b) == ("onehot" if rows == 300
+                                      else "scatter")
+    before = sgk.segment_update.launches
+    runs = [_segment_update(table.to(cuda_device), idx.to(cuda_device),
+                            upd.to(cuda_device), w.to(cuda_device), 0.025)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert sgk.segment_update.launches == before + 2
+    cpu = _segment_update(table.clone(), idx, upd, w, 0.025)
+    delta = runs[0].cpu() - table
+    assert _rel(delta, cpu - table) <= 1e-5
+    corpus = [f"tok{i % 50} tok{(i * 7) % 50} tok{(i * 3) % 50}".split()
+              for i in range(300)]
+    syn0 = [(Word2Vec.Builder().layer_size(16).window_size(2)
+             .negative_sample(5).epochs(1).seed(5).scan_min_tokens(0)
+             .device(cuda_device).build().fit(corpus).lookup.syn0)
+            for _ in range(2)]
+    assert torch.equal(syn0[0], syn0[1])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,rows,d", [(1, 1, 1), (31, 7, 33), (33, 7, 257),
+                                      (5000, 3, 8), (38760, 37165, 100),
+                                      (4096, 50, 300)])
+def test_segment_update_kernel_matches_plain_on_card(cuda_device, n, rows,
+                                                     d, bf16):
+    """The segment-update kernel against its plain version (index_add_
+    into a dense buffer, then the update): one row, runs across the
+    32-position tiles, more than 255 columns (a second column block), a
+    few rows taking thousands of entries, rows named by no index left
+    as they were, each value rounded to bf16 or not; bitwise equal over
+    two calls, one launch a call; a row named once changes exactly as
+    the plain version changes it."""
+    from deeplearning4j_tpu_torch.kernels import segment_update as sgk
+    g = torch.Generator().manual_seed(n + rows + d)
+    idx = torch.minimum((torch.rand(n, generator=g) ** 3 * rows).long(),
+                        torch.tensor(rows - 1)).to(cuda_device)
+    upd = torch.randn(n, d, generator=g).to(cuda_device)
+    w = (torch.rand(n, generator=g) > 0.2).float().to(cuda_device)
+    table = (torch.randn(rows, d, generator=g) * 0.1).to(cuda_device)
+    before = sgk.segment_update.launches
+    got = sgk.segment_update(table.clone(), idx, upd, w, 0.05, bf16)
+    again = sgk.segment_update(table.clone(), idx, upd, w, 0.05, bf16)
+    torch.cuda.synchronize()
+    assert sgk.segment_update.launches == before + 2
+    assert torch.equal(got, again)
+    want = sgk.segment_update_plain(table.cpu(), idx.cpu(), upd.cpu(),
+                                    w.cpu(), 0.05, bf16)
+    delta = want - table.cpu()
+    assert (got.cpu() - want).abs().max().item() <= \
+        1e-5 * max(delta.abs().max().item(), 1e-6)
+    counts = torch.bincount(idx.cpu(), minlength=rows)
+    assert torch.equal(got.cpu()[counts == 0], table.cpu()[counts == 0])
+    assert torch.equal(got.cpu()[counts == 1], want[counts == 1])
+    with pytest.raises(ValueError, match="f32"):
+        sgk.segment_update(table.double(), idx, upd, w, 0.05, bf16)

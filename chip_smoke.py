@@ -385,7 +385,25 @@ Phases, each an uncaught exception on failure:
    cosine above across). (f) (c)'s vectors as text and binary files and
    DeepWalk's as a graph-vector file, read back (max-abs NLP_TXT_TOL,
    the binary bitwise). Its B6 launches join the ``kernels`` line.
-18. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+18. clustering and the UI: (a) ``BarnesHutTsne`` at its defaults
+   (perplexity 30, 1000 iterations, 64 negatives) over phase 17's HS
+   syn0 at unit length, twice: bitwise equal, one segment-update launch
+   an iteration (the attractive sum), the kNN and iteration times, a
+   profiled window's launches and busy share, and the share of each
+   topic word's 10 nearest 2-D neighbours from its own topic
+   (TOPIC_2D_BAR) beside the same share in 100-D; (b) the exact route on
+   the 8,192 most frequent words (20 iterations after 300, card against
+   CPU, rel-L2 TSNE_EXACT_TOL) and the dense f64 ``Tsne`` on the 2,000
+   most frequent (50 iterations, TSNE_DENSE_TOL); (c) ``KMeansClustering``
+   (k 20) twice, bitwise, one cost readback an iteration, the CPU's
+   assignments on KMEANS_AGREE_BAR of the rows; (d) LeNet 8 steps under
+   ``StatsListener`` (readbacks counted) into sqlite with the flow and
+   convolutional listeners, ``UIServer`` serving the updates, a remote
+   push, the activation PNG and a ``profiler_trace`` with CUDA kernels;
+   (e) ``NormalizerStage`` + ``NetworkClassifier`` on the Iris data
+   (IRIS_ACC_BAR). Within CLUSTER_LIMIT_S; its segment-update launches
+   join the ``kernels`` line.
+19. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the ring (``parallel/sequence.py``'s ``_RingFlash``:
 causal bf16 q / k / v at phase 15's shapes, B 8 x T 512 at sp 4 and 2,
@@ -459,9 +477,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne,
+                                                 KMeansClustering, Tsne)
+from deeplearning4j_tpu_torch.clustering.bhtsne import _knn_chunked as bh_knn
+from deeplearning4j_tpu_torch.clustering.bhtsne import \
+    _iteration_exact as bh_iter_exact
+from deeplearning4j_tpu_torch.clustering.bhtsne import \
+    _iteration_ns as bh_iter_ns
 from deeplearning4j_tpu_torch.cluster import (
-    ClusterDl4jMultiLayer, DistributedDataSet,
-    ParameterAveragingTrainingMaster)
+    ClusterDl4jMultiLayer, DistributedDataSet, NetworkClassifier,
+    NormalizerStage, ParameterAveragingTrainingMaster, Pipeline)
 from deeplearning4j_tpu_torch.eval import Evaluation
 from deeplearning4j_tpu_torch.kernels import cuda_lib
 from deeplearning4j_tpu_torch.kernels.flash_backward import (
@@ -488,7 +513,8 @@ from deeplearning4j_tpu_torch.datasets import (AsyncDataSetIterator,
                                                ListDataSetIterator,
                                                MnistDataSetIterator,
                                                RecordReaderDataSetIterator)
-from deeplearning4j_tpu_torch.datasets.mnist import _read_idx
+from deeplearning4j_tpu_torch.datasets.mnist import (IrisDataSetIterator,
+                                                     _read_idx)
 from deeplearning4j_tpu_torch.datasets.mnist import \
     _synthetic as mnist_synthetic
 from deeplearning4j_tpu_torch.datasets.native_loader import (
@@ -530,8 +556,9 @@ from deeplearning4j_tpu_torch.nn.graph.vertices import LayerVertex
 from deeplearning4j_tpu_torch.observability import (IntegrityConfig,
                                                     NumericalFault)
 from deeplearning4j_tpu_torch.ops.activations import get_activation
-from deeplearning4j_tpu_torch.ops.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.ops.rng import fold_in
+from deeplearning4j_tpu_torch.ops.dataset import (DataSet, MultiDataSet,
+                                                  NormalizerStandardize)
+from deeplearning4j_tpu_torch.ops.rng import fold_in, generator
 from deeplearning4j_tpu_torch.ops.transfer import fetch_counts, fetch_shards
 from deeplearning4j_tpu_torch.parallel import (
     EarlyStoppingParallelTrainer, EngineSupervisor, ExpertParallelTrainer,
@@ -559,6 +586,11 @@ from deeplearning4j_tpu_torch.streaming import (BurnRateAutoscaler,
                                                 TcpBrokerServer,
                                                 create_broker)
 from deeplearning4j_tpu_torch.tools import chaos_soak
+from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener,
+                                         FlowIterationListener,
+                                         RemoteStatsRouter,
+                                         SqliteStatsStorage, StatsListener,
+                                         UIServer, profiler_trace)
 from deeplearning4j_tpu_torch.tools.bn_probe import device_ms
 from deeplearning4j_tpu_torch.utils import (ModelSerializer,
                                             graph_from_numpy,
@@ -1179,6 +1211,7 @@ def phase_kernel_checks():
     measured["lstm_recurrence"] = check_lstm_kernel()
     measured.update(check_bn_kernels())
     measured["segment_update"] = check_segment_update_kernel()
+    check_segment_update_tsne()
     measured["ring_attention"] = check_ring_kernels()
     measured["batchnorm_cross_shard"] = check_bn_cross_shard()
     rows = check_c4_variants()
@@ -1314,6 +1347,49 @@ def check_segment_update_kernel(v=37166, p=204, window=5, d=100,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
+def check_segment_update_tsne(n=37166, k=90):
+    """The segment update as phase 18's t-SNE attractive sum: width 2, a
+    zero table, zero weights and lr 1 (a segment sum) over 2·N·k edges
+    (each row k times as a source, then N·k kNN-like columns), against
+    its plain version and bitwise over two calls; timed beside its bytes
+    bound, the plain version, ``index_add_`` (the library's segment sum:
+    float atomics) and the wrapper's stable sort of the indices alone."""
+    g = torch.Generator(device="cuda").manual_seed(45)
+    rows = torch.arange(n, device="cuda").repeat_interleave(k)
+    src = torch.cat([rows, torch.randint(0, n, (n * k,), generator=g,
+                                         device="cuda")])
+    e = src.shape[0]
+    vals = torch.randn(e, 2, generator=g, device="cuda") * 1e-4
+    zero = torch.zeros(e, device="cuda")
+    upd = lambda: sgk.segment_update(torch.zeros(n, 2, device="cuda"), src,
+                                     vals, zero, 1.0, False)
+    got, again = upd(), upd()
+    want = sgk.segment_update_plain(torch.zeros(n, 2, device="cuda"), src,
+                                    vals, zero, 1.0, False)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    same = bool(torch.equal(got, again))
+    ms = time_ms(upd)
+    plain_ms = time_ms(lambda: sgk.segment_update_plain(
+        torch.zeros(n, 2, device="cuda"), src, vals, zero, 1.0, False))
+    add_ms = time_ms(lambda: torch.zeros(n, 2, device="cuda").index_add_(
+        0, src, vals))
+    sort_ms = time_ms(lambda: torch.sort(src, stable=True))
+    bytes_ = e * 3 * 4 + e * 8 + 2 * n * 2 * 4
+    bound_ms = max(bytes_ / HBM_BYTES_PER_S, 3 * e * 2 / F32_FLOPS) * 1e3
+    log(f"segment_update as the t-SNE segment sum (D=2, N={e} = 2 x {n} x "
+        f"{k}, rows={n}): max-abs {err:.3e} against the plain version (tol "
+        f"{SEGMENT_UPDATE_TOL} x the largest sum {scale:.3e}), bitwise over "
+        f"two calls {same} | kernel_ms {ms:.4f} (of which the wrapper's "
+        f"stable sort alone {sort_ms:.4f}) plain_ms {plain_ms:.4f} "
+        f"index_add_ {add_ms:.4f} bound_us {bound_ms * 1e3:.1f} (bytes)")
+    if not (same and err <= SEGMENT_UPDATE_TOL * scale):
+        raise AssertionError("segment_update at width 2 disagrees with its "
+                             "plain version or is not reproducible")
+    return {"ms": ms, "sort_ms": sort_ms, "plain_ms": plain_ms,
+            "library_ms": add_ms, "bound_ms": bound_ms}
+
+
 # ----------------------------------------------------------------- phase 4
 def _cpu_twin(net):
     """The same configuration, weights and layer state on the CPU in f32
@@ -1354,6 +1430,8 @@ def check_logits(net, prompts, tp, what):
 
 #: phase 4's prompts and its direct-engine outputs, phase 4d's reference
 SERVED = {}
+#: phase 17's HS-scan model (its syn0 and vocabulary), for phase 18
+HS_VECTORS = {}
 
 
 def _stats_delta(engine, stats0):
@@ -6691,6 +6769,7 @@ def _nlp_scans(card, dev, s, seqs, prefix):
         f"cosine {pintra:.4f} vs {pinter:.4f}")
     if not (np.isfinite(ns._last_loss) and np.isfinite(pp._last_loss)):
         raise AssertionError("an NS scan's loss is not finite")
+    HS_VECTORS["model"] = w           # phase 18 embeds and clusters them
     return ns, excluded
 
 
@@ -7069,6 +7148,388 @@ def phase_nlp_graph(card, device=None, shapes=None):
     return {"lstm_recurrence": b6, "segment_update": seg}
 
 
+# ---------------------------------------------------------------- phase 18
+def word_topics(vocab, s=None):
+    """Each vocabulary row's topic block in phase 17's corpus (word
+    ``w<id>``: id < common is shared, -1; else (id - common) mod topics)."""
+    s = s or NLP_SHAPES
+    ids = np.array([int(vocab.word_for(i)[1:]) for i in range(len(vocab))])
+    return np.where(ids < s["common"], -1,
+                    (ids - s["common"]) % s["topics"])
+
+
+def topic_agreement(Z, topics, device, k=10):
+    """The share of each topic word's ``k`` nearest neighbours (squared
+    distance over every row of ``Z``, exact, on ``device``) from its own
+    topic block."""
+    idx, _ = bh_knn(np.asarray(Z, np.float32), k, device=device)
+    own = topics >= 0
+    return float(np.mean(topics[idx[own]] == topics[own, None]))
+
+
+def unit_rows(a):
+    """Rows scaled to unit length (DL4J's normalized word-vector matrix)."""
+    return (a / np.maximum(np.linalg.norm(a, axis=1, keepdims=True),
+                           1e-12)).astype(np.float32)
+
+
+#: phase 18's wall-clock budget, s
+CLUSTER_LIMIT_S = 60
+#: phase 18's shapes: (a) runs BarnesHutTsne at its defaults (perplexity
+#: 30, 1000 iterations, 64 negatives past 8192 points) over phase 17's HS
+#: syn0 (V x 100); (b) its exact route on the 8192 most frequent words
+#: (300 iterations of the schedule on the card, then 20 on both devices)
+#: and the dense f64 Tsne on the 2000 most frequent for 50 iterations;
+#: (c) k-means with phase 17's 20 topics; (d) phase 12's LeNet for 8
+#: steps of B 64 under the UI's listeners; (e) a 4-8-3 net on the port's
+#: Iris data
+CLUSTER_SHAPES = {"tsne_iter": 1000, "exact_rows": 8192, "exact_warm": 300, "exact_iter": 20,
+                  "dense_rows": 2000, "dense_iter": 50, "k": 20,
+                  "kmeans_iter": 100, "ui_steps": 8, "ui_b": 64,
+                  "iris_epochs": 30, "iris_b": 16, "profile_iter": 10}
+#: relative L2 of the exact route's Y after 20 iterations on the card
+#: against the CPU's (f32: the matmuls and the attractive sum add in
+#: other orders). They start from a state 300 iterations into the
+#: schedule: from the 1e-4-scale initial draw the f32 repulsion is
+#: rounding noise in both packages (on the CPU, JAX's f32 and f64 runs
+#: part ~2x an iteration, O(1) by iteration 20)
+TSNE_EXACT_TOL = 1e-4
+#: the same for the dense f64 Tsne over 50 iterations
+TSNE_DENSE_TOL = 1e-8
+#: k-means: the share of rows the card assigns as the CPU does
+KMEANS_AGREE_BAR = 0.999
+#: the share of each topic word's 10 nearest 2-D neighbours from its own
+#: topic block (chance 0.05). scripts/torch_tsne_topic_bar.py rehearsed
+#: (a) on the CPU at full size: 0.3261 in 2-D, 0.3874 in the 100-D
+#: vectors; the card draws other negatives (its own generator) from a
+#: syn0 trained on the card, so the bar leaves a quarter of the reading
+TOPIC_2D_BAR = 0.25
+#: the pipeline's accuracy on the Iris data it was fitted on
+IRIS_ACC_BAR = 0.9
+
+
+def _tsne_state(ts, n, steps, src, dst, w, dev):
+    """``steps`` exact iterations of ``ts``'s schedule from its seeded
+    initial draw on ``dev``: (Y, vel, gains)."""
+    rng = np.random.default_rng(ts.seed)
+    Y = torch.from_numpy(rng.normal(0, 1e-4, (n, 2)).astype(
+        np.float32)).to(dev)
+    state = (Y, torch.zeros_like(Y), torch.ones_like(Y))
+    for it in range(steps):
+        mom = ts.momentum if it < ts.switch_momentum_iteration \
+            else ts.final_momentum
+        ex = ts.exaggeration if it < ts.stop_lying_iteration else 1.0
+        state = bh_iter_exact(*state, src, dst, w, mom, ts.learning_rate, ex)
+    return state
+
+
+def _exact_iterations(state, edges, steps, ts):
+    """``steps`` late-schedule exact iterations (final momentum, no
+    exaggeration) from ``state``; returns Y on the host."""
+    for _ in range(steps):
+        state = bh_iter_exact(*state, *edges, ts.final_momentum,
+                              ts.learning_rate, 1.0)
+    return state[0].cpu().numpy()
+
+
+def _cpu_refs(X, syn0, s):
+    """The CPU side of (b)'s dense Tsne and of (c): (Y, KL, the k-means
+    assignments, its iterations, wall s)."""
+    t0 = time.perf_counter()
+    dense = Tsne(n_iter=s["dense_iter"], device="cpu")
+    Y = dense.calculate(X[:s["dense_rows"]])
+    km = KMeansClustering(s["k"], max_iterations=s["kmeans_iter"],
+                          device="cpu")
+    assign, _ = km.apply_to(syn0)
+    return Y, dense.kl_divergence_, assign, km.iterations_, \
+        time.perf_counter() - t0
+
+
+def _cluster_bh(card, dev, X, topics, s, on_card):
+    """(a) BarnesHutTsne twice over the whole vocabulary, then a profiled
+    window of 10 iterations on the second run's edges; returns the
+    segment-update launches the window made (not the path's)."""
+    runs, seg, walls = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        before = sgk.segment_update.launches
+        ts = BarnesHutTsne(n_iter=s["tsne_iter"], device=dev)
+        runs.append(ts.calculate(X))
+        seg.append(sgk.segment_update.launches - before)
+        walls.append(ts.timings_)
+    t1 = time.perf_counter()
+    same = bool(np.array_equal(runs[0], runs[1]))
+    n, it, edges = X.shape[0], ts.n_iter, ts.edges_
+    state = [torch.from_numpy(runs[0]).to(dev)]
+    state += [torch.zeros_like(state[0]), torch.ones_like(state[0])]
+    gens = [generator(fold_in(ts.seed, i), dev)
+            for i in range(s["profile_iter"])]
+
+    def window():
+        st = state
+        for g in gens:
+            st = bh_iter_ns(*st, *edges, g, ts.negative_samples,
+                            ts.final_momentum, ts.learning_rate, 1.0)
+        return st
+
+    before = sgk.segment_update.launches
+    busy = per_it = None
+    if on_card:
+        rows, busy_us, wall_us, _ = profile_step(window, "BH t-SNE window")
+        busy = busy_us / wall_us
+        per_it = sum(r[2] for r in rows) / len(gens)
+    else:
+        window()
+    excluded = sgk.segment_update.launches - before
+    t2 = time.perf_counter()
+    a2 = topic_agreement(runs[0], topics, dev)
+    a100 = topic_agreement(X, topics, dev)
+    t3 = time.perf_counter()
+    rate = it / np.array([w["iterations_s"] for w in walls])
+    log(f"cluster (a) BarnesHutTsne [{card}]: V {n} x {X.shape[1]} (unit "
+        f"rows), perplexity {ts.perplexity}, k "
+        f"{int(edges[0].shape[0]) // (2 * n)} neighbours, {it} iterations, "
+        f"{ts.negative_samples} negatives (exact up to "
+        f"{ts.exact_threshold}); two runs {t1 - t0:.2f}s: similarities "
+        f"(kNN on the device, beta search on the host) "
+        f"{[round(w['similarities_s'], 2) for w in walls]}s, iterations "
+        f"{[round(w['iterations_s'], 2) for w in walls]}s = "
+        f"{rate.round(1).tolist()} it/s; busy share {busy} over "
+        f"{len(gens)} iterations, {per_it} launches an iteration (window "
+        f"{t2 - t1:.2f}s); segment_update launches {seg} (predicted {it} a "
+        f"run); two seeded runs bitwise equal {same}; topic agreement of "
+        f"the 10 nearest ({t3 - t2:.2f}s): 2-D {a2:.4f} (bar "
+        f"{TOPIC_2D_BAR}), 100-D {a100:.4f}, chance "
+        f"{1 / NLP_SHAPES['topics']:.2f}")
+    if not (same and np.isfinite(runs[0]).all()):
+        raise AssertionError("seeded Barnes-Hut t-SNE is not reproducible")
+    if on_card and seg != [it, it]:
+        raise AssertionError(f"BH t-SNE launched segment_update {seg} "
+                             f"times, predicted {it} a run")
+    if not a2 >= TOPIC_2D_BAR:
+        raise AssertionError("the 2-D embedding misses the topic bar")
+    return excluded
+
+
+def _cluster_exact(card, dev, X, s, pool):
+    """(b)'s exact route: the 8192 rows' edges and 300 iterations on the
+    card, then a future of the CPU's 20 iterations from that state.
+    Returns (the card's Y, the future, its state's wall s)."""
+    ts = BarnesHutTsne(device=dev)
+    n = s["exact_rows"]
+    edges = ts._edges(X[:n])
+    state = _tsne_state(ts, n, s["exact_warm"], *edges, dev)
+    cpu_state = [t.cpu() for t in state]
+    cpu_edges = [t.cpu() for t in edges]
+    fut = pool.submit(lambda: (_exact_iterations(
+        cpu_state, cpu_edges, s["exact_iter"], ts),
+        time.perf_counter()))
+    t0 = time.perf_counter()
+    Y = _exact_iterations(state, edges, s["exact_iter"], ts)
+    return Y, fut, time.perf_counter() - t0
+
+
+def _cluster_kmeans(card, dev, syn0, s):
+    """(c) two seeded k-means fits on the card: (assignments, centres,
+    iterations, readbacks of the cost, wall s of each)."""
+    out = []
+    for _ in range(2):
+        c0 = fetch_counts().get("kmeans.cost", 0)
+        t0 = time.perf_counter()
+        km = KMeansClustering(s["k"], max_iterations=s["kmeans_iter"],
+                              device=dev)
+        assign, centers = km.apply_to(syn0)
+        out.append((assign, centers, km.iterations_,
+                    fetch_counts()["kmeans.cost"] - c0,
+                    time.perf_counter() - t0))
+    return out
+
+
+def _cluster_ui(card, dev, s, tmp):
+    """(d) LeNet under the UI's listeners, the server, the remote push,
+    the activation PNG and a profiler trace."""
+    net = MultiLayerNetwork(lenet_conf(learning_rate=0.02), device=dev).init()
+    g = np.random.default_rng(43)
+    b = s["ui_b"]
+    batches = [DataSet(g.random((b, 28, 28, 1), np.float32),
+                       np.eye(10, dtype=np.float32)[g.integers(0, 10, b)])
+               for _ in range(s["ui_steps"])]
+    storage = SqliteStatsStorage(tmp / "stats.db")
+    flow = FlowIterationListener(storage, frequency=1, timing_frequency=4)
+    net.set_listeners(
+        StatsListener(storage, session_id="lenet", update_frequency=1,
+                      histograms_frequency=4),
+        flow, ConvolutionalIterationListener(storage, batches[0].features[:1],
+                                             frequency=4))
+    reads0 = fetch_counts().get("ui.stats", 0)
+    t0 = time.perf_counter()
+    net.fit(batches)
+    fit_s = time.perf_counter() - t0
+    reads = fetch_counts()["ui.stats"] - reads0
+    want_reads = s["ui_steps"] + s["ui_steps"] // 4
+    ui = UIServer.get_instance(port=0).attach(storage)
+    try:
+        base = f"http://127.0.0.1:{ui.port}"
+        page = urllib.request.urlopen(base + "/train/overview",
+                                      timeout=10).read()
+        get = lambda path: json.loads(urllib.request.urlopen(
+            base + path, timeout=10).read())
+        ups = get("/train/updates?session=lenet")
+        RemoteStatsRouter(base).put_update(
+            {"session": "remote", "type": "update", "iteration": 1,
+             "score": float(ups[-1]["score"])})
+        remote = get("/train/updates?session=remote")
+        flows = [u for u in get("/train/flow?session=flow")["layers"]]
+        png = urllib.request.urlopen(base + "/train/activations.png",
+                                     timeout=10).read()
+    finally:
+        ui.stop()
+    (tmp / "activations.png").write_bytes(png)
+    with profiler_trace(str(tmp / "trace")):
+        net.fit(batches[:1])
+        _nlp_sync(dev)
+    trace = json.loads((tmp / "trace" / "trace.json").read_text())
+    kernels = sum(1 for e in trace["traceEvents"]
+                  if e.get("cat") == "kernel")
+    times = [f["time_ms"] for f in flows]
+    log(f"cluster (d) UI [{card}]: LeNet {s['ui_steps']} steps of B {b} "
+        f"{fit_s:.2f}s under StatsListener (update 1, histograms every 4) "
+        f"into sqlite, the flow and convolutional listeners; stats "
+        f"readbacks {reads} (predicted {want_reads}: the score a step, the "
+        f"parameter table in one copy every 4th); /train/overview "
+        f"{len(page)} bytes, /train/updates {len(ups)} updates, remote push "
+        f"{len(remote)} record; flow layer times (ms, on {dev}) {times}; "
+        f"activation PNG {len(png)} bytes; profiler trace {kernels} CUDA "
+        f"kernel events")
+    if not (reads == want_reads and len(ups) == s["ui_steps"] and
+            len(remote) == 1 and page.startswith(b"<!DOCTYPE html>") and
+            png[:8] == b"\x89PNG\r\n\x1a\n" and
+            len(times) == len(net.layers) and
+            all(t is not None and t > 0 for t in times)):
+        raise AssertionError("the UI's records, routes or readbacks are off")
+    if dev.type == "cuda" and not kernels > 0:
+        raise AssertionError("the profiler trace holds no CUDA kernel")
+
+
+def _cluster_pipeline(card, dev, s):
+    """(e) NormalizerStage + NetworkClassifier on the Iris data."""
+    it = IrisDataSetIterator(150, 150, seed=7)
+    conf = (NeuralNetConfiguration.Builder().seed(4).learning_rate(0.1)
+            .updater("sgd").weight_init("xavier").activation("tanh").list()
+            .layer(DenseLayer(n_out=8))
+            .layer(OutputLayer(n_out=3, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    net = MultiLayerNetwork(conf, device=dev).init()
+    pipe = Pipeline([("norm", NormalizerStage(NormalizerStandardize())),
+                     ("net", NetworkClassifier(net, batch_size=s["iris_b"],
+                                               epochs=s["iris_epochs"],
+                                               device=dev))])
+    t0 = time.perf_counter()
+    pipe.fit(it.features, it.labels)
+    fit_s = time.perf_counter() - t0
+    c0 = fetch_counts().get("pipeline.predict", 0)
+    acc = pipe.score(it.features, it.labels)
+    reads = fetch_counts()["pipeline.predict"] - c0
+    log(f"cluster (e) pipeline [{card}]: NormalizerStage + NetworkClassifier "
+        f"(4-8-3, sgd 0.1, {s['iris_epochs']} epochs of B {s['iris_b']}) "
+        f"on the Iris data, fit {fit_s:.2f}s on {net.device}; accuracy "
+        f"{acc:.4f} (bar {IRIS_ACC_BAR}), {reads} readback a score")
+    if not (acc >= IRIS_ACC_BAR and reads == 1):
+        raise AssertionError("the pipeline misses its accuracy bar")
+
+
+def phase_clustering_ui(card, device=None, shapes=None, vectors=None):
+    """Phase 18: phase 17's word vectors embedded and clustered, and the
+    training UI, on the card (module docstring). ``vectors`` (syn0 on
+    the host, each row's topic; default phase 17's HS model), ``device``
+    and ``shapes`` let the phase be rehearsed on the CPU. Returns its
+    segment-update launches (the profiled window's are not counted)."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = torch.device(device or "cuda:0")
+    s = dict(CLUSTER_SHAPES, **(shapes or {}))
+    if vectors is None:
+        hs = HS_VECTORS["model"]
+        vectors = (hs.lookup.host_syn0(), word_topics(hs.vocab))
+    syn0, topics = vectors
+    X = unit_rows(syn0)
+    seg0 = sgk.segment_update.launches
+    threads = torch.get_num_threads()
+    pool = ThreadPoolExecutor(1)
+    tmp = Path(tempfile.mkdtemp(prefix="dl4j_phase18_"))
+    try:
+        walls = [time.perf_counter()]
+        # the CPU references run in a thread beside the card's work, on
+        # the host's other cores; they share no state with it
+        torch.set_num_threads(max(1, threads - 2))
+        refs = pool.submit(_cpu_refs, X, syn0, s)
+        Y8, exact_fut, exact_s = _cluster_exact(card, dev, X, s, pool)
+        walls.append(time.perf_counter())
+        excluded = _cluster_bh(card, dev, X, topics, s, on_card)
+        walls.append(time.perf_counter())
+        dense = Tsne(n_iter=s["dense_iter"], device=dev)
+        t0 = time.perf_counter()
+        Yd = dense.calculate(X[:s["dense_rows"]])
+        dense_s = time.perf_counter() - t0
+        kms = _cluster_kmeans(card, dev, syn0, s)
+        walls.append(time.perf_counter())
+        _cluster_ui(card, dev, s, tmp)
+        walls.append(time.perf_counter())
+        _cluster_pipeline(card, dev, s)
+        walls.append(time.perf_counter())
+        t0 = time.perf_counter()
+        Yc, cpu_done = exact_fut.result()
+        Yd_cpu, kl_cpu, km_cpu, km_it, cpu_s = refs.result()
+        wait_s = time.perf_counter() - t0
+        walls.append(time.perf_counter())
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        torch.set_num_threads(threads)
+        shutil.rmtree(tmp, ignore_errors=True)
+    exact_err = _rel_l2(torch.from_numpy(Y8), torch.from_numpy(Yc))
+    dense_err = _rel_l2(torch.from_numpy(Yd), torch.from_numpy(Yd_cpu))
+    (a0, c0, it0, r0, w0), (a1, c1, it1, r1, w1) = kms
+    km_same = bool(np.array_equal(a0, a1) and np.array_equal(c0, c1))
+    differ = int(np.sum(a0 != km_cpu))
+    log(f"cluster (b) exact routes [{card}]: BH exact route on the "
+        f"{s['exact_rows']} most frequent words, {s['exact_iter']} "
+        f"iterations after {s['exact_warm']} on the card ({exact_s:.2f}s) "
+        f"vs the CPU's plain segment sum (done "
+        f"{cpu_done - t_phase:.2f}s into the phase): Y rel-L2 "
+        f"{exact_err:.3e} (tol {TSNE_EXACT_TOL}); dense f64 Tsne on the "
+        f"{s['dense_rows']} most frequent, {s['dense_iter']} iterations "
+        f"{dense_s:.2f}s, KL {dense.kl_divergence_:.6f} vs the CPU's "
+        f"{kl_cpu:.6f}: Y rel-L2 {dense_err:.3e} (tol {TSNE_DENSE_TOL})")
+    log(f"cluster (c) KMeans [{card}]: k {s['k']} on syn0 "
+        f"{syn0.shape[0]} x {syn0.shape[1]}, {it0} / {it1} iterations "
+        f"(CPU {km_it}) in {w0:.2f}s / {w1:.2f}s, cost readbacks {r0} / "
+        f"{r1} (predicted one an iteration); two seeded fits bitwise equal "
+        f"{km_same}; rows assigned otherwise than the CPU's {differ} of "
+        f"{len(a0)} (bar {KMEANS_AGREE_BAR}); CPU references {cpu_s:.2f}s "
+        f"in their thread, waited {wait_s:.2f}s")
+    if not (exact_err <= TSNE_EXACT_TOL and dense_err <= TSNE_DENSE_TOL):
+        raise AssertionError("a t-SNE route disagrees with the CPU")
+    if not (km_same and r0 == it0 and r1 == it1 and
+            1 - differ / len(a0) >= KMEANS_AGREE_BAR):
+        raise AssertionError("k-means is not reproducible or disagrees "
+                             "with the CPU")
+    seg = sgk.segment_update.launches - seg0 - excluded
+    wall = time.perf_counter() - t_phase
+    parts = dict(zip(("b exact on the card", "a", "b dense, c", "d", "e",
+                      "waiting for the CPU"),
+                     np.diff([t_phase] + walls[1:]).round(2).tolist()))
+    want = 2 * s["tsne_iter"] + s["exact_warm"] + s["exact_iter"]
+    log(f"clustering and UI phase: segment_update launches {seg} (predicted "
+        f"{want}); {wall:.1f}s wall (limit {CLUSTER_LIMIT_S} s): seconds by "
+        f"part {parts}")
+    if on_card and seg != want:
+        raise AssertionError("t-SNE launched segment_update otherwise than "
+                             "predicted")
+    if wall > CLUSTER_LIMIT_S:
+        raise AssertionError(f"the clustering and UI phase took {wall:.1f}s")
+    return {"segment_update": seg}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7102,13 +7563,15 @@ def main():
     mp = phase_model_parallel(card)
     dk = phase_data_and_keras(card)
     nlp = phase_nlp_graph(card)
+    clu = phase_clustering_ui(card)
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
         launches[name] = sum(src[name] + src[f"{name}.bwd"]
                              for src in (resnet, api, dk))
     launches["lstm_recurrence"] = lstm_train["lstm_recurrence"] + \
         api["lstm_recurrence"] + dp["lstm_recurrence"] + \
         dk["lstm_recurrence"] + nlp["lstm_recurrence"]
-    launches["segment_update"] = nlp["segment_update"]
+    launches["segment_update"] = nlp["segment_update"] + \
+        clu["segment_update"]
     launches["shortseq_attention"] += dp["shortseq_attention"]
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"] + \
         dp["shortseq_attention_bwd"]

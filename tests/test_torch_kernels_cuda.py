@@ -1792,3 +1792,72 @@ def test_segment_update_kernel_matches_plain_on_card(cuda_device, n, rows,
     assert torch.equal(got.cpu()[counts == 1], want[counts == 1])
     with pytest.raises(ValueError, match="f32"):
         sgk.segment_update(table.double(), idx, upd, w, 0.05, bf16)
+
+
+@pytest.mark.parametrize("n,k", [(300, 9), (10000, 90)])
+def test_segment_update_as_tsne_segment_sum_on_card(cuda_device, n, k):
+    """Barnes-Hut t-SNE's attractive sum: the segment update at width 2 on
+    a zero table with zero weights and lr 1 is the segment sum of the
+    2·N·k edge forces (each row named k times as a source and by its
+    in-neighbours), bitwise over two calls, against its plain version."""
+    from deeplearning4j_tpu_torch.kernels import segment_update as sgk
+    g = torch.Generator().manual_seed(n)
+    rows = torch.arange(n).repeat_interleave(k)
+    cols = torch.randint(0, n, (n * k,), generator=g)
+    src = torch.cat([rows, cols]).to(cuda_device)
+    vals = torch.randn(2 * n * k, 2, generator=g).to(cuda_device) * 1e-3
+    zero = torch.zeros(2 * n * k, device=cuda_device)
+    before = sgk.segment_update.launches
+    got, again = (sgk.segment_update(torch.zeros(n, 2, device=cuda_device),
+                                     src, vals, zero, 1.0, False)
+                  for _ in range(2))
+    assert sgk.segment_update.launches == before + 2
+    assert torch.equal(got, again)
+    want = torch.zeros(n, 2, dtype=torch.float64).index_add_(
+        0, src.cpu(), vals.cpu().double())
+    assert (got.cpu().double() - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+
+
+def test_bhtsne_and_kmeans_are_seeded_on_card(cuda_device):
+    """N 10,000 takes the negative-sampling route: two seeded runs give
+    bitwise-equal embeddings, with one segment-update launch an
+    iteration; k-means' seeded fits are bitwise equal too and agree with
+    the CPU's assignments."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne,
+                                                     KMeansClustering)
+    from deeplearning4j_tpu_torch.kernels import segment_update as sgk
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 3, (20, 16)).astype(np.float32)
+    X = centers[rng.integers(0, 20, 10000)] + \
+        rng.normal(0, 1, (10000, 16)).astype(np.float32)
+    before = sgk.segment_update.launches
+    Y = [BarnesHutTsne(n_iter=30, device=cuda_device).calculate(X)
+         for _ in range(2)]
+    assert sgk.segment_update.launches == before + 60
+    np.testing.assert_array_equal(Y[0], Y[1])
+    assert Y[0].shape == (10000, 2) and np.isfinite(Y[0]).all()
+    fits = [KMeansClustering(20, max_iterations=30, seed=3,
+                             device=d).apply_to(X)
+            for d in (cuda_device, cuda_device, "cpu")]
+    np.testing.assert_array_equal(fits[0][0], fits[1][0])
+    np.testing.assert_array_equal(fits[0][1], fits[1][1])
+    assert np.mean(fits[0][0] == fits[2][0]) >= 0.999
+
+
+def test_dl4j_classifier_on_card(cuda_device):
+    """The scikit-learn estimator trains on the card by default; clone
+    keeps device=None."""
+    import numpy as np
+    pytest.importorskip("sklearn")
+    from sklearn.base import clone
+    from deeplearning4j_tpu_torch.cluster import DL4JClassifier
+    rng = np.random.default_rng(1)
+    X = np.concatenate([rng.normal((-2, 0), 0.6, (60, 2)),
+                        rng.normal((2, 1), 0.6, (60, 2))]).astype(np.float32)
+    y = np.array(["a"] * 60 + ["b"] * 60)
+    clf = DL4JClassifier(hidden=8, epochs=8, seed=1).fit(X, y)
+    assert clf.net_.device.type == "cuda"
+    assert (clf.predict(X) == y).mean() > 0.95
+    assert clone(clf).get_params()["device"] is None

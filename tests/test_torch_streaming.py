@@ -330,7 +330,14 @@ def test_port_sources_import_no_jax():
                 "datasets/fetchers.py", "datasets/datavec.py",
                 "datasets/native_loader.py", "keras/hdf5.py",
                 "keras/layers.py", "keras/importer.py", "keras/export.py",
-                "keras/server.py", "keras/__init__.py"):
+                "keras/server.py", "keras/__init__.py",
+                "clustering/__init__.py", "clustering/kmeans.py",
+                "clustering/tsne.py", "clustering/bhtsne.py",
+                "clustering/trees.py", "ui/__init__.py", "ui/stats.py",
+                "ui/legacy_listeners.py", "ui/storage.py",
+                "ui/components.py", "ui/report.py", "ui/png.py",
+                "cluster/ml_pipeline.py", "cluster/sklearn_compat.py",
+                "utils/fleet.py", "utils/object_store.py"):
         assert f"deeplearning4j_tpu_torch/{new}" in names
     assert (ROOT / "deeplearning4j_tpu_torch/csrc/dataloader.cpp").exists()
     bad = []

@@ -403,7 +403,30 @@ Phases, each an uncaught exception on failure:
    (e) ``NormalizerStage`` + ``NetworkClassifier`` on the Iris data
    (IRIS_ACC_BAR). Within CLUSTER_LIMIT_S; its segment-update launches
    join the ``kernels`` line.
-19. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+19. the analysis tier (``phase_analysis``, within ANALYSIS_LIMIT_S), on
+   phase 4's flagship (vocab 32000, d 768, 12 heads, 12 layers, bf16,
+   the same seeded weights): (a) ``scripts/torch_lint.py``'s gate — the
+   port's linter over ``deeplearning4j_tpu_torch`` and this script on
+   the card's host: its seconds, its findings and those beyond the
+   port's baseline (must be 0); (b) ``SlotGenerationEngine`` (8 slots,
+   K 4) under ``EngineSupervisor``, both with their locks wrapped by
+   ``LockAudit.instrument`` (the inherited ``_lock`` pinned to
+   ``HeartbeatMonitor._lock``): a warm request, then 8 requests (64-256
+   prompt tokens, 32 new) with an ``engine.step`` crash injected
+   mid-decode, served under a ``LockAudit(patch=True)`` that audits the
+   engine the takeover builds: every request once at full length, one
+   restart, no observed cycle, and against the static lock-order graph
+   (``lock_order_edges``) no inversion and no novel edge, with
+   ``EngineSupervisor._sup_lock -> SlotGenerationEngine._lock``
+   explained; the same for a ``TcpMessageBroker`` client
+   (``_sub_lock -> _send_lock`` explained); (c) ``TransferAudit`` over
+   the served part: at most one ``engine.decode`` readback a decode
+   block, its ``report()``; (d) ``CompileAudit`` over the served part:
+   ``check(total=0)`` (no nvcc run and no library load after warmup),
+   and the whole process's builds and loads so far, each library built
+   and loaded at most once, no duplicate signature; (e) B1's launches in
+   the phase (>= 12 an admission), which join the ``kernels`` line.
+20. the ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Phase 3 also holds the ring (``parallel/sequence.py``'s ``_RingFlash``:
 causal bf16 q / k / v at phase 15's shapes, B 8 x T 512 at sp 4 and 2,
@@ -477,6 +500,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis import (CompileAudit, LintRunner,
+                                               LockAudit, TransferAudit,
+                                               load_baseline, new_findings)
+from deeplearning4j_tpu_torch.analysis.concurrency import lock_order_edges
 from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne,
                                                  KMeansClustering, Tsne)
 from deeplearning4j_tpu_torch.clustering.bhtsne import _knn_chunked as bh_knn
@@ -585,6 +612,7 @@ from deeplearning4j_tpu_torch.streaming import (BurnRateAutoscaler,
                                                 SerializedKVTransport,
                                                 TcpBrokerServer,
                                                 create_broker)
+from deeplearning4j_tpu_torch.streaming.tcp_broker import TcpMessageBroker
 from deeplearning4j_tpu_torch.tools import chaos_soak
 from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener,
                                          FlowIterationListener,
@@ -2082,7 +2110,7 @@ def _supervised_restart(card, net, dec_s, rng):
         restart(cause)
         took.append(time.perf_counter() - t0)
     sup._restart = timed_restart
-    casts, builds = dec_s.param_casts, cuda_lib.NVCC_RUNS
+    casts, builds = dec_s.param_casts, cuda_lib.nvcc_runs()
     ends = []
     sup.start()
     try:
@@ -2101,14 +2129,14 @@ def _supervised_restart(card, net, dec_s, rng):
         f"{st['failed']}; restart "
         f"{took[0] * 1e3 if took else float('nan'):.2f} ms (quarantine, "
         f"rebuild, requeue); 8 requests in {wall:.2f}s; nvcc runs after "
-        f"{cuda_lib.NVCC_RUNS - builds}, weight casts after "
+        f"{cuda_lib.nvcc_runs() - builds}, weight casts after "
         f"{dec_s.param_casts - casts}")
     if sup.restarts != 1 or st["completed"] != 8 or st["failed"] or \
             len(ends) != 8 or \
             any(len(o) != len(p) + 64 for o, p in zip(outs, prompts)):
         raise AssertionError("supervised recovery lost, duplicated or cut "
                              "a request")
-    if cuda_lib.NVCC_RUNS != builds or dec_s.param_casts != casts:
+    if cuda_lib.nvcc_runs() != builds or dec_s.param_casts != casts:
         raise AssertionError("the restart built a kernel or cast weights")
 
 
@@ -2377,8 +2405,8 @@ def phase_serving_host(card, net):
     got = [None] * 4
     threads = [threading.Thread(
         target=lambda i=i: got.__setitem__(
-            i, pi.generate(prompts[i], new_tokens, timeout=120)))
-        for i in range(4)]
+            i, pi.generate(prompts[i], new_tokens, timeout=120)),
+        daemon=True) for i in range(4)]
     for t in threads:
         t.start()
     for t in threads:
@@ -7530,6 +7558,164 @@ def phase_clustering_ui(card, device=None, shapes=None, vectors=None):
     return {"segment_update": seg}
 
 
+# ---------------------------------------------------------------- phase 19
+#: the analysis phase's wall limit
+ANALYSIS_LIMIT_S = 60.0
+#: phase 4's flagship
+ANALYSIS_MODEL = {"vocab": 32000, "d_model": 768, "num_heads": 12,
+                  "num_layers": 12, "max_length": 577}
+ANALYSIS_REQUESTS = 8
+ANALYSIS_NEW_TOKENS = 32
+#: the injected crash's ``engine.step`` hit, counted from warmup's end
+ANALYSIS_CRASH_AFTER = 4
+REPO_ROOT = Path(__file__).resolve().parent
+
+
+def _lint_gate(card):
+    """(a): the port's linter over its tree and this script, gated by the
+    port's baseline. Returns the static lock-order edges."""
+    t0 = time.perf_counter()
+    runner = LintRunner(str(REPO_ROOT), force_facts=True)
+    found = runner.lint([str(REPO_ROOT / "deeplearning4j_tpu_torch"),
+                         str(REPO_ROOT / "chip_smoke.py")])
+    lint_s = time.perf_counter() - t0
+    baseline = load_baseline(str(REPO_ROOT / "deeplearning4j_tpu_torch" /
+                                 "analysis" / "baseline.json"))
+    fresh = new_findings(found, baseline)
+    log(f"analysis (a) lint [{card}]: {len(runner.facts)} modules in "
+        f"{lint_s:.2f}s: {len(found)} finding(s) "
+        f"{sorted(f.key for f in found)}, {len(fresh)} beyond the "
+        f"baseline ({sum(baseline.values())} baselined), "
+        f"{len(runner.errors)} unreadable")
+    for f in fresh:
+        log(str(f))
+    if fresh or runner.errors:
+        raise AssertionError("the port's lint gate is not clean")
+    return lock_order_edges(runner.facts)
+
+
+def _lock_check(audit, static, what, explained=()):
+    cycles = audit.cycles()
+    cc = audit.cross_check(static.keys())
+    log(f"analysis (b) {what}: observed edges {audit.edge_list()}, "
+        f"cycles {cycles}, explained {cc['explained']}, novel "
+        f"{cc['novel']}, inversions {cc['inversions']}")
+    missing = [e for e in explained if e not in cc["explained"]]
+    if cycles or cc["inversions"] or cc["novel"] or missing:
+        raise AssertionError(f"{what}: observed lock order disagrees with "
+                             f"the static graph (unexplained {missing})")
+
+
+def _broker_locks(card, static):
+    server = TcpBrokerServer().start()
+    client = TcpMessageBroker(server.host, server.port)
+    audit = LockAudit()
+    audit.instrument(client, names={"_lock": "TcpMessageBroker._lock"})
+    try:
+        q = client.subscribe("analysis")
+        client.publish("analysis", b"x")
+        if q.get(timeout=5) != b"x":
+            raise AssertionError("the broker lost a message")
+        client.unsubscribe("analysis", q)
+    finally:
+        client.close()
+        server.close()
+    _lock_check(audit, static, f"TcpMessageBroker [{card}]",
+                [("TcpMessageBroker._sub_lock",
+                  "TcpMessageBroker._send_lock")])
+
+
+def phase_analysis(card, device=None, model=None):
+    """Phase 19 (module docstring). ``device`` / ``model`` let the phase
+    be rehearsed on the CPU at a small width. Returns its B1 launches."""
+    t_phase = time.perf_counter()
+    on_card = device is None
+    static = _lint_gate(card)
+    m = dict(model or ANALYSIS_MODEL)
+    conf = transformer_lm_conf(vocab_size=m["vocab"], d_model=m["d_model"],
+                               num_heads=m["num_heads"],
+                               num_layers=m["num_layers"],
+                               max_length=m["max_length"])
+    net = ComputationGraph(conf, compute_dtype=torch.bfloat16 if on_card
+                           else torch.float32, device=device).init()
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, m["vocab"], int(n))
+               for n in rng.integers(64, 257, ANALYSIS_REQUESTS)]
+    inj = FaultInjector()
+    engine = SlotGenerationEngine(net, num_slots=8, block_size=4,
+                                  fault_injector=inj)
+    sup = EngineSupervisor(engine, timeout=60.0, interval=0.1,
+                           max_restarts=2)
+    locks = LockAudit()
+    names = locks.instrument(sup, names={"_lock": "HeartbeatMonitor._lock"})
+    names += locks.instrument(engine)
+    reset_launches()
+    sup.start()
+    try:
+        sup.submit(prompts[0][:64], 4).result(timeout=300)   # warm
+        _sync()
+        stats0 = sup.stats()
+        inj.raise_once("engine.step", RuntimeError("injected crash"),
+                       at=inj.hits("engine.step") + ANALYSIS_CRASH_AFTER)
+        t0 = time.perf_counter()
+        with CompileAudit() as compiles, TransferAudit() as transfers, \
+                LockAudit(patch=True) as patched:
+            reqs = [sup.submit(p, ANALYSIS_NEW_TOKENS) for p in prompts]
+            outs = [r.result(timeout=300) for r in reqs]
+            _sync()
+        serve_s = time.perf_counter() - t0
+        stats = sup.stats()
+        restarts = sup.restarts
+    finally:
+        sup.stop()
+    b1 = read_launches()["shortseq_attention"]
+    served = {k: stats[k] - stats0.get(k, 0)
+              for k in ("decode_blocks", "prefill_batches", "completed",
+                        "failed", "host_readbacks")}
+    log(f"analysis (b) served [{card}]: {len(reqs)} requests in "
+        f"{serve_s:.2f}s across {restarts} restart(s): {served}; audited "
+        f"locks {sorted(names)} and, made under patch by the takeover, "
+        f"{sorted(patched.names)}")
+    if "SlotGenerationEngine._lock" not in patched.names:
+        raise AssertionError("the takeover's engine was not audited")
+    if restarts != 1 or served["completed"] != len(reqs) or \
+            served["failed"] or any(
+                len(o) != len(p) + ANALYSIS_NEW_TOKENS
+                for o, p in zip(outs, prompts)):
+        raise AssertionError("the supervised restart lost, duplicated or "
+                             "cut a request")
+    _lock_check(locks, static, f"engine + supervisor [{card}]",
+                [("EngineSupervisor._sup_lock",
+                  "SlotGenerationEngine._lock")])
+    _lock_check(patched, static, f"patch mode over the restart [{card}]")
+    _broker_locks(card, static)
+    # (c) readbacks, (d) builds and loads
+    log(f"analysis (c) transfers [{card}]: {transfers.report()} over "
+        f"{served['decode_blocks']} decode blocks and "
+        f"{served['prefill_batches']} admissions")
+    transfers.check_per_block("engine.decode", served["decode_blocks"])
+    whole = CompileAudit.process()
+    log(f"analysis (d) compiles [{card}]: after warmup "
+        f"{compiles.report()}; the process so far: builds "
+        f"{whole.builds()}, loads {whole.loads()}, duplicate signatures "
+        f"{whole.duplicate_signature_compiles}")
+    compiles.check(total=0)
+    # every library is built and loaded under the one source hash of the
+    # checkout, so a second build or load is a repeated signature
+    whole.check(forbid_duplicate_signatures=True)
+    # (e) B1 on the audited path
+    admissions = stats["prefill_batches"]
+    wall = time.perf_counter() - t_phase
+    log(f"analysis (e) [{card}]: B1 launches {b1} over {admissions} "
+        f"admissions (>= {m['num_layers']} each); phase "
+        f"{wall:.1f}s wall (limit {ANALYSIS_LIMIT_S} s)")
+    if on_card and b1 < m["num_layers"] * admissions:
+        raise AssertionError("B1 did not launch on every admission")
+    if wall > ANALYSIS_LIMIT_S:
+        raise AssertionError(f"the analysis phase took {wall:.1f}s")
+    return b1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7564,6 +7750,8 @@ def main():
     dk = phase_data_and_keras(card)
     nlp = phase_nlp_graph(card)
     clu = phase_clustering_ui(card)
+    analysis_launches = phase_analysis(card)
+    launches["shortseq_attention"] += analysis_launches
     for name in ("batchnorm_train", "batchnorm_add_act_train"):
         launches[name] = sum(src[name] + src[f"{name}.bwd"]
                              for src in (resnet, api, dk))
@@ -7573,6 +7761,11 @@ def main():
     launches["segment_update"] = nlp["segment_update"] + \
         clu["segment_update"]
     launches["shortseq_attention"] += dp["shortseq_attention"]
+    log(f"B1 launches by phase: serving (4) {serving_launches}, fleet "
+        f"(4e) {fleet_launches}, remote (4f) {remote_launches}, mesh (4g) "
+        f"{mesh_launches}, data parallel (14) {dp['shortseq_attention']}, "
+        f"analysis (19) {analysis_launches}; total "
+        f"{launches['shortseq_attention']}")
     launches["shortseq_attention_bwd"] = train["shortseq_attention_bwd"] + \
         dp["shortseq_attention_bwd"]
     for name in ("flash_backward_dq", "flash_backward_dkv"):

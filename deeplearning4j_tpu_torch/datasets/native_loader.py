@@ -105,7 +105,9 @@ def _load_lib():
     global _lib
     with _load_lock:
         if _lib is None:
-            _lib = _bind(build_library())
+            # the g++ wait under _load_lock is deliberate: one build per
+            # process, and a second caller must wait for it
+            _lib = _bind(build_library())   # graftlint: disable=GL010
         return _lib
 
 

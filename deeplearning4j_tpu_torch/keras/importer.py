@@ -32,7 +32,8 @@ from ..nn.graph.vertices import PreprocessorVertex
 from ..nn.multilayer import MultiLayerNetwork
 from ..ops.platform import resolve_device, state_on
 from . import hdf5
-from .layers import KerasLayerError, convert_layer, convert_vertex, map_weights
+from .layers import (KERAS_LAYER_CONVERTERS, KerasLayerError, convert_layer,
+                     convert_vertex, map_weights)
 
 _STAGING = torch.device("cpu")
 

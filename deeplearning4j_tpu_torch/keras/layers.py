@@ -219,3 +219,6 @@ def map_weights(cls: str, layer, arrays: List[np.ndarray],
             b = np.concatenate([bi, bf, bc, bo])
             return {"W": t(W), "R": t(R), "b": t(b)}, {}
     return None
+
+
+KERAS_LAYER_CONVERTERS = convert_layer  # registry alias (reference naming)

@@ -5,7 +5,13 @@ use by nvcc (``-gencode arch=compute_90a,code=sm_90a``) into
 ``build/kernels/lib<name>-<hash>.so`` under the repository root, then
 loaded with ctypes. The hash covers the sources, so an edited kernel is
 rebuilt and never loaded stale. Nothing here falls back: without CUDA, or
-when nvcc fails, the loader raises (with nvcc's stderr)."""
+when nvcc fails, the loader raises (with nvcc's stderr).
+
+:func:`record_compile` is the counting seam ``analysis.CompileAudit``
+reads: every nvcc run and every ctypes load is recorded as ``(kind,
+library, source hash)`` in one ordered process log,
+:func:`compile_events`, whose builds also give :func:`nvcc_runs`; it
+changes nothing about when a build runs or whether it raises."""
 
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -100,9 +106,29 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: nvcc processes this process has started (a serving engine rebuilt
-#: around a loaded decoder, as a supervisor restart is, adds none)
-NVCC_RUNS = 0
+_EVENTS_LOCK = threading.Lock()
+#: every build and load of this process, in order: ("build" | "load",
+#: library, source hash)
+_EVENTS: List[Tuple[str, str, str]] = []
+
+
+def record_compile(kind: str, name: str, digest: str) -> None:
+    """Record one nvcc build (``kind`` "build") or ctypes load ("load")
+    of library ``name`` under source hash ``digest``."""
+    with _EVENTS_LOCK:
+        _EVENTS.append((kind, name, digest))
+
+
+def compile_events() -> List[Tuple[str, str, str]]:
+    """Every (kind, library, source hash) recorded so far."""
+    with _EVENTS_LOCK:
+        return list(_EVENTS)
+
+
+def nvcc_runs() -> int:
+    """nvcc processes this process has started (a serving engine rebuilt
+    around a loaded decoder, as a supervisor restart is, adds none)."""
+    return sum(kind == "build" for kind, _, _ in compile_events())
 
 
 def _nvcc() -> str:
@@ -125,6 +151,11 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _digest(path: Path) -> str:
+    """The source hash in a library path from :func:`_lib_path`."""
+    return path.stem.rsplit("-", 1)[-1]
+
+
 def _require_cuda() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA kernels need a CUDA device; none is "
@@ -137,7 +168,6 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
     each, all started together, and wait for all of them. Returns, per
     library built, ``{"seconds": nvcc wall time, "log": nvcc's output}``;
     raises with nvcc's stderr when any build fails."""
-    global NVCC_RUNS
     _require_cuda()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -150,7 +180,7 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, out, time.perf_counter())
-    NVCC_RUNS += len(procs)
+        record_compile("build", name, _digest(out))
     failures, logs = [], {}
     for name, (proc, tmp, out, t0) in procs.items():
         stdout, stderr = proc.communicate()
@@ -173,8 +203,12 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            # the nvcc wait under _LOCK is deliberate: one build per
+            # library per process, and a second caller must wait for it
+            build([name])   # graftlint: disable=GL010
+            path = _lib_path(name)
+            lib = ctypes.CDLL(str(path))
+            record_compile("load", name, _digest(path))
             for entry, argtypes in ENTRIES[name].items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes

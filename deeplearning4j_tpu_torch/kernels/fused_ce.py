@@ -72,7 +72,7 @@ def _chunks(rows: int):
 
 class _SparseCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, W, b, ids, w, chunked):
+    def forward(ctx, x2, W, b, ids, w, chunked: bool):
         if chunked:
             parts = [_lse_tgt_from(_logits(x2[sl], W, b), ids[sl])
                      for sl in _chunks(x2.shape[0])]

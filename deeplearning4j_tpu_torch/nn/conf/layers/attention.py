@@ -73,6 +73,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         return tuple((x @ params[w]).reshape(shape)
                      for w in ("Wq", "Wk", "Wv"))
 
+    # graftlint: hot
     def _attend(self, q, k, v, mask):
         """[N, T, H, Dh] attention: the helper seam's kernel on a card, the
         materialized softmax (the JAX path, ``attention.py:88-100``) on the
@@ -119,6 +120,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+    # graftlint: hot
     def prefill_forward(self, params, x, cache: Dict, mask=None,
                         slots: Optional[torch.Tensor] = None):
         """Teacher-forced pass over the prompt [B, T, n_in] that also writes
@@ -140,6 +142,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
             cache["v"][slots, :, :t] = vv
         return self._project_out(params, out), cache
 
+    # graftlint: hot
     def decode_forward(self, params, x, cache: Dict, positions):
         """One decode step: x [B, 1, n_in] is the token at ``positions``
         ([B] integer tensor). Writes k/v into each row's cell and attends
@@ -186,6 +189,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         probs = torch.softmax(logits, dim=-1)             # f32
         return torch.einsum("bhqt,bhtd->bqhd", probs.to(cv.dtype), cv)
 
+    # graftlint: hot
     def chunk_forward(self, params, x, cache: Dict, pos0, valid=None):
         """A window of C tokens x [B, C, n_in] whose first token sits at
         absolute position ``pos0`` ([B] integer tensor): writes the
@@ -245,6 +249,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+    # graftlint: hot
     def _paged_gather(self, pool, ptable):
         """Page table [B, NP] → the rows' contiguous logical view
         [B, H, NP*page_size, Dh] (entry j covers positions [j*ps,
@@ -254,6 +259,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         return g.permute(0, 2, 1, 3, 4).reshape(
             b, self.num_heads, n_pages * pool.shape[2], -1)
 
+    # graftlint: hot
     def paged_decode_forward(self, params, x, pool: Dict, ptable,
                              positions):
         """One decode step over a paged cache: x [B, 1, n_in] at
@@ -276,6 +282,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
                                   self._paged_gather(pv, ptable), pos)
         return self._project_out(params, out.to(x.dtype)), pool
 
+    # graftlint: hot
     def paged_chunk_forward(self, params, x, pool: Dict, ptable, pos0,
                             valid=None):
         """A window x [B, C, n_in] starting at absolute position ``pos0``
@@ -312,6 +319,7 @@ class SelfAttentionLayer(BaseRecurrentLayerConf):
         pv[pids, :, offs] = v.to(pv.dtype)
         return w
 
+    # graftlint: hot
     def paged_prefill_forward(self, params, x, pool: Dict, ptable,
                               pos0=None, valid=None, fresh: bool = False):
         """Prompt prefill into pages: one window starting at each row's
@@ -420,6 +428,7 @@ class TokenAndPositionEmbedding(BaseRecurrentLayerConf):
         out = params["W"][ids] + params["P"][None, :t]
         return self.maybe_dropout(out, train=train, gen=gen), state
 
+    # graftlint: hot
     def embed_at(self, params, ids, positions):
         """Single-position decode embedding: ids [B] + per-row positions
         [B] → [B, 1, n_out]. Positions clamp to max_length - 1 (a fused
@@ -427,6 +436,7 @@ class TokenAndPositionEmbedding(BaseRecurrentLayerConf):
         pos = positions.reshape(-1).clamp(max=self.max_length - 1)
         return (params["W"][ids.reshape(-1)] + params["P"][pos])[:, None, :]
 
+    # graftlint: hot
     def embed_chunk(self, params, ids, pos0):
         """Window embedding: ids [B, C] at absolute positions pos0 + [0, C)
         per row (``pos0`` [B]), positions clamped to max_length - 1 →

@@ -105,6 +105,7 @@ def as_integrity(cfg) -> Optional[IntegrityConfig]:
                     f"got {type(cfg).__name__}")
 
 
+# graftlint: hot
 def logits_fault(logits: torch.Tensor,
                  bound: Optional[float]) -> torch.Tensor:
     """Per-row verdict over ``logits`` [B, V] → bool [B] on their device:

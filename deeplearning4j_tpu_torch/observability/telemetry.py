@@ -10,7 +10,7 @@ serving process:
 - ``GET /snapshot``       — one JSON document: the registry snapshot,
   per-tag device→host readbacks since the server started
   (``ops.transfer.fetch_counts``), with ``audit_compiles=True`` the
-  kernel builds since start (``kernels.cuda_lib.NVCC_RUNS``, the port's
+  kernel builds since start (``kernels.cuda_lib.nvcc_runs()``, the port's
   counterpart of the JAX compile audit), the device stats (memory,
   per-engine KV bytes, per-program analytic cost from
   ``devstats.impl_cost_analysis``), the flight-recorder, SLO and
@@ -161,7 +161,7 @@ class TelemetryServer:
         from ..ops.transfer import fetch_counts
         self._transfer_start = fetch_counts()
         if self._audit_compiles:
-            self._builds_start = cuda_lib.NVCC_RUNS
+            self._builds_start = cuda_lib.nvcc_runs()
         handler = type("_BoundTelemetryHandler", (_TelemetryHandler,),
                        {"server_obj": self})
         self._http.handler_cls = handler
@@ -207,8 +207,8 @@ class TelemetryServer:
         if self._builds_start is not None:
             from ..kernels import cuda_lib
             out["compile_audit"] = {
-                "nvcc_runs": cuda_lib.NVCC_RUNS,
-                "new_since_start": cuda_lib.NVCC_RUNS - self._builds_start}
+                "nvcc_runs": cuda_lib.nvcc_runs(),
+                "new_since_start": cuda_lib.nvcc_runs() - self._builds_start}
         try:
             out["devstats"] = self.devstats.snapshot()
         except Exception as e:   # noqa: BLE001 — degrade, don't 500

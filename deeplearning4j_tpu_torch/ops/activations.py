@@ -14,15 +14,17 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-_REGISTRY: Dict[str, Callable] = {}
+ActivationFn = Callable[[torch.Tensor], torch.Tensor]
+
+_REGISTRY: Dict[str, ActivationFn] = {}
 
 
-def register_activation(name: str, fn: Callable) -> Callable:
+def register_activation(name: str, fn: ActivationFn) -> ActivationFn:
     _REGISTRY[name.lower()] = fn
     return fn
 
 
-def get_activation(name) -> Callable:
+def get_activation(name) -> ActivationFn:
     """Resolve an activation by name (or pass a callable through)."""
     if callable(name):
         return name

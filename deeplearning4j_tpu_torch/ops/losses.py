@@ -18,15 +18,16 @@ from .activations import get_activation
 
 _EPS = 1e-7
 
-_REGISTRY: Dict[str, Callable] = {}
+LossFn = Callable[..., torch.Tensor]
+_REGISTRY: Dict[str, LossFn] = {}
 
 
-def register_loss(name: str, fn: Callable) -> Callable:
+def register_loss(name: str, fn: LossFn) -> LossFn:
     _REGISTRY[name.lower()] = fn
     return fn
 
 
-def get_loss(name) -> Callable:
+def get_loss(name) -> LossFn:
     if callable(name):
         return name
     key = str(name).lower()

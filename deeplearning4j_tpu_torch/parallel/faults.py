@@ -61,6 +61,14 @@ class _NullInjector:
 
 NULL_INJECTOR = _NullInjector()
 
+#: every injection point the serving stack polls, as in the JAX package:
+#: ``fire`` points raise, hang or drop; the two ``device.corrupt_*``
+#: points are polled through :meth:`FaultInjector.corruption`
+POINTS = ("engine.step", "engine.prefill", "broker.send", "broker.recv",
+          "route.publish", "route.consume", "fleet.dispatch",
+          "fleet.heartbeat", "replica.kill", "disagg.ship",
+          "journal.write", "device.corrupt_logits", "device.corrupt_page")
+
 
 class FaultInjector:
     """Scripted, hit-count-keyed fault injection::

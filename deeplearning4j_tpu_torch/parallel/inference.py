@@ -210,8 +210,9 @@ class ParallelInference:
                 y, _, _ = net._forward(params, state,
                                        net._as_tensor(part).to(d),
                                        train=False, rng=None)
-            outs.append(y.float().cpu())
-        return torch.cat(outs).numpy()[:n]
+            outs.append(y.float())
+        # every replica's forward is queued before the first readback
+        return torch.cat([y.cpu() for y in outs]).numpy()[:n]
 
     # --- public API (reference ParallelInference.output) ---
     def output(self, features: np.ndarray) -> np.ndarray:

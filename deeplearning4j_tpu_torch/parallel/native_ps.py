@@ -68,7 +68,9 @@ def _load_lib():
         path = _lib_path()
         if not path.exists():
             try:
-                _build(path)
+                # the g++ wait under _load_lock is deliberate: one build
+                # per process, and a second caller must wait for it
+                _build(path)   # graftlint: disable=GL010
             except (OSError, subprocess.SubprocessError) as e:
                 _LOG.warning("native parameter server did not build: %s", e)
                 return None
@@ -168,21 +170,27 @@ class NativeParameterServerClient:
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._lock = threading.Lock()
 
+    # Socket I/O under the lock is the PROTOCOL (GL010-annotated): one
+    # shared connection carries alternating request/response frames, so
+    # each round-trip is one critical section by design — same contract
+    # as ParameterServerClient.
     def push_ndarray(self, vector: np.ndarray) -> None:
         payload = _as_f32(vector).tobytes()
         with self._lock:
-            self._sock.sendall(b"P" + struct.pack("<Q", len(payload)) +
-                               payload)
+            self._sock.sendall(   # graftlint: disable=GL010
+                b"P" + struct.pack("<Q", len(payload)) + payload)
 
     def get_ndarray(self) -> np.ndarray:
         with self._lock:
-            self._sock.sendall(b"G" + struct.pack("<Q", 0))
-            hdr = self._recv_exact(9)
+            self._sock.sendall(   # graftlint: disable=GL010
+                b"G" + struct.pack("<Q", 0))
+            hdr = self._recv_exact(9)   # graftlint: disable=GL010
             if hdr[0:1] != b"R":
                 raise ConnectionError("bad response frame")
             (ln,) = struct.unpack("<Q", hdr[1:])
-            return np.frombuffer(self._recv_exact(ln),
-                                 dtype=np.float32).copy()
+            return np.frombuffer(
+                self._recv_exact(ln),   # graftlint: disable=GL010
+                dtype=np.float32).copy()
 
     def _recv_exact(self, n: int) -> bytes:
         chunks = []
@@ -197,7 +205,8 @@ class NativeParameterServerClient:
     def close(self):
         try:
             with self._lock:
-                self._sock.sendall(b"Q" + struct.pack("<Q", 0))
+                self._sock.sendall(   # graftlint: disable=GL010
+                    b"Q" + struct.pack("<Q", 0))
         except OSError:
             pass
         self._sock.close()

@@ -71,6 +71,7 @@ def attention_reference(q, k, v, causal: bool = False):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+# graftlint: shard
 def _block_attend(q, k, v, m, l, o, q_offset, k_offset, causal,
                   k_keep=None):
     """One streaming-softmax block update. q [B,Tq,H,D], k/v [B,Tk,H,D];
@@ -104,6 +105,7 @@ def _block_attend(q, k, v, m, l, o, q_offset, k_offset, causal,
     return new_m, new_l, new_o
 
 
+# graftlint: shard
 def _merge_partials(o, lse, o_p, lse_p):
     """Merge two normalized attention partials (o_i, lse_i): weights
     exp(lse_i − logaddexp) ≤ 1, guarded where an lse is −∞."""

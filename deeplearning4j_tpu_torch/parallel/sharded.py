@@ -93,6 +93,7 @@ def cross_points(net, plan: ShardPlan) -> set:
     return out
 
 
+# graftlint: shard
 def walk(walks: list, plan: ShardPlan, answer_fn=None) -> list:
     """Advance every shard's walk in step, answering the cross-shard
     requests with ``answer_fn(requests, plan)`` (default :func:`answer`);
@@ -210,6 +211,7 @@ def experts_across(reqs, experts=None):
             for r, ex, x, rt in zip(reqs, experts, xs, routes)]
 
 
+# graftlint: shard
 def _embed(req, pos0):
     """A token + position embedding at this shard's absolute positions."""
     _, layer, params, state, x, _, gen = req

@@ -150,7 +150,7 @@ def pad_rows(n: int, n_dev: int, features: list, labels: list,
         m = _take(m, idx)
         if m is not None:
             m = m.clone().float() if torch.is_tensor(m) else \
-                np.asarray(m, np.float32).copy()
+                m.astype(np.float32)
             m[n:] = 0.0
         out_m.append(m)
     return ([_take(f, idx) for f in features],

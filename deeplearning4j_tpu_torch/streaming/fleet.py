@@ -47,8 +47,8 @@ share a hit counter.
 supplies one across processes (``CoordinatorKVClient``) and the
 process-per-replica deployment (``RemoteFleetRouter``). A replica's
 engine may decode over a (data, tp) mesh (``mesh=``, through the shared
-decoder); data-parallel training and the sharded trainers are ROADMAP
-queues A9b and A9c.
+decoder); data-parallel training and the sharded trainers are
+``parallel/wrapper.py`` and ``parallel/tensor.py`` / ``sequence.py``.
 """
 
 from __future__ import annotations

@@ -49,7 +49,7 @@ frames:
 - :class:`RemoteWorker` / :func:`worker_main` — the replica process: a
   journaled :class:`~..models.generation.SlotGenerationEngine` on the
   model dict's seeded weights. In place of the JAX worker's compile
-  audit it reports the port's build account (``cuda_lib.NVCC_RUNS``, the
+  audit it reports the port's build account (``cuda_lib.nvcc_runs()``, the
   decoder's ``param_casts``) and its own kernel launch counts
   (:func:`kernel_launches`) in its stats pushes and its ``drained``
   report: a worker's launches happen in its own process, where the
@@ -1798,7 +1798,7 @@ class RemoteWorker:
 
     def _builds(self) -> Tuple[int, int]:
         from ..kernels import cuda_lib
-        return cuda_lib.NVCC_RUNS, int(self._decoder.param_casts)
+        return cuda_lib.nvcc_runs(), int(self._decoder.param_casts)
 
     def _handle_cmd(self, kind: str, meta: Dict[str, Any],
                     body: bytes) -> None:

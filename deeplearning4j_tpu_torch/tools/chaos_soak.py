@@ -4,7 +4,7 @@ the JAX package's ``scripts/chaos_soak.py``.
 - :func:`run_soak` — the supervised crash / wedge round: a seeded fault
   schedule (crashes and wedges at ``engine.step``) under an
   ``EngineSupervisor``, with the bars: zero stranded requests, no kernel
-  build and no weight cast after a takeover (``cuda_lib.NVCC_RUNS`` and
+  build and no weight cast after a takeover (``cuda_lib.nvcc_runs()`` and
   ``TransformerDecoder.param_casts`` — the port's counterpart of the JAX
   soak's steady-state compile audit), at most one ``engine.decode``
   readback per decode block with telemetry on, one finished trace per
@@ -88,7 +88,7 @@ def _tiny_lm(vocab: int = 12, max_length: int = 32, device=None):
 def _builds(dec) -> tuple:
     """(kernel builds, weight casts) so far: a takeover must add neither."""
     from ..kernels import cuda_lib
-    return cuda_lib.NVCC_RUNS, dec.param_casts
+    return cuda_lib.nvcc_runs(), dec.param_casts
 
 
 def run_soak(seed: int = 0, n_requests: int = 16, num_slots: int = 2,

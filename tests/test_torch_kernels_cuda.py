@@ -36,7 +36,9 @@ kernel and matches its CPU import. Word vectors trained on the card,
 made into masked sequences by ``Word2VecDataSetIterator``, launch B6 once
 a GravesLSTM forward and match the plain recurrence; the embedding
 tables' segment update on the card is bitwise reproducible on both of its
-numerics, and so is a seeded Word2Vec scan.
+numerics, and so is a seeded Word2Vec scan. ``analysis.CompileAudit``
+over a fresh process's first ``cuda_lib.load`` counts one nvcc build and
+one ctypes load, and a second load none.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1861,3 +1863,49 @@ def test_dl4j_classifier_on_card(cuda_device):
     assert clf.net_.device.type == "cuda"
     assert (clf.predict(X) == y).mean() > 0.95
     assert clone(clf).get_params()["device"] is None
+
+
+def test_compile_audit_counts_one_build_and_one_load(cuda_device,
+                                                     tmp_path):
+    """A fresh process builds the segment-update library into an empty
+    build directory under CompileAudit: one build and one load, under
+    ``_lib_path``'s source hash; a second ``load`` in the same process
+    builds and loads nothing, and the process never built or loaded a
+    library twice under one hash."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    script = f"""
+import json
+from pathlib import Path
+from deeplearning4j_tpu_torch.analysis import CompileAudit
+from deeplearning4j_tpu_torch.kernels import cuda_lib
+cuda_lib.BUILD_DIR = Path({str(tmp_path)!r})
+with CompileAudit() as first:
+    cuda_lib.load("segment_update")
+with CompileAudit() as second:
+    cuda_lib.load("segment_update")
+whole = CompileAudit.process()
+print(json.dumps({{
+    "first": [first.builds("segment_update"),
+              first.loads("segment_update")],
+    "second": [second.builds("segment_update"),
+               second.loads("segment_update"), second.total_compiles],
+    "signatures": sorted(first.signatures["segment_update"]),
+    "digest": cuda_lib._lib_path("segment_update").stem.rsplit("-", 1)[1],
+    "duplicates": whole.duplicate_signature_compiles,
+    "nvcc_runs": cuda_lib.nvcc_runs()}}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, cwd=str(root), env=env, timeout=600)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["first"] == [1, 1]
+    assert got["second"] == [0, 0, 0]
+    assert got["signatures"] == [f"build@{got['digest']}",
+                                 f"load@{got['digest']}"]
+    assert got["duplicates"] == 0 and got["nvcc_runs"] == 1

@@ -12,8 +12,8 @@ each decoder taking the other's frames and refusing the same damaged
 ones, each package's KV client against the other's server, and the same
 rebuilt error classes. The launcher's worker config names the card
 unless the caller asks for the CPU; the module imports neither ``jax``
-nor the JAX package (the JAX package's lint gate over its remote module
-reads ``analysis/lint.py``, whose port is ROADMAP queue A11)."""
+nor the JAX package, and the port's linter finds nothing in it or in
+``streaming/tcp_broker.py``, as the JAX package's gate holds its copies."""
 
 import ast
 import json
@@ -625,8 +625,8 @@ class TestMembershipDegraded:
 # the port's own contracts
 # ===================================================================
 def test_remote_module_imports_no_jax():
-    """In place of the JAX package's lint gate (queue A11): the module
-    imports neither jax nor the JAX package."""
+    """The module imports neither jax nor the JAX package (the port's
+    own lint gate is the test below)."""
     path = os.path.join(REPO, "deeplearning4j_tpu_torch", "streaming",
                         "remote.py")
     with open(path, encoding="utf-8") as f:
@@ -640,6 +640,17 @@ def test_remote_module_imports_no_jax():
     bad = [n for n in names
            if n.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu")]
     assert not bad, bad
+
+
+def test_remote_module_lint_clean():
+    """As the JAX package's ``TestRemoteLintClean``: the port's remote
+    tier ships with ZERO findings of the port's linter — not zero beyond
+    its baseline; zero."""
+    from deeplearning4j_tpu_torch.analysis import lint_paths
+    paths = [os.path.join(REPO, "deeplearning4j_tpu_torch", "streaming", f)
+             for f in ("remote.py", "tcp_broker.py")]
+    found = lint_paths(paths, repo_root=REPO)
+    assert found == [], "\n".join(str(f) for f in found)
 
 
 @pytest.mark.parametrize("device", [None, "cpu"])

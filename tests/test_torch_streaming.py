@@ -337,7 +337,11 @@ def test_port_sources_import_no_jax():
                 "ui/legacy_listeners.py", "ui/storage.py",
                 "ui/components.py", "ui/report.py", "ui/png.py",
                 "cluster/ml_pipeline.py", "cluster/sklearn_compat.py",
-                "utils/fleet.py", "utils/object_store.py"):
+                "utils/fleet.py", "utils/object_store.py",
+                "analysis/__init__.py", "analysis/lint.py",
+                "analysis/callgraph.py", "analysis/concurrency.py",
+                "analysis/sharding.py", "analysis/lock_audit.py",
+                "analysis/compile_audit.py"):
         assert f"deeplearning4j_tpu_torch/{new}" in names
     assert (ROOT / "deeplearning4j_tpu_torch/csrc/dataloader.cpp").exists()
     bad = []

@@ -27,7 +27,11 @@ Truncated BPTT (:meth:`_fit_tbptt`) runs where the JAX graph runs it: a
 ``truncated_bptt`` configuration with ``tbptt_fwd_length`` > 0 and a 3-D
 input; it makes one update per time window and carries only the recurrent
 vertices' (h, c), detached, into the next window. Every update calls the
-listeners' ``iteration_done``. :meth:`rnn_time_step` keeps the recurrent
+listeners' ``iteration_done``. Each update is a ``dl4j.fit`` span holding
+its ``input``, ``forward``, ``backward``, ``update`` and ``listeners``
+phases (``observability/tracing.py::phase``; under truncated BPTT the
+batch's one ``dl4j.fit.input`` comes before its windows' updates).
+:meth:`rnn_time_step` keeps the recurrent
 carry between calls. :meth:`pretrain` / :meth:`pretrain_layer` train the
 pretrainable layer vertices (autoencoder, RBM, VAE) on the
 inference-mode features of the vertices their input depends on.
@@ -47,6 +51,7 @@ from ...datasets.iterators import as_iterator
 from ...eval.evaluation import Evaluation
 from ...eval.regression import RegressionEvaluation
 from ...eval.roc import ROC, ROCMultiClass
+from ...observability.tracing import phase
 from ...ops import rng as rngmod
 from ...ops.dataset import DataSet, MultiDataSet
 from ...ops.losses import reduce_terms
@@ -504,11 +509,12 @@ class ComputationGraph:
         the f32 masters, the new state detached. The autograd leaves share
         the masters' storage, so an update may write the masters in place
         once this returns."""
-        leaves = self._param_leaves()
-        with torch.enable_grad():
+        with phase("fit.forward"), torch.enable_grad():
+            leaves = self._param_leaves()
             score, new_state = self._loss(leaves, state, inputs, labels,
                                           rng, lmasks, imasks, initial_rnn)
-        by_vertex = self._grads_of(score, leaves)
+        with phase("fit.backward"):
+            by_vertex = self._grads_of(score, leaves)
         return score.detach(), _detached(new_state), by_vertex
 
     def _dropout_rng(self) -> int:
@@ -530,30 +536,31 @@ class ComputationGraph:
         """Per vertex: the gradient normalization, the scheduled learning
         rate and the update rule, applied to the masters in place (solo
         and data-parallel training alike)."""
-        conf = self.conf
-        for name, g in by_vertex.items():
-            if not g:
-                continue
-            v = conf.vertices[name]
-            layer = v.layer if isinstance(v, LayerVertex) else None
-            if layer is not None:
-                g = normalize_gradient(
-                    g, layer.gradient_normalization,
-                    _nz(layer.gradient_normalization_threshold, 1.0))
-            lr = schedule_lr(
-                _nz(layer.learning_rate if layer else None, 0.1),
-                conf.lr_policy, self.iteration,
-                decay_rate=conf.lr_policy_decay_rate,
-                steps=conf.lr_policy_steps, power=conf.lr_policy_power,
-                max_iterations=float(conf.max_iterations or 1),
-                schedule=conf.learning_rate_schedule)
-            upd = self.updaters[name]
-            for pname, grad in g.items():
-                step, ustate = upd.update(
-                    grad, self.updater_state[name][pname], lr,
-                    float(self.iteration))
-                self.params[name][pname].sub_(step)
-                self.updater_state[name][pname] = ustate
+        with phase("fit.update"):
+            conf = self.conf
+            for name, g in by_vertex.items():
+                if not g:
+                    continue
+                v = conf.vertices[name]
+                layer = v.layer if isinstance(v, LayerVertex) else None
+                if layer is not None:
+                    g = normalize_gradient(
+                        g, layer.gradient_normalization,
+                        _nz(layer.gradient_normalization_threshold, 1.0))
+                lr = schedule_lr(
+                    _nz(layer.learning_rate if layer else None, 0.1),
+                    conf.lr_policy, self.iteration,
+                    decay_rate=conf.lr_policy_decay_rate,
+                    steps=conf.lr_policy_steps, power=conf.lr_policy_power,
+                    max_iterations=float(conf.max_iterations or 1),
+                    schedule=conf.learning_rate_schedule)
+                upd = self.updaters[name]
+                for pname, grad in g.items():
+                    step, ustate = upd.update(
+                        grad, self.updater_state[name][pname], lr,
+                        float(self.iteration))
+                    self.params[name][pname].sub_(step)
+                    self.updater_state[name][pname] = ustate
 
     @staticmethod
     def _strip_rnn_carry(states):
@@ -563,8 +570,9 @@ class ComputationGraph:
         self.state = _strip_rnn_carry(new_state)
         self.score_value = score        # a device tensor until read
         self.iteration += 1
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration)
+        with phase("fit.listeners"):
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration)
 
     def fit_batch(self, ds):
         """One train step on a DataSet or MultiDataSet (truncated BPTT
@@ -573,13 +581,20 @@ class ComputationGraph:
         host sync)."""
         self._ensure_init()
         self.last_input_batch = ds
-        inputs, labels, imasks, lmasks = self._batch(ds)
-        if self.conf.backprop_type == "truncated_bptt" and \
-                (self.conf.tbptt_fwd_length or 0) > 0 and \
-                any(v.dim() == 3 for v in inputs.values()):
-            self._fit_tbptt(inputs, labels, imasks, lmasks)
+        if not (self.conf.backprop_type == "truncated_bptt" and
+                (self.conf.tbptt_fwd_length or 0) > 0):
+            with phase("fit", self.iteration):
+                with phase("fit.input"):
+                    batch = self._batch(ds)
+                self._after_step(*self._train_step(*batch))
             return
-        self._after_step(*self._train_step(inputs, labels, imasks, lmasks))
+        with phase("fit.input"):
+            batch = self._batch(ds)
+        if any(v.dim() == 3 for v in batch[0].values()):
+            self._fit_tbptt(*batch)
+            return
+        with phase("fit", self.iteration):
+            self._after_step(*self._train_step(*batch))
 
     @staticmethod
     def _slice_time(d: Optional[Dict], start: int, end: int,
@@ -610,12 +625,13 @@ class ComputationGraph:
                               not v.dtype.is_floating_point and
                               v.shape[1] == t_total) else v)
                       for k, v in labels.items()}
-            score, new_state = self._train_step(
-                self._slice_time(inputs, start, end), sliced,
-                self._slice_time(imasks, start, end, min_ndim=2),
-                self._slice_time(lmasks, start, end, min_ndim=2), carry)
-            carry = _carries(new_state)
-            self._after_step(score, new_state)
+            with phase("fit", self.iteration):
+                score, new_state = self._train_step(
+                    self._slice_time(inputs, start, end), sliced,
+                    self._slice_time(imasks, start, end, min_ndim=2),
+                    self._slice_time(lmasks, start, end, min_ndim=2), carry)
+                carry = _carries(new_state)
+                self._after_step(score, new_state)
 
     def fit(self, data, num_epochs: int = 1):
         """Train on a DataSet or MultiDataSet, or a list or iterator of

@@ -15,7 +15,11 @@ over the masters, then per layer the gradient normalization, the
 scheduled learning rate and the JAX package's update rule, applied to the
 masters in place. ``score_value`` stays a device tensor. Truncated BPTT
 (:meth:`_fit_tbptt`) makes one such update per time window and carries the
-recurrent layers' (h, c), detached, into the next window.
+recurrent layers' (h, c), detached, into the next window. Updates trace as
+``ComputationGraph``'s do: a ``dl4j.fit`` span each, holding its
+``input``, ``forward``, ``backward``, ``update`` and ``listeners`` phases
+(``observability/tracing.py::phase``; under truncated BPTT the batch's
+one ``dl4j.fit.input`` comes before its windows' updates).
 
 Inference (``output``, ``feed_forward``, ``rnn_time_step``) runs on the
 f32 masters, as the JAX package does (a bf16 input promotes to f32
@@ -44,6 +48,7 @@ from ..datasets.iterators import AsyncDataSetIterator, as_iterator
 from ..eval.evaluation import Evaluation
 from ..eval.regression import RegressionEvaluation
 from ..eval.roc import ROC, ROCMultiClass
+from ..observability.tracing import phase
 from ..kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_terms,
                                 sparse_labels_eligible, sparse_shaped)
 from ..ops import rng as rngmod
@@ -367,11 +372,12 @@ class MultiLayerNetwork:
         """(score, new_states, [{param: gradient}]) of the loss over the
         f32 masters. The autograd leaves share the masters' storage, so an
         update may write the masters in place once this returns."""
-        leaves = self._param_leaves()
-        with torch.enable_grad():
+        with phase("fit.forward"), torch.enable_grad():
+            leaves = self._param_leaves()
             score, new_states = self._loss_fn(leaves, state, feats, labels,
                                               fmask, lmask, rng, initial_rnn)
-        grads = self._grads_of(score, leaves)
+        with phase("fit.backward"):
+            grads = self._grads_of(score, leaves)
         return score.detach(), _detached(new_states), grads
 
     def _lr(self, base):
@@ -405,27 +411,28 @@ class MultiLayerNetwork:
         (default the net's) are updated instead where given, as a tensor-
         parallel shard's slices are; ``normalize=False`` when the caller
         normalized the whole layer's gradient already."""
-        params = self.params if params is None else params
-        updater_state = self.updater_state if updater_state is None \
-            else updater_state
-        for i, (layer, g) in enumerate(zip(self.layers, grads)):
-            if not g:
-                continue
-            if normalize:
-                g = normalize_gradient(
-                    g, layer.gradient_normalization,
-                    _nz(layer.gradient_normalization_threshold, 1.0))
-            lr = self._lr(_nz(layer.learning_rate, 0.1))
-            upd = self.updaters[i]
-            for name, grad in g.items():
-                use_lr = lr
-                if name in _BIAS_PARAMS and \
-                        layer.bias_learning_rate is not None:
-                    use_lr = self._lr(layer.bias_learning_rate)
-                step, ustate = upd.update(grad, updater_state[i][name],
-                                          use_lr, float(self.iteration))
-                params[i][name].sub_(step)
-                updater_state[i][name] = ustate
+        with phase("fit.update"):
+            params = self.params if params is None else params
+            updater_state = self.updater_state if updater_state is None \
+                else updater_state
+            for i, (layer, g) in enumerate(zip(self.layers, grads)):
+                if not g:
+                    continue
+                if normalize:
+                    g = normalize_gradient(
+                        g, layer.gradient_normalization,
+                        _nz(layer.gradient_normalization_threshold, 1.0))
+                lr = self._lr(_nz(layer.learning_rate, 0.1))
+                upd = self.updaters[i]
+                for name, grad in g.items():
+                    use_lr = lr
+                    if name in _BIAS_PARAMS and \
+                            layer.bias_learning_rate is not None:
+                        use_lr = self._lr(layer.bias_learning_rate)
+                    step, ustate = upd.update(grad, updater_state[i][name],
+                                              use_lr, float(self.iteration))
+                    params[i][name].sub_(step)
+                    updater_state[i][name] = ustate
 
     @staticmethod
     def _strip_rnn_carry(states):
@@ -435,8 +442,9 @@ class MultiLayerNetwork:
         self.state = _strip_carry(new_states)
         self.score_value = score        # a device tensor until read
         self.iteration += 1
-        for lst in self.listeners:
-            lst.iteration_done(self, self.iteration)
+        with phase("fit.listeners"):
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration)
 
     def fit(self, data, labels=None, num_epochs: int = 1):
         """Train on a DataSet, a list or iterator of them, or a features
@@ -476,25 +484,30 @@ class MultiLayerNetwork:
         state."""
         self._ensure_init()
         self.last_input_batch = ds
-        self._after_step(*self._train_step(*self._batch(ds)))
+        with phase("fit", self.iteration):
+            with phase("fit.input"):
+                batch = self._batch(ds)
+            self._after_step(*self._train_step(*batch))
 
     def _fit_tbptt(self, ds: DataSet):
         """Truncated BPTT: one update per window of ``tbptt_fwd_length``
         steps, the recurrent (h, c) carried (detached) across windows."""
         self._ensure_init()
-        feats, labels, fmask, lmask = self._batch(ds)
+        with phase("fit.input"):
+            feats, labels, fmask, lmask = self._batch(ds)
         window = self.conf.tbptt_fwd_length
         cut = lambda a, s, e: None if a is None else a[:, s:e]
         carry = [{} for _ in self.layers]
         for start in range(0, feats.shape[1], window):
             end = start + window
-            score, new_states = self._train_step(
-                cut(feats, start, end), cut(labels, start, end),
-                cut(fmask, start, end), cut(lmask, start, end), carry)
-            carry = [{k: v for k, v in st.items() if k in _CARRY}
-                     if isinstance(layer, BaseRecurrentLayerConf) else {}
-                     for layer, st in zip(self.layers, new_states)]
-            self._after_step(score, new_states)
+            with phase("fit", self.iteration):
+                score, new_states = self._train_step(
+                    cut(feats, start, end), cut(labels, start, end),
+                    cut(fmask, start, end), cut(lmask, start, end), carry)
+                carry = [{k: v for k, v in st.items() if k in _CARRY}
+                         if isinstance(layer, BaseRecurrentLayerConf) else {}
+                         for layer, st in zip(self.layers, new_states)]
+                self._after_step(score, new_states)
 
     # -------------------------------------------------------------- pretrain
     @torch.no_grad()

@@ -22,6 +22,9 @@ package's ``observability/devstats.py`` rewritten for torch.
   token and logit rows. A ``decode_block{K}`` row is per STEP, as the JAX
   package's rows are (XLA counts a scan body once). This is the
   theoretical side of :mod:`.profiler`'s roofline join.
+- **Card peaks** — :func:`device_peaks`, the data-sheet dense bf16 and
+  memory peaks of the card the process runs on (:data:`CARD_PEAKS`), the
+  roofline join's peaks where no ``DL4J_TPU_PEAK_*`` variable sets them.
 
 Everything here is host-side observation: nothing launches device work,
 and every probe degrades to a partial snapshot instead of failing the
@@ -33,7 +36,7 @@ from __future__ import annotations
 import gc
 import threading
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -205,6 +208,21 @@ def impl_cost_analysis(decoder, refresh: bool = False) -> Dict[str, dict]:
             entry[1] = cost
         out[name] = cost
     return out
+
+
+#: data-sheet peaks by ``torch.cuda.get_device_name()``: (dense bf16
+#: GFLOP/s, memory GB/s). H100 SXM5: 989 TFLOP/s, HBM3 3.35 TB/s.
+CARD_PEAKS: Dict[str, Tuple[float, float]] = {
+    "NVIDIA H100 80GB HBM3": (989_000.0, 3_350.0),
+}
+
+
+def device_peaks() -> Optional[Tuple[float, float]]:
+    """(dense bf16 GFLOP/s, memory GB/s) of the current CUDA card; None
+    without a card or for a card :data:`CARD_PEAKS` lacks."""
+    if not torch.cuda.is_available():
+        return None
+    return CARD_PEAKS.get(torch.cuda.get_device_name())
 
 
 class DeviceStats:

@@ -26,10 +26,11 @@ with the interval clock, as there; no device profiler runs in the loop.
 - **Roofline attainment** — joins :mod:`.devstats`' per-program analytic
   flops/bytes with the MEASURED steady block durations: attained
   GFLOP/s, GB/s, arithmetic intensity, and a memory-/compute-bound
-  verdict per program. Peaks come from ``DL4J_TPU_PEAK_GFLOPS`` /
-  ``DL4J_TPU_PEAK_GBS`` (the JAX package's variable names) or constructor
-  args; without them the verdict falls back to comparing arithmetic
-  intensity against an assumed ridge point.
+  verdict per program. Peaks come from constructor args, else
+  ``DL4J_TPU_PEAK_GFLOPS`` / ``DL4J_TPU_PEAK_GBS`` (the JAX package's
+  variable names), else the card's data-sheet row
+  (``devstats.device_peaks``); without them the verdict falls back to
+  comparing arithmetic intensity against an assumed ridge point.
 
 - **PhaseTimeline** — a bounded ring of per-block phase records (newest
   last). The ring lives on the PROFILER, not the engine, so it survives a
@@ -49,6 +50,7 @@ import weakref
 from collections import deque
 from typing import Dict, List, Optional
 
+from .devstats import device_peaks
 from .metrics import MetricsRegistry, default_registry
 
 #: phase names of the telescoping per-block decomposition (these sum to
@@ -462,10 +464,11 @@ class PhaseProfiler:
         self.registry = registry if registry is not None \
             else default_registry()
         self.timeline = PhaseTimeline(timeline_capacity)
+        card = device_peaks() or (None, None)
         self.peak_gflops = peak_gflops if peak_gflops is not None else \
-            _env_peak("DL4J_TPU_PEAK_GFLOPS")
+            _env_peak("DL4J_TPU_PEAK_GFLOPS") or card[0]
         self.peak_gbs = peak_gbs if peak_gbs is not None else \
-            _env_peak("DL4J_TPU_PEAK_GBS")
+            _env_peak("DL4J_TPU_PEAK_GBS") or card[1]
         self._lock = threading.Lock()
         self._channels: Dict[str, EngineChannel] = {}
 

@@ -24,15 +24,33 @@ Overhead rules:
   (oldest decode blocks are the ones that matter least; overflow is
   counted in ``dropped_spans``), and completed traces land in a fixed
   ring (:class:`TraceRing`) — memory is O(ring × max_spans) forever.
+
+The training step's phases are spans of another kind: :func:`phase`
+puts ``dl4j.<name>`` ``record_function`` ranges on the PyTorch
+profiler's clock while a profiler records (any ``torch.profiler``
+run, such as ``ui.profiler_trace``), so they land in the same trace
+as the kernels they launch, and costs one check and nothing else
+otherwise. ``ComputationGraph`` and ``MultiLayerNetwork``
+open ``dl4j.fit`` (its argument the iteration) around each update, and
+inside it ``dl4j.fit.input`` (the batch to the device in the compute
+dtype), ``dl4j.fit.forward`` (the loss), ``dl4j.fit.backward``
+(``torch.autograd.grad``), ``dl4j.fit.update`` (normalization, learning
+rate and update rule of every leaf; data-parallel steps too) and
+``dl4j.fit.listeners``. :func:`phase_times` reads a Chrome trace of such
+a run as device time, launches and device idle time by phase.
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import itertools
 import threading
 import time
-from collections import deque
-from typing import Dict, List, Optional
+from collections import defaultdict, deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from .clock import interval_now
 
@@ -241,3 +259,125 @@ def default_trace_ring() -> TraceRing:
         if _DEFAULT is None:
             _DEFAULT = TraceRing(256)
         return _DEFAULT
+
+
+# ------------------------------------------------ training-step phases
+#: prefix of the training step's span names
+PHASE_PREFIX = "dl4j."
+#: what :func:`phase_times` files work and idle time under where no
+#: span holds it
+OUTSIDE = "outside"
+#: Chrome-trace categories of device work, and of the host calls that
+#: launch it
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+_OFF = contextlib.nullcontext()
+
+
+def phase(name: str, arg=None):
+    """The span ``dl4j.<name>`` of the training step: a
+    ``torch.profiler.record_function`` range (``arg``, where given, its
+    argument) while a PyTorch profiler records, else one shared null
+    context, so with tracing off a phase costs this one check."""
+    if torch.autograd._profiler_enabled():
+        return _recorded(name, arg)
+    return _OFF
+
+
+def _recorded(name: str, arg):
+    return torch.profiler.record_function(
+        PHASE_PREFIX + name, None if arg is None else str(arg))
+
+
+def _innermost(spans: Sequence[Tuple[float, float, str]]):
+    """Disjoint (start, end, name) segments, sorted, each named by the
+    innermost of the nested ``spans`` that holds it (a child cut to its
+    parent's end where rounding lets it run over)."""
+    segments: List[Tuple[float, float, str]] = []
+    stack: List[Tuple[float, str]] = []
+    t = 0.0
+
+    def close_until(limit):
+        nonlocal t
+        while stack and stack[-1][0] <= limit:
+            end, name = stack.pop()
+            if end > t:
+                segments.append((t, end, name))
+                t = end
+
+    for a, b, name in sorted(spans, key=lambda s: (s[0], -s[1])):
+        close_until(a)
+        if stack and a > t:
+            segments.append((t, a, stack[-1][1]))
+        stack.append((min(b, stack[-1][0]) if stack else b, name))
+        t = a
+    close_until(float("inf"))
+    return segments
+
+
+def phase_times(events: Sequence[Dict],
+                window: Optional[Tuple[float, float]] = None
+                ) -> Dict[str, Dict[str, float]]:
+    """Device seconds, kernel launches and device idle seconds by
+    ``dl4j.`` span, from the ``traceEvents`` of a PyTorch profiler's
+    Chrome trace (``export_chrome_trace``): {span name or
+    :data:`OUTSIDE`: {"device_s", "launches", "idle_s"}}.
+
+    A kernel, copy or memset belongs to the innermost ``dl4j.`` span, on
+    the thread of the earliest such span, whose interval holds the host
+    time of the runtime or driver call that launched it
+    (``args.correlation``), whatever thread made that call:
+    the autograd engine launches the backward from a thread of its own
+    while the caller waits inside ``dl4j.fit.backward``. Device work that
+    overlaps counts once, to the op that started first, so the device
+    seconds sum to the union of the device intervals. A gap in that union
+    belongs to the innermost span holding its start. ``window`` (host
+    microseconds) bounds what is counted; by default from the first to
+    the last device op or span."""
+    spans = [e for e in events if e.get("ph") == "X" and
+             e.get("cat") == "user_annotation" and
+             str(e.get("name", "")).startswith(PHASE_PREFIX)]
+    tid = min(spans, key=lambda e: float(e["ts"]))["tid"] if spans else None
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+             for e in spans if e["tid"] == tid]
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS and
+                "correlation" in e.get("args", {})}
+    ops = sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+                   e["cat"], e.get("args", {}).get("correlation"))
+                  for e in events
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS),
+                 key=lambda op: op[:2])
+    if window is None:
+        ends = [x for a, b, *_ in spans + ops for x in (a, b)]
+        window = (min(ends), max(ends)) if ends else (0.0, 0.0)
+    w0, w1 = window
+    segments = _innermost(spans)
+    starts = [s[0] for s in segments]
+
+    def owner(t):
+        if t is None:
+            return OUTSIDE
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and segments[i][0] <= t < segments[i][1]:
+            return segments[i][2]
+        return OUTSIDE
+
+    out = defaultdict(lambda: {"device_s": 0.0, "launches": 0,
+                               "idle_s": 0.0})
+    out[OUTSIDE] = out.default_factory()
+    covered = w0
+    for a, b, cat, corr in ops:
+        a, b = max(a, w0), min(b, w1)
+        if b <= a:
+            continue
+        if a > covered:
+            out[owner(covered)]["idle_s"] += (a - covered) * 1e-6
+        who = out[owner(launched.get(corr))]
+        who["launches"] += int(cat == "kernel")
+        if b > covered:
+            who["device_s"] += (b - max(a, covered)) * 1e-6
+            covered = b
+    if w1 > covered:
+        out[owner(covered)]["idle_s"] += (w1 - covered) * 1e-6
+    return dict(out)

@@ -13,10 +13,10 @@ import threading
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..ops.dataset import DataSet, MultiDataSet
 from ..ops.platform import resolve_device
+from ..ops.transfer import host_tensor, stage_to_device
 
 
 class DataSetIterator:
@@ -114,13 +114,9 @@ class AsyncDataSetIterator(DataSetIterator):
         def put(a, stage):
             if a is None:
                 return None
-            t = a if torch.is_tensor(a) else \
-                torch.from_numpy(np.ascontiguousarray(a))
-            if stage and sd is not None and t.is_floating_point():
-                t = t.to(sd)
-            if dev.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory()
-            return t.to(dev, non_blocking=True)
+            t = host_tensor(a)
+            cast = stage and sd is not None and t.is_floating_point()
+            return stage_to_device(t, dev, sd if cast else None)
 
         return DataSet(put(ds.features, True), put(ds.labels, True),
                        put(ds.features_mask, False),

@@ -56,7 +56,7 @@ from ...ops import rng as rngmod
 from ...ops.dataset import DataSet, MultiDataSet
 from ...ops.losses import reduce_terms
 from ...ops.platform import resolve_device, state_on
-from ...ops.transfer import device_fetch
+from ...ops.transfer import device_fetch, host_tensor, stage_to_device
 from ...ops.updaters import make_updater, normalize_gradient, schedule_lr
 from ...kernels.fused_ce import (_MCXENT_LOSSES, fused_sparse_ce_terms,
                                  sparse_shaped)
@@ -306,12 +306,11 @@ class ComputationGraph:
     def _to_device_dtype(self, a) -> torch.Tensor:
         """compute_dtype for floats; integer inputs (token ids, class ids)
         keep an integer dtype — casting ids through bf16 would corrupt
-        every id >= 257."""
-        t = torch.as_tensor(np.asarray(a)) if not torch.is_tensor(a) else a
-        t = t.to(self.device)
-        if t.dtype.is_floating_point:
-            return t.to(self.compute_dtype)
-        return t.long()
+        every id >= 257. A host batch bound for the card is staged
+        (``ops.transfer.stage_to_device``)."""
+        t = host_tensor(a)
+        return stage_to_device(t, self.device, self.compute_dtype
+                               if t.dtype.is_floating_point else torch.long)
 
     def _named(self, names, values, convert) -> Dict[str, torch.Tensor]:
         if isinstance(values, dict):
@@ -456,8 +455,7 @@ class ComputationGraph:
         """(input_masks, label_masks) dicts from a DataSet or MultiDataSet
         (host arrays or tensors), in the compute dtype on the device."""
         conv = lambda m: None if m is None else \
-            (m if torch.is_tensor(m) else torch.as_tensor(np.asarray(m))) \
-            .to(self.device, self.compute_dtype)
+            stage_to_device(m, self.device, self.compute_dtype)
         if isinstance(ds, MultiDataSet):
             imasks = None if not ds.features_masks else \
                 {n: conv(m) for n, m in zip(self.conf.network_inputs,

@@ -55,7 +55,7 @@ from ..ops import rng as rngmod
 from ..ops.dataset import DataSet
 from ..ops.losses import get_loss, reduce_terms
 from ..ops.platform import resolve_device, state_on
-from ..ops.transfer import device_fetch
+from ..ops.transfer import device_fetch, host_tensor, stage_to_device
 from ..ops.updaters import make_updater, normalize_gradient, schedule_lr
 from .conf.config import MultiLayerConfiguration
 from .conf.layers.base import BaseRecurrentLayerConf
@@ -227,14 +227,14 @@ class MultiLayerNetwork:
     def _as_tensor(self, a, dtype=None) -> torch.Tensor:
         """A host array or tensor on the net's device: floats in ``dtype``
         (the compute dtype by default); integer ids stay integers (a bf16
-        round trip corrupts ids >= 257)."""
-        if not torch.is_tensor(a):
-            a = torch.from_numpy(np.array(a))
-        if a.dtype.is_floating_point:
-            return a.to(self.device, dtype or self.compute_dtype)
-        if a.dtype == torch.bool:
-            return a.to(self.device)
-        return a.to(self.device, torch.long)
+        round trip corrupts ids >= 257). A host batch bound for the card is
+        staged (``ops.transfer.stage_to_device``)."""
+        t = host_tensor(a)
+        if t.dtype.is_floating_point:
+            dtype = dtype or self.compute_dtype
+        elif t.dtype != torch.bool:
+            dtype = torch.long
+        return stage_to_device(t, self.device, dtype)
 
     def _batch(self, ds: DataSet):
         mask = lambda m: None if m is None else self._as_tensor(m)

@@ -9,7 +9,10 @@ serving process:
 - ``GET /metrics``        — the registry's Prometheus text exposition;
 - ``GET /snapshot``       — one JSON document: the registry snapshot,
   per-tag device→host readbacks since the server started
-  (``ops.transfer.fetch_counts``), with ``audit_compiles=True`` the
+  (``ops.transfer.fetch_counts``) beside the host→device transfers
+  staged through pinned memory or taken directly (``h2d.staged``,
+  ``h2d.staged_bytes``, ``h2d.direct``: ``ops.transfer.stage_counts``),
+  with ``audit_compiles=True`` the
   kernel builds since start (``kernels.cuda_lib.nvcc_runs()``, the port's
   counterpart of the JAX compile audit), the device stats (memory,
   per-engine KV bytes, per-program analytic cost from
@@ -102,6 +105,14 @@ class _TelemetryHandler(JsonHTTPHandler):
                 "/traces/recent", "/healthz"]}, code=404)
 
 
+def _transfer_counts() -> Dict[str, int]:
+    """The readback counters by tag and the stage counters as ``h2d.*``."""
+    from ..ops.transfer import fetch_counts, stage_counts
+    out = fetch_counts()
+    out.update({f"h2d.{k}": c for k, c in stage_counts().items()})
+    return out
+
+
 class TelemetryServer:
     """Background telemetry endpoint over a registry and a trace ring.
 
@@ -158,8 +169,7 @@ class TelemetryServer:
         if self._started_at is not None:
             return self
         from ..kernels import cuda_lib
-        from ..ops.transfer import fetch_counts
-        self._transfer_start = fetch_counts()
+        self._transfer_start = _transfer_counts()
         if self._audit_compiles:
             self._builds_start = cuda_lib.nvcc_runs()
         handler = type("_BoundTelemetryHandler", (_TelemetryHandler,),
@@ -189,9 +199,9 @@ class TelemetryServer:
 
     # ------------------------------------------------------------- views
     def transfer_deltas(self) -> Dict[str, int]:
-        """Per-tag ``device_fetch`` readbacks since ``start()``."""
-        from ..ops.transfer import fetch_counts
-        now = fetch_counts()
+        """Per-tag ``device_fetch`` readbacks and the ``h2d.*`` stage
+        counters since ``start()``."""
+        now = _transfer_counts()
         return {t: c - self._transfer_start.get(t, 0)
                 for t, c in sorted(now.items())
                 if c - self._transfer_start.get(t, 0) > 0}

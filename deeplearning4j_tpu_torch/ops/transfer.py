@@ -11,6 +11,17 @@ decode pipeline would wait for the NEXT block too. :func:`to_device` is the
 matching host→device half: it copies from pinned memory without the stream
 synchronisation a copy from pageable memory implies.
 
+:func:`stage_to_device` is the training feed's host→device half: a host
+batch bound for the card is cast, in one multi-threaded pass, straight
+into a pinned block of the caching host allocator in the narrower of its
+own and its target dtype, and copied from there without a stream
+synchronisation; what the wire dtype leaves undone (an int32 → int64
+widening) runs on the card. The host's cast rounds to nearest even as
+the card's does, so a float batch lands bit-identical to a copy followed
+by a cast on the card. Inputs already on the device, inputs already in
+pinned memory and CPU targets take the direct path. :func:`stage_counts`
+counts both paths.
+
 A mesh-sharded decoder gathers its shards' results on its controller
 device and marks the gathered tensor with their count
 (:func:`mark_shards`); the one readback of it records that count under
@@ -20,6 +31,7 @@ one), as the JAX package's seam records a sharded array's device set."""
 from __future__ import annotations
 
 import threading
+import warnings
 from collections import Counter
 from typing import Dict, Optional
 
@@ -30,6 +42,9 @@ _LOCK = threading.Lock()
 _COUNTS: Counter = Counter()
 #: per tag: the mesh shards the most recent fetch under it gathered
 _SHARDS: Dict[str, int] = {}
+#: host→device transfers: ``staged`` (and their ``staged_bytes``, the
+#: bytes on the wire) through a pinned stage, ``direct`` without one
+_STAGE: Counter = Counter()
 
 
 class HostCopy:
@@ -112,3 +127,71 @@ def to_device(a, device, dtype=None) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def host_tensor(a) -> torch.Tensor:
+    """``a`` as a tensor, without a copy wherever torch can view it: a
+    tensor as it is, a numpy array (strided or read-only) in place, any
+    other array-like through ``np.asarray``. Negative strides, which
+    torch cannot view, are copied."""
+    if torch.is_tensor(a):
+        return a
+    arr = np.asarray(a)
+    if any(s < 0 for s in arr.strides):
+        arr = np.ascontiguousarray(arr)
+    if arr.flags.writeable:
+        return torch.from_numpy(arr)
+    with warnings.catch_warnings():     # the view is only ever read
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        return torch.from_numpy(arr)
+
+
+def _takes_stage(t: torch.Tensor, device: torch.device) -> bool:
+    """A tensor in pageable host memory bound for the card is staged."""
+    return device.type == "cuda" and t.device.type == "cpu" and \
+        not t.is_pinned()
+
+
+def _host_stage(t: torch.Tensor, dtype: torch.dtype,
+                pin_memory: bool = True) -> torch.Tensor:
+    """The host half of a stage: ``t`` cast in one multi-threaded pass
+    into a new (pinned) block in the wire dtype, the narrower of its own
+    and ``dtype`` (equal widths take ``dtype``), counted as staged."""
+    wire = dtype if dtype.itemsize <= t.element_size() else t.dtype
+    stage = torch.empty(t.shape, dtype=wire, pin_memory=pin_memory)
+    stage.copy_(t)
+    with _LOCK:
+        _STAGE["staged"] += 1
+        _STAGE["staged_bytes"] += stage.nbytes
+    return stage
+
+
+def stage_to_device(a, device, dtype=None) -> torch.Tensor:
+    """A host array or tensor on ``device`` in ``dtype`` (None keeps its
+    own). From pageable host memory to the card it is staged: cast on the
+    host into a pinned block of the caching host allocator (which keeps
+    the block alive until the copy that reads it completes, and reuses
+    it), copied without a host/device sync, and converted to ``dtype`` on
+    the card where the wire dtype is not yet it. The caller may overwrite
+    ``a`` once this returns. Anything else is direct: a pinned tensor is
+    copied without a sync and converted on the card; a tensor already on
+    a device, or a CPU target, converts as ``Tensor.to`` does."""
+    t = host_tensor(a)
+    device = torch.device(device)
+    dtype = t.dtype if dtype is None else dtype
+    if _takes_stage(t, device):
+        return _host_stage(t, dtype).to(device, non_blocking=True).to(dtype)
+    with _LOCK:
+        _STAGE["direct"] += 1
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.to(device, non_blocking=True).to(dtype)
+    return t.to(device, dtype)
+
+
+def stage_counts() -> Dict[str, int]:
+    """Snapshot of the host→device transfer counters: ``staged``,
+    ``staged_bytes`` and ``direct``."""
+    with _LOCK:
+        return {k: _STAGE.get(k, 0)
+                for k in ("staged", "staged_bytes", "direct")}

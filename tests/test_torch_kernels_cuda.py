@@ -38,7 +38,12 @@ a GravesLSTM forward and match the plain recurrence; the embedding
 tables' segment update on the card is bitwise reproducible on both of its
 numerics, and so is a seeded Word2Vec scan. ``analysis.CompileAudit``
 over a fresh process's first ``cuda_lib.load`` counts one nvcc build and
-one ctypes load, and a second load none.
+one ctypes load, and a second load none. The feed's pinned stage
+(``ops.transfer.stage_to_device``): a staged bf16 batch bit-identical to
+a cast on the card, ``fit_batch`` steps on staged batches bit-identical
+to the unstaged conversion (one staged features and one staged labels
+transfer a step), a source overwritten right after ``fit_batch`` that
+changes nothing, and a pinned block reused from the second stage on.
 Every test here
 needs a CUDA card and skips without one. The module imports no
 JAX, so it runs where JAX is not installed:
@@ -1909,3 +1914,133 @@ print(json.dumps({{
     assert got["signatures"] == [f"build@{got['digest']}",
                                  f"load@{got['digest']}"]
     assert got["duplicates"] == 0 and got["nvcc_runs"] == 1
+
+
+# ------------------------------------- the feed: pinned staging to the card
+def test_staged_batch_is_bit_identical_to_a_cast_on_the_card(cuda_device):
+    """A [64, 224, 224, 3] f32 noise batch, with ties, subnormals, ±inf,
+    ±0 and NaN written into its first elements, staged to bf16 equals a
+    pageable copy cast on the card bit for bit (NaN stays NaN)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops.transfer import stage_to_device
+    x = np.random.default_rng(11).normal(size=(64, 224, 224, 3)) \
+        .astype(np.float32)
+    special = np.concatenate([
+        np.array([0x3F808000, 0x3F818000, 0x00008000, 0x00018000,
+                  0x7F7F8000, 0x007FFFFF, 0x80000001], np.uint32)
+        .view(np.float32),
+        np.array([1e-40, -1e-40, np.inf, -np.inf, 0.0, -0.0, np.nan],
+                 np.float32)])
+    x.reshape(-1)[:special.size] = special
+    got = stage_to_device(x, cuda_device, torch.bfloat16)
+    want = torch.from_numpy(x).to(cuda_device).to(torch.bfloat16)
+    assert got.is_cuda and got.dtype == torch.bfloat16
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and int(nan.sum()) == 1
+    assert torch.equal(got.view(torch.int16)[~nan],
+                       want.view(torch.int16)[~nan])
+
+
+def _twin_cnns(device):
+    """Two resnet_tiny graphs in bf16 on ``device`` with the same masters
+    and running statistics (and fresh updater states), and a batch of
+    int32 ids."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models import resnet_tiny_conf
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    nets = [ComputationGraph(resnet_tiny_conf(num_classes=4, height=16,
+                                              width=16, channels=3),
+                             device=device,
+                             compute_dtype=torch.bfloat16).init()
+            for _ in range(2)]
+    with torch.no_grad():
+        for tree in ("params", "state"):
+            src = getattr(nets[0], tree)
+            for v, leaves in getattr(nets[1], tree).items():
+                for k, a in leaves.items():
+                    if torch.is_tensor(a):
+                        a.copy_(src[v][k])
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 4, 8).astype(np.int32)
+    return nets, x, y
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+
+
+def _same_nets(a, b):
+    return all(torch.equal(a.params[v][k], b.params[v][k])
+               for v in a.params for k in a.params[v])
+
+
+def test_staged_fit_batch_matches_the_unstaged_conversion(
+        cuda_device, deterministic_cudnn):
+    """Three fit_batch steps of a small CNN on staged batches give losses
+    and masters bit-identical to the same steps on batches converted the
+    unstaged way (a pageable copy, then the cast or widening on the card);
+    each staged step counts one staged features and one staged labels
+    transfer and no direct one."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops.transfer import stage_counts
+    (staged, plain), x, y = _twin_cnns(cuda_device)
+
+    def unstaged(a):
+        t = torch.as_tensor(np.asarray(a)).to(cuda_device)
+        return t.to(torch.bfloat16) if t.is_floating_point() else t.long()
+
+    plain._to_device_dtype = unstaged
+    for step in range(3):
+        xs, ys = x + step, (y + step) % 4
+        before = stage_counts()
+        staged.fit_batch(DataSet(xs, ys))
+        after = stage_counts()
+        assert after["staged"] - before["staged"] == 2
+        assert after["direct"] == before["direct"]
+        assert after["staged_bytes"] - before["staged_bytes"] == \
+            xs.size * 2 + ys.size * 4
+        plain.fit_batch(DataSet(xs, ys))
+        assert float(staged.score_value) == float(plain.score_value), step
+    assert _same_nets(staged, plain)
+
+
+def test_overwriting_the_source_after_fit_batch_changes_nothing(
+        cuda_device, deterministic_cudnn):
+    """The host batch may be overwritten as soon as fit_batch returns,
+    before the device has run the step: the step consumed the batch as it
+    was (the stage's cast read it before the call returned)."""
+    from deeplearning4j_tpu_torch.ops.dataset import DataSet
+    (a, b), x, y = _twin_cnns(cuda_device)
+    src, keep = x.copy(), x.copy()
+    a.fit_batch(DataSet(src, y))
+    src[...] = 1e3                      # the device may still be busy
+    b.fit_batch(DataSet(keep, y))
+    assert float(a.score_value) == float(b.score_value)
+    assert _same_nets(a, b)
+
+
+def test_repeated_stages_reuse_the_pinned_block(cuda_device):
+    """After the second staged transfer of a batch shape the caching host
+    allocator allocates no more pinned memory: each later stage reuses
+    the block the previous one's completed copy released."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops.transfer import stage_to_device
+    x = np.random.default_rng(13).normal(size=(64, 224, 224, 3)) \
+        .astype(np.float32)
+    seen = []
+    for _ in range(5):
+        stage_to_device(x, cuda_device, torch.bfloat16)
+        torch.cuda.synchronize()
+        s = torch.cuda.host_memory_stats()
+        seen.append((s["allocations.allocated"],
+                     s["allocated_bytes.allocated"]))
+    assert seen[1:] == [seen[1]] * 4, seen

@@ -22,7 +22,11 @@ Phases, each an uncaught exception on failure:
    back-to-back launches), and the data-sheet bound. B1 is also checked
    and timed at the flagship train step's shape (B 32, no key mask) and a
    serving admission's (8 rows, bucket 512); those lines are repeated
-   before the ``kernels`` line.
+   before the ``kernels`` line. The biased pair (SwinV2's windows:
+   ``check_bias_kernels``) at SwinV2-B's first stage (B·nW 4096, H 4,
+   T 256, D 32, P 16), dbias within rel-L2 1e-3, timed beside SDPA with
+   the bias as a float ``attn_mask``; its two rows join the ``kernels``
+   line with phase 11c's launches.
 4. serving: the flagship LM (vocab 32000, d 768, 12 heads, 12 layers,
    max_length 577, bf16, random seeded weights) behind a
    SlotGenerationEngine (8 slots, K = 4) answering 16 greedy requests;
@@ -227,6 +231,14 @@ Phases, each an uncaught exception on failure:
    no ReLU operator outside them, its launches and device time logged
    beside those of the earlier three-kernel batch-norm design (PERF.md);
    from a fresh init at lr 0.01 the loss must fall over 6 steps.
+11c. SwinV2-B (``phase_swin``: ``swinv2_conf()``, 256², window 16,
+   depths 2 / 2 / 18 / 2, Adam, bf16 on f32 masters) through
+   ``ComputationGraph.fit_batch`` on B 16 seeded noise images: 2 warm and
+   3 counted steps, stages 1-2 shifting every other block and stages 3-4
+   clipping the window to the resolution; every block's attention on the
+   biased pair (one forward and one backward launch a block and step),
+   none on the unbiased B1 / B2, the loss finite. Its counts are the
+   biased rows' launches.
 12. LeNet (``lenet_conf``, lr 0.02, f32, B 128) through
    ``MultiLayerNetwork.fit`` on synthetic MNIST: ms a step; VGG16
    (``vgg16_conf``, 224 x 224, B 4) forward against its CPU f32 twin
@@ -524,7 +536,8 @@ from deeplearning4j_tpu_torch.kernels import batchnorm as bnk
 from deeplearning4j_tpu_torch.kernels import lstm as lk
 from deeplearning4j_tpu_torch.kernels import segment_update as sgk
 from deeplearning4j_tpu_torch.kernels.shortseq_attention import (
-    attention_bwd_plain, attention_fwd_plain, row_delta, short_attention_bwd,
+    attention_bwd_plain, attention_fwd_plain, row_delta,
+    short_attention_bias_bwd, short_attention_bias_fwd, short_attention_bwd,
     short_attention_fwd)
 from deeplearning4j_tpu_torch.models import (CharacterIterator,
                                              ImageNetLabels,
@@ -533,6 +546,7 @@ from deeplearning4j_tpu_torch.models import (CharacterIterator,
                                              TransformerDecoder,
                                              char_rnn_conf, lenet_conf,
                                              lm_batch_sparse, resnet50_conf,
+                                             swinv2_conf,
                                              transformer_lm_conf, vgg16_conf)
 from deeplearning4j_tpu_torch.datasets import (AsyncDataSetIterator,
                                                CSVRecordReader,
@@ -569,8 +583,9 @@ from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     LSTM, RBM, AutoEncoder, BatchNormalization, CenterLossOutputLayer,
-    ConvolutionLayer, DenseLayer, GravesLSTM, OutputLayer, RnnOutputLayer,
-    VariationalAutoencoder)
+    ConvolutionLayer, DenseLayer, GravesLSTM, OutputLayer, PatchMerging,
+    RnnOutputLayer, SwinV2Block, VariationalAutoencoder)
+from deeplearning4j_tpu_torch.nn.conf.layers.swin import window_of
 from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
                                                DuplicateToTimeSeriesVertex,
                                                LastTimeStepVertex,
@@ -674,6 +689,14 @@ KERNELS = {
         "lib": "shortseq_attention_bwd",
         "replaces": "deeplearning4j_tpu/kernels/pallas_shortseq.py:160",
         "wrapper": short_attention_bwd, "grads": (0, 1, 2)},
+    # B1 / B2 with an additive f32 logit bias (SwinV2's windows; no TPU
+    # kernel): checked by check_bias_kernels
+    "shortseq_attention_bias": {
+        "lib": "shortseq_attention", "replaces": None,
+        "wrapper": short_attention_bias_fwd, "plain": attention_fwd_plain},
+    "shortseq_attention_bias_bwd": {
+        "lib": "shortseq_attention_bwd", "replaces": None,
+        "wrapper": short_attention_bias_bwd, "grads": (0, 1, 2, 3)},
     "flash_backward_dq": {
         "lib": "flash_backward",
         "replaces": "deeplearning4j_tpu/kernels/pallas_attention.py:114",
@@ -1205,6 +1228,100 @@ def time_short_main_shapes():
     return lines
 
 
+def _bias_attention_case(rows, h, t, d, p, seed):
+    """SwinV2's biased attention on the card: bf16 q̂ (unit rows times a
+    temperature of 10), k̂ (unit rows), v, dO [rows·h, T, D] and an f32
+    bias [P, h, T, T] of 16·σ(noise), minus 100 on a quarter of the keys
+    of each block's rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q3, k3, v3, do = (torch.randn(rows * h, t, d, generator=g,
+                                  device="cuda") for _ in range(4))
+    q3 = torch.nn.functional.normalize(q3, dim=-1) * 10.0
+    k3 = torch.nn.functional.normalize(k3, dim=-1)
+    bias = 16.0 * torch.sigmoid(torch.randn(p, h, t, t, generator=g,
+                                            device="cuda"))
+    bias = bias - 100.0 * (torch.rand(p, 1, t, t, generator=g,
+                                      device="cuda") < 0.25).float()
+    return (*(x.to(torch.bfloat16) for x in (q3, k3, v3, do)),
+            bias.contiguous())
+
+
+def check_bias_kernels(images=256, windows=16, h=4, t=256, d=32):
+    """The biased pair at SwinV2-B's first stage (B 256 x 16 windows x 4
+    heads, T 256, D 32, P 16): each against the plain version (o / lse as
+    B1, dq / dk / dv as B2, dbias within rel-L2 1e-3), each timed beside
+    the plain version, SDPA with a float ``attn_mask`` (the bias expanded
+    to the batch rows), and the bound: the forward moves q, k, v, o, lse
+    and the bias once and does 4·D a pair, the backward q, k, v, dO, dq,
+    dk, dv, lse, δ, the bias and dbias and does 10·D. Returns the
+    measurements of the ``kernels`` line's rows "shortseq_attention_bias"
+    and "..._bwd"."""
+    rows = images * windows
+    q3, k3, v3, do, bias = _bias_attention_case(rows, h, t, d, windows, 9)
+    o_k, lse_k = short_attention_bias_fwd(q3, k3, v3, bias, h, 1.0)
+    o_p, lse_p = attention_fwd_plain(q3, k3, v3, None, h, False, 1.0, bias)
+    delta = row_delta(do, o_p)
+    got = short_attention_bias_bwd(q3, k3, v3, bias, h, 1.0, o_p, lse_p, do,
+                                   delta)
+    torch.cuda.synchronize()
+    err_o = (o_k.float() - o_p.float()).abs().max().item()
+    err_l = (lse_k - lse_p).abs().max().item()
+    del o_k, lse_k
+    want = attention_bwd_plain(q3, k3, v3, None, h, False, o_p, lse_p, do,
+                               delta, 1.0, bias)
+    errs = {n: _rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv", "dbias"),
+                                                got, want)}
+    del got, want
+    log(f"biased attention B={rows} x H={h} T={t} D={d} P={windows} bf16: "
+        f"o max-abs {err_o:.3e} (tol {O_TOL}), lse max-abs {err_l:.3e} "
+        f"(tol {LSE_TOL}), rel-L2 "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
+        f"{GRAD_TOL}, dbias 1e-3)")
+    if not (err_o <= O_TOL and err_l <= LSE_TOL and errs["dbias"] <= 1e-3
+            and all(errs[n] <= GRAD_TOL for n in ("dq", "dk", "dv"))):
+        raise AssertionError("biased attention: disagrees with its plain "
+                             "version")
+    fwd = lambda: short_attention_bias_fwd(q3, k3, v3, bias, h, 1.0)
+    bwd = lambda: short_attention_bias_bwd(q3, k3, v3, bias, h, 1.0, o_p,
+                                           lse_p, do, delta)
+    ms = {"fwd": time_ms(fwd), "bwd": time_ms(bwd)}
+    plain_ms = {"fwd": time_ms(lambda: attention_fwd_plain(
+                    q3, k3, v3, None, h, False, 1.0, bias), reps=5),
+                "bwd": time_ms(lambda: attention_bwd_plain(
+                    q3, k3, v3, None, h, False, o_p, lse_p, do, delta, 1.0,
+                    bias), reps=5)}
+    q4, k4, v4 = (x.view(rows, h, t, d).detach().requires_grad_(True)
+                  for x in (q3, k3, v3))
+    mask = bias.repeat(images, 1, 1, 1).to(torch.bfloat16)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, scale=1.0)
+    o4 = sdpa()
+    library_ms = {"fwd": time_ms(sdpa), "bwd": time_ms(
+        lambda: torch.autograd.grad(o4, (q4, k4, v4), do.view(rows, h, t, d),
+                                    retain_graph=True))}
+    bh, pairs = rows * h, rows * h * t * t
+    bias_bytes = bias.numel() * 4
+    out = {}
+    for key, tensors, row_terms, biases, per_pair in (
+            ("fwd", 4, 1, 1, 4), ("bwd", 7, 2, 2, 10)):
+        t_bytes = (tensors * bh * t * d * 2 + row_terms * bh * t * 4 +
+                   biases * bias_bytes) / HBM_BYTES_PER_S
+        t_ops = per_pair * d * pairs / BF16_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {key}: kernel_ms {ms[key]:.4f} plain_ms {plain_ms[key]:.4f} "
+            f"library_ms {library_ms[key]:.4f} (scaled_dot_product_attention"
+            f", float attn_mask [B·nW, H, T, T] bf16) bound_ms "
+            f"{bound_ms:.4f} ({by}), roofline {100 * bound_ms / ms[key]:.1f}%")
+        out["shortseq_attention_bias" + ("" if key == "fwd" else "_bwd")] = {
+            "max_abs_err": err_o if key == "fwd" else max(
+                errs[g] for g in ("dq", "dk", "dv")),
+            "ms": ms[key], "plain_ms": plain_ms[key],
+            "library_ms": library_ms[key], "bound_ms": bound_ms,
+            "bound_by": by}
+    return out
+
+
 def phase_kernel_checks():
     rng = np.random.default_rng(0)
     # B1 at the flagship prefill: one length-1 row, one fully masked row
@@ -1242,6 +1359,7 @@ def phase_kernel_checks():
     check_segment_update_tsne()
     measured["ring_attention"] = check_ring_kernels()
     measured["batchnorm_cross_shard"] = check_bn_cross_shard()
+    measured.update(check_bias_kernels())
     rows = check_c4_variants()
     log(json.dumps({"c4_variants": rows}))
     return measured
@@ -4796,6 +4914,61 @@ def phase_resnet(card):
     return launches
 
 
+#: SwinV2-B's images a step in phase 11c (the benchmark's cell trains 256)
+SWIN_BATCH = 16
+
+
+def phase_swin(card):
+    """SwinV2-B (``swinv2_conf()``: 256², window 16, depths 2 / 2 / 18 / 2,
+    Adam, bf16 on f32 masters) through ComputationGraph.fit_batch on B 16
+    seeded noise images: 2 warm and 3 counted steps. Stages 1-2 shift
+    every other block, stages 3-4 clip the window to the resolution; every
+    block's attention is one launch of each biased kernel a step, and
+    none of the unbiased B1 / B2. Returns the counted steps' launches."""
+    t_phase = time.perf_counter()
+    conf = swinv2_conf()
+    net = ComputationGraph(conf, compute_dtype=torch.bfloat16).init()
+    res = 256 // 4
+    windows = []
+    for v in conf.vertices.values():
+        layer = getattr(v, "layer", None)
+        if isinstance(layer, PatchMerging):
+            res //= 2
+        elif isinstance(layer, SwinV2Block):
+            windows.append((res, *window_of(res, res, layer.window_size,
+                                            layer.shift_size)))
+    shifted = sum(1 for _, _, s in windows if s)
+    clipped = sum(1 for r, m, _ in windows if m == r)
+    if not (len(windows) == 24 and shifted and clipped):
+        raise AssertionError(f"SwinV2-B's blocks (resolution, window, "
+                             f"shift): {windows}")
+    x, y = _images(SWIN_BATCH, 256, 3, 1000, 37)
+    ds = DataSet(x, y)
+    torch.cuda.reset_peak_memory_stats()
+    warm, _, _ = train_steps(net, ds, 2)
+    steps = 3
+    losses, wall, launches = train_steps(net, ds, steps)
+    want = {"shortseq_attention_bias": len(windows) * steps,
+            "shortseq_attention_bias_bwd": len(windows) * steps,
+            "shortseq_attention": 0, "shortseq_attention_bwd": 0}
+    log(f"swinv2-b train [{card}]: losses "
+        f"{[round(v, 4) for v in warm + losses]}; {len(windows)} blocks, "
+        f"{shifted} shifted, {clipped} clipped; attention launches in "
+        f"{steps} steps { {k: launches[k] for k in want} }; "
+        f"{steps * SWIN_BATCH / wall:.1f} images/s at B {SWIN_BATCH}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    bad = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    if bad:
+        raise AssertionError(f"SwinV2-B's attention launches {bad}, "
+                             f"expected {want}")
+    if not np.isfinite(warm + losses).all():
+        raise AssertionError("SwinV2-B's training loss is not finite")
+    del net
+    torch.cuda.empty_cache()
+    log(f"swinv2-b phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_lenet_vgg(card):
     """LeNet (lenet_conf, lr 0.02, f32, B 128) through
     MultiLayerNetwork.fit on seeded synthetic MNIST: ms a step; VGG16
@@ -7742,6 +7915,7 @@ def main():
     del charrnn, charrnn_ds
     phase_graph_rnn(card)
     resnet = phase_resnet(card)
+    swin = phase_swin(card)
     phase_lenet_vgg(card)
     phase_evaluate(card)
     api = phase_training_api(card)
@@ -7760,6 +7934,8 @@ def main():
         dk["lstm_recurrence"] + nlp["lstm_recurrence"]
     launches["segment_update"] = nlp["segment_update"] + \
         clu["segment_update"]
+    for name in ("shortseq_attention_bias", "shortseq_attention_bias_bwd"):
+        launches[name] = swin[name]
     launches["shortseq_attention"] += dp["shortseq_attention"]
     log(f"B1 launches by phase: serving (4) {serving_launches}, fleet "
         f"(4e) {fleet_launches}, remote (4f) {remote_launches}, mesh (4g) "

@@ -58,6 +58,16 @@
 // ring (no faster). The dq role alone (B4) takes 168 registers at D 64
 // and 197 at D 128, no spills; asking for 3 CTAs an SM at D 64 spilled 24
 // bytes and was no faster.
+//
+// attention_bias_bwd_kernel is B2's grid with an additive f32 logit bias
+// (BiasArgs, as the biased forward): both roles add the bias tile, read
+// from L2 into registers before the tile's wait (the dkv role reads it
+// transposed, one 4-byte entry at a time), to the recomputed logits.
+// dbias, which every image of the batch adds into the same [t, t] block
+// of its (window, head), comes from attention_bias_dbias_kernel below,
+// one CTA a tile of a block summing its images in order: f32 atomics from
+// B2's dq role into one block ran 3-5x slower than the whole of B2
+// (PERF.md), and a per-image dbias is never written.
 
 #pragma once
 
@@ -171,8 +181,9 @@ __device__ __forceinline__ void dkv_producer(
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool BIAS>
 __device__ __forceinline__ void dkv_consumer(const BwdArgs& a,
+                                             const BiasArgs& b,
                                              const BwdSmem<DMAX>& sm, int bh,
                                              int j0, int qt0, int ntiles) {
   constexpr int NH = DMAX / 64;
@@ -189,6 +200,7 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a,
     dead[hr] = j >= t || (km != nullptr && km[j] <= 0.f);
   }
   const float sc2 = a.scale * kLog2e;
+  const float* blk = BIAS ? b.bias + bias_block(bh, a.h, t, b.np) : nullptr;
   float dk[NH][8][4], dv[NH][8][4], s[8][4], dp[8][4];
   uint32_t pa[4][4], da[4][4];
 #pragma unroll
@@ -208,6 +220,21 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a,
     const uint32_t ph = (n / kBwdStages) & 1;
     const uint32_t sq = sm.ring(st, 0), sdo = sm.ring(st, 1);
     const uint32_t rows = sm.rows(st);
+    // the tile's bias, transposed as S^T is (key kr + 8 (e / 2), query
+    // q0 + 8 i + 2 tig + e % 2), requested before the wait
+    float bb[BIAS ? 8 : 1][4];
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = q0 + 8 * i + 2 * tig + (e & 1);
+          const int kc = j0 + kr + 8 * (e >> 1);
+          bb[i][e] = qr < t && kc < t
+                         ? __ldg(blk + (size_t)qr * t + kc) * kLog2e
+                         : 0.f;
+        }
+    }
     // probe: wait
     mbar_wait(sm.full(st), ph);
     // probe: s
@@ -225,8 +252,11 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a,
       for (int i = 0; i < 8; ++i) {
         const float2 l = lds_f2(rows + 4 * (8 * i + 2 * tig));
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[i][e] = fast_exp2(s[i][e] * sc2 - (e & 1 ? l.y : l.x));
+        for (int e = 0; e < 4; ++e) {
+          float x = s[i][e] * sc2;
+          if constexpr (BIAS) x += bb[i][e];
+          s[i][e] = fast_exp2(x - (e & 1 ? l.y : l.x));
+        }
       }
     } else {
       const bool diag = a.causal && q0 == j0;
@@ -238,8 +268,9 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a,
           const int c = 8 * i + 2 * tig + (e & 1);
           const bool keep =
               !dead[e >> 1] && !(diag && kr + 8 * (e >> 1) > c);
-          s[i][e] = fast_exp2((keep ? s[i][e] * sc2 : kNeg2) -
-                              (e & 1 ? l.y : l.x));
+          float x = s[i][e] * sc2;
+          if constexpr (BIAS) x += bb[i][e];
+          s[i][e] = fast_exp2((keep ? x : kNeg2) - (e & 1 ? l.y : l.x));
         }
       }
     }
@@ -319,8 +350,9 @@ __device__ __forceinline__ void dq_producer(
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool BIAS>
 __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
+                                            const BiasArgs& b,
                                             const BwdSmem<DMAX>& sm, int bh,
                                             int q0, int ntiles) {
   constexpr int NH = DMAX / 64;
@@ -338,6 +370,7 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
   }
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.h) * t : nullptr;
   const float sc2 = a.scale * kLog2e;
+  const size_t boff = BIAS ? bias_block(bh, a.h, t, b.np) : 0;
   float dq[NH][8][4], s[8][4], dp[8][4];
   uint32_t da[4][4];
 #pragma unroll
@@ -363,6 +396,18 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
       km0 = j0 + lane < t ? km[j0 + lane] : 0.f;
       km1 = j0 + 32 + lane < t ? km[j0 + 32 + lane] : 0.f;
     }
+    float bb[BIAS ? 8 : 1][4];
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 v = bias_pair(b.bias + boff, t, qw + g + 8 * hr,
+                                     j0 + 8 * i + 2 * tig);
+          bb[i][2 * hr] = v.x;
+          bb[i][2 * hr + 1] = v.y;
+        }
+    }
     mbar_wait(sm.full(st), ph);
     // probe: s
     wgmma_fence();
@@ -381,8 +426,11 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[i][e] = fast_exp2(s[i][e] * sc2 - lse2[e >> 1]);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[i][e] * sc2;
+          if constexpr (BIAS) x += bb[i][e];
+          s[i][e] = fast_exp2(x - lse2[e >> 1]);
+        }
     } else {
       // key jl of the tile: past T (jl >= lim) it is not part of the row;
       // causal-future (jl > vis) or masked it gets kNeg2
@@ -397,7 +445,9 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
           const uint32_t kb = i < 4 ? kb0 : kb1;
           const bool real = (kb >> ((i * 8 + (e & 1)) & 31)) & 1u;
           const bool keep = real && jl <= (e >> 1 ? vis1 : vis0);
-          const float x = jl >= lim ? -INFINITY : keep ? s[i][e] * sc2 : kNeg2;
+          float y = s[i][e] * sc2;
+          if constexpr (BIAS) y += bb[i][e];
+          const float x = jl >= lim ? -INFINITY : keep ? y : kNeg2;
           s[i][e] = fast_exp2(x - lse2[e >> 1]);
         }
       }
@@ -445,13 +495,12 @@ __device__ __forceinline__ void dq_consumer(const BwdArgs& a,
 // tiles - 1 - i (the longest walks of both roles first); kRolesDkv: x is
 // the dkv role of key tile x; kRolesDq: x is the dq role of query tile
 // tiles - 1 - x.
-template <typename T, int DMAX, int ROLES>
-__global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
-    attention_bwd_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tdo,
-                         const BwdArgs a) {
+template <typename T, int DMAX, int ROLES, bool BIAS>
+__device__ __forceinline__ void bwd_cta(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const CUtensorMap* tdo,
+                                        const BwdArgs& a, const BiasArgs& b) {
   extern __shared__ __align__(1024) uint8_t bwd_smem[];
   const BwdSmem<DMAX> sm{
       (static_cast<uint32_t>(__cvta_generic_to_shared(bwd_smem)) + 1023u) &
@@ -475,34 +524,66 @@ __global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
   if (dq_role) {
     const int ntiles = a.causal ? tile + 1 : tiles;
     if (warp == 4)
-      dq_producer<DMAX>(&tq, &tk, &tv, &tdo, sm, bh, tile * 64, ntiles);
+      dq_producer<DMAX>(tq, tk, tv, tdo, sm, bh, tile * 64, ntiles);
     else
-      dq_consumer<T, DMAX>(a, sm, bh, tile * 64, ntiles);
+      dq_consumer<T, DMAX, BIAS>(a, b, sm, bh, tile * 64, ntiles);
   } else {
     const int qt0 = a.causal ? tile : 0;
     if (warp == 4)
-      dkv_producer<DMAX>(&tq, &tk, &tv, &tdo, a, sm, bh, tile * 64, qt0,
+      dkv_producer<DMAX>(tq, tk, tv, tdo, a, sm, bh, tile * 64, qt0,
                          tiles - qt0);
     else
-      dkv_consumer<T, DMAX>(a, sm, bh, tile * 64, qt0, tiles - qt0);
+      dkv_consumer<T, DMAX, BIAS>(a, b, sm, bh, tile * 64, qt0,
+                                  tiles - qt0);
   }
 }
 
 template <typename T, int DMAX, int ROLES>
-cudaError_t launch_bwd_core(const BwdArgs& a, int bh, cudaStream_t stream) {
+__global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
+    attention_bwd_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const BwdArgs a) {
+  bwd_cta<T, DMAX, ROLES, false>(&tq, &tk, &tv, &tdo, a, BiasArgs{});
+}
+
+// The biased instance, both roles (B2's grid), under its own name.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, DMAX == 64 ? 2 : 1)
+    attention_bias_bwd_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const BwdArgs a, const BiasArgs b) {
+  bwd_cta<T, DMAX, kRolesBoth, true>(&tq, &tk, &tv, &tdo, a, b);
+}
+
+template <typename T, int DMAX, int ROLES, bool BIAS>
+cudaError_t launch_bwd_core(const BwdArgs& a, const BiasArgs& b, int bh,
+                            cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   if (!encode_map<T>(&tq, a.q, bh, a.t, a.d) ||
       !encode_map<T>(&tk, a.k, bh, a.t, a.d) ||
       !encode_map<T>(&tv, a.v, bh, a.t, a.d) ||
       !encode_map<T>(&tdo, a.dout, bh, a.t, a.d))
     return cudaErrorInvalidValue;
-  auto kern = attention_bwd_kernel<T, DMAX, ROLES>;
   constexpr size_t smem = bwd_core_smem<DMAX>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((ROLES == kRolesBoth ? 2 : 1) * num_tiles(a.t), bh);
-  kern<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a);
+  cudaError_t err;
+  if constexpr (BIAS) {
+    auto kern = attention_bias_bwd_kernel<T, DMAX>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a, b);
+  } else {
+    auto kern = attention_bwd_kernel<T, DMAX, ROLES>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a);
+  }
   return cudaGetLastError();
 }
 
@@ -511,8 +592,201 @@ cudaError_t launch_bwd_core(const BwdArgs& a, int bh, cudaStream_t stream) {
 // alone (B5).
 template <typename T, int ROLES>
 cudaError_t dispatch_bwd_core(const BwdArgs& a, int bh, cudaStream_t stream) {
-  if (a.d <= 64) return launch_bwd_core<T, 64, ROLES>(a, bh, stream);
-  return launch_bwd_core<T, 128, ROLES>(a, bh, stream);
+  if (a.d <= 64)
+    return launch_bwd_core<T, 64, ROLES, false>(a, BiasArgs{}, bh, stream);
+  return launch_bwd_core<T, 128, ROLES, false>(a, BiasArgs{}, bh, stream);
+}
+
+// ---- dbias: one (block, query tile, key tile) over a group of images ----
+//
+// dbias[g, p, head] = sum over the images i of group g (i = g, g + ng, ...)
+// of p (dP - delta) on the rows bh = (i np + p) h + head: a CTA owns one
+// 64 x 64 tile of one (p, head) block, and its consumer warpgroup
+// recomputes S = Q K^T and dP = dO V^T (wgmma) an image and sums
+// p (dP - delta) in f32 registers, in image order, then stores the tile
+// once; the producer streams each image's Q, dO, K and V tiles (TMA) and
+// its 64 queries' row terms through a 2-deep ring. No atomics: the sums
+// are the same bits every call. The bias tile is read once a CTA. Keys
+// and rows past t give p = 0 and are not stored.
+template <int DMAX>
+constexpr size_t dbias_smem_bytes() {
+  return 1024 + (size_t)kBwdStages * 4 * 64 * DMAX * 2 + kBwdStages * 512 +
+         8 * 2 * kBwdStages;
+}
+
+__device__ __forceinline__ float lds_f1(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    attention_bias_dbias_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const BwdArgs a, const BiasArgs b,
+                                int images) {
+  constexpr uint32_t kTile = 64 * DMAX * 2;
+  extern __shared__ __align__(1024) uint8_t db_smem[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(db_smem)) + 1023u) &
+      ~1023u;
+  // stage st: tiles Q, dO, K, V, then its row terms (lse in log2 units,
+  // delta; 64 each), then the full and empty mbarriers
+  auto tile = [base](int st, int i) { return base + (4 * st + i) * kTile; };
+  const uint32_t rows0 = base + 4 * kBwdStages * kTile;
+  auto rows = [rows0](int st) { return rows0 + st * 512; };
+  const uint32_t bars = rows0 + kBwdStages * 512;
+  auto full = [bars](int st) { return bars + 8 * st; };
+  auto empty = [bars](int st) { return bars + 8 * (kBwdStages + st); };
+
+  const int t = a.t, tiles = num_tiles(t);
+  const int q0 = (blockIdx.x / tiles) * 64, j0 = (blockIdx.x % tiles) * 64;
+  const int blk = blockIdx.y, p = blk / a.h, head = blk % a.h;
+  const int ng = gridDim.z, gz = blockIdx.z;
+  const int mine = (images - gz + ng - 1) / ng;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(full(st), 32);
+      mbar_init(empty(st), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // producer
+    for (int n = 0; n < mine; ++n) {
+      const int bh = ((gz + n * ng) * b.np + p) * a.h + head;
+      const int st = n % kBwdStages, r = q0 + 2 * lane;
+      const uint32_t ph = (n / kBwdStages) & 1;
+      const float* lse = a.lse + (size_t)bh * t;
+      const float* delta = a.delta + (size_t)bh * t;
+      const float l0 = r < t ? lse_log2(lse[r]) : INFINITY;
+      const float l1 = r + 1 < t ? lse_log2(lse[r + 1]) : INFINITY;
+      const float d0 = r < t ? delta[r] : 0.f;
+      const float d1 = r + 1 < t ? delta[r + 1] : 0.f;
+      if (n >= kBwdStages) mbar_wait(empty(st), ph ^ 1);
+      sts_f2(rows(st) + 8 * lane, l0, l1);
+      sts_f2(rows(st) + 256 + 8 * lane, d0, d1);
+      if (lane == 0) {
+        mbar_expect_tx(full(st), 4 * kTile);
+        load_tile<DMAX>(tile(st, 0), &tq, q0, bh, full(st));
+        load_tile<DMAX>(tile(st, 1), &tdo, q0, bh, full(st));
+        load_tile<DMAX>(tile(st, 2), &tk, j0, bh, full(st));
+        load_tile<DMAX>(tile(st, 3), &tv, j0, bh, full(st));
+      } else {
+        mbar_arrive(full(st));
+      }
+    }
+    return;
+  }
+
+  // consumers: entry (i, e) is query qw + g + 8 (e / 2), key
+  // j0 + 8 i + 2 tig + e % 2
+  const int g = lane >> 2, tig = lane & 3, rl = 16 * warp + g;
+  const float sc2 = a.scale * kLog2e;
+  float bb[8][4], acc[8][4], s[8][4], dp[8][4];
+  const float* bblk = b.bias + (size_t)blk * t * t;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = j0 + 8 * i + 2 * tig;
+      const float2 v = bias_pair(bblk, t, q0 + rl + 8 * hr, j);
+      // keys past t are not part of any row
+      bb[i][2 * hr] = j < t ? v.x : -INFINITY;
+      bb[i][2 * hr + 1] = j + 1 < t ? v.y : -INFINITY;
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = s[i][e] = dp[i][e] = 0.f;
+  for (int n = 0; n < mine; ++n) {
+    const int st = n % kBwdStages;
+    const uint32_t ph = (n / kBwdStages) & 1;
+    mbar_wait(full(st), ph);
+    wgmma_fence();
+    mma_abt<T, DMAX>(s, tile(st, 0), tile(st, 2));    // S = Q K^T
+    wgmma_commit();
+    mma_abt<T, DMAX>(dp, tile(st, 1), tile(st, 3));   // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      lse2[hr] = lds_f1(rows(st) + 4 * (rl + 8 * hr));
+      dl[hr] = lds_f1(rows(st) + 256 + 4 * (rl + 8 * hr));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr =
+            fast_exp2(fmaf(s[i][e], sc2, bb[i][e]) - lse2[e >> 1]);
+        acc[i][e] = fmaf(pr, dp[i][e] - dl[e >> 1], acc[i][e]);
+      }
+  }
+
+  float* out = b.dbias + ((size_t)gz * gridDim.y + blk) * t * t;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = q0 + rl + 8 * hr;
+    if (r >= t) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = j0 + 8 * i + 2 * tig;
+      float* at = out + (size_t)r * t + j;
+      if ((t & 1) == 0 && j + 1 < t) {
+        *reinterpret_cast<float2*>(at) =
+            make_float2(acc[i][2 * hr], acc[i][2 * hr + 1]);
+      } else {
+        if (j < t) at[0] = acc[i][2 * hr];
+        if (j + 1 < t) at[1] = acc[i][2 * hr + 1];
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_dbias(const BwdArgs& a, const BiasArgs& b, int bh, int ng,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_map<T>(&tq, a.q, bh, a.t, a.d) ||
+      !encode_map<T>(&tk, a.k, bh, a.t, a.d) ||
+      !encode_map<T>(&tv, a.v, bh, a.t, a.d) ||
+      !encode_map<T>(&tdo, a.dout, bh, a.t, a.d))
+    return cudaErrorInvalidValue;
+  auto kern = attention_bias_dbias_kernel<T, DMAX>;
+  constexpr size_t smem = dbias_smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = num_tiles(a.t);
+  const dim3 grid(tiles * tiles, b.np * a.h, ng);
+  kern<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a, b,
+                                            bh / (b.np * a.h));
+  return cudaGetLastError();
+}
+
+// The biased backward, the same buckets: dq, dk and dv from B2's grid with
+// the bias (both roles), then dbias's ng partial sums from the dbias
+// kernel.
+template <typename T>
+cudaError_t dispatch_bias_bwd_core(const BwdArgs& a, const BiasArgs& b,
+                                   int bh, int ng, cudaStream_t stream) {
+  cudaError_t err = a.d <= 64
+      ? launch_bwd_core<T, 64, kRolesBoth, true>(a, b, bh, stream)
+      : launch_bwd_core<T, 128, kRolesBoth, true>(a, b, bh, stream);
+  if (err != cudaSuccess) return err;
+  return a.d <= 64 ? launch_dbias<T, 64>(a, b, bh, ng, stream)
+                   : launch_dbias<T, 128>(a, b, bh, ng, stream);
 }
 
 }  // namespace dl4j

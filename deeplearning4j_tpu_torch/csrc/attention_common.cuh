@@ -58,6 +58,41 @@ __device__ __forceinline__ int causal_end(int t, int q0, int causal) {
   return causal ? min(t, q0 / kQRows * kQRows + kQRows) : t;
 }
 
+// The biased kernels' extra operands (attention_bias_fwd_kernel,
+// attention_bias_bwd_kernel, attention_bias_dbias_kernel): an additive f32
+// logit bias [np, h, t, t], whose (p, head) block batch row bh reads at
+// p = (bh / h) mod np, and in the backward its gradient dbias, written by
+// the dbias kernel as [ng, np, h, t, t] partial sums over ng groups of the
+// batch rows that share a block (the caller sums them).
+struct BiasArgs {
+  const float* bias;
+  float* dbias;
+  int np;
+};
+
+// Offset of batch row bh's [t, t] block in a BiasArgs tensor.
+__device__ __forceinline__ size_t bias_block(int bh, int h, int t, int np) {
+  return ((size_t)((bh / h) % np) * h + bh % h) * (size_t)t * t;
+}
+
+// Bias entries (r, j) and (r, j + 1) of a [t, t] block in log2 units, 0
+// past t (one 8-byte load where t is even, so the pair is aligned).
+__device__ __forceinline__ float2 bias_pair(const float* blk, int t, int r,
+                                            int j) {
+  float2 v = make_float2(0.f, 0.f);
+  if (r < t) {
+    const float* p = blk + (size_t)r * t + j;
+    if ((t & 1) == 0 && j + 1 < t) {
+      v = __ldg(reinterpret_cast<const float2*>(p));
+    } else {
+      if (j < t) v.x = __ldg(p);
+      if (j + 1 < t) v.y = __ldg(p + 1);
+    }
+  }
+  constexpr float kL2e = 1.4426950408889634f;
+  return make_float2(v.x * kL2e, v.y * kL2e);
+}
+
 // The element type T of a kernel whose first parameter is const T*.
 template <typename F>
 struct KernelArg;

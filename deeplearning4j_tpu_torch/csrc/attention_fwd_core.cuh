@@ -43,6 +43,14 @@
 // masked row averages the keys up to the end of its 64-row group, the same
 // horizon the backward kernels recompute p over. lse of a fully masked
 // row is exactly kNeg + log l = kNeg, as the backward expects.
+//
+// attention_bias_fwd_kernel is the same CTA with an additive f32 logit
+// bias (BiasArgs: SwinV2's continuous position bias plus its shift mask,
+// one [t, t] block a (window, head)): logits scale * q . k + bias. Each
+// thread reads its 2 x 32 bias entries of a tile from global memory
+// (from L2: one block serves every image of the batch) as 8-byte pairs,
+// issued before it waits for the tile's K. The unbiased kernel is the
+// same code with that step compiled out.
 
 #pragma once
 
@@ -163,12 +171,31 @@ constexpr size_t fwd_smem_bytes() {
          2 * (size_t)kStages * kFwdKeys * DMAX * 2 + 8 * (1 + 4 * kStages);
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
-    attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const FwdArgs a) {
+// One 64-key tile of a warp's bias rows qw + g, + 8 (rows past t and keys
+// past t read 0), in the C layout of s and in log2 units.
+template <int NKT>
+__device__ __forceinline__ void load_bias_tile(float (&bb)[NKT][4],
+                                               const float* blk, int t,
+                                               int qw, int j0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int i = 0; i < NKT; ++i) {
+      const float2 v = bias_pair(blk, t, qw + g + 8 * hr, j0 + 8 * i + 2 * tig);
+      bb[i][2 * hr] = v.x;
+      bb[i][2 * hr + 1] = v.y;
+    }
+}
+
+// The forward of one CTA. BIAS: logits scale * q . k + bias (BiasArgs),
+// the bias tile read from global memory (L2) into registers while the
+// tile's K waits, and added before tile_softmax, which then scales by 1.
+template <typename T, int DMAX, bool BIAS>
+__device__ __forceinline__ void fwd_cta(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv,
+                                        const FwdArgs& a, const BiasArgs& b) {
   constexpr int KT = kFwdKeys, NH = DMAX / 64, NKT = KT / 8;
   constexpr uint32_t kQBytes = 64 * DMAX * 2, kTileBytes = KT * DMAX * 2;
   extern __shared__ __align__(1024) uint8_t fwd_smem[];
@@ -209,19 +236,19 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
     if (lane == 0) {
       mbar_expect_tx(q_full, kQBytes);
       for (int hh = 0; hh < NH; ++hh)
-        tma_load_3d(sq + hh * 64 * 128, &tq, hh * 64, q0, bh, q_full);
+        tma_load_3d(sq + hh * 64 * 128, tq, hh * 64, q0, bh, q_full);
       for (int n = 0; n < ntiles; ++n) {
         const int st = n % kStages;
         const uint32_t ph = (n / kStages) & 1;
         if (n >= kStages) mbar_wait(k_empty(st), ph ^ 1);
         mbar_expect_tx(k_full(st), kTileBytes);
         for (int hh = 0; hh < NH; ++hh)
-          tma_load_3d(sk + st * kTileBytes + hh * KT * 128, &tk, hh * 64,
+          tma_load_3d(sk + st * kTileBytes + hh * KT * 128, tk, hh * 64,
                       n * KT, bh, k_full(st));
         if (n >= kStages) mbar_wait(v_empty(st), ph ^ 1);
         mbar_expect_tx(v_full(st), kTileBytes);
         for (int hh = 0; hh < NH; ++hh)
-          tma_load_3d(sv + st * kTileBytes + hh * KT * 128, &tv, hh * 64,
+          tma_load_3d(sv + st * kTileBytes + hh * KT * 128, tv, hh * 64,
                       n * KT, bh, v_full(st));
       }
     }
@@ -232,6 +259,7 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
   const int qw = q0 + 16 * warp;
   const float* km = a.kmask ? a.kmask + (size_t)(bh / a.h) * t : nullptr;
   const float sc2 = a.scale * kLog2e;
+  const float* blk = BIAS ? b.bias + bias_block(bh, a.h, t, b.np) : nullptr;
   auto release = [lane](uint32_t bar) {
     __syncwarp();
     if (lane == 0) mbar_arrive(bar);
@@ -257,6 +285,8 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
       km0 = j0 + lane < t ? km[j0 + lane] : 0.f;
       km1 = j0 + 32 + lane < t ? km[j0 + 32 + lane] : 0.f;
     }
+    float bb[BIAS ? NKT : 1][4];
+    if constexpr (BIAS) load_bias_tile<NKT>(bb, blk, t, qw, j0);
     // probe: wait
     mbar_wait(k_full(st), ph);
     // probe: scores
@@ -267,8 +297,14 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
     fence_regs(s);
     release(k_empty(st));
     // probe: softmax
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int i = 0; i < NKT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = fmaf(s[i][e], sc2, bb[i][e]);
+    }
     tile_softmax<NKT>(s, m, l, alpha, j0, kend, qw, a.causal, km0, km1,
-                      sc2);
+                      BIAS ? 1.f : sc2);
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) {
 #pragma unroll
@@ -309,19 +345,49 @@ __global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
 }
 
 template <typename T, int DMAX>
-cudaError_t launch_fwd(const FwdArgs& a, int bh, cudaStream_t stream) {
+__global__ void __launch_bounds__(160, DMAX == 64 ? 4 : 1)
+    attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const FwdArgs a) {
+  fwd_cta<T, DMAX, false>(&tq, &tk, &tv, a, BiasArgs{});
+}
+
+// The biased instance (its own name, so a trace tells it apart): the bias
+// tile's 32 registers a thread leave room for 3 CTAs an SM at D 64.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(160, DMAX == 64 ? 3 : 1)
+    attention_bias_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const FwdArgs a, const BiasArgs b) {
+  fwd_cta<T, DMAX, true>(&tq, &tk, &tv, a, b);
+}
+
+template <typename T, int DMAX, bool BIAS>
+cudaError_t launch_fwd(const FwdArgs& a, const BiasArgs& b, int bh,
+                       cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!encode_map<T>(&tq, a.q, bh, a.t, a.d) ||
       !encode_map<T>(&tk, a.k, bh, a.t, a.d) ||
       !encode_map<T>(&tv, a.v, bh, a.t, a.d))
     return cudaErrorInvalidValue;
-  auto kern = attention_fwd_kernel<T, DMAX>;
   constexpr size_t smem = fwd_smem_bytes<DMAX>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.t + 63) / 64, bh);
-  kern<<<grid, 160, smem, stream>>>(tq, tk, tv, a);
+  cudaError_t err;
+  if constexpr (BIAS) {
+    auto kern = attention_bias_fwd_kernel<T, DMAX>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, 160, smem, stream>>>(tq, tk, tv, a, b);
+  } else {
+    auto kern = attention_fwd_kernel<T, DMAX>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, 160, smem, stream>>>(tq, tk, tv, a);
+  }
   return cudaGetLastError();
 }
 
@@ -329,8 +395,16 @@ cudaError_t launch_fwd(const FwdArgs& a, int bh, cudaStream_t stream) {
 // zero-filled).
 template <typename T>
 cudaError_t dispatch_fwd(const FwdArgs& a, int bh, cudaStream_t stream) {
-  if (a.d <= 64) return launch_fwd<T, 64>(a, bh, stream);
-  return launch_fwd<T, 128>(a, bh, stream);
+  if (a.d <= 64) return launch_fwd<T, 64, false>(a, BiasArgs{}, bh, stream);
+  return launch_fwd<T, 128, false>(a, BiasArgs{}, bh, stream);
+}
+
+// The biased forward, the same buckets.
+template <typename T>
+cudaError_t dispatch_bias_fwd(const FwdArgs& a, const BiasArgs& b, int bh,
+                              cudaStream_t stream) {
+  if (a.d <= 64) return launch_fwd<T, 64, true>(a, b, bh, stream);
+  return launch_fwd<T, 128, true>(a, b, bh, stream);
 }
 
 }  // namespace dl4j

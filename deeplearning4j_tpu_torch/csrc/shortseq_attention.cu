@@ -193,3 +193,31 @@ extern "C" int shortseq_attention_fwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The biased forward (attention_bias_fwd_kernel): logits scale * q . k +
+// bias, bias [np, h, t, t] f32 contiguous, batch row bh reading block
+// ((bh / h) mod np, bh mod h); no key mask, not causal. bf16 / f16 only
+// (the wgmma core), d % 8 == 0 and d <= 128.
+// Returns cudaGetLastError().
+extern "C" int shortseq_attention_bias_fwd(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           void* o, void* lse, int bh, int h,
+                                           int t, int d, int np, int dtype,
+                                           float scale, void* stream) {
+  using namespace dl4j;
+  if (t < 1 || t > 512 || d < 8 || d % 8 != 0 || d > 128 || bh < 1 ||
+      bh > 65535 || h < 1 || np < 1 || !bias)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{q, k, v, nullptr, o, static_cast<float*>(lse), h, t, d, 0,
+                  scale};
+  const BiasArgs b{static_cast<const float*>(bias), nullptr, np};
+  switch (dtype) {
+    case kF16:
+      return (int)dispatch_bias_fwd<__half>(a, b, bh, s);
+    case kBF16:
+      return (int)dispatch_bias_fwd<__nv_bfloat16>(a, b, bh, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

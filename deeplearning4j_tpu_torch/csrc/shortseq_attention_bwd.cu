@@ -115,3 +115,37 @@ extern "C" int shortseq_attention_bwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The biased backward: dq, dk, dv as above from the biased forward's lse
+// (attention_bias_bwd_kernel, both roles), then dbias as ng partial sums
+// [ng, np, h, t, t] f32 of p (dO . v^T - delta) over the batch rows of
+// each block (attention_bias_dbias_kernel; group g sums images g, g + ng,
+// ...; the caller sums the groups). Rows are (image, p, head) with head
+// fastest: bh a multiple of np * h. No key mask, not causal; bf16 / f16
+// only, d <= 128. Every output is the same bits every call.
+// Returns cudaGetLastError().
+extern "C" int shortseq_attention_bias_bwd(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, const void* lse, const void* delta, void* dq,
+    void* dk, void* dv, void* dbias, int bh, int h, int t, int d, int np,
+    int ng, int dtype, float scale, void* stream) {
+  using namespace dl4j;
+  if (!bwd_shape_ok(bh, h, t, d) || t > 512 || d > 128 || np < 1 ||
+      bh % (np * h) != 0 || ng < 1 || ng > bh / (np * h) || ng > 65535 ||
+      !bias || !dbias || !dq || !dk || !dv)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), dq, dk, dv, h, t, d, 0,
+                  scale};
+  const BiasArgs b{static_cast<const float*>(bias),
+                   static_cast<float*>(dbias), np};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF16:
+      return (int)dispatch_bias_bwd_core<__half>(a, b, bh, ng, s);
+    case kBF16:
+      return (int)dispatch_bias_bwd_core<__nv_bfloat16>(a, b, bh, ng, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -41,11 +41,22 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
 #: be null
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_void_p]
+#: the biased forward: (q, k, v, bias, o, lse, bh, h, t, d, np, dtype,
+#: scale, stream)
+_BIAS_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+    [ctypes.c_float, ctypes.c_void_p]
+#: the biased backward: (q, k, v, bias, do, lse, delta, dq, dk, dv, dbias,
+#: bh, h, t, d, np, ng, dtype, scale, stream)
+_BIAS_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
+    [ctypes.c_float, ctypes.c_void_p]
 #: each kernel library's C entry points and their argtypes
 ENTRIES = {
-    "shortseq_attention": {"shortseq_attention_fwd": _FWD_ARGTYPES},
+    "shortseq_attention": {"shortseq_attention_fwd": _FWD_ARGTYPES,
+                           "shortseq_attention_bias_fwd": _BIAS_FWD_ARGTYPES},
     "flash_forward": {"flash_attention_fwd": _FWD_ARGTYPES},
-    "shortseq_attention_bwd": {"shortseq_attention_bwd": _BWD_ARGTYPES},
+    "shortseq_attention_bwd": {
+        "shortseq_attention_bwd": _BWD_ARGTYPES,
+        "shortseq_attention_bias_bwd": _BIAS_BWD_ARGTYPES},
     "flash_backward": {"flash_attention_bwd_dq": _BWD_ARGTYPES,
                        "flash_attention_bwd_dkv": _BWD_ARGTYPES},
     # (xw, r, h0, c0, pi, pf, po, mask, y, hT, cT, xw_st, xw_sn, y_st,
@@ -287,7 +298,7 @@ def launch_attention(name: str, q3, k3, v3, key_mask, h: int,
     o = torch.empty_like(q3)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
-        (entry,) = ENTRIES[name]
+        entry = next(iter(ENTRIES[name]))   # the library's plain forward
         fn = getattr(load(name), entry)
         rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _ptr(key_mask),
                 o.data_ptr(), lse.data_ptr(), bh, h, t, d, int(causal),
@@ -320,3 +331,70 @@ def launch_attention_bwd(name: str, entry: str, q3, k3, v3, key_mask,
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return tuple(grads[g] for g in ("dq", "dk", "dv") if g in grads)
+
+
+def check_attention_bias_args(q3, bias, h: int) -> None:
+    """Raise on what the biased kernels do not take beyond
+    :func:`check_attention_args`: bf16 / f16 inputs of D <= 128 (their
+    wgmma core), a contiguous f32 bias [P, h, T, T] on q's device, and
+    rows that are whole (image, P, h) groups."""
+    bh, t, d = q3.shape
+    if q3.dtype not in (torch.float16, torch.bfloat16):
+        raise ValueError(f"the biased attention kernels take float16 / "
+                         f"bfloat16, got {q3.dtype}")
+    if d > 128:
+        raise ValueError(f"the biased attention kernels take D <= 128, "
+                         f"got {d}")
+    if bias.dim() != 4 or tuple(bias.shape[1:]) != (h, t, t) or \
+            bias.dtype != torch.float32 or bias.device != q3.device or \
+            not bias.is_contiguous():
+        raise ValueError(f"bias must be a contiguous float32 [P, {h}, {t}, "
+                         f"{t}] tensor on {q3.device}, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    if bh % (bias.shape[0] * h):
+        raise ValueError(f"B*H={bh} rows must be whole groups of P={bias.shape[0]} "
+                         f"blocks of H={h} heads")
+
+
+def launch_attention_bias(q3, k3, v3, bias, h: int, scale: float):
+    """Allocate (o, lse) and launch the biased short-sequence forward on
+    the current stream (no synchronisation); raises if the launch is
+    refused."""
+    bh, t, d = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q3.device)
+    with torch.cuda.device(q3.device):
+        fn = load("shortseq_attention").shortseq_attention_bias_fwd
+        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), bias.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), bh, h, t, d, bias.shape[0],
+                _DTYPE_CODE[q3.dtype], float(scale),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"shortseq_attention_bias_fwd kernel launch "
+                           f"failed: CUDA error {rc}")
+    return o, lse
+
+
+def launch_attention_bias_bwd(q3, k3, v3, bias, h: int, do, lse, delta,
+                              scale: float, groups: int = 1):
+    """Allocate dq, dk, dv (each like q) and dbias's ``groups`` partial
+    sums [groups, *bias.shape] f32 and launch the biased short-sequence
+    backward on the current stream (no synchronisation); raises if the
+    launch is refused. Returns (dq, dk, dv, dbias summed over the
+    groups)."""
+    bh, t, d = q3.shape
+    dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
+    dbias = torch.empty((groups, *bias.shape), dtype=torch.float32,
+                        device=bias.device)
+    with torch.cuda.device(q3.device):
+        fn = load("shortseq_attention_bwd").shortseq_attention_bias_bwd
+        rc = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), bias.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                dbias.data_ptr(), bh, h, t, d, bias.shape[0], groups,
+                _DTYPE_CODE[q3.dtype], float(scale),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"shortseq_attention_bias_bwd kernel launch "
+                           f"failed: CUDA error {rc}")
+    return dq, dk, dv, dbias[0] if groups == 1 else dbias.sum(0)

@@ -1,7 +1,7 @@
 """Layer configurations: the feed-forward family (dense, output and loss
 heads, activation, dropout, embedding, autoencoder, RBM, center loss),
 the variational autoencoder, the convolutional family, the transformer
-LM's layers and the recurrent family."""
+LM's layers, SwinV2's layers and the recurrent family."""
 
 from .base import LayerConf, FeedForwardLayerConf, BaseRecurrentLayerConf
 from .feedforward import (ActivationLayer, AutoEncoder,
@@ -14,6 +14,7 @@ from .convolution import (ConvolutionLayer, Convolution1DLayer,
                           ZeroPaddingLayer, GlobalPoolingLayer)
 from .attention import (SelfAttentionLayer, LayerNormalization,
                         TransformerFeedForward, TokenAndPositionEmbedding)
+from .swin import ChannelLayerNorm, PatchMerging, SwinV2Block
 from .recurrent import GravesLSTM, LSTM, GravesBidirectionalLSTM
 from .variational import VariationalAutoencoder
 
@@ -26,6 +27,7 @@ __all__ = [
     "Subsampling1DLayer", "BatchNormalization", "LocalResponseNormalization",
     "ZeroPaddingLayer", "GlobalPoolingLayer",
     "SelfAttentionLayer", "LayerNormalization", "TransformerFeedForward",
-    "TokenAndPositionEmbedding", "GravesLSTM", "LSTM",
+    "TokenAndPositionEmbedding", "SwinV2Block", "PatchMerging",
+    "ChannelLayerNorm", "GravesLSTM", "LSTM",
     "GravesBidirectionalLSTM",
 ]

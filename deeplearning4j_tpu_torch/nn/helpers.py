@@ -26,12 +26,16 @@ import torch
 from ..kernels.batchnorm import bn_add_act_train_fused, bn_train_fused
 from ..kernels.flash_forward import cuda_attention
 from ..kernels.lstm import cuda_lstm
+from ..kernels.shortseq_attention import biased_attention
 
 #: (kind, device type, capability) → implementation
 _HELPERS: Dict[Tuple[str, str, Tuple[int, int]], Callable] = {
     # every forward attention on Hopper: T <= 512 → the short-sequence
     # kernel, longer → the flash forward kernel (kernels/flash_forward.py)
     ("attention", "cuda", (9, 0)): cuda_attention,
+    # every attention with an additive f32 logit bias (SwinV2's windows),
+    # T <= 512, bf16 / f16: the biased short-sequence kernels
+    ("attention_bias", "cuda", (9, 0)): biased_attention,
     # every sigmoid-gate / tanh-cell LSTM recurrence on Hopper, f32 and
     # bf16, masked or not: kernel B6 (kernels/lstm.py)
     ("lstm", "cuda", (9, 0)): cuda_lstm,

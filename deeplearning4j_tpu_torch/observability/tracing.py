@@ -36,8 +36,10 @@ inside it ``dl4j.fit.input`` (the batch to the device in the compute
 dtype), ``dl4j.fit.forward`` (the loss), ``dl4j.fit.backward``
 (``torch.autograd.grad``), ``dl4j.fit.update`` (normalization, learning
 rate and update rule of every leaf; data-parallel steps too) and
-``dl4j.fit.listeners``. :func:`phase_times` reads a Chrome trace of such
-a run as device time, launches and device idle time by phase.
+``dl4j.fit.listeners``. Layers open spans of their own inside those
+(SwinV2's ``dl4j.swin.shuffle``, ``dl4j.swin.bias``,
+``dl4j.swin.attention``). :func:`phase_times` reads a Chrome trace of such
+a run as device time, launches and device idle time by innermost span.
 """
 
 from __future__ import annotations

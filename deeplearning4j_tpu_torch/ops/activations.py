@@ -3,7 +3,8 @@ serialize): the JAX package's ``ops/activations.py`` registry, as functions
 on tensors.
 
 ``gelu`` is the tanh approximation: that is ``jax.nn.gelu``'s default,
-while ``torch.nn.functional.gelu`` defaults to the exact erf form.
+while ``torch.nn.functional.gelu`` defaults to the exact erf form, which
+:func:`gelu_exact` computes.
 ``rrelu`` draws its slopes from an explicit ``torch.Generator`` (the JAX
 package takes a PRNG key) and without one uses the fixed test-mode slope."""
 
@@ -114,6 +115,13 @@ def swish(x):
 
 def gelu(x):
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x):
+    """The exact (erf) GELU, x·Φ(x), as SwinV2's MLP computes it. Called by
+    name and not registered: the registry keeps the JAX package's names,
+    where "gelu" is the tanh form."""
+    return F.gelu(x)
 
 
 def mish(x):

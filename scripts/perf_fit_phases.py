@@ -1,16 +1,19 @@
-"""ResNet-50 training at B 1024 on one CUDA card: the step's time with
-the PyTorch profiler off and on, and, where the program has the training
-step's phase spans, the traced steps' device time, kernel launches, host
-time and device idle time by phase
-(``observability/tracing.py::phase_times``).
+"""One benchmark cell's training on one CUDA card (by default ResNet-50
+at B 1024): the step's time with the PyTorch profiler off and on, and,
+where the program has the training step's phase spans, the traced steps'
+device time, kernel launches, host time and device idle time by phase
+(``observability/tracing.py::phase_times``), each ``dl4j.fit.*`` phase
+with the time of the spans nested in it (``phases_a_step``), and those
+nested spans' own split (``nested_a_step``, e.g. SwinV2's
+``dl4j.swin.*``) where the program has them.
 
     python3 scripts/perf_fit_phases.py [--root CHECKOUT] [--steps 24] \
-        [--seed N] [--out FILE]
+        [--seed N] [--out FILE] [--cell resnet50-train-b1024]
 
-The net and its batches are the benchmark's: ``portbench``'s
-``resnet50`` configuration under its ``images_b1024`` traffic, a ring of
-4 host batches of 1024 float32 noise images handed to ``fit_batch`` as
-numpy arrays, the loss read back every 10 steps. ``--root`` is the
+The net and its batches are the benchmark's: the cell's configuration
+under its traffic (``resnet50`` under ``images_b1024``: a ring of 4 host
+batches of 1024 float32 noise images handed to ``fit_batch`` as numpy
+arrays), the loss read back every 10 steps. ``--root`` is the
 checkout whose program and benchmark are imported (default: this one),
 so that two commits can be compared on one card in one call: run the
 script for each root in the order A, B, B, A. A step's time is the
@@ -58,6 +61,33 @@ def _host_ms(events, steps):
     return out
 
 
+def fold_nested(times, events):
+    """``tracing.phase_times``' result by innermost span, split in two:
+    each ``dl4j.fit.*`` phase (and the rest) with the time of the spans
+    nested in it added, and those nested spans (``dl4j.swin.*``) apart.
+    A nested span belongs to the phase that holds its first start: a
+    layer opens its spans inside one phase, the forward."""
+    fit = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+           for e in events if e.get("cat") == "user_annotation" and
+           str(e.get("name", "")).startswith("dl4j.fit.")]
+    owner = {}
+    for e in sorted((e for e in events
+                     if e.get("cat") == "user_annotation"),
+                    key=lambda e: float(e["ts"])):
+        name = str(e.get("name", ""))
+        if name in times and name.startswith("dl4j.") and \
+                not name.startswith("dl4j.fit") and name not in owner:
+            ts = float(e["ts"])
+            owner[name] = next((p for a, b, p in fit if a <= ts < b),
+                               "dl4j.fit")
+    phases = {k: dict(v) for k, v in times.items() if k not in owner}
+    for name, parent in owner.items():
+        into = phases.setdefault(parent, dict.fromkeys(times[name], 0))
+        for key, value in times[name].items():
+            into[key] += value
+    return phases, {k: times[k] for k in owner}
+
+
 def _union_ms(events, w):
     """The union of the device intervals inside window ``w`` (host µs),
     in ms: the busy time, worked out apart from ``phase_times``."""
@@ -81,6 +111,7 @@ def main():
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out")
+    ap.add_argument("--cell", default=CELL)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -93,7 +124,7 @@ def main():
     from portbench import feeds, harness, train
 
     cuda_lib.build(cuda_lib.ENTRIES)
-    cell = harness.resolve(CELL)
+    cell = harness.resolve(args.cell)
     cfg, traffic = cell["config"], cell["traffic"]
     device = torch.device("cuda", 0)
     ring = feeds.make_ring(cfg, traffic, args.seed, device)
@@ -136,7 +167,8 @@ def main():
                   e.get("cat") == "user_annotation")
     w = (float(window["ts"]), float(window["ts"]) + float(window["dur"]))
     n = args.steps + 1
-    out = {"root": root, "card": _card(), "torch": torch.__version__,
+    out = {"cell": args.cell, "root": root, "card": _card(),
+           "torch": torch.__version__,
            "cuda": torch.version.cuda, "seed": args.seed,
            "steps": args.steps,
            "step_ms": {name: {"median": statistics.median(ms),
@@ -148,7 +180,8 @@ def main():
            "traced_steps": n, "window_ms_a_step": (w[1] - w[0]) * 1e-3 / n,
            "busy_union_ms_a_step": _union_ms(events, w) / n}
     if hasattr(tracing, "phase_times"):
-        phases = tracing.phase_times(events, window=w)
+        phases, nested = fold_nested(tracing.phase_times(events, window=w),
+                                     events)
         pageable = [e for e in events
                     if e.get("cat") == "gpu_memcpy" and
                     "Pageable" in e.get("name", "")]
@@ -165,6 +198,12 @@ def main():
                     "idle_ms": v["idle_s"] * 1e3 / n,
                     "launches": v["launches"] / n}
                 for k, v in sorted(phases.items())},
+            "nested_a_step": {
+                k: {"device_ms": v["device_s"] * 1e3 / n,
+                    "idle_ms": v["idle_s"] * 1e3 / n,
+                    "launches": v["launches"] / n}
+                for k, v in sorted(nested.items())
+                if v["device_s"] or v["launches"]},
             "host_ms_a_step": _host_ms(events, n),
             "pageable_ms_a_step": sum(
                 v["device_s"] for v in in_input.values()) * 1e3 / n,

@@ -7,11 +7,14 @@ step's update is ``dl4j.fit.update``; with no profiler a step enters no
 ``record_function`` and trains bitwise as under one.
 ``tracing.phase_times`` on synthetic Chrome traces: device work goes to
 the span that launched it (from any thread), idle gaps to the span
-holding their start, and the device seconds sum to the busy union. The
+holding their start, and the device seconds sum to the busy union;
+``scripts/perf_fit_phases.py`` folds nested spans into their phase. The
 roofline peaks come from the card's data-sheet row where no environment
 variable sets them."""
 
+import importlib.util
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from deeplearning4j_tpu_torch.optimize import CollectScoresIterationListener
 from deeplearning4j_tpu_torch.parallel import (GraphDataParallelTrainer,
                                                make_mesh)
 
+ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 CHILDREN = ["dl4j.fit.input", "dl4j.fit.forward", "dl4j.fit.backward",
             "dl4j.fit.update", "dl4j.fit.listeners"]
@@ -250,6 +254,40 @@ def test_phase_times_sum_to_the_busy_union():
     assert sum(v["device_s"] + v["idle_s"] for v in got.values()) == \
         pytest.approx(130e-6)
     assert sum(v["launches"] for v in got.values()) == 5
+
+
+def _nested():
+    """:func:`_synthetic` with a layer's span inside forward, [25, 35),
+    holding the forward kernel's launch."""
+    return _synthetic() + [_x("user_annotation", "dl4j.swin.attention", 25,
+                              10)]
+
+
+def test_phase_times_gives_nested_spans_their_own_time():
+    got = tracing.phase_times(_nested())
+    assert got["dl4j.swin.attention"]["device_s"] == pytest.approx(10e-6)
+    assert got["dl4j.swin.attention"]["launches"] == 1
+    assert got["dl4j.fit.forward"]["device_s"] == 0.0
+
+
+def _perf_fit_phases():
+    spec = importlib.util.spec_from_file_location(
+        "perf_fit_phases", ROOT / "scripts" / "perf_fit_phases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phase_times_by_training_phase_keeps_nested_time():
+    plain = tracing.phase_times(_synthetic())
+    got, nested = _perf_fit_phases().fold_nested(
+        tracing.phase_times(_nested()), _nested())
+    assert got == plain
+    assert got["dl4j.fit.forward"]["device_s"] == pytest.approx(10e-6)
+    assert "dl4j.swin.attention" not in got
+    assert nested["dl4j.swin.attention"]["launches"] == 1
+    assert _perf_fit_phases().fold_nested(plain, _synthetic()) == \
+        (plain, {})
 
 
 def test_phase_times_keeps_to_one_thread_of_spans():

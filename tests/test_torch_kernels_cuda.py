@@ -4,6 +4,10 @@ supported dtype, head dims 8-128, T at every tile edge, a key mask with
 holes, a fully masked row), the two forwards against each other, the
 backward kernels' bitwise determinism over two calls, the shapes the
 wrappers refuse, and gradients through an attention layer on the card;
+the biased pair (SwinV2's windows: an f32 logit bias [P, H, T, T] and its
+gradient) against its plain version at T 64 and 256, D 32, P 1 and 16,
+its repeats and refusals, and a shifted SwinV2 block's gradients through
+it;
 the LSTM recurrence kernel (B6) against its plain version on both of its
 routes (f32 / bf16, peepholes, masks, strided xw, T 1-128, N 1-200, H
 16-1024), the route its plan picks, its refusals and its gradients; the
@@ -307,6 +311,137 @@ def test_attention_layer_gradients_flow_through_kernels(cuda_device, t,
     for got, want in zip(card, grads("cpu", torch.float32)[1]):
         assert torch.isfinite(got).all() and got.norm() > 0
         assert _rel_l2(got.cpu(), want) <= LAYER_GRAD_TOL[dtype]
+
+
+# ------------------------------------- biased attention (SwinV2's windows)
+def _bias_case(t, p, device, seed, rows=32, h=4, d=32):
+    """bf16 q / k / v / dO [rows·h, T, D] of SwinV2's scale (q and k unit
+    rows, q times a temperature of 10) and an f32 bias [P, h, T, T] of its
+    kind: 16·σ(noise), minus 100 on a quarter of each row's keys."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q3, k3, v3, do = (torch.randn(rows * h, t, d, generator=g,
+                                  device=device) for _ in range(4))
+    q3 = torch.nn.functional.normalize(q3, dim=-1) * 10.0
+    k3 = torch.nn.functional.normalize(k3, dim=-1)
+    bias = 16.0 * torch.sigmoid(torch.randn(p, h, t, t, generator=g,
+                                            device=device))
+    cut = torch.rand(p, 1, t, t, generator=g, device=device) < 0.25
+    bias = bias - 100.0 * cut.float()
+    return (*(x.to(torch.bfloat16) for x in (q3, k3, v3, do)),
+            bias.contiguous(), h)
+
+
+@pytest.mark.parametrize("p", [1, 16])
+@pytest.mark.parametrize("t", [64, 256])
+def test_biased_kernels_match_plain_on_card(cuda_device, t, p):
+    """The biased forward and backward (``attention_bias_*_kernel``)
+    against the plain version with the same bias at SwinV2's D 32, one
+    call each: o and lse as B1's forward tolerance; dq, dk, dv as B2's;
+    dbias, which its kernel sums over the batch rows of each block in f32
+    from f32 p and dP, within 1e-3 relative L2 (the order of the sums and
+    ex2.approx)."""
+    q3, k3, v3, do, bias, h = _bias_case(t, p, cuda_device, 11 * t + p)
+    before = (ss.short_attention_bias_fwd.launches,
+              ss.short_attention_bias_bwd.launches)
+    o_k, lse_k = ss.short_attention_bias_fwd(q3, k3, v3, bias, h, 1.0)
+    o_p, lse_p = ss.attention_fwd_plain(q3, k3, v3, None, h, False, 1.0,
+                                        bias)
+    delta = ss.row_delta(do, o_p)
+    got = ss.short_attention_bias_bwd(q3, k3, v3, bias, h, 1.0, o_p, lse_p,
+                                      do, delta)
+    want = ss.attention_bwd_plain(q3, k3, v3, None, h, False, o_p, lse_p,
+                                  do, delta, 1.0, bias)
+    torch.cuda.synchronize()
+    assert (ss.short_attention_bias_fwd.launches,
+            ss.short_attention_bias_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert (o_k.float() - o_p.float()).abs().max() <= \
+        FWD_TOL[torch.bfloat16]
+    assert (lse_k - lse_p).abs().max() <= 1e-2
+    for name, x, y in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert torch.isfinite(x).all(), name
+        assert _rel_l2(x, y, do) <= BWD_TOL[torch.bfloat16], name
+    assert got[3].shape == bias.shape and got[3].dtype == torch.float32
+    assert _rel_l2(got[3], want[3]) <= 1e-3
+
+
+@pytest.mark.parametrize("t, p", [(256, 16), (64, 1)])
+def test_biased_backward_repeats_on_card(cuda_device, t, p):
+    """Every gradient is summed in a fixed order: two calls give the same
+    bits, dbias too, whether its kernel sums every image of a block in one
+    CTA (T 256, P 16: 1,024 tiles) or in image groups added after it (T 64,
+    P 1: 4 tiles, 32 groups)."""
+    q3, k3, v3, do, bias, h = _bias_case(t, p, cuda_device, 5)
+    assert ss.dbias_groups(q3.shape[0], h, p, t) == (1 if t == 256 else 32)
+    o, lse = ss.short_attention_bias_fwd(q3, k3, v3, bias, h, 1.0)
+    first, second = (ss.short_attention_bias_bwd(q3, k3, v3, bias, h, 1.0,
+                                                 o, lse, do)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first[:3], second[:3]):
+        assert torch.equal(x.view(torch.int16), y.view(torch.int16)), name
+    assert torch.equal(first[3], second[3])
+
+
+def test_biased_kernels_reject_unsupported_inputs(cuda_device):
+    q3, k3, v3, do, bias, h = _bias_case(64, 1, cuda_device, 3, rows=2)
+    with pytest.raises(ValueError, match="float16 / bfloat16"):
+        ss.short_attention_bias_fwd(q3.float(), k3.float(), v3.float(),
+                                    bias, h, 1.0)
+    with pytest.raises(ValueError, match="bias must be"):
+        ss.short_attention_bias_fwd(q3, k3, v3, bias[:, :2], h, 1.0)
+    with pytest.raises(ValueError, match="bias must be"):
+        ss.short_attention_bias_fwd(q3, k3, v3, bias.half(), h, 1.0)
+    wide = torch.zeros(2 * h, 64, 136, device=cuda_device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 128"):
+        ss.short_attention_bias_fwd(wide, wide, wide, bias, h, 1.0)
+    with pytest.raises(ValueError, match="whole groups"):
+        ss.short_attention_bias_fwd(q3[:h], k3[:h], v3[:h],
+                                    bias.expand(2, -1, -1, -1).contiguous(),
+                                    h, 1.0)
+    long = torch.zeros(h, 520, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T=520"):
+        ss.short_attention_bias_fwd(long, long, long,
+                                    torch.zeros(1, h, 520, 520,
+                                                device=cuda_device), h, 1.0)
+
+
+def test_swin_block_gradients_flow_through_biased_kernels(cuda_device):
+    """A shifted SwinV2 block (window 8 over 16 x 16, so 4 windows and
+    the shift mask) in bf16 on the card: one biased forward and one biased
+    backward launch, every leaf's gradient finite and nonzero, and within
+    5e-2 relative L2 of the CPU f32 plain path (bf16 rounds x, the weights,
+    q / k / v and the kernels' p and ds, ~0.4% each), the CPB MLP's
+    included (through dbias)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import SwinV2Block
+    layer = SwinV2Block(n_in=64, num_heads=2, window_size=8, shift_size=4,
+                        cpb_hidden=64)
+    params = layer.init_params(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 16, 64, generator=g)
+    w = torch.randn(2, 16, 16, 64, generator=g)
+
+    def grads(device, dt):
+        ps = {k: p.to(device, dt).requires_grad_(True)
+              for k, p in params.items()}
+        xs = x.to(device, dt).requires_grad_(True)
+        y, _ = layer.forward(ps, {}, xs)
+        keys = sorted(ps)
+        out = torch.autograd.grad((y.float() * w.to(device)).sum(),
+                                  [ps[k] for k in keys] + [xs])
+        return dict(zip(keys + ["x"], out))
+
+    before = (ss.short_attention_bias_fwd.launches,
+              ss.short_attention_bias_bwd.launches)
+    card = grads(cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (ss.short_attention_bias_fwd.launches - before[0],
+            ss.short_attention_bias_bwd.launches - before[1]) == (1, 1)
+    want = grads("cpu", torch.float32)
+    for name, got in card.items():
+        assert torch.isfinite(got).all() and got.float().norm() > 0, name
+        assert _rel_l2(got.cpu(), want[name]) <= 5e-2, name
 
 
 # ------------------------------------------------------------ LSTM (B6)
